@@ -1,0 +1,41 @@
+"""The port imports no JAX.  Checked in a fresh interpreter, since the test
+session itself has imported jax (tests/conftest.py)."""
+
+import subprocess
+import sys
+
+MODULES = [
+    "ttipm_tpu_torch",
+    "ttipm_tpu_torch.checks",
+    "ttipm_tpu_torch.config",
+    "ttipm_tpu_torch.interop",
+    "ttipm_tpu_torch.ipm",
+    "ttipm_tpu_torch.models.maxcut",
+    "ttipm_tpu_torch.ops._build",
+    "ttipm_tpu_torch.ops.kernels",
+    "ttipm_tpu_torch.ops.linalg",
+    "ttipm_tpu_torch.ops.products",
+    "ttipm_tpu_torch.ops.random",
+    "ttipm_tpu_torch.ops.rounding",
+    "ttipm_tpu_torch.ops.tt",
+    "ttipm_tpu_torch.solvers.amen",
+    "ttipm_tpu_torch.solvers.blocks",
+    "ttipm_tpu_torch.solvers.fused",
+    "ttipm_tpu_torch.solvers.fused_algebra",
+    "ttipm_tpu_torch.solvers.fused_eigen",
+]
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ttipm_tpu.')) or m == 'ttipm_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
