@@ -9,8 +9,10 @@ and prints no result line):
 2. build: compiles the four CUDA kernels from ttipm_tpu_torch/csrc.
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the fused solve's shapes (bond rank R in {8, 16, 32}, operator ranks
-   in {1, 4, 9}, panels (4R, R+2), SPD matrices of order 4R^2 and one
-   indefinite one), with median times of kernel and plain version.
+   in {1, 4, 9}, panels (4R, R+2), SPD matrices of the orders in
+   K4_ORDERS, which span both regimes of K4, and one indefinite one),
+   with median times of kernel and plain version taken in turns
+   (plain, kernel, kernel, plain) and their ratio.
 4. parity: MaxCut d3 (seed 319, configs/maxcut_3.yaml settings) solved by
    the port on the CPU (plain versions) and on the GPU (kernels): equal
    iteration counts and <C, X> equal to 1e-6 relative.
@@ -18,7 +20,9 @@ and prints no result line):
    converged (slackness and feasibility below abs_tol), every kernel
    launched, no plain version run on a CUDA tensor, and every kernel
    within the tolerances of phase 3 at each distinct shape the solve gave
-   it (checked on the first call of that shape).
+   it (checked on the first call of that shape); K4 and its plain version
+   are then timed on the first operand of each of its shapes, and the
+   totals weighted by the solve's call counts are printed.
 
 The line before the last is a JSON object with the per-kernel record; the
 last line is {"ok": true, "device": {...}}.
@@ -44,6 +48,12 @@ KERNELS = {
     "panel_qr": ("ttipm_tpu_torch/csrc/panel_qr.cu", "ttipm_tpu/ops/kernels.py:210"),
     "panel_cholesky": ("ttipm_tpu_torch/csrc/panel_cholesky.cu", "ttipm_tpu/ops/kernels.py:313"),
 }
+
+
+# Orders at which K4 is timed against torch.linalg.cholesky_ex: the d8
+# solve's common orders, the resident bound 512 and one past it, and the
+# blocked regime up to 4 * 36^2.
+K4_ORDERS = (16, 64, 144, 256, 400, 512, 513, 1024, 4096, 5184)
 
 
 def load_config(dim: int) -> dict:
@@ -97,7 +107,8 @@ def phase_build():
           flush=True)
 
 
-def _median_ms(fn, runs=20, warmup=3):
+def _times_ms(fn, runs=10, warmup=3):
+    """CUDA-event times of single calls (each synchronised), in ms."""
     import torch
 
     for _ in range(warmup):
@@ -111,7 +122,16 @@ def _median_ms(fn, runs=20, warmup=3):
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    return float(np.median(times))
+    return times
+
+
+def _paired_ms(kernel, plain, runs=10):
+    """Median ms of kernel and plain version, timed in turns (plain,
+    kernel, kernel, plain) so that drift hits both alike."""
+    p = _times_ms(plain, runs)
+    k = _times_ms(kernel, runs) + _times_ms(kernel, runs)
+    p += _times_ms(plain, runs)
+    return float(np.median(k)), float(np.median(p))
 
 
 def phase_kernels():
@@ -134,10 +154,10 @@ def phase_kernels():
         errs = check_kernel(name, args, fn(*args))
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], errs.get("max_abs_err", 0.0))
-        s["ms"] = _median_ms(lambda: fn(*args))
-        s["plain_ms"] = _median_ms(lambda: plain(*args))
+        s["ms"], s["plain_ms"] = _paired_ms(lambda: fn(*args), lambda: plain(*args))
         print(json.dumps({"kernel": name, "shape": [list(a.shape) for a in args], **errs,
-                          "ms": s["ms"], "plain_ms": s["plain_ms"]}), flush=True)
+                          "ms": s["ms"], "plain_ms": s["plain_ms"],
+                          "ratio": s["ms"] / s["plain_ms"]}), flush=True)
 
     for R in (8, 16, 32):
         for s in (1, 4, 9):
@@ -146,7 +166,7 @@ def phase_kernels():
             run("schur_assemble", pl, A, pr)
     for R in (8, 16, 32):
         run("panel_qr", t(4 * R, R + 2))
-        n = 4 * R * R
+    for n in K4_ORDERS:
         Bm = t(n, n)
         S = Bm @ Bm.T + n * torch.eye(n, dtype=Bm.dtype, device=dev)
         run("panel_cholesky", S)
@@ -219,6 +239,7 @@ def phase_slice(dim, seed):
     shapes = {name: Counter() for name in KERNELS}
     checked = {name: {} for name in KERNELS}
     check_s = [0.0]
+    k4_first = {}  # first operand of each K4 shape, timed after the solve
     originals = {name: getattr(K, name) for name in KERNELS}
 
     def recorder(name):
@@ -231,6 +252,8 @@ def phase_slice(dim, seed):
             if key not in checked[name]:
                 t0 = time.perf_counter()
                 checked[name][key] = kernel_errors(name, args, out, cancelling=True)
+                if name == "panel_cholesky":
+                    k4_first[key] = args[0].clone()
                 check_s[0] += time.perf_counter() - t0
             return out
         return wrapped
@@ -266,6 +289,7 @@ def phase_slice(dim, seed):
            for key, errs in by_shape.items() if not errs["ok"]]
     if bad:
         raise AssertionError(f"kernels outside tolerance on the slice's shapes: {bad[:8]}")
+    phase_slice_k4_times(shapes["panel_cholesky"], k4_first)
     abs_tol = settings["abs_tol"]
     if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
             and res["dual_feas"] < abs_tol):
@@ -276,6 +300,25 @@ def phase_slice(dim, seed):
         if plain != 0:
             raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
     return counts
+
+
+def phase_slice_k4_times(counts, first):
+    """K4 and cholesky_ex timed on the first operand of each K4 shape of the
+    solve; the totals weight each shape by its call count (the K4 device
+    time the solve would spend with either)."""
+    from ttipm_tpu_torch.checks import PLAIN
+    from ttipm_tpu_torch.ops import kernels as K
+
+    rows, total, plain_total = [], 0.0, 0.0
+    for key, a in sorted(first.items(), key=lambda kv: kv[1].shape[0]):
+        ms, plain_ms = _paired_ms(lambda: K.panel_cholesky(a),
+                                  lambda: PLAIN["panel_cholesky"](a), runs=5)
+        rows.append({"n": a.shape[0], "count": counts[key], "ms": ms, "plain_ms": plain_ms})
+        total += counts[key] * ms
+        plain_total += counts[key] * plain_ms
+    print(json.dumps({"slice_k4_times": {"shapes": rows, "weighted_ms": total,
+                                         "plain_weighted_ms": plain_total,
+                                         "ratio": total / plain_total}}), flush=True)
 
 
 def main(argv=None) -> int:

@@ -10,7 +10,9 @@ Each kernel is compared with its plain PyTorch version by
 kernel phase's square shapes of chip_smoke.py, and at the odd shapes the
 MaxCut solves give the kernels (rectangular interfaces, the 16-wide merged
 eigen-window core, small and partial panels, Cholesky orders that are not
-multiples of the 32-wide panel).
+multiples of the 32-wide tile), and K4's own contract at and around its
+regime boundaries (failing and NaN pivots, NaN above the diagonal,
+non-contiguous operands, one kernel launch up to order 512).
 """
 
 import numpy as np
@@ -115,6 +117,92 @@ def test_cuda_panel_cholesky_odd_orders(cuda, n):
     A[n - 1, n - 1] = -1.0
     errs = check_kernel("panel_cholesky", (A,), K.panel_cholesky(A))
     assert errs["info"] == n
+
+
+def _spd(n, dev, seed=None):
+    B = _dev(np.random.RandomState(n if seed is None else seed), dev, n, n)
+    return B @ B.T + n * torch.eye(n, dtype=B.dtype, device=dev)
+
+
+# K4's regime and tile boundaries: one CTA up to 160, a cluster up to 512
+# (the resident bound), 64-wide panels above; 32-wide tiles inside.
+K4_BOUNDARY_ORDERS = [1, 31, 32, 33, 63, 64, 65, 159, 160, 161, 511, 512, 513,
+                      575, 576, 577, 5184]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K4_BOUNDARY_ORDERS)
+def test_cuda_panel_cholesky_regime_boundaries(cuda, n):
+    A = _spd(n, cuda)
+    L, info = K.panel_cholesky(A)
+    torch.cuda.synchronize()
+    check_kernel("panel_cholesky", (A,), (L, info))
+    assert float(torch.triu(L, 1).abs().max()) == 0.0
+
+
+# (order, 0-based failing pivot): first and last panel of each regime
+K4_FAILING_PIVOTS = [(144, 3), (144, 140), (400, 5), (400, 399), (1000, 10), (1000, 999)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", K4_FAILING_PIVOTS)
+def test_cuda_panel_cholesky_failing_pivot(cuda, n, p):
+    """info is the 1-based order of the first failing pivot (K4's contract;
+    cholesky_ex on the card misses some negative last pivots, so the
+    order is asserted, not compared with it)."""
+    A = _spd(n, cuda)
+    A[p, p] = -1.0
+    _, info = K.panel_cholesky(A)
+    assert int(info) == p + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(144, 70), (400, 200), (1000, 500)])
+def test_cuda_panel_cholesky_nan_pivot(cuda, n, p):
+    A = _spd(n, cuda)
+    A[p, p] = float("nan")
+    _, info = K.panel_cholesky(A)
+    assert int(info) == p + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 400, 1000])
+def test_cuda_panel_cholesky_reads_only_the_lower_triangle(cuda, n):
+    A = _spd(n, cuda)
+    iu = torch.triu_indices(n, n, 1, device=cuda)
+    A[iu[0], iu[1]] = float("nan")
+    L, info = K.panel_cholesky(A)
+    check_kernel("panel_cholesky", (A,), (L, info))
+    assert bool(torch.isfinite(L).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [96, 400, 700])
+def test_cuda_panel_cholesky_non_contiguous(cuda, n):
+    big = _spd(2 * n, cuda)
+    for A in (big[::2, ::2], big[:n, :n].T):  # strided and transposed views
+        assert not A.is_contiguous()
+        check_kernel("panel_cholesky", (A,), K.panel_cholesky(A))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 144, 256, 400, 512, 4096])
+def test_cuda_panel_cholesky_launch_count(cuda, n):
+    """One device kernel for every order up to 512; above it at most
+    2 ceil(n / 64) + 2 (it takes two: a copy and one persistent kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    A = _spd(n, cuda)
+    K.panel_cholesky(A)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.panel_cholesky(A)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if n <= K.K4_RESIDENT_MAX_N:
+        assert len(kernels) == 1, [e.name for e in kernels]
+    else:
+        assert 0 < len(kernels) <= 2 * -(-n // K.K4_PANEL) + 2
 
 
 @pytest.mark.cuda

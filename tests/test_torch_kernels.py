@@ -100,6 +100,42 @@ def test_panel_cholesky_reports_failure():
     assert int(info) == 8  # 1-based order of the first failing minor
 
 
+@pytest.mark.parametrize("shape", [(3, 4), (2, 3, 3), (4,)])
+def test_panel_cholesky_takes_one_square_matrix(shape):
+    """K4 factors a single square matrix: anything else is refused on every
+    device, before any kernel is built and without a plain call."""
+    K.reset_counts()
+    with pytest.raises(K.KernelError):
+        K.panel_cholesky(torch.zeros(shape, dtype=torch.float64))
+    assert (K.STATS["panel_cholesky"].launches, K.STATS["panel_cholesky"].plain_calls) == (0, 0)
+
+
+def test_panel_cholesky_bounds_match_the_cuda_source():
+    """The wrapper's resident bound and panel width (which size the blocked
+    regime's workspace) are the constants of csrc/panel_cholesky.cu."""
+    import os
+    import re
+
+    from ttipm_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, "panel_cholesky.cu")) as fh:
+        src = fh.read()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kResidentMaxN"]) == K.K4_RESIDENT_MAX_N
+    assert int(consts["kNB"]) == K.K4_PANEL
+
+
+def test_panel_cholesky_plain_reads_any_strides():
+    """On the CPU a transposed view gives the plain factor of the matrix it
+    shows (the CUDA kernel reads strides too; tests/test_torch_cuda.py)."""
+    rng = np.random.RandomState(8)
+    B = rng.randn(12, 12)
+    A = torch.as_tensor(B @ B.T + 12 * np.eye(12))
+    L, info = K.panel_cholesky(A.T)
+    assert int(info) == 0
+    np.testing.assert_allclose((L @ L.T).numpy(), A.numpy(), rtol=0, atol=1e-12)
+
+
 def test_wrappers_count_plain_calls_on_cpu():
     K.reset_counts()
     rng = np.random.RandomState(4)

@@ -80,18 +80,20 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
     except OSError as e:
         raise KernelError(f"cannot load {path}: {e}") from e
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         "ttipm_schur_assemble": [p, p, p] + [i] * 7 + [p],
         "ttipm_kkt_matvec": [p] * 7 + [i] * 8 + [p],
         "ttipm_panel_qr": [p, p, p, i, i, p],
-        "ttipm_panel_cholesky": [p, i, p, p],
+        "ttipm_panel_cholesky": [p, ll, ll, p, i, p, p, p],
+        "ttipm_panel_cholesky_workspace": [i],
         "ttipm_error_string": [i],
     }
+    restypes = {"ttipm_error_string": ctypes.c_char_p, "ttipm_panel_cholesky_workspace": ll}
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_char_p if name == "ttipm_error_string" else ctypes.c_int
+        fn.restype = restypes.get(name, ctypes.c_int)
     _LIB = lib
     return lib
 

@@ -21,6 +21,7 @@ back and never catches a build or launch error.  The kernels take float64 only.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -196,11 +197,18 @@ def panel_qr(a):
 
 
 # ---------------------------------------------------------------------------
-# K4: blocked Cholesky with failure report
+# K4: Cholesky with failure report (one launch up to order 512, blocked above)
 # ---------------------------------------------------------------------------
 
 def panel_cholesky_plain(a):
     return torch.linalg.cholesky_ex(a)
+
+
+# Largest order the kernel factors in one launch, and the blocked regime's
+# panel width (kResidentMaxN, kNB in csrc/panel_cholesky.cu); above the
+# bound the kernel needs a workspace, whose size the library gives.
+K4_RESIDENT_MAX_N = 512
+K4_PANEL = 64
 
 
 def panel_cholesky(a):
@@ -208,18 +216,32 @@ def panel_cholesky(a):
     is read).  Returns ``(L, info)`` like ``torch.linalg.cholesky_ex``:
     ``info`` is 0 on success, else the 1-based order of the first leading
     minor that is not positive definite (L is then unspecified).  No
-    pivot is clamped."""
+    pivot is clamped.  Only a single square matrix is taken, on any
+    device (``KernelError`` otherwise); the kernel reads any strides."""
     stats = STATS["panel_cholesky"]
+    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+        raise KernelError(f"panel_cholesky: one square matrix expected, got {tuple(a.shape)}")
     if not _on_cuda(a):
         stats.plain_calls += 1
         return panel_cholesky_plain(a)
-    n, n2 = a.shape
-    if n != n2:
-        raise KernelError(f"panel_cholesky: square matrix expected, got {tuple(a.shape)}")
-    work = a.contiguous().clone()
-    info = torch.zeros((), dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = _lib().ttipm_panel_cholesky(_ptr(work), n, _ptr(info), _stream(a))
+    n = a.shape[0]
+    out = torch.empty((n, n), dtype=a.dtype, device=a.device)
+    info = torch.empty((), dtype=torch.int32, device=a.device)
+    ws = None
+    if n > K4_RESIDENT_MAX_N:
+        ws = torch.empty(_lib().ttipm_panel_cholesky_workspace(n), dtype=a.dtype,
+                         device=a.device)
+    # The small orders of the solve are bound by launch latency: take the
+    # raw stream handle, and enter a device guard only when the operand is
+    # not on the current device.
+    dev = a.device.index
+    stream = ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev))
+    guard = (contextlib.nullcontext() if dev == torch.cuda.current_device()
+             else torch.cuda.device(dev))
+    with guard:
+        err = _lib().ttipm_panel_cholesky(
+            _ptr(a), a.stride(0), a.stride(1), _ptr(out), n, _ptr(info),
+            ctypes.c_void_p(None if ws is None else ws.data_ptr()), stream)
     _check("panel_cholesky", err)
     stats.launches += 1
-    return work, info
+    return out, info
