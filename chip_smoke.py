@@ -6,13 +6,20 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: compiles the four CUDA kernels from ttipm_tpu_torch/csrc.
+2. build: compiles the four CUDA kernels from ttipm_tpu_torch/csrc (one
+   nvcc per source, all started together).
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the fused solve's shapes (bond rank R in {8, 16, 32}, operator ranks
    in {1, 4, 9}, panels (4R, R+2), SPD matrices of the orders in
    K4_ORDERS, which span both regimes of K4, and one indefinite one),
-   with median times of kernel and plain version taken in turns
-   (plain, kernel, kernel, plain) and their ratio.
+   with median times of kernel, plain version and the one library call
+   that computes the same function, taken in turns (plain, library,
+   kernel, kernel, library, plain), beside the roofline bound of the call.
+   The grouped entries of K1 and K2 (several blocks, a whole block
+   product, one launch) run at the same R and s with transposed and
+   flipped (non-contiguous) operands and unequal operator ranks in a
+   group.  The time of an empty kernel launched through the same wrapper
+   path is printed: that, not the roofline, is the floor of a small call.
 4. parity: MaxCut d3 (seed 319, configs/maxcut_3.yaml settings) solved by
    the port on the CPU (plain versions) and on the GPU (kernels): equal
    iteration counts and <C, X> equal to 1e-6 relative.
@@ -20,9 +27,10 @@ and prints no result line):
    converged (slackness and feasibility below abs_tol), every kernel
    launched, no plain version run on a CUDA tensor, and every kernel
    within the tolerances of phase 3 at each distinct shape the solve gave
-   it (checked on the first call of that shape); K4 and its plain version
-   are then timed on the first operand of each of its shapes, and the
-   totals weighted by the solve's call counts are printed.
+   it (checked on the first call of that shape; the grouped entries
+   included); K1, K2 and K4 and their plain versions are then timed on the
+   first operands of each of their shapes, and the totals weighted by the
+   solve's call counts are printed.
 
 The line before the last is a JSON object with the per-kernel record; the
 last line is {"ok": true, "device": {...}}.
@@ -48,6 +56,12 @@ KERNELS = {
     "panel_qr": ("ttipm_tpu_torch/csrc/panel_qr.cu", "ttipm_tpu/ops/kernels.py:210"),
     "panel_cholesky": ("ttipm_tpu_torch/csrc/panel_cholesky.cu", "ttipm_tpu/ops/kernels.py:313"),
 }
+
+
+# Peak rates of the roofline bounds (NVIDIA H100 SXM data sheet): device
+# memory, and float64 through the tensor cores (the kernels are float64).
+HBM_BYTES_PER_S = 3.35e12
+F64_FLOP_PER_S = 67e12
 
 
 # Orders at which K4 is timed against torch.linalg.cholesky_ex: the d8
@@ -125,45 +139,144 @@ def _times_ms(fn, runs=10, warmup=3):
     return times
 
 
-def _paired_ms(kernel, plain, runs=10):
-    """Median ms of kernel and plain version, timed in turns (plain,
-    kernel, kernel, plain) so that drift hits both alike."""
-    p = _times_ms(plain, runs)
-    k = _times_ms(kernel, runs) + _times_ms(kernel, runs)
-    p += _times_ms(plain, runs)
-    return float(np.median(k)), float(np.median(p))
+def _turns_ms(fns, runs=10, warmup=3):
+    """Median ms of each function, timed in turns: the list forward, then
+    backward (plain, kernel, kernel, plain), so that drift hits all alike."""
+    times = [_times_ms(fn, runs, warmup) for fn in fns]
+    for fn, ts in zip(reversed(fns), reversed(times)):
+        ts += _times_ms(fn, runs, warmup)
+    return [float(np.median(ts)) for ts in times]
+
+
+def _tensors(arg):
+    import torch
+
+    if isinstance(arg, torch.Tensor):
+        return [arg]
+    if isinstance(arg, (list, tuple)):
+        return [t for a in arg for t in _tensors(a)]
+    return []
+
+
+def bound_ms(name, args):
+    """Roofline bound of one call of entry point ``name`` on ``args``: the
+    larger of its bytes (every distinct input read once, the output
+    written once) over the device memory rate and its operations over the
+    float64 peak; returns (ms, "bytes" or "operations")."""
+    seen, bytes_in = set(), 0
+    for t in _tensors(args):
+        key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
+        if key not in seen:
+            seen.add(key)
+            bytes_in += 8 * t.numel()
+
+    def dims(term):
+        (l, s, r), (_, m, n, S), (L, _, R) = (tuple(t.shape) for t in term[:3])
+        return l, s, r, m, n, S, L, R
+
+    if name in ("kkt_block_matvec", "kkt_block_product"):
+        terms, nrows = ([args], 1) if name == "kkt_block_matvec" else args
+        l, _, _, m, _, _, L, _ = dims(terms[0])
+        bytes_out = 8 * l * nrows * m * L
+        flops = sum(2 * (l * s * r * n * R + m * S * s * n * l * R + l * m * S * R * L)
+                    for l, s, r, m, n, S, L, R in map(dims, terms))
+    elif name in ("schur_assemble", "schur_assemble_group"):
+        blocks = [args] if name == "schur_assemble" else args[0]
+        bytes_out = flops = 0
+        for l, s, r, m, n, S, L, R in map(dims, blocks):
+            bytes_out += 8 * l * m * L * r * n * R
+            flops += 2 * l * m * r * n * S * (s + L * R)
+    elif name == "panel_qr":
+        m, n = args[0].shape
+        bytes_out = 8 * (m * n + n * n)
+        flops = 4 * m * n * n - 4 * n**3 // 3  # Householder R, then Q formed
+    elif name == "panel_cholesky":
+        n = args[0].shape[0]
+        bytes_out = 8 * n * n + 4
+        flops = n**3 // 3
+    else:
+        raise KeyError(name)
+    by_bytes = 1e3 * (bytes_in + bytes_out) / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / F64_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def library_calls():
+    """The one PyTorch call that computes the same function as each
+    single-call entry point; timed beside the kernels, used nowhere in the
+    port."""
+    import torch
+
+    return {
+        "kkt_block_matvec": lambda pl, A, pr, x: torch.einsum(
+            "lsr,smnS,LSR,rnR->lmL", pl, A, pr, x),
+        "schur_assemble": lambda pl, A, pr: torch.einsum("lsr,smnS,LSR->lmLrnR", pl, A, pr),
+        "panel_qr": lambda a: torch.linalg.qr(a, mode="reduced"),
+        "panel_cholesky": torch.linalg.cholesky_ex,
+    }
+
+
+def grouped_operands(t, R, s):
+    """Operands of a grouped K2 and a grouped K1 call at bond rank R and
+    operator rank about s, as the fused algebra builds them: the (1,0)
+    term on flipped interfaces and a transposed core (non-contiguous
+    views), x as strided columns of one block core, unequal operator
+    ranks within the group."""
+    x = t(R, 3, 4, R)
+    ranks = {"00": (s, s), "01": (s + 1, s), "12": (1, 1), "21": (s, s + 2), "22": (2, s)}
+    op = {k: (t(R, a, R), t(a, 4, 4, b), t(R, b, R)) for k, (a, b) in ranks.items()}
+    pl, A, pr = op["01"]
+    t10 = (pl.permute(2, 1, 0), A.transpose(1, 2), pr.permute(2, 1, 0))
+    terms = [(*op["00"], x[:, 0], 0), (*op["01"], x[:, 1], 0), (*t10, x[:, 0], 1),
+             (*op["12"], x[:, 2], 1), (*op["21"], x[:, 1], 2), (*op["22"], x[:, 2], 2)]
+    blocks = [op["21"], t10, op["22"], op["00"]]
+    return terms, blocks
 
 
 def phase_kernels():
-    """Every kernel against its plain version on the card; returns per-kernel
-    (max_abs_err over all shapes, ms, plain_ms at the largest shape)."""
+    """Every entry point against its plain version on the card; returns per
+    kernel the max_abs_err over all shapes and, at the largest shape of its
+    single-call entry, ms, plain_ms, library_ms and the roofline bound."""
     import torch
 
-    from ttipm_tpu_torch.checks import PLAIN, check_kernel
+    from ttipm_tpu_torch.checks import KERNEL_OF, PLAIN, check_kernel, shape_key
     from ttipm_tpu_torch.ops import kernels as K
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(2024)
+    library = library_calls()
     summary = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def t(*shape):
         return torch.as_tensor(rng.randn(*shape), device=dev)
 
+    floor = float(np.median(_times_ms(lambda: K.empty_launch(dev), runs=50)))
+    print(json.dumps({"empty_launch_ms": floor}), flush=True)
+
     def run(name, *args):
-        fn, plain = getattr(K, name), PLAIN[name]
+        fn, plain, lib = getattr(K, name), PLAIN[name], library.get(name)
         errs = check_kernel(name, args, fn(*args))
-        s = summary[name]
+        s = summary[KERNEL_OF[name]]
         s["max_abs_err"] = max(s["max_abs_err"], errs.get("max_abs_err", 0.0))
-        s["ms"], s["plain_ms"] = _paired_ms(lambda: fn(*args), lambda: plain(*args))
-        print(json.dumps({"kernel": name, "shape": [list(a.shape) for a in args], **errs,
-                          "ms": s["ms"], "plain_ms": s["plain_ms"],
-                          "ratio": s["ms"] / s["plain_ms"]}), flush=True)
+        fns = [lambda: plain(*args), lambda: fn(*args)]
+        if lib is not None:
+            fns.insert(1, lambda: lib(*args))
+        ms = _turns_ms(fns)
+        row = {"ms": ms[-1], "plain_ms": ms[0], "library_ms": ms[1] if lib else None}
+        row["bound_ms"], row["bound_by"] = bound_ms(name, args)
+        if name in KERNELS:
+            s.update(row)
+        print(json.dumps({"kernel": name, "shape": shape_key(args), **errs, **row,
+                          "ratio": row["ms"] / row["plain_ms"]}), flush=True)
 
     for R in (8, 16, 32):
         for s in (1, 4, 9):
             pl, A, pr, x = t(R, s, R), t(s, 4, 4, s), t(R, s, R), t(R, 4, R)
             run("kkt_block_matvec", pl, A, pr, x)
             run("schur_assemble", pl, A, pr)
+            terms, blocks = grouped_operands(t, R, s)
+            run("kkt_block_product", terms, 3)
+            run("schur_assemble_group", blocks)
     for R in (8, 16, 32):
         run("panel_qr", t(4 * R, R + 2))
     for n in K4_ORDERS:
@@ -224,41 +337,41 @@ def phase_parity():
 
 def phase_slice(dim, seed):
     """The solve on the card.  On the first call of each distinct operand
-    shape, each kernel's output is also held against its plain version
+    shape, each entry point's output is also held against its plain version
     (called directly, so the counters do not move; K1/K2 errors relative to
     the scale of their terms, since the solver's operands cancel, see
     ttipm_tpu_torch.checks); the seconds these checks take are reported
-    apart from the solve's wall."""
+    apart from the solve's wall.  Returns per kernel (launches, plain
+    calls, launches through the grouped entry)."""
     import torch
 
-    from ttipm_tpu_torch.checks import kernel_errors
+    from ttipm_tpu_torch.checks import KERNEL_OF, kernel_errors, shape_key
     from ttipm_tpu_torch.ops import kernels as K
 
     cfg = load_config(dim)
     settings = ipm_settings(cfg)
-    shapes = {name: Counter() for name in KERNELS}
-    checked = {name: {} for name in KERNELS}
+    shapes = {name: Counter() for name in KERNEL_OF}
+    checked = {name: {} for name in KERNEL_OF}
+    first = {name: {} for name in KERNEL_OF}  # first operands of each shape, timed later
     check_s = [0.0]
-    k4_first = {}  # first operand of each K4 shape, timed after the solve
-    originals = {name: getattr(K, name) for name in KERNELS}
+    originals = {name: getattr(K, name) for name in KERNEL_OF}
 
     def recorder(name):
         fn = originals[name]
 
         def wrapped(*args):
-            key = str([list(a.shape) for a in args])
+            key = shape_key(args)
             shapes[name][key] += 1
             out = fn(*args)
             if key not in checked[name]:
                 t0 = time.perf_counter()
                 checked[name][key] = kernel_errors(name, args, out, cancelling=True)
-                if name == "panel_cholesky":
-                    k4_first[key] = args[0].clone()
+                first[name][key] = (args[0].clone(),) if name == "panel_cholesky" else args
                 check_s[0] += time.perf_counter() - t0
             return out
         return wrapped
 
-    for name in KERNELS:
+    for name in KERNEL_OF:
         setattr(K, name, recorder(name))
     torch.cuda.reset_peak_memory_stats()
     K.reset_counts()
@@ -267,12 +380,14 @@ def phase_slice(dim, seed):
     finally:
         for name, fn in originals.items():
             setattr(K, name, fn)
-    counts = {name: (s.launches, s.plain_calls) for name, s in K.STATS.items()}
+    counts = {name: (s.launches, s.plain_calls, s.grouped) for name, s in K.STATS.items()}
     res["check_s"] = check_s[0]
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    res["counts"] = {n: {"launches": c[0], "plain_calls": c[1]} for n, c in counts.items()}
+    res["counts"] = {n: {"launches": c[0], "plain_calls": c[1], "grouped": c[2]}
+                     for n, c in counts.items()}
+    res["entry_calls"] = {n: sum(c.values()) for n, c in shapes.items()}
     print(json.dumps({"slice": res}), flush=True)
-    print(json.dumps({"shape_histogram": {n: c.most_common(12) for n, c in shapes.items()}}),
+    print(json.dumps({"shape_histogram": {n: c.most_common(6) for n, c in shapes.items()}}),
           flush=True)
     worst = {}
     for name, by_shape in checked.items():
@@ -289,36 +404,49 @@ def phase_slice(dim, seed):
            for key, errs in by_shape.items() if not errs["ok"]]
     if bad:
         raise AssertionError(f"kernels outside tolerance on the slice's shapes: {bad[:8]}")
-    phase_slice_k4_times(shapes["panel_cholesky"], k4_first)
+    phase_slice_times("slice_k12_times", shapes, first,
+                      ("kkt_block_product", "kkt_block_matvec", "schur_assemble_group",
+                       "schur_assemble"))
+    phase_slice_times("slice_k4_times", shapes, first, ("panel_cholesky",))
     abs_tol = settings["abs_tol"]
     if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
             and res["dual_feas"] < abs_tol):
         raise AssertionError(f"d{dim} seed {seed} did not converge: {res}")
-    for name, (launches, plain) in counts.items():
+    for name, (launches, plain, grouped) in counts.items():
         if launches <= 0:
             raise AssertionError(f"{name}: not launched on the main path")
         if plain != 0:
             raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
+        if name in ("schur_assemble", "kkt_block_matvec") and grouped <= 0:
+            raise AssertionError(f"{name}: its grouped entry was not launched on the main path")
     return counts
 
 
-def phase_slice_k4_times(counts, first):
-    """K4 and cholesky_ex timed on the first operand of each K4 shape of the
-    solve; the totals weight each shape by its call count (the K4 device
-    time the solve would spend with either)."""
+def phase_slice_times(label, shapes, first, names):
+    """The entry points ``names`` and their plain versions (einsum,
+    cholesky_ex) timed on the first operands of each of their shapes in the
+    solve; the totals weight each shape by its call count (the time the
+    solve would spend in single calls of either)."""
     from ttipm_tpu_torch.checks import PLAIN
     from ttipm_tpu_torch.ops import kernels as K
 
-    rows, total, plain_total = [], 0.0, 0.0
-    for key, a in sorted(first.items(), key=lambda kv: kv[1].shape[0]):
-        ms, plain_ms = _paired_ms(lambda: K.panel_cholesky(a),
-                                  lambda: PLAIN["panel_cholesky"](a), runs=5)
-        rows.append({"n": a.shape[0], "count": counts[key], "ms": ms, "plain_ms": plain_ms})
-        total += counts[key] * ms
-        plain_total += counts[key] * plain_ms
-    print(json.dumps({"slice_k4_times": {"shapes": rows, "weighted_ms": total,
-                                         "plain_weighted_ms": plain_total,
-                                         "ratio": total / plain_total}}), flush=True)
+    report = {}
+    for name in names:
+        fn, plain = getattr(K, name), PLAIN[name]
+        rows, total, plain_total = [], 0.0, 0.0
+        for key, args in first[name].items():
+            plain_ms, ms = _turns_ms([lambda: plain(*args), lambda: fn(*args)], runs=3,
+                                     warmup=1)
+            count = shapes[name][key]
+            rows.append({"shape": key, "count": count, "ms": ms, "plain_ms": plain_ms})
+            total += count * ms
+            plain_total += count * plain_ms
+        rows.sort(key=lambda r: -r["count"] * r["ms"])
+        report[name] = {"distinct_shapes": len(rows), "calls": sum(r["count"] for r in rows),
+                        "weighted_ms": total, "plain_weighted_ms": plain_total,
+                        "ratio": total / plain_total if plain_total else None,
+                        "heaviest_shapes": rows[:4]}
+    print(json.dumps({label: report}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -336,8 +464,7 @@ def main(argv=None) -> int:
 
     record = [
         {"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
-         "launches": counts[n][0], "max_abs_err": summary[n]["max_abs_err"],
-         "ms": summary[n]["ms"], "plain_ms": summary[n]["plain_ms"]}
+         "launches": counts[n][0], **summary[n]}
         for n in KERNELS
     ]
     import torch

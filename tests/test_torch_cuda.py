@@ -12,7 +12,9 @@ MaxCut solves give the kernels (rectangular interfaces, the 16-wide merged
 eigen-window core, small and partial panels, Cholesky orders that are not
 multiples of the 32-wide tile), and K4's own contract at and around its
 regime boundaries (failing and NaN pivots, NaN above the diagonal,
-non-contiguous operands, one kernel launch up to order 512).
+non-contiguous operands, one kernel launch up to order 512).  The grouped
+entries of K1 and K2 run at the same regular and odd shapes with
+non-contiguous operands, and every K1 / K2 call is one device kernel.
 """
 
 import numpy as np
@@ -71,6 +73,128 @@ def test_cuda_contractions_odd_shapes(cuda, shapes):
     x = _dev(rng, cuda, shapes[0][2], shapes[1][2], shapes[2][2])
     check_kernel("kkt_block_matvec", (pl, A, pr, x), K.kkt_block_matvec(pl, A, pr, x))
     check_kernel("schur_assemble", (pl, A, pr), K.schur_assemble(pl, A, pr))
+
+
+def _group_operands(rng, dev, left, right, ranks, m=4):
+    """A block product's six terms and a group of four Schur blocks on
+    interfaces (l, s, r) / (L, S, R) with the outer dims ``left = (l, r)``,
+    ``right = (L, R)`` and per-block operator ranks ``ranks``; the third
+    term and second block are flipped / transposed views."""
+    (l, r), (L, R) = left, right
+    x = _dev(rng, dev, r, 3, m, R)
+    ops = [(_dev(rng, dev, l, s, r), _dev(rng, dev, s, m, m, S), _dev(rng, dev, L, S, R))
+           for s, S in ranks]
+    s, S = ranks[0]
+    flipped = (_dev(rng, dev, r, s, l).permute(2, 1, 0),
+               _dev(rng, dev, s, m, m, S).transpose(1, 2),
+               _dev(rng, dev, R, S, L).permute(2, 1, 0))
+    assert not any(t.is_contiguous() for t in flipped) or min(l, r, L, R, s, S) == 1
+    terms = [(*ops[0], x[:, 0], 0), (*ops[1], x[:, 1], 0), (*flipped, x[:, 0], 1),
+             (*ops[2], x[:, 2], 1), (*ops[3], x[:, 1], 2), (*ops[4], x[:, 2], 2)]
+    return terms, [ops[3], flipped, ops[4], ops[0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 4, 9])
+def test_cuda_grouped_contractions_match_plain(cuda, R, s):
+    rng = np.random.RandomState(100 + R + s)
+    ranks = [(s, s), (s + 1, s), (1, 1), (s, s + 2), (2, s)]
+    terms, blocks = _group_operands(rng, cuda, (R, R), (R, R), ranks)
+    K.reset_counts()
+    y = K.kkt_block_product(terms, 3)
+    B = K.schur_assemble_group(blocks)
+    torch.cuda.synchronize()
+    for name in ("kkt_block_matvec", "schur_assemble"):
+        st = K.STATS[name]
+        assert (st.launches, st.grouped, st.plain_calls) == (1, 1, 0)
+    assert tuple(y.shape) == (R, 3, 4, R) and len(B) == 4
+    check_kernel("kkt_block_product", (terms, 3), y)
+    check_kernel("schur_assemble_group", (blocks,), B)
+    # rows without a term are zero
+    y4 = K.kkt_block_product(terms, 4)
+    assert float(y4[:, 3].abs().max()) == 0.0 and torch.equal(y4[:, :3], y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", ODD_CONTRACTIONS)
+def test_cuda_grouped_contractions_odd_shapes(cuda, shapes):
+    (l, s, r), (_, m, _, S), (L, _, R) = shapes
+    rng = np.random.RandomState(7 + sum(map(sum, shapes)))
+    ranks = [(s, S), (S, s), (1, 2), (s + 3, 1), (2, S + 1)]
+    terms, blocks = _group_operands(rng, cuda, (l, r), (L, R), ranks, m=m)
+    check_kernel("kkt_block_product", (terms, 3), K.kkt_block_product(terms, 3))
+    check_kernel("schur_assemble_group", (blocks,), K.schur_assemble_group(blocks))
+    check_kernel("schur_assemble_group", (blocks[:2],), K.schur_assemble_group(blocks[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(36, 100, 36, 4, 4, 100, 36, 36), (3, 40, 5, 16, 16, 30, 4, 6),
+                                  (70, 2, 3, 4, 4, 2, 3, 3)])
+def test_cuda_kkt_block_matvec_tiled_and_chunked(cuda, dims):
+    """Operator ranks that force tiles of R, a wide physical index, and
+    more values of l than the grid has chunks."""
+    l, s, r, m, n, S, L, R = dims
+    rng = np.random.RandomState(sum(dims))
+    args = (_dev(rng, cuda, l, s, r), _dev(rng, cuda, s, m, n, S), _dev(rng, cuda, L, S, R),
+            _dev(rng, cuda, r, n, R))
+    check_kernel("kkt_block_matvec", args, K.kkt_block_matvec(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_schur_assemble_rebuilds_w_for_huge_operator_rank(cuda):
+    """S beyond the resident chunk of W: the slice is rebuilt per column tile."""
+    rng = np.random.RandomState(5)
+    args = (_dev(rng, cuda, 3, 2, 5), _dev(rng, cuda, 2, 4, 4, 2000), _dev(rng, cuda, 9, 2000, 9))
+    assert K.k1_tiles((K._dims("schur_assemble", args),))[1] < 2000
+    check_kernel("schur_assemble", args, K.schur_assemble(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,s", [(8, 4), (32, 9)])
+def test_cuda_contractions_are_one_device_kernel(cuda, R, s):
+    """Exactly one device kernel per K1 / K2 call, single or grouped, on
+    contiguous and on flipped operands: no GEMM, copy or elementwise
+    kernel from inside the wrappers; and one wrapper call per block
+    product of the fused algebra."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    rng = np.random.RandomState(R)
+    ranks = [(s, s), (s + 1, s), (1, 1), (s, s + 2), (2, s)]
+    terms, blocks = _group_operands(rng, cuda, (R, R), (R, R), ranks)
+    keys = ("00", "01", "12", "21", "22")
+    pl = {k: _dev(rng, cuda, R, s, R) for k in keys + ("10",)}
+    pr = {k: _dev(rng, cuda, R, s, R) for k in keys + ("10",)}
+    A = {k: _dev(rng, cuda, s, 4, 4, s) for k in keys}
+    x = _dev(rng, cuda, R, 3, 4, R)
+    calls = {
+        "kkt_block_product": lambda: K.kkt_block_product(terms, 3),
+        "kkt_block_matvec": lambda: K.kkt_block_matvec(*terms[2][:4]),
+        "schur_assemble_group": lambda: K.schur_assemble_group(blocks),
+        "schur_assemble": lambda: K.schur_assemble(*blocks[1]),
+        "apply_T": lambda: fa.apply_T(pl["01"], A["01"], pr["01"], x[:, 0]),
+        "local_product": lambda: fa.local_product(pl, A, pr, x),
+        "z_product": lambda: fa.z_product(pl, A, pr, x),
+        "mixed_product": lambda: fa.mixed_product(pl, pr, A, x, True),
+        "mixed_product_left": lambda: fa.mixed_product(pl, pr, A, x, False),
+    }
+    with profile(activities=[ProfilerActivity.CUDA]):  # the first trace of a process
+        calls["schur_assemble"]()                      # may come back empty
+        torch.cuda.synchronize()
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        K.reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, (name, kernels)
+        assert not any(w in kernels[0].lower() for w in ("gemm", "copy", "elementwise")), kernels
+        assert sum(st.launches for st in K.STATS.values()) == 1, name
 
 
 @pytest.mark.cuda

@@ -239,3 +239,62 @@ def test_max_generalised_eigen_matches_jax_with_warm_start(d, seed):
     s_j2, _ = eig_j(A_j, J.tt_scale(0.5, D_j), x0=x_j, tol=1e-8)
     s_t2, _ = eig_t(A_t, [D_t[0] * 0.5] + D_t[1:], x0=x_t, tol=1e-8)
     assert s_t2 == pytest.approx(s_j2, rel=1e-8)
+
+
+def test_dense_factor_assembles_its_blocks_in_one_group():
+    """The four Schur blocks of a local factor come from one K1 call, and
+    the factor is the one built block by block."""
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    rng = np.random.RandomState(9)
+    t = lambda *s: torch.as_tensor(rng.randn(*s))  # noqa: E731
+    ranks = {"00": 2, "01": 3, "12": 1, "21": 1, "22": 2}
+    u, v = t(3, 3), t(2, 2)
+    pl = {k: t(3, s, 3) for k, s in ranks.items()}
+    pr = {k: t(2, s, 2) for k, s in ranks.items()}
+    A = {k: t(s, 4, 4, s) for k, s in ranks.items()}
+    # a positive definite (2,1) block: Gram interfaces around a PSD core
+    pl["21"] = (u @ u.T + torch.eye(3, dtype=u.dtype)).reshape(3, 1, 3)
+    pr["21"] = (v @ v.T + torch.eye(2, dtype=v.dtype)).reshape(2, 1, 2)
+    A["21"] = torch.eye(4, dtype=u.dtype).reshape(1, 4, 4, 1)
+    inv_I = t(3, 4, 2)
+    K.reset_counts()
+    L_L_Z, mL_eq, L_X_I_inv, s_lu = TF._dense_factor(pl, A, pr, inv_I)
+    assert K.STATS["schur_assemble"].plain_calls == 1
+    B = {k: K.schur_assemble_plain(pl[k], A[k], pr[k]) for k in ranks}
+    assert torch.equal(mL_eq, B["01"])
+    assert torch.equal(L_X_I_inv, B["22"] * inv_I.reshape(1, -1))
+    np.testing.assert_allclose((L_L_Z @ L_L_Z.T).numpy(), fa.tikhonov(B["21"]).numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_eigen_steps_assemble_their_pencil_in_one_group():
+    """A window step and a single-core step of the step-size eigensolver
+    each build (MA, MD) with one K1 call, operator ranks unequal."""
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.solvers import fused_eigen as FE
+
+    rng = np.random.RandomState(10)
+    t = lambda *s: torch.as_tensor(rng.randn(*s))  # noqa: E731
+
+    def sym(c):
+        return 0.5 * (c + c.transpose(1, 2))
+
+    A_k, A_k1 = sym(t(1, 2, 2, 4)), sym(t(4, 2, 2, 1))
+    D_k, D_k1 = sym(t(1, 2, 2, 8)), sym(t(8, 2, 2, 1))
+    one = torch.ones((1, 1, 1), dtype=torch.float64)
+    sol1, sol2 = t(1, 2, 2), t(2, 2, 1)
+    K.reset_counts()
+    out = FE._gen_window_step(one, A_k, A_k1, one, one, D_k, D_k1, one, sol1, sol2,
+                              1.0, 1e-8, r_out=2, bwd=False)
+    assert K.STATS["schur_assemble"].plain_calls == 1
+    assert tuple(out[0].shape) == (1, 2, 2) and tuple(out[1].shape) == (2, 2, 1)
+    MA = K.schur_assemble_plain(one, FE._merged(A_k, A_k1), one)
+    want = torch.einsum("smnk,kptS->mpnt", A_k, A_k1).reshape(4, 4)
+    np.testing.assert_allclose(MA.numpy(), want.numpy(), rtol=1e-13, atol=1e-13)
+    K.reset_counts()
+    pA, pD = t(2, 4, 2), t(2, 8, 2)
+    FE._gen_last_step(one, A_k, pA, one, D_k, pD, sol2, t(1, 2, 2), 1.0, 1e-8,
+                      r_out=1, bwd=False, split=False)
+    assert K.STATS["schur_assemble"].plain_calls == 1

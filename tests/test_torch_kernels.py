@@ -209,3 +209,284 @@ def test_check_kernel_scales_cancelling_contractions():
         check_kernel("kkt_block_matvec", args, out)
     with pytest.raises(AssertionError):
         check_kernel("kkt_block_matvec", args, out + 1e-9 * y1, cancelling=True)
+
+
+# ---------------------------------------------------------------------------
+# Grouped entries of K2 and K1: kkt_block_product, schur_assemble_group
+# ---------------------------------------------------------------------------
+
+KEYS = ("00", "01", "12", "21", "22")
+
+
+def _kkt_operands(rng, left, right, ranks):
+    """Interfaces (l, s, r) / (L, S, R) per key with the outer dims given
+    per side as (l, r) and (L, R), and operator cores (s, 4, 4, S)."""
+    pl = {k: rng.randn(left[0], ranks[k][0], left[1]) for k in KEYS}
+    pr = {k: rng.randn(right[0], ranks[k][1], right[1]) for k in KEYS}
+    A = {k: rng.randn(ranks[k][0], 4, 4, ranks[k][1]) for k in KEYS}
+    return pl, A, pr
+
+
+RANKS = {"00": (3, 2), "01": (2, 4), "12": (1, 1), "21": (4, 3), "22": (2, 2)}
+
+
+def _jax_algebra():
+    from ttipm_tpu.solvers.fused_algebra import make_algebra
+
+    return make_algebra(np.einsum, np, lambda ineq: KEYS, lambda ineq: 3)
+
+
+def _torch_dict(d):
+    return {k: torch.as_tensor(v) for k, v in d.items()}
+
+
+def test_local_product_matches_jax_algebra():
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    rng = np.random.RandomState(10)
+    pl, A, pr = _kkt_operands(rng, (5, 5), (3, 3), RANKS)
+    x = rng.randn(5, 3, 4, 3)
+    want = _jax_algebra().local_product(pl, A, pr, x, False)
+    K.reset_counts()
+    got = fa.local_product(_torch_dict(pl), _torch_dict(A), _torch_dict(pr), torch.as_tensor(x))
+    assert K.STATS["kkt_block_matvec"].plain_calls == 1  # one wrapper call a product
+    assert tuple(got.shape) == want.shape == (5, 3, 4, 3)
+    assert rel(got.numpy(), want) < 1e-12
+
+
+def test_z_product_matches_jax_algebra():
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    rng = np.random.RandomState(11)
+    zl, A, zr = _kkt_operands(rng, (2, 5), (4, 3), RANKS)
+    zl["10"] = rng.randn(2, RANKS["01"][0], 5)
+    zr["10"] = rng.randn(4, RANKS["01"][1], 3)
+    x = rng.randn(5, 3, 4, 3)
+    want = _jax_algebra().z_product(zl, A, zr, x, False)
+    K.reset_counts()
+    got = fa.z_product(_torch_dict(zl), _torch_dict(A), _torch_dict(zr), torch.as_tensor(x))
+    assert K.STATS["kkt_block_matvec"].plain_calls == 1
+    assert tuple(got.shape) == want.shape == (2, 3, 4, 4)
+    assert rel(got.numpy(), want) < 1e-12
+
+
+@pytest.mark.parametrize("transpose_right_phi", [False, True])
+def test_mixed_product_matches_jax_algebra(transpose_right_phi):
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    rng = np.random.RandomState(12)
+    if transpose_right_phi:  # x basis on the left, z basis on the right
+        ml, A, mr = _kkt_operands(rng, (5, 5), (4, 3), RANKS)
+        mr["10"] = rng.randn(4, RANKS["01"][1], 3)
+    else:                    # z basis on the left, x basis on the right
+        ml, A, mr = _kkt_operands(rng, (2, 5), (3, 3), RANKS)
+        ml["10"] = rng.randn(2, RANKS["01"][0], 5)
+    x = rng.randn(5, 3, 4, 3)
+    want = _jax_algebra().mixed_product(ml, mr, A, x, False, transpose_right_phi)
+    K.reset_counts()
+    got = fa.mixed_product(_torch_dict(ml), _torch_dict(mr), _torch_dict(A),
+                           torch.as_tensor(x), transpose_right_phi)
+    assert K.STATS["kkt_block_matvec"].plain_calls == 1
+    assert rel(got.numpy(), want) < 1e-12
+
+
+def _random_terms(rng, l=3, m=4, L=5):
+    """Six terms over three rows with unequal ranks, one on flipped and
+    transposed views, x as strided columns of one core."""
+    t = lambda *s: torch.as_tensor(rng.randn(*s))  # noqa: E731
+    x = t(6, 3, 4, 2)
+    terms = []
+    for row, col, (s, S) in [(0, 0, (3, 2)), (0, 1, (1, 4)), (1, 2, (2, 2)), (2, 1, (4, 1)),
+                             (2, 2, (2, 3))]:
+        terms.append((t(l, s, 6), t(s, m, 4, S), t(L, S, 2), x[:, col], row))
+    flipped = (t(6, 2, l).permute(2, 1, 0), t(2, 4, m, 3).transpose(1, 2),
+               t(2, 3, L).permute(2, 1, 0), x[:, 0], 1)
+    return terms[:2] + [flipped] + terms[2:]
+
+
+def test_kkt_block_product_plain_sums_its_rows():
+    rng = np.random.RandomState(13)
+    terms = _random_terms(rng)
+    got = K.kkt_block_product(terms, 4)  # row 3 has no term
+    assert tuple(got.shape) == (3, 4, 4, 5)
+    want = np.zeros((3, 4, 4, 5))
+    for pl, A, pr, x, row in terms:
+        want[:, row] += np.asarray(JK.kkt_block_matvec(
+            *(jnp.asarray(np.ascontiguousarray(v.numpy())) for v in (pl, A, pr, x)),
+            interpret=True))
+    assert rel(got.numpy(), want) < 1e-12
+    assert float(got[:, 3].abs().max()) == 0.0
+
+
+def test_schur_assemble_group_plain_matches_xla_per_block():
+    rng = np.random.RandomState(14)
+    t = lambda *s: torch.as_tensor(rng.randn(*s))  # noqa: E731
+    # square blocks (the XLA path reshapes to (m, m))
+    blocks = [(t(3, s, 3), t(s, 4, 4, S), t(5, S, 5)) for s, S in [(2, 3), (1, 1), (4, 2)]]
+    blocks.append((t(3, 2, 3).permute(2, 1, 0), t(2, 4, 4, 3).transpose(1, 2),
+                   t(5, 3, 5).permute(2, 1, 0)))
+    got = K.schur_assemble_group(blocks)
+    assert len(got) == 4
+    for b, g in zip(blocks, got):
+        want = np.asarray(JK.schur_assemble_xla(*(jnp.asarray(v.numpy()) for v in b)))
+        assert tuple(g.shape) == want.shape == (60, 60)
+        assert rel(g.numpy(), want) < 1e-12
+
+
+def _read_packed(ptr, shape, strides):
+    """The array a kernel would read at address ``ptr`` through ``shape``
+    and element ``strides``."""
+    import ctypes
+
+    extent = 1 + sum((d - 1) * st for d, st in zip(shape, strides))
+    flat = np.ctypeslib.as_array((ctypes.c_double * extent).from_address(ptr))
+    return np.lib.stride_tricks.as_strided(flat, shape, [8 * st for st in strides])
+
+
+def test_term_table_packing_reproduces_the_operands():
+    """Each packed K2 term (addresses, dims, element strides, row) and K1
+    block reads back as its operand, for contiguous, flipped and transposed
+    operands and for x columns of a block core."""
+    rng = np.random.RandomState(15)
+    terms = _random_terms(rng)
+    assert not terms[2][0].is_contiguous() and not terms[2][1].is_contiguous()
+    dims = K._k2_check(terms, 3)
+    words = K.pack_k2_terms(terms, dims)
+    assert len(words) == 26 * len(terms)
+    for i, (term, d) in enumerate(zip(terms, dims)):
+        w = words[26 * i:26 * (i + 1)]
+        l, s, r, m, n, S, L, R = w[4:12]
+        assert (l, s, r, m, n, S, L, R) == d
+        assert w[25] == term[4]
+        shapes = [(l, s, r), (s, m, n, S), (L, S, R), (r, n, R)]
+        strides = [w[12:15], w[15:19], w[19:22], w[22:25]]
+        for ptr, shape, st, operand in zip(w[:4], shapes, strides, term[:4]):
+            np.testing.assert_array_equal(_read_packed(ptr, shape, st), operand.numpy())
+    blocks = [t[:3] for t in terms]
+    bdims = tuple(K._dims("schur_assemble", b) for b in blocks)
+    words = K.pack_k1_blocks(blocks, bdims)
+    assert len(words) == 21 * len(blocks)
+    for i, (b, d) in enumerate(zip(blocks, bdims)):
+        w = words[21 * i:21 * (i + 1)]
+        assert tuple(w[3:11]) == d
+        l, s, r, m, n, S, L, R = d
+        for ptr, shape, st, operand in zip(w[:3], [(l, s, r), (s, m, n, S), (L, S, R)],
+                                           [w[11:14], w[14:18], w[18:21]], b):
+            np.testing.assert_array_equal(_read_packed(ptr, shape, st), operand.numpy())
+
+
+def _check_k2_plan(dims, plan):
+    """The plan's buffers hold the widest term and fit a CTA; returns the
+    doubles of its t1 and t2."""
+    lc, rt, threads, smem, cap1, cap2, cap_phl, cap_x, cap_a, cap_phr = plan
+    l, _, _, m, _, _, L, _ = dims[0]
+    t1 = max(s * n * lc * min(rt, R) for _, s, _, _, n, _, _, R in dims)
+    t2 = max(lc * m_ * ((S * min(rt, R)) | 1) for _, _, _, m_, _, S, _, R in dims)
+    assert (cap1, cap2) == (t1, t2)
+    assert 1 <= lc <= l and 1 <= rt <= max(d[7] for d in dims)
+    assert smem == 8 * (2 * lc * m * L + t1 + t2 + cap_phl + cap_x + cap_a + cap_phr)
+    assert smem <= K.SMEM_LIMIT == 232448
+    assert threads == (512 if max(t1, t2) > 256 else 256)
+    # a staged operand's buffer holds the widest term's slice, or is absent
+    assert cap_phr in (0, max(S * min(rt, R) * (L | 1) for _, _, _, _, _, S, _, R in dims))
+    assert cap_a in (0, max(s * m_ * n * S for _, s, _, m_, n, S, _, _ in dims))
+    assert cap_x in (0, max(r * n * min(rt, R) for _, _, r, _, n, _, _, R in dims))
+    assert cap_phl in (0, max(lc * s * r for _, s, r, _, _, _, _, _ in dims))
+    return t1, t2
+
+
+@pytest.mark.parametrize("nrows", [1, 3])
+def test_k2_tile_chooser_fits_every_shape(nrows):
+    """For bond ranks up to 36 and operator ranks up to 100 the chooser
+    refuses nothing: its chunk of l, tile of R and staged operands fit the
+    232,448 bytes a CTA may use, and R is cut only where one value of l
+    does not fit."""
+    ranks = sorted(set(range(1, 101, 3)) | {9, 99, 100})
+    for R in range(1, 37):
+        for s in ranks:
+            for S in ranks:
+                dims = ((R, s, R, 4, 4, S, R, R),)
+                plan = K.k2_tiles(dims, nrows)
+                _check_k2_plan(dims, plan)
+                if plan[1] < R:
+                    assert plan[0] == 1
+                    assert 8 * (2 * 4 * R + s * 4 * R + 4 * ((S * R) | 1)) > K.SMEM_LIMIT
+    # the usual shapes stage all four operands
+    assert all(K.k2_tiles(((R, s, R, 4, 4, s, R, R),), 3)[6:] for R, s in ((8, 4), (32, 9)))
+    # the bound case named in the kernel's notes: one l at R = 36, s = S = 100
+    assert K.k2_tiles(((36, 100, 36, 4, 4, 100, 36, 36),), 3)[:2] == (1, 18)
+    # terms of unequal rank size the buffers by the widest
+    dims = ((8, 4, 8, 4, 4, 4, 8, 8), (8, 9, 8, 4, 4, 1, 8, 8))
+    plan = K.k2_tiles(dims, 3)
+    assert _check_k2_plan(dims, plan) == (9 * 4 * plan[0] * 8, plan[0] * 4 * 33)
+    with pytest.raises(K.KernelError):
+        K.k2_tiles(((1, 40000, 1, 4, 4, 1, 1, 1),), 1)
+
+
+def test_k1_tile_chooser_fits_every_shape():
+    for R in (1, 2, 8, 16, 32, 36):
+        for s in (1, 4, 9, 100, 1000, 5000):
+            for groups in (1, 2, 4):
+                dims = ((R, s, R, 4, 4, s, R, R),) * groups
+                tm, sc, colsplit = K.k1_tiles(dims)
+                assert tm in (16, 32, 64) and 1 <= sc <= s and colsplit >= 1
+                assert 8 * (tm * (sc | 1) + 32 * 65) <= K.SMEM_LIMIT
+    assert K.k1_tiles(((8, 4, 8, 4, 4, 4, 8, 8),) * 4) == (16, 4, 1)
+    assert K.k1_tiles(((32, 9, 32, 4, 4, 9, 32, 32),)) == (64, 9, 1)
+
+
+def test_grouped_wrappers_count_and_refuse():
+    rng = np.random.RandomState(16)
+    t = lambda *s: torch.as_tensor(rng.randn(*s))  # noqa: E731
+    terms = _random_terms(rng)
+    blocks = [(t(3, 2, 5), t(2, 4, 4, 3), t(2, 3, 6)), (t(3, 1, 5), t(1, 4, 4, 1), t(2, 1, 6))]
+    K.reset_counts()
+    K.kkt_block_product(terms, 3)
+    K.schur_assemble_group(blocks)
+    for name in ("kkt_block_matvec", "schur_assemble"):
+        s = K.STATS[name]
+        assert (s.launches, s.grouped, s.plain_calls) == (0, 0, 1), name
+    meta = torch.zeros(3, 2, 5, dtype=torch.float64, device="meta")
+    bad_calls = [
+        lambda: K.kkt_block_product([], 3),                              # no terms
+        lambda: K.kkt_block_product(terms * 3, 3),                       # too many terms
+        lambda: K.kkt_block_product(terms, 2),                           # row 2 of 2
+        lambda: K.kkt_block_product(terms + [(t(4, 1, 6), t(1, 4, 4, 1), t(5, 1, 2),
+                                              terms[0][3], 0)], 3),      # another l
+        lambda: K.kkt_block_product([(t(3, 2, 6), t(3, 4, 4, 1), t(5, 1, 2),
+                                      terms[0][3], 0)], 3),              # bond mismatch
+        lambda: K.kkt_block_product([(meta,) + terms[0][1:]], 3),        # devices differ
+        lambda: K.schur_assemble_group([]),
+        lambda: K.schur_assemble_group(blocks + [(t(2, 2, 5), t(2, 4, 4, 3), t(2, 3, 6))]),
+        lambda: K.schur_assemble_group([(t(3, 2, 5), t(3, 4, 4, 3), t(2, 3, 6))]),
+        lambda: K.schur_assemble_group([(meta, blocks[0][1], blocks[0][2])]),
+        lambda: K.schur_assemble_group([blocks[0]] * (K.K1_MAX_BLOCKS + 1)),
+    ]
+    K.reset_counts()
+    for i, call in enumerate(bad_calls):
+        with pytest.raises(K.KernelError):
+            call()
+            pytest.fail(f"call {i} was not refused")
+    assert all((s.launches, s.plain_calls) == (0, 0) for s in K.STATS.values())
+
+
+def test_kernel_sources_match_the_wrappers_constants():
+    """Table widths, term and block limits and tile sizes that the Python
+    side packs and chooses by are the constants of the CUDA sources."""
+    import os
+    import re
+
+    from ttipm_tpu_torch.ops import _build
+
+    def consts(name):
+        with open(os.path.join(_build.CSRC, name)) as fh:
+            return {k: int(v) for k, v in
+                    re.findall(r"constexpr int (k\w+) = (\d+);", fh.read())}
+
+    k2, k1 = consts("kkt_matvec.cu"), consts("schur_assemble.cu")
+    assert (k2["kMaxTerms"], k2["kTermWords"], k2["kMaxDynamicSmem"], k2["kMaxThreads"]) == (
+        K.K2_MAX_TERMS, 26, K.SMEM_LIMIT, 512)
+    assert k2["kPlanWords"] == len(K.k2_tiles(((8, 4, 8, 4, 4, 4, 8, 8),), 3)) == 10
+    assert (k1["kMaxBlocks"], k1["kBlockWords"], k1["kMaxDynamicSmem"]) == (
+        K.K1_MAX_BLOCKS, 21, K.SMEM_LIMIT)
+    assert (k1["kTN"], k1["kKS"]) == (K._K1_TN, K._K1_KS)

@@ -23,6 +23,7 @@ MODULES = [
     "ttipm_tpu_torch.solvers.fused",
     "ttipm_tpu_torch.solvers.fused_algebra",
     "ttipm_tpu_torch.solvers.fused_eigen",
+    "ttipm_tpu_torch.tools.compare_kernels",
 ]
 
 

@@ -4,8 +4,9 @@
 plain PyTorch version on the same operands, in float64, and
 ``check_kernel`` raises where it is outside these tolerances:
 
-- ``schur_assemble`` (K1) and ``kkt_block_matvec`` (K2): relative
-  Frobenius error <= 1e-12.  On random operands (``cancelling=False``) the
+- ``schur_assemble`` (K1) and ``kkt_block_matvec`` (K2), and their
+  grouped entries ``schur_assemble_group`` and ``kkt_block_product``
+  (the blocks of a group stacked): relative Frobenius error <= 1e-12.  On random operands (``cancelling=False``) the
   error is taken relative to the plain result.  The solver's own operands
   can cancel: a block matvec of norm 1e-14 built from terms of norm 1 has
   an f64 rounding error of ~1e-16 in any summation order, cuBLAS's
@@ -34,15 +35,24 @@ from ttipm_tpu_torch.ops import tt as T
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
 from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
 
-__all__ = ["TOLERANCE", "PLAIN", "kernel_errors", "check_kernel", "solve_metrics"]
+__all__ = ["TOLERANCE", "PLAIN", "KERNEL_OF", "kernel_errors", "check_kernel", "shape_key",
+           "solve_metrics"]
 
 TOLERANCE = {"schur_assemble": 1e-12, "kkt_block_matvec": 1e-12,
+             "schur_assemble_group": 1e-12, "kkt_block_product": 1e-12,
              "panel_qr": 1e-13, "panel_cholesky": 1e-13}
 
 PLAIN = {"schur_assemble": K.schur_assemble_plain,
          "kkt_block_matvec": K.kkt_block_matvec_plain,
+         "schur_assemble_group": lambda blocks: torch.stack(K.schur_assemble_group_plain(blocks)),
+         "kkt_block_product": K.kkt_block_product_plain,
          "panel_qr": K.panel_qr_plain,
          "panel_cholesky": K.panel_cholesky_plain}
+
+# The kernel of each entry point (the key of ``kernels.STATS``).
+KERNEL_OF = {"schur_assemble": "schur_assemble", "schur_assemble_group": "schur_assemble",
+             "kkt_block_matvec": "kkt_block_matvec", "kkt_block_product": "kkt_block_matvec",
+             "panel_qr": "panel_qr", "panel_cholesky": "panel_cholesky"}
 
 
 def _rel(diff: torch.Tensor, ref: torch.Tensor) -> float:
@@ -56,16 +66,27 @@ def _max_abs(t: torch.Tensor) -> float:
     return float(t.abs().max()) if t.numel() else 0.0
 
 
+def _abs(arg):
+    """``arg`` with every tensor replaced by its absolute value."""
+    if isinstance(arg, torch.Tensor):
+        return arg.abs()
+    if isinstance(arg, (list, tuple)):
+        return type(arg)(_abs(a) for a in arg)
+    return arg
+
+
 def kernel_errors(name: str, args, out, cancelling: bool = False) -> dict:
     """Errors of ``out = kernels.<name>(*args)`` against the plain version
     on ``args``, with ``"ok"`` false where one exceeds its tolerance.
     Calls the plain function directly, so no wrapper counter moves."""
     tol = TOLERANCE[name]
     want = PLAIN[name](*args)
-    if name in ("schur_assemble", "kkt_block_matvec"):
+    if KERNEL_OF[name] in ("schur_assemble", "kkt_block_matvec"):
+        if name == "schur_assemble_group":
+            out = torch.stack(list(out))
         diff = out - want
         errs = {"max_abs_err": _max_abs(diff), "rel": _rel(diff, want),
-                "rel_terms": _rel(diff, PLAIN[name](*(a.abs() for a in args)))}
+                "rel_terms": _rel(diff, PLAIN[name](*_abs(tuple(args))))}
         ok = errs["rel_terms" if cancelling else "rel"] <= tol
     elif name == "panel_qr":
         (a,), (q, r), (q0, r0) = args, out, want
@@ -94,12 +115,23 @@ def kernel_errors(name: str, args, out, cancelling: bool = False) -> dict:
     return errs
 
 
+def shape_key(arg) -> str:
+    """The shapes of the tensors in ``arg`` (nested lists and tuples kept,
+    other values as they are), as a string."""
+    def walk(a):
+        if isinstance(a, torch.Tensor):
+            return list(a.shape)
+        if isinstance(a, (list, tuple)):
+            return [walk(x) for x in a]
+        return a
+    return str(walk(list(arg)))
+
+
 def check_kernel(name: str, args, out, cancelling: bool = False) -> dict:
     """``kernel_errors``, raising AssertionError outside the tolerance."""
     errs = kernel_errors(name, args, out, cancelling)
     if not errs["ok"]:
-        shapes = [tuple(t.shape) for t in args]
-        raise AssertionError(f"{name} {shapes}: outside tolerance {TOLERANCE[name]:g}: {errs}")
+        raise AssertionError(f"{name} {shape_key(args)}: outside tolerance {TOLERANCE[name]:g}: {errs}")
     return errs
 
 

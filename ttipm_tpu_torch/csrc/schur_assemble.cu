@@ -1,33 +1,229 @@
-// K1: Schur block assembly
-//     B[(l,m,L),(r,n,R)] = sum_{s,S} phi_l[l,s,r] A[s,m,n,S] phi_r[L,S,R]
+// K1: Schur block assembly, one launch for a group of blocks
+//     B_g[(l,m,L),(r,n,R)] = sum_{s,S} phi_l[l,s,r] A[s,m,n,S] phi_r[L,S,R]
 //
 // Replaces: ttipm_tpu/ops/kernels.py::schur_assemble (Pallas kernel
-// _schur_kernel), the fused algebra's `proj`
-// (ttipm_tpu/solvers/fused_algebra.py:47): four calls per local factor
-// (ttipm_tpu/solvers/fused.py:110-117) and the eigen-window assemblies
-// (ttipm_tpu/solvers/fused_eigen.py:44-53).
+// _schur_kernel) together with the stage-1 einsum in front of it, the
+// fused algebra's `proj` (ttipm_tpu/solvers/fused_algebra.py:47): four
+// calls per local factor (ttipm_tpu/solvers/fused.py:110-117) and the
+// eigen-window assemblies in pairs (ttipm_tpu/solvers/fused_eigen.py:44-53).
 //
-// Bound on the H100: B is (4 l L) x (4 r R); at bond rank 36 that is
-// 5184 x 5184 f64 = 215 MB written once, against 2 * 5184^2 * S flops for
-// the S-contraction: 215 MB at 3.35 TB/s is 64 us, and the flops at the
-// 34 TFLOP/s f64 CUDA-core peak (NVIDIA data sheet, SXM) are 64 us at
-// S = 40.  Below operator rank ~40 the kernel is bound by writing B to
-// device memory, above it by f64 FMA throughput.
+// Bound on the H100: B is (m l L) x (n r R).  At the solve's usual shape
+// (bond ranks 8, physical 4, operator ranks 4) it is 256 x 256 f64 =
+// 512 KB written once, 0.16 us at 3.35 TB/s: a call is bound by the
+// latency of its launch.  At bond rank 32 and operator rank 9 it is
+// 4096 x 4096 = 134 MB, 40 us at that rate, against 0.3 GFLOP for the
+// S-contraction (under 10 us at the f64 rate): bound by writing B.
 //
-// Design: as on the TPU, stage 1 W[l,m,r,n,S] = phi_l . A (the small
-// s-contraction) is an einsum in the wrapper.  The kernel is the
-// S-contraction GEMM (l m r n) x S x (L R) with the 6-D interleave
-// (l,m,r,n),(L,R) -> (l,m,L),(r,n,R) done in its store, so B is written
-// once in its final layout and never relaid out.  Each output element is
-// stored exactly once; rows of consecutive R are contiguous.
-#include "gemm_f64.cuh"
+// Design.
+//  * Stage 1 runs inside the kernel.  The CTA that owns a tile of rows
+//    (l,m | r,n) builds its slice of W[l,m,r,n,S] = sum_s phi_l A in
+//    shared memory (the s-contraction is small, and a W row serves all
+//    L*R columns), then walks over 64-wide tiles of the columns (L | R),
+//    contracting S against phi_r staged through shared memory, and stores
+//    with the 6-D interleave (l,m,r,n),(L,R) -> (l,m,L),(r,n,R): B is
+//    written once in its final layout, consecutive R contiguous.  Where W's
+//    slice for all of S does not fit, S is cut into chunks and the slice
+//    is rebuilt per column tile, so every shape is taken.
+//  * phi_l, A and phi_r are read through their element strides: no
+//    permuted copy in the wrapper.
+//  * A group of blocks of equal output size is one launch, the block in
+//    blockIdx.z; the table of blocks (pointers, dims, strides) is a kernel
+//    parameter passed by value.  Small blocks take 16-row tiles so that a
+//    group still spreads over the card.
+//  * Arithmetic: plain f64 fma, each contracted index ascending in one
+//    chain from zero.
+#include <cuda_runtime.h>
 
-extern "C" int ttipm_schur_assemble(const double* W, const double* P, double* out, int l,
-                                    int m, int r, int n, int S, int L, int R, void* stream) {
+namespace {
+
+constexpr int kMaxBlocks = 8;
+constexpr int kBlockWords = 21;  // 64-bit words of one packed block
+constexpr int kThreads = 256;
+constexpr int kTN = 64;  // columns (L | R) per tile
+constexpr int kKS = 32;  // slice of S staged from phi_r per step
+constexpr int kMaxDynamicSmem = 232448;
+
+struct Block {
+  const double* phil;
+  const double* a;
+  const double* phir;
+  int l, s, r, m, n, S, L, R;
+  long long phl0, phl1, phl2, a0, a1, a2, a3, phr0, phr1, phr2;
+};
+
+struct BlockTable {
+  int nblocks;
+  Block b[kMaxBlocks];
+};
+
+// P = rows of the tile / 16.  `sc` is the chunk of S whose W slice is
+// resident (sc >= S: built once), ldw the odd leading dimension of Ws.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
+             long long out_block_stride, int sc, int ldw) {
+  constexpr int TM = 16 * P;
+  extern __shared__ double smem[];
+  double* Ws = smem;  // TM x ldw, then Ps: kKS x (kTN + 1)
+  double(*Ps)[kTN + 1] = reinterpret_cast<double(*)[kTN + 1]>(smem + TM * ldw);
+
+  const Block& b = tab.b[blockIdx.z];
+  const long long Mw = (long long)b.l * b.m * b.r * b.n;
+  const int Nw = b.L * b.R;
+  const long long row0 = (long long)blockIdx.y * TM;
+  if (row0 >= Mw) return;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const long long N = (long long)b.r * b.n * b.R;
+  double* o = out + blockIdx.z * out_block_stride;
+
+  // output offset of (row, column 0) for this thread's rows; -1 past the edge
+  long long rowbase[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long gi = row0 + ty + 16 * p;
+    if (gi >= Mw) {
+      rowbase[p] = -1;
+      continue;
+    }
+    const int ni = (int)(gi % b.n);
+    long long q = gi / b.n;
+    const int ri = (int)(q % b.r);
+    q /= b.r;
+    const int mi = (int)(q % b.m);
+    const long long li = q / b.m;
+    rowbase[p] = ((li * b.m + mi) * b.L) * N + ((long long)ri * b.n + ni) * b.R;
+  }
+
+  const bool resident = sc >= b.S;
+  const int ncolt = (Nw + kTN - 1) / kTN;
+  bool built = false;
+  for (int ct = blockIdx.x; ct < ncolt; ct += gridDim.x) {
+    double acc[P][4];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][q] = 0.0;
+
+    for (int S0 = 0; S0 < b.S; S0 += sc) {
+      const int nS = min(sc, b.S - S0);
+      if (!(resident && built)) {
+        __syncthreads();  // every thread is done with the previous slice
+        // stage 1: Ws[row][Si] = sum_s phi_l[l,s,r] A[s,m,n,S0+Si]
+        for (int e = tid; e < TM * nS; e += kThreads) {
+          const int Si = e % nS;
+          const int rr = e / nS;
+          const long long gi = row0 + rr;
+          double w = 0.0;
+          if (gi < Mw) {
+            const int ni = (int)(gi % b.n);
+            long long q = gi / b.n;
+            const int ri = (int)(q % b.r);
+            q /= b.r;
+            const int mi = (int)(q % b.m);
+            const long long li = q / b.m;
+            const double* p = b.phil + li * b.phl0 + ri * b.phl2;
+            const double* ap = b.a + mi * b.a1 + ni * b.a2 + (S0 + Si) * b.a3;
+#pragma unroll 4
+            for (int si = 0; si < b.s; ++si) w = fma(p[si * b.phl1], ap[si * b.a0], w);
+          }
+          Ws[rr * ldw + Si] = w;
+        }
+        built = true;
+      }
+      for (int k0 = 0; k0 < nS; k0 += kKS) {
+        const int nk = min(kKS, nS - k0);
+        __syncthreads();  // Ws is built; the previous slice of phi_r is consumed
+        for (int e = tid; e < nk * kTN; e += kThreads) {
+          const int kk = e / kTN, cc = e % kTN;
+          const int gj = ct * kTN + cc;
+          Ps[kk][cc] = gj < Nw ? b.phir[(gj / b.R) * b.phr0 + (S0 + k0 + kk) * b.phr1 +
+                                        (gj % b.R) * b.phr2]
+                               : 0.0;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int kk = 0; kk < nk; ++kk) {
+          double ar[P], br[4];
+#pragma unroll
+          for (int p = 0; p < P; ++p) ar[p] = Ws[(ty + 16 * p) * ldw + k0 + kk];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) br[q] = Ps[kk][tx + 16 * q];
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[p][q] = fma(ar[p], br[q], acc[p][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int gj = ct * kTN + tx + 16 * q;
+      if (gj >= Nw) continue;
+      const long long coff = (long long)(gj / b.R) * N + gj % b.R;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if (rowbase[p] >= 0) o[rowbase[p] + coff] = acc[p][q];
+    }
+  }
+}
+
+template <int P>
+cudaError_t launch(const BlockTable& tab, double* out, long long stride, int sc, int ldw,
+                   dim3 grid, int smem_bytes, cudaStream_t st) {
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        schur_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+    if (err != cudaSuccess) return err;
+  }
+  schur_kernel<P><<<grid, kThreads, smem_bytes, st>>>(tab, out, stride, sc, ldw);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// `table` holds nblocks packed blocks of kBlockWords 64-bit words each:
+// the three operand addresses, l s r m n S L R, and the element strides of
+// phi_l (3), A (4) and phi_r (3).  `out` is the contiguous (nblocks, M, N)
+// result.  tm is the row tile (16, 32 or 64), sc the resident chunk of S,
+// colsplit the number of CTAs that share the column tiles of a row tile.
+extern "C" int ttipm_schur_assemble(const long long* table, int nblocks, double* out, int tm,
+                                    int sc, int colsplit, void* stream) {
+  if (nblocks <= 0 || nblocks > kMaxBlocks || sc <= 0 || colsplit <= 0)
+    return (int)cudaErrorInvalidValue;
+  BlockTable tab;
+  tab.nblocks = nblocks;
+  long long rows = 0, M = 0, N = 0;
+  for (int i = 0; i < nblocks; ++i) {
+    const long long* w = table + (long long)i * kBlockWords;
+    Block& b = tab.b[i];
+    b.phil = reinterpret_cast<const double*>(w[0]);
+    b.a = reinterpret_cast<const double*>(w[1]);
+    b.phir = reinterpret_cast<const double*>(w[2]);
+    b.l = (int)w[3], b.s = (int)w[4], b.r = (int)w[5], b.m = (int)w[6];
+    b.n = (int)w[7], b.S = (int)w[8], b.L = (int)w[9], b.R = (int)w[10];
+    b.phl0 = w[11], b.phl1 = w[12], b.phl2 = w[13];
+    b.a0 = w[14], b.a1 = w[15], b.a2 = w[16], b.a3 = w[17];
+    b.phr0 = w[18], b.phr1 = w[19], b.phr2 = w[20];
+    const long long Mi = (long long)b.l * b.m * b.L, Ni = (long long)b.r * b.n * b.R;
+    if (Mi <= 0 || Ni <= 0 || b.s <= 0 || b.S <= 0) return (int)cudaErrorInvalidValue;
+    if (i == 0) M = Mi, N = Ni;
+    if (Mi != M || Ni != N) return (int)cudaErrorInvalidValue;
+    const long long r = (long long)b.l * b.m * b.r * b.n;
+    rows = r > rows ? r : rows;
+  }
+  const long long row_tiles = (rows + tm - 1) / tm;
+  if (row_tiles > 65535 || colsplit > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int ldw = sc | 1;
+  const long long smem = ((long long)tm * ldw + (long long)kKS * (kTN + 1)) * sizeof(double);
+  if (smem > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)colsplit, (unsigned)row_tiles, (unsigned)nblocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long rnR = (long long)r * n * R;
-  // row i = (l,m | r,n) of W, column j = (L | R) of P
-  PermStore ps{(long long)r * n, (long long)L * rnR, R, R, rnR, 1};
-  return (int)launch_gemm_f64(W, S, 1, P, (long long)L * R, 1, out, ps, l * m * r * n, L * R,
-                              S, st);
+  switch (tm) {
+    case 64: return (int)launch<4>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
+    case 32: return (int)launch<2>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
+    case 16: return (int)launch<1>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``ttipm_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one compiler process
+per source, all started together) and links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``.  The library goes
 to ``build/ttipm_kernels/`` at the repository root, named by a hash of the
 sources and flags, so a rebuild happens only when a source changes.  The
@@ -24,9 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ttipm_kernels")
 SOURCES = ("schur_assemble.cu", "kkt_matvec.cu", "panel_qr.cu", "panel_cholesky.cu")
-_HEADERS = ("gemm_f64.cuh",)
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC"]
+          "-Xcompiler", "-fPIC"]
 
 _LIB = None
 
@@ -46,7 +46,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES + _HEADERS:
+    for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return h.hexdigest()[:16]
@@ -60,13 +60,26 @@ def build_library() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objects = [os.path.join(work, os.path.splitext(s)[0] + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", os.path.join(CSRC, s), "-o", o],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(SOURCES, objects)]
+        failed = []
+        for s, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{s}: nvcc failed ({proc.returncode}):\n{err}")
+        if failed:
+            raise KernelError("\n".join(failed))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([nvcc, *_FLAGS, "-shared", "-o", tmp, *objects],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, path)
     return path
 
@@ -81,9 +94,11 @@ def load_library() -> ctypes.CDLL:
     except OSError as e:
         raise KernelError(f"cannot load {path}: {e}") from e
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    table = ctypes.c_char_p  # packed words, read on the host
     signatures = {
-        "ttipm_schur_assemble": [p, p, p] + [i] * 7 + [p],
-        "ttipm_kkt_matvec": [p] * 7 + [i] * 8 + [p],
+        "ttipm_schur_assemble": [table, i, p, i, i, i, p],
+        "ttipm_kkt_product": [table, i, table, p, i, i, i, i, p],
+        "ttipm_empty_launch": [p],
         "ttipm_panel_qr": [p, p, p, i, i, p],
         "ttipm_panel_cholesky": [p, ll, ll, p, i, p, p, p],
         "ttipm_panel_cholesky_workspace": [i],

@@ -13,6 +13,10 @@ wrapper                       replaces                               CUDA source
 ``panel_cholesky`` (K4)       ``panel_cholesky`` / L_Z factor        ``csrc/panel_cholesky.cu``
 ============================  =====================================  ===========================
 
+K1 and K2 also have grouped entry points over the same kernels:
+``schur_assemble_group`` (several blocks of equal size, one launch) and
+``kkt_block_product`` (all terms of a block product, one launch).
+
 A wrapper given CPU tensors runs the plain version (einsum or
 ``torch.linalg``) and counts a plain call.  Given CUDA tensors it launches
 its kernel and counts a launch, or raises ``KernelError``: it never falls
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import struct
 
 import torch
 
@@ -32,22 +38,26 @@ from ttipm_tpu_torch.ops._build import KernelError
 __all__ = [
     "KernelError", "KernelStats", "STATS", "reset_counts",
     "schur_assemble", "schur_assemble_plain",
+    "schur_assemble_group", "schur_assemble_group_plain",
     "kkt_block_matvec", "kkt_block_matvec_plain",
+    "kkt_block_product", "kkt_block_product_plain",
+    "k1_tiles", "k2_tiles", "pack_k1_blocks", "pack_k2_terms", "empty_launch",
     "panel_qr", "panel_qr_plain",
     "panel_cholesky", "panel_cholesky_plain",
 ]
 
 
 class KernelStats:
-    """Launch and plain-call counts of one kernel wrapper."""
+    """Counts of one kernel: device launches (a grouped call is one), how
+    many of them came through the grouped entry point, and plain calls."""
 
     def __init__(self, name: str):
         self.name = name
-        self.launches = 0
-        self.plain_calls = 0
+        self.reset()
 
     def reset(self) -> None:
         self.launches = 0
+        self.grouped = 0
         self.plain_calls = 0
 
 
@@ -82,8 +92,18 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+_NO_GUARD = contextlib.nullcontext()
+
+
+def _launch_env(t: torch.Tensor):
+    """(stream, guard) for a launch on ``t``'s device.  The small calls of
+    the solve are bound by launch latency: take the raw handle of the
+    current stream, and enter a device guard only when the operand is not
+    on the current device."""
+    dev = t.device.index
+    stream = ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev))
+    guard = _NO_GUARD if dev == torch.cuda.current_device() else torch.cuda.device(dev)
+    return stream, guard
 
 
 def _check(name: str, err: int) -> None:
@@ -95,14 +115,127 @@ def _lib():
     return _build.load_library()
 
 
+def empty_launch(device) -> None:
+    """Launch an empty kernel through the wrappers' ctypes path: the floor
+    of a single call's time on the card."""
+    stream, guard = _launch_env(torch.empty(0, device=device))
+    with guard:
+        _check("empty_launch", _lib().ttipm_empty_launch(stream))
+
+
+# Dynamic shared memory a CTA may use on sm_90 (227 KB).
+SMEM_LIMIT = 232448
+# CTAs a launch should reach where the shapes allow it (the card's SMs).
+_TARGET_CTAS = 132
+
+
 # ---------------------------------------------------------------------------
 # K1: Schur block assembly  B[(l,m,L),(r,n,R)] = phi_l[l,s,r] A[s,m,n,S] phi_r[L,S,R]
 # ---------------------------------------------------------------------------
+
+K1_MAX_BLOCKS = 8
+_K1_TN, _K1_KS = 64, 32  # kTN, kKS in csrc/schur_assemble.cu
+
 
 def schur_assemble_plain(phi_l, A, phi_r):
     rows = phi_l.shape[0] * A.shape[1] * phi_r.shape[0]
     cols = phi_l.shape[2] * A.shape[2] * phi_r.shape[2]
     return torch.einsum("lsr,smnS,LSR->lmLrnR", phi_l, A, phi_r).reshape(rows, cols)
+
+
+def schur_assemble_group_plain(blocks):
+    return [schur_assemble_plain(*b) for b in blocks]
+
+
+def _dims(name, ops):
+    """(l, s, r, m, n, S, L, R) of ``(phi_l, A, phi_r[, x, ...])``, the
+    bonds checked, and the shape of x where there is one."""
+    try:
+        l, s, r = ops[0].shape
+        s2, m, n, S = ops[1].shape
+        L, S2, R = ops[2].shape
+    except (ValueError, IndexError):
+        raise KernelError(f"{name}: operands are (phi_l[l,s,r], A[s,m,n,S], phi_r[L,S,R]"
+                          "[, x[r,n,R]])") from None
+    if (s2 != s or S2 != S or 0 in (l, s, r, m, n, S, L, R)
+            or (len(ops) > 3 and ops[3].shape != (r, n, R))):
+        raise KernelError(f"{name}: shape mismatch {[tuple(t.shape) for t in ops[:4]]}")
+    return l, s, r, m, n, S, L, R
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_tiles(dims):
+    """Row tile, resident chunk of S and column split of one K1 launch,
+    from the tuple of the blocks' ``(l, s, r, m, n, S, L, R)``: the largest
+    row tile of 64, 32, 16 that still gives the card a CTA per SM, all of
+    S resident where the W slice fits in shared memory beside the staged
+    slice of phi_r, and the column tiles of a row tile shared between CTAs
+    only while the grid is short of the target."""
+    rows = max(l * m * r * n for l, s, r, m, n, S, L, R in dims)
+    col_tiles = max(-(-(L * R) // _K1_TN) for l, s, r, m, n, S, L, R in dims)
+    s_max = max(d[5] for d in dims)
+    tm = next((t for t in (64, 32) if len(dims) * -(-rows // t) >= _TARGET_CTAS), 16)
+    ctas = len(dims) * -(-rows // tm)
+    colsplit = min(col_tiles, max(1, -(-_TARGET_CTAS // ctas)))
+    cap = (SMEM_LIMIT // 8 - _K1_KS * (_K1_TN + 1)) // tm  # leading dimension of Ws
+    sc = min(s_max, cap if cap % 2 else cap - 1)
+    return tm, sc, colsplit
+
+
+def pack_k1_blocks(blocks, dims):
+    """The kernel's table of blocks as a flat list of 64-bit words, 21 per
+    block: three addresses, l s r m n S L R, the element strides of phi_l,
+    A and phi_r."""
+    words = []
+    for (phi_l, A, phi_r), d in zip(blocks, dims):
+        words += (phi_l.data_ptr(), A.data_ptr(), phi_r.data_ptr(), *d,
+                  *phi_l.stride(), *A.stride(), *phi_r.stride())
+    return words
+
+
+def _k1_check(blocks):
+    """Dims of the blocks of one launch; they share the output size."""
+    if not 0 < len(blocks) <= K1_MAX_BLOCKS:
+        raise KernelError(f"schur_assemble: 1 to {K1_MAX_BLOCKS} blocks a launch, "
+                          f"got {len(blocks)}")
+    dims = tuple(_dims("schur_assemble", b) for b in blocks)
+    sizes = {(l * m * L, r * n * R) for l, s, r, m, n, S, L, R in dims}
+    if len(sizes) != 1:
+        raise KernelError(f"schur_assemble: blocks of unequal output size {sorted(sizes)}")
+    return dims
+
+
+def _k1_launch(blocks, dims):
+    """Blocks of equal output size through one launch; a (g, M, N) tensor."""
+    l, _, r, m, n, _, L, R = dims[0]
+    ref = blocks[0][0]
+    out = torch.empty((len(blocks), l * m * L, r * n * R), dtype=ref.dtype, device=ref.device)
+    words = pack_k1_blocks(blocks, dims)
+    table = struct.pack(f"{len(words)}q", *words)
+    tm, sc, colsplit = k1_tiles(dims)
+    stream, guard = _launch_env(ref)
+    with guard:
+        err = _lib().ttipm_schur_assemble(table, len(blocks), _ptr(out), tm, sc, colsplit,
+                                          stream)
+    _check("schur_assemble", err)
+    return out
+
+
+def schur_assemble_group(blocks):
+    """Dense projected blocks of several operator cores, each an
+    (l*m*L) x (r*n*R) matrix of the same size, from one launch:
+    ``blocks`` is a list of ``(phi_l, A, phi_r)``; operator ranks may
+    differ between blocks.  Returns a list of views of one allocation."""
+    stats = STATS["schur_assemble"]
+    blocks = [tuple(b) for b in blocks]
+    dims = _k1_check(blocks)
+    if not _on_cuda(*(t for b in blocks for t in b)):
+        stats.plain_calls += 1
+        return schur_assemble_group_plain(blocks)
+    out = list(_k1_launch(blocks, dims).unbind(0))
+    stats.launches += 1
+    stats.grouped += 1
+    return out
 
 
 def schur_assemble(phi_l, A, phi_r):
@@ -112,59 +245,164 @@ def schur_assemble(phi_l, A, phi_r):
     if not _on_cuda(phi_l, A, phi_r):
         stats.plain_calls += 1
         return schur_assemble_plain(phi_l, A, phi_r)
-    l, s, r = phi_l.shape
-    s2, m, n, S = A.shape
-    L, S2, R = phi_r.shape
-    if s2 != s or S2 != S:
-        raise KernelError(f"schur_assemble: bond mismatch {phi_l.shape} {A.shape} {phi_r.shape}")
-    # Stage 1 (the s-contraction) stays an einsum, as in the TPU kernel.
-    W = torch.einsum("lsr,smnS->lmrnS", phi_l, A).contiguous()
-    P = phi_r.permute(1, 0, 2).contiguous()  # (S, L, R)
-    out = torch.empty((l * m * L, r * n * R), dtype=W.dtype, device=W.device)
-    with torch.cuda.device(W.device):
-        err = _lib().ttipm_schur_assemble(
-            _ptr(W), _ptr(P), _ptr(out), l, m, r, n, S, L, R, _stream(W))
-    _check("schur_assemble", err)
+    blocks = [(phi_l, A, phi_r)]
+    out = _k1_launch(blocks, _k1_check(blocks))[0]
     stats.launches += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# K2: projected block matvec  y[l,m,L] = phi_l[l,s,r] A[s,m,n,S] phi_r[L,S,R] x[r,n,R]
+# K2: projected block product, per term
+#     y[l,m,L] = phi_l[l,s,r] A[s,m,n,S] phi_r[L,S,R] x[r,n,R]
 # ---------------------------------------------------------------------------
+
+K2_MAX_TERMS = 12  # kMaxTerms in csrc/kkt_matvec.cu
+
 
 def kkt_block_matvec_plain(phi_l, A, phi_r, x):
     return torch.einsum("lsr,smnS,LSR,rnR->lmL", phi_l, A, phi_r, x)
 
 
+def kkt_block_product_plain(terms, nrows):
+    """Row ``i`` of the result is the sum of the block matvecs of the terms
+    ``(phi_l, A, phi_r, x, row)`` with ``row == i``; (l, nrows, m, L)."""
+    rows = [None] * nrows
+    for phi_l, A, phi_r, x, row in terms:
+        y = kkt_block_matvec_plain(phi_l, A, phi_r, x)
+        rows[row] = y if rows[row] is None else rows[row] + y
+    ref = next(r for r in rows if r is not None)
+    return torch.stack([torch.zeros_like(ref) if r is None else r for r in rows], dim=1)
+
+
+@functools.lru_cache(maxsize=4096)
+def k2_tiles(dims, nrows):
+    """The launch plan of one K2 launch, from the tuple of the terms'
+    ``(l, s, r, m, n, S, L, R)``: ``(lc, rt, threads, smem_bytes, cap1,
+    cap2, cap_phl, cap_x, cap_a, cap_phr)``, the ``Plan`` of
+    ``csrc/kkt_matvec.cu``.
+
+    A CTA owns ``lc`` values of l and walks over tiles of ``rt`` values of
+    R.  It holds, in doubles, ``2 lc m L`` (the row's sum and the running
+    term) and, sized by its widest term, ``t1 = s n lc rt`` and
+    ``t2 = lc m (S rt | 1)``.  R stays whole while one value of l fits
+    (then the stages sum exactly as three chained GEMMs); otherwise it is
+    cut into the fewest equal tiles that fit.  The chunk of l is the
+    smallest that still leaves a CTA per SM, so the short dependent stages
+    of a small product spread over the card.  What shared memory is left
+    goes to staged copies of the CTA's slices of phi_r, A, x and phi_l, in
+    that order (the longest chains first); a cap of 0 leaves an operand in
+    device memory.  A CTA has 256 threads, 512 where a stage has more
+    outputs than that."""
+    l, _, _, m, _, _, L, _ = dims[0]
+
+    def need(lc, rt):
+        t1 = max(s * n * lc * min(rt, R) for _, s, _, _, n, _, _, R in dims)
+        t2 = max(lc * m_ * ((S * min(rt, R)) | 1) for _, _, _, m_, _, S, _, R in dims)
+        return t1, t2, 2 * lc * m * L + t1 + t2
+
+    limit = SMEM_LIMIT // 8
+    r_max = max(d[7] for d in dims)
+    rt = r_max
+    tiles = 1
+    while need(1, rt)[2] > limit:
+        if rt == 1:
+            raise KernelError(f"kkt_block_matvec: operator ranks too large for one CTA: {dims}")
+        tiles += 1
+        rt = -(-r_max // tiles)
+    lc = 1
+    if rt == r_max:
+        chunks = max(1, min(l, _TARGET_CTAS // nrows))
+        lc = -(-l // chunks)
+        while need(lc, rt)[2] > limit:
+            lc -= 1
+    cap1, cap2, used = need(lc, rt)
+    staged = (
+        max(S * min(rt, R) * (L | 1) for _, _, _, _, _, S, _, R in dims),   # phi_r
+        max(s * m_ * n * S for _, s, _, m_, n, S, _, _ in dims),            # A
+        max(r * n * min(rt, R) for _, _, r, _, n, _, _, R in dims),         # x
+        max(lc * s * r for _, s, r, _, _, _, _, _ in dims),                 # phi_l
+    )
+    caps = []
+    for size in staged:
+        caps.append(size if used + size <= limit else 0)
+        used += caps[-1]
+    cap_phr, cap_a, cap_x, cap_phl = caps
+    threads = 512 if max(cap1, cap2) > 256 else 256
+    return lc, rt, threads, 8 * used, cap1, cap2, cap_phl, cap_x, cap_a, cap_phr
+
+
+def pack_k2_terms(terms, dims):
+    """The kernel's term table as a flat list of 64-bit words, 26 per term:
+    four addresses, l s r m n S L R, the element strides of phi_l, A,
+    phi_r and x, and the output row."""
+    words = []
+    for (phi_l, A, phi_r, x, row), d in zip(terms, dims):
+        words += (phi_l.data_ptr(), A.data_ptr(), phi_r.data_ptr(), x.data_ptr(), *d,
+                  *phi_l.stride(), *A.stride(), *phi_r.stride(), *x.stride(), row)
+    return words
+
+
+def _k2_check(terms, nrows):
+    """Dims of the terms of one product; they share l, m, L and name rows
+    below ``nrows``."""
+    if not 0 < len(terms) <= K2_MAX_TERMS:
+        raise KernelError(f"kkt_block_product: 1 to {K2_MAX_TERMS} terms a launch, "
+                          f"got {len(terms)}")
+    dims = tuple(_dims("kkt_block_matvec", t) for t in terms)
+    l, _, _, m, _, _, L, _ = dims[0]
+    for t, d in zip(terms, dims):
+        if (d[0], d[3], d[6]) != (l, m, L) or not 0 <= t[4] < nrows:
+            raise KernelError(f"kkt_block_product: term of output shape ({d[0]}, {d[3]}, "
+                              f"{d[6]}), row {t[4]} in a product of ({l}, {nrows}, {m}, {L})")
+    return dims
+
+
+def _k2_launch(terms, nrows, dims):
+    l, _, _, m, _, _, L, _ = dims[0]
+    x = terms[0][3]
+    out = torch.empty((l, nrows, m, L), dtype=x.dtype, device=x.device)
+    words = pack_k2_terms(terms, dims)
+    table = struct.pack(f"{len(words)}q", *words)
+    plan = struct.pack("10i", *k2_tiles(dims, nrows))
+    stream, guard = _launch_env(x)
+    with guard:
+        err = _lib().ttipm_kkt_product(table, len(terms), plan, _ptr(out), l, m, L, nrows,
+                                       stream)
+    _check("kkt_block_matvec", err)
+    return out
+
+
+def kkt_block_product(terms, nrows):
+    """A whole projected block product from one launch.  ``terms`` is a
+    list of ``(phi_l, A, phi_r, x, row)``; row ``i`` of the (l, nrows, m, L)
+    result is the sum over the terms of that row of the block matvec
+    ``phi_l[l,s,r] A[s,m,n,S] phi_r[L,S,R] x[r,n,R]``.  Operands are read
+    through their strides (no copies); bond and operator ranks may differ
+    between terms, l, m and L may not."""
+    stats = STATS["kkt_block_matvec"]
+    terms = [tuple(t) for t in terms]
+    dims = _k2_check(terms, nrows)
+    if not _on_cuda(*(t for term in terms for t in term[:4])):
+        stats.plain_calls += 1
+        return kkt_block_product_plain(terms, nrows)
+    out = _k2_launch(terms, nrows, dims)
+    stats.launches += 1
+    stats.grouped += 1
+    return out
+
+
 def kkt_block_matvec(phi_l, A, phi_r, x):
     """Apply one projected operator block to a local core (the fused
-    algebra's ``apply``); ``apply_T`` is this call on transposed operands."""
+    algebra's ``apply``); ``apply_T`` is this call on transposed operands.
+    The one-term case of ``kkt_block_product``."""
     stats = STATS["kkt_block_matvec"]
     if not _on_cuda(phi_l, A, phi_r, x):
         stats.plain_calls += 1
         return kkt_block_matvec_plain(phi_l, A, phi_r, x)
-    l, s, r = phi_l.shape
-    s2, m, n, S = A.shape
-    L, S2, R = phi_r.shape
-    if s2 != s or S2 != S or tuple(x.shape) != (r, n, R):
-        raise KernelError(
-            f"kkt_block_matvec: shape mismatch {phi_l.shape} {A.shape} "
-            f"{phi_r.shape} {x.shape}")
-    phi_l = phi_l.contiguous()
-    phi_r = phi_r.contiguous()
-    x = x.contiguous()
-    a2 = A.permute(1, 3, 0, 2).reshape(m * S, s * n).contiguous()
-    t1 = torch.empty(s * n * l * R, dtype=x.dtype, device=x.device)
-    t2 = torch.empty(l * m * S * R, dtype=x.dtype, device=x.device)
-    y = torch.empty((l, m, L), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib().ttipm_kkt_matvec(
-            _ptr(phi_l), _ptr(a2), _ptr(phi_r), _ptr(x), _ptr(t1), _ptr(t2),
-            _ptr(y), l, s, r, m, n, S, L, R, _stream(x))
-    _check("kkt_block_matvec", err)
+    terms = [(phi_l, A, phi_r, x, 0)]
+    out = _k2_launch(terms, 1, _k2_check(terms, 1))[:, 0]
     stats.launches += 1
-    return y
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -189,8 +427,9 @@ def panel_qr(a):
     a = a.contiguous()
     q = torch.empty((m, n), dtype=a.dtype, device=a.device)
     r = torch.empty((n, n), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        err = _lib().ttipm_panel_qr(_ptr(a), _ptr(q), _ptr(r), m, n, _stream(a))
+    stream, guard = _launch_env(a)
+    with guard:
+        err = _lib().ttipm_panel_qr(_ptr(a), _ptr(q), _ptr(r), m, n, stream)
     _check("panel_qr", err)
     stats.launches += 1
     return q, r
@@ -231,13 +470,7 @@ def panel_cholesky(a):
     if n > K4_RESIDENT_MAX_N:
         ws = torch.empty(_lib().ttipm_panel_cholesky_workspace(n), dtype=a.dtype,
                          device=a.device)
-    # The small orders of the solve are bound by launch latency: take the
-    # raw stream handle, and enter a device guard only when the operand is
-    # not on the current device.
-    dev = a.device.index
-    stream = ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev))
-    guard = (contextlib.nullcontext() if dev == torch.cuda.current_device()
-             else torch.cuda.device(dev))
+    stream, guard = _launch_env(a)
     with guard:
         err = _lib().ttipm_panel_cholesky(
             _ptr(a), a.stride(0), a.stride(1), _ptr(out), n, _ptr(info),

@@ -58,12 +58,13 @@ def _cholesky(S):
 
 
 def _dense_factor(pl, A, pr, inv_I):
-    L_L_Z = _cholesky(fa.tikhonov(fa.proj(pl["21"], A["21"], pr["21"])))
-    mL_eq = fa.proj(pl["01"], A["01"], pr["01"])
-    L_X_I_inv = fa.proj(pl["22"], A["22"], pr["22"]) * inv_I.reshape(1, -1)
+    B21, mL_eq, B22, B00 = kernels.schur_assemble_group(
+        [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "00")])
+    L_L_Z = _cholesky(fa.tikhonov(B21))
+    L_X_I_inv = B22 * inv_I.reshape(1, -1)
     S = chol_solve(L_L_Z, L_X_I_inv)
     S = mL_eq @ (S @ mL_eq.T)
-    S = fa.tikhonov(S + fa.proj(pl["00"], A["00"], pr["00"]))
+    S = fa.tikhonov(S + B00)
     return L_L_Z, mL_eq, L_X_I_inv, lu_factor(S)
 
 

@@ -4,9 +4,11 @@ equality path.
 Counterpart of ``ttipm_tpu/solvers/fused_algebra.py``, written directly
 over torch instead of closed over a numpy/jnp backend.  The hot
 contractions go through the hand-written kernels (``ops/kernels.py``):
-``apply`` / ``apply_T`` and their transposed variants through K2
-(``kkt_block_matvec``), ``proj`` through K1 (``schur_assemble``), and the
-enrichment panel QR of the split steps through K3 (``panel_qr``).
+the block products (``local_product``, ``z_product``, ``mixed_product``)
+through one K2 launch each (``kkt_block_product``) and ``apply`` /
+``apply_T`` through its one-term case (``kkt_block_matvec``), the dense
+projected blocks of the local solves through K1 (``schur_assemble_group``),
+and the enrichment panel QR of the split steps through K3 (``panel_qr``).
 
 KKT block layout: variables [dY, dX, dZ]; stored blocks (0,0), (0,1)
 (transpose-aliased to (1,0)), (1,2) = I, (2,1) = Lz, (2,2) = Lx, keyed as
@@ -55,49 +57,47 @@ def apply_T(p_l, a, p_r, v):
     return kernels.kkt_block_matvec(_flip(p_l), _t(a), _flip(p_r), v)
 
 
-def proj(p_l, a, p_r):
-    """Dense projected block (l*m*L) x (r*n*R)."""
-    return kernels.schur_assemble(p_l, a, p_r)
+def _block_product(x, t00, t01, t10, t12, t21, t22):
+    """Rows [t00 x0 + t01 x1, t10 x0 + t12 x2, t21 x1 + t22 x2] of a KKT
+    block product from one launch; each t is ``(p_l, a, p_r)``."""
+    x0, x1, x2 = x[:, 0], x[:, 1], x[:, 2]
+    return kernels.kkt_block_product(
+        [(*t00, x0, 0), (*t01, x1, 0), (*t10, x0, 1), (*t12, x2, 1), (*t21, x1, 2),
+         (*t22, x2, 2)], NROWS)
+
+
+def _terms(pl, A, pr):
+    """(p_l, a, p_r) of the five stored blocks, in the order of KEYS."""
+    return [(pl[k], A[k], pr[k]) for k in KEYS]
 
 
 def local_product(pl, A, pr, x):
     """K @ x in the projected basis; x: (rl, 3, n, rr)."""
-    y0 = apply(pl["00"], A["00"], pr["00"], x[:, 0]) + apply(
-        pl["01"], A["01"], pr["01"], x[:, 1])
-    y1 = apply_T(pl["01"], A["01"], pr["01"], x[:, 0]) + apply(
-        pl["12"], A["12"], pr["12"], x[:, 2])
-    y2 = apply(pl["21"], A["21"], pr["21"], x[:, 1]) + apply(
-        pl["22"], A["22"], pr["22"], x[:, 2])
-    return torch.stack([y0, y1, y2], dim=1)
+    t00, t01, t12, t21, t22 = _terms(pl, A, pr)
+    # the (1,0) block is the transpose of (0,1): apply_T's operands
+    t10 = (_flip(pl["01"]), _t(A["01"]), _flip(pr["01"]))
+    return _block_product(x, t00, t01, t10, t12, t21, t22)
 
 
 def z_product(zl, A, zr, x):
     """K @ x projected with z-bases on the left and the right."""
-    y0 = apply(zl["00"], A["00"], zr["00"], x[:, 0]) + apply(
-        zl["01"], A["01"], zr["01"], x[:, 1])
+    t00, t01, t12, t21, t22 = _terms(zl, A, zr)
     # "lsr,snmS,LSR,rnR->lmL": the (1,0) block with its own z interfaces
-    y1 = apply(zl["10"], _t(A["01"]), zr["10"], x[:, 0]) + apply(
-        zl["12"], A["12"], zr["12"], x[:, 2])
-    y2 = apply(zl["21"], A["21"], zr["21"], x[:, 1]) + apply(
-        zl["22"], A["22"], zr["22"], x[:, 2])
-    return torch.stack([y0, y1, y2], dim=1)
+    t10 = (zl["10"], _t(A["01"]), zr["10"])
+    return _block_product(x, t00, t01, t10, t12, t21, t22)
 
 
 def mixed_product(ml, mr, A, x, transpose_right_phi: bool):
     """K @ x with a z basis on one side and the x basis on the other,
     including the reversed outer indices on the transpose row."""
-    y0 = apply(ml["00"], A["00"], mr["00"], x[:, 0]) + apply(
-        ml["01"], A["01"], mr["01"], x[:, 1])
+    t00, t01, t12, t21, t22 = _terms(ml, A, mr)
     if transpose_right_phi:
         # "rsl,snmS,LSR,rnR->lmL"
-        y1_t = apply(_flip(ml["01"]), _t(A["01"]), mr["10"], x[:, 0])
+        t10 = (_flip(ml["01"]), _t(A["01"]), mr["10"])
     else:
         # "lsr,snmS,RSL,rnR->lmL"
-        y1_t = apply(ml["10"], _t(A["01"]), _flip(mr["01"]), x[:, 0])
-    y1 = y1_t + apply(ml["12"], A["12"], mr["12"], x[:, 2])
-    y2 = apply(ml["21"], A["21"], mr["21"], x[:, 1]) + apply(
-        ml["22"], A["22"], mr["22"], x[:, 2])
-    return torch.stack([y0, y1, y2], dim=1)
+        t10 = (ml["10"], _t(A["01"]), _flip(mr["01"]))
+    return _block_product(x, t00, t01, t10, t12, t21, t22)
 
 
 def project_rhs(bl, b, br):

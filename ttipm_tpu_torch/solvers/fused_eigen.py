@@ -8,7 +8,8 @@ window at the fixed rank and updates the interfaces.
 
 Counterpart of ``ttipm_tpu/solvers/fused_eigen.py:623`` with the semantics
 of its numpy host engine (``fused_eigen_host.py``).  The window and
-single-core assemblies go through K1 (``schur_assemble``; a 2-core window
+single-core assemblies go through K1 (``schur_assemble_group``, the pencil's
+two matrices from one launch; a 2-core window
 is one operator core of physical size 16 after merging the pair), and the
 Cholesky of the whitened shrink pencil through K4 (``panel_cholesky``).
 
@@ -38,12 +39,11 @@ __all__ = ["tt_max_generalised_eigen_fused"]
 TINY = 1e-300
 
 
-def _asm2(phi_l, A_k, A_k1, phi_r):
-    """Window pencil [(l,m,p,L),(r,n,t,R)] through the merged operator core."""
+def _merged(A_k, A_k1):
+    """The operator core of a 2-core window: physical size 16."""
     s, m, n, _ = A_k.shape
     _, p, t, S = A_k1.shape
-    merged = torch.einsum("smnk,kptS->smpntS", A_k, A_k1).reshape(s, m * p, n * t, S)
-    return kernels.schur_assemble(phi_l, merged, phi_r)
+    return torch.einsum("smnk,kptS->smpntS", A_k, A_k1).reshape(s, m * p, n * t, S)
 
 
 def _smallest_eigpair(M):
@@ -104,8 +104,9 @@ def _gen_window_step(pAl, A_k, A_k1, pAr, pDl, D_k, D_k1, pDr, sol1, sol2,
                      alpha, tol, r_out: int, bwd: bool):
     prev = torch.einsum("rny,ytR->rntR", sol1, sol2)
     rl, n1, n2, rr = prev.shape
-    MA = _asm2(pAl, A_k, A_k1, pAr)
-    MD = _asm2(pDl, D_k, D_k1, pDr)
+    # window pencils [(l,m,p,L),(r,n,t,R)], both from one launch
+    MA, MD = kernels.schur_assemble_group(
+        [(pAl, _merged(A_k, A_k1), pAr), (pDl, _merged(D_k, D_k1), pDr)])
     x, alpha_new, old_res, scale = _pencil_solve(MA, MD, prev.reshape(-1), alpha, tol)
     x = _unit(x)
     if bwd:
@@ -127,8 +128,7 @@ def _gen_last_step(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol,
                    r_out: int, bwd: bool, split: bool):
     """Single-core refinement pass of the finishing sweep."""
     rl, n, rr = prev.shape
-    MA = kernels.schur_assemble(pAl, A_k, pAr)
-    MD = kernels.schur_assemble(pDl, D_k, pDr)
+    MA, MD = kernels.schur_assemble_group([(pAl, A_k, pAr), (pDl, D_k, pDr)])
     x, alpha_new, old_res, _scale = _pencil_solve(MA, MD, prev.reshape(-1), alpha, tol)
     x = _unit(x)
     if not split:

@@ -1,0 +1,254 @@
+"""K1 and K2 of two checkouts of the port on one card, in turns.
+
+    python ttipm_tpu_torch/tools/compare_kernels.py --parent DIR [--dim 8 --seed 24]
+
+``DIR`` holds another checkout of the repository (for example an unpacked
+``git archive`` of the parent commit); the script's own checkout is "the
+change".  Every measurement runs in a process of its own that imports
+``ttipm_tpu_torch`` from one of the two roots, through the entry points
+both have: ``kernels.kkt_block_matvec``, ``kernels.schur_assemble``,
+``fused_algebra.local_product`` and, where the checkout has it,
+``kernels.schur_assemble_group`` (else four ``kernels.schur_assemble``
+calls).
+
+1. bits: the change solves MaxCut d<dim> and records the operands and
+   the result of the first call of every distinct shape of its K1 and K2
+   entry points; the parent computes the same results from the same
+   operands with its kernels; the two are compared bit for bit.
+2. times, in the order parent, change, change, parent: at bond rank 8 /
+   operator rank 4 and at 32 / 9, one block matvec, one Schur block, one
+   ``local_product`` and the four Schur blocks of a local factor: median
+   of single calls (CUDA events, host cost included), back-to-back calls
+   (wall of a run of calls over their number), and the device kernels per
+   call with their summed device time (torch.profiler); then the wall and
+   the iteration count of the MaxCut solve.
+
+Prints one JSON line per step.  Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+# ---------------------------------------------------------------------------
+# Workers (run with --root: import the package from there)
+# ---------------------------------------------------------------------------
+
+def _solve(dim, seed):
+    sys.path.append(HERE)  # chip_smoke's config reader and solve routine
+    import chip_smoke
+    import torch
+
+    settings = chip_smoke.ipm_settings(chip_smoke.load_config(dim))
+    return chip_smoke.solve(dim, seed, torch.device("cuda"), settings)
+
+
+def worker_record(args):
+    """Solve on the change, keep the first call of every distinct shape."""
+    import torch
+
+    from ttipm_tpu_torch.checks import shape_key
+    from ttipm_tpu_torch.ops import kernels as K
+
+    def cpu(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().cpu().contiguous()
+        if isinstance(a, (list, tuple)):
+            return [cpu(x) for x in a]
+        return a
+
+    names = ("kkt_block_product", "kkt_block_matvec", "schur_assemble_group", "schur_assemble")
+    seen, calls = set(), []
+    originals = {n: getattr(K, n) for n in names}
+
+    def recorder(name):
+        def wrapped(*a):
+            out = originals[name](*a)
+            key = (name, shape_key(a))
+            if key not in seen:
+                seen.add(key)
+                calls.append((name, cpu(a), cpu(out)))
+            return out
+        return wrapped
+
+    for n in names:
+        setattr(K, n, recorder(n))
+    res = _solve(args.dim, args.seed)
+    torch.save(calls, args.file)
+    print(json.dumps({"recorded": len(calls), "iters": res["iters"], "slack": res["slack"]}))
+
+
+def worker_replay(args):
+    """The recorded calls through this root's single-call kernels."""
+    import torch
+
+    from ttipm_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    calls = torch.load(args.file, weights_only=False)
+    report = {}
+    for name, a, want in calls:
+        def cu(t):
+            return t.to(dev)
+        if name == "kkt_block_product":
+            terms, nrows = a
+            rows = [None] * nrows
+            for pl, A, pr, x, row in terms:
+                y = K.kkt_block_matvec(cu(pl), cu(A), cu(pr), cu(x))
+                rows[row] = y if rows[row] is None else rows[row] + y
+            got = torch.stack(rows, dim=1)
+        elif name == "kkt_block_matvec":
+            got = K.kkt_block_matvec(*(cu(t) for t in a))
+        elif name == "schur_assemble_group":
+            got = torch.stack([K.schur_assemble(*(cu(t) for t in b)) for b in a[0]])
+            want = torch.stack(list(want))
+        else:
+            got = K.schur_assemble(*(cu(t) for t in a))
+        r = report.setdefault(name, {"shapes": 0, "bit_equal": 0, "max_abs_diff": 0.0})
+        r["shapes"] += 1
+        r["bit_equal"] += int(torch.equal(got.cpu(), want))
+        r["max_abs_diff"] = max(r["max_abs_diff"], float((got.cpu() - want).abs().max()))
+    print(json.dumps({"bits": report}))
+
+
+def _device_kernels(fn):
+    """(device kernels, summed device microseconds) of one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev), float(sum(e.time_range.elapsed_us() for e in ev))
+
+
+def worker_time(args):
+    import torch
+
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(7)
+
+    def t(*shape):
+        return torch.as_tensor(rng.randn(*shape), device=dev)
+
+    def single_ms(fn, runs=30):
+        for _ in range(5):
+            fn()
+        out = []
+        for _ in range(runs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return float(np.median(out))
+
+    def back_to_back_ms(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    rows = []
+    for R, s in ((8, 4), (32, 9)):
+        keys = ("00", "01", "12", "21", "22")
+        pl = {k: t(R, s, R) for k in keys}
+        A = {k: t(s, 4, 4, s) for k in keys}
+        pr = {k: t(R, s, R) for k in keys}
+        x = t(R, 3, 4, R)
+        x0 = x[:, 0].contiguous()
+        blocks = [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "00")]
+        if hasattr(K, "schur_assemble_group"):
+            def factor_blocks():
+                return K.schur_assemble_group(blocks)
+        else:
+            def factor_blocks():
+                return [K.schur_assemble(*b) for b in blocks]
+        cases = {
+            "block_matvec": lambda: K.kkt_block_matvec(pl["00"], A["00"], pr["00"], x0),
+            "schur_block": lambda: K.schur_assemble(pl["00"], A["00"], pr["00"]),
+            "local_product": lambda: fa.local_product(pl, A, pr, x),
+            "factor_blocks": factor_blocks,
+        }
+        for name, fn in cases.items():
+            n_dev, dev_us = _device_kernels(fn)
+            rows.append({"case": name, "R": R, "s": s, "single_ms": single_ms(fn),
+                         "back_to_back_ms": back_to_back_ms(fn, 200 if R == 8 else 50),
+                         "device_kernels": n_dev, "device_us": dev_us})
+    res = _solve(args.dim, args.seed)
+    print(json.dumps({"times": rows, "solve": {k: res[k] for k in
+                                               ("iters", "slack", "wall_s")}}))
+
+
+# ---------------------------------------------------------------------------
+# Orchestration
+# ---------------------------------------------------------------------------
+
+def run_worker(root, mode, args, file=None):
+    cmd = [sys.executable, os.path.abspath(__file__), "--worker", mode, "--root", root,
+           "--dim", str(args.dim), "--seed", str(args.seed)]
+    if file:
+        cmd += ["--file", file]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"worker {mode} in {root} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="root of the other checkout")
+    ap.add_argument("--dim", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=24)
+    ap.add_argument("--worker", choices=("record", "replay", "time"))
+    ap.add_argument("--root")
+    ap.add_argument("--file")
+    args = ap.parse_args(argv)
+    if args.worker:
+        sys.path.insert(0, os.path.abspath(args.root))
+        {"record": worker_record, "replay": worker_replay, "time": worker_time}[args.worker](args)
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernels: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    parent = os.path.abspath(args.parent)
+    with tempfile.TemporaryDirectory() as tmp:
+        file = os.path.join(tmp, "calls.pt")
+        print(json.dumps({"change": run_worker(HERE, "record", args, file)}), flush=True)
+        print(json.dumps({"parent": run_worker(parent, "replay", args, file)}), flush=True)
+    for who, root in (("parent", parent), ("change", HERE), ("change", HERE),
+                      ("parent", parent)):
+        print(json.dumps({who: run_worker(root, "time", args)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
