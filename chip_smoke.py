@@ -10,8 +10,10 @@ and prints no result line):
    nvcc per source, all started together).
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the fused solve's shapes (bond rank R in {8, 16, 32}, operator ranks
-   in {1, 4, 9}, panels (4R, R+2), SPD matrices of the orders in
-   K4_ORDERS, which span both regimes of K4, and one indefinite one),
+   in {1, 4, 9}, the panels of K3_PANELS, which span K3's regimes up to
+   its envelope 512 x 128, one of them also as a transposed view and with
+   the transposed output, SPD matrices of the orders in K4_ORDERS, which
+   span both regimes of K4, and one indefinite one),
    with median times of kernel, plain version and the one library call
    that computes the same function, taken in turns (plain, library,
    kernel, kernel, library, plain), beside the roofline bound of the call.
@@ -28,9 +30,10 @@ and prints no result line):
    launched, no plain version run on a CUDA tensor, and every kernel
    within the tolerances of phase 3 at each distinct shape the solve gave
    it (checked on the first call of that shape; the grouped entries
-   included); K1, K2 and K4 and their plain versions are then timed on the
+   included); every kernel and its plain version are then timed on the
    first operands of each of their shapes, and the totals weighted by the
-   solve's call counts are printed.
+   solve's call counts are printed (slice_k12_times, slice_k3_times,
+   slice_k4_times).
 
 The line before the last is a JSON object with the per-kernel record; the
 last line is {"ok": true, "device": {...}}.
@@ -68,6 +71,12 @@ F64_FLOP_PER_S = 67e12
 # solve's common orders, the resident bound 512 and one past it, and the
 # blocked regime up to 4 * 36^2.
 K4_ORDERS = (16, 64, 144, 256, 400, 512, 513, 1024, 4096, 5184)
+
+# Panels at which K3 is timed against torch.linalg.qr: the largest a cluster
+# of CTAs factors (the envelope) and a tall one CTA holds, the (4R, R + 2)
+# of bond ranks 36, 32, 16 and 8, and the d8 solve's smallest and largest
+# (the last is the one the kernels line reports).
+K3_PANELS = ((512, 128), (512, 32), (144, 36), (128, 34), (64, 18), (32, 10), (24, 6), (40, 10))
 
 
 def load_config(dim: int) -> dict:
@@ -253,12 +262,17 @@ def phase_kernels():
     floor = float(np.median(_times_ms(lambda: K.empty_launch(dev), runs=50)))
     print(json.dumps({"empty_launch_ms": floor}), flush=True)
 
-    def run(name, *args):
+    def run(name, *args, **kw):
         fn, plain, lib = getattr(K, name), PLAIN[name], library.get(name)
-        errs = check_kernel(name, args, fn(*args))
+        out = fn(*args, **kw)
+        if kw.get("transposed"):  # K3 handing back q^T: hold q to the contract
+            if tuple(out[0].shape) != args[0].shape[::-1] or not out[0].is_contiguous():
+                raise AssertionError(f"{name}: transposed output of shape {out[0].shape}")
+            out = (out[0].T, out[1])
+        errs = check_kernel(name, args, out)
         s = summary[KERNEL_OF[name]]
         s["max_abs_err"] = max(s["max_abs_err"], errs.get("max_abs_err", 0.0))
-        fns = [lambda: plain(*args), lambda: fn(*args)]
+        fns = [lambda: plain(*args), lambda: fn(*args, **kw)]
         if lib is not None:
             fns.insert(1, lambda: lib(*args))
         ms = _turns_ms(fns)
@@ -266,7 +280,7 @@ def phase_kernels():
         row["bound_ms"], row["bound_by"] = bound_ms(name, args)
         if name in KERNELS:
             s.update(row)
-        print(json.dumps({"kernel": name, "shape": shape_key(args), **errs, **row,
+        print(json.dumps({"kernel": name, "shape": shape_key(args), **kw, **errs, **row,
                           "ratio": row["ms"] / row["plain_ms"]}), flush=True)
 
     for R in (8, 16, 32):
@@ -277,8 +291,10 @@ def phase_kernels():
             terms, blocks = grouped_operands(t, R, s)
             run("kkt_block_product", terms, 3)
             run("schur_assemble_group", blocks)
-    for R in (8, 16, 32):
-        run("panel_qr", t(4 * R, R + 2))
+    run("panel_qr", t(34, 128).T)                     # a non-contiguous operand
+    run("panel_qr", t(128, 34), transposed=True)      # q^T as the backward split takes it
+    for m, n in K3_PANELS:
+        run("panel_qr", t(m, n))
     for n in K4_ORDERS:
         Bm = t(n, n)
         S = Bm @ Bm.T + n * torch.eye(n, dtype=Bm.dtype, device=dev)
@@ -359,14 +375,15 @@ def phase_slice(dim, seed):
     def recorder(name):
         fn = originals[name]
 
-        def wrapped(*args):
-            key = shape_key(args)
+        def wrapped(*args, **kw):
+            key = shape_key(args) + (f" {kw}" if kw else "")
             shapes[name][key] += 1
-            out = fn(*args)
+            out = fn(*args, **kw)
             if key not in checked[name]:
                 t0 = time.perf_counter()
-                checked[name][key] = kernel_errors(name, args, out, cancelling=True)
-                first[name][key] = (args[0].clone(),) if name == "panel_cholesky" else args
+                held = (out[0].T, out[1]) if kw.get("transposed") else out
+                checked[name][key] = kernel_errors(name, args, held, cancelling=True)
+                first[name][key] = ((args[0].clone(),) if name == "panel_cholesky" else args, kw)
                 check_s[0] += time.perf_counter() - t0
             return out
         return wrapped
@@ -407,6 +424,7 @@ def phase_slice(dim, seed):
     phase_slice_times("slice_k12_times", shapes, first,
                       ("kkt_block_product", "kkt_block_matvec", "schur_assemble_group",
                        "schur_assemble"))
+    phase_slice_times("slice_k3_times", shapes, first, ("panel_qr",))
     phase_slice_times("slice_k4_times", shapes, first, ("panel_cholesky",))
     abs_tol = settings["abs_tol"]
     if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
@@ -424,7 +442,7 @@ def phase_slice(dim, seed):
 
 def phase_slice_times(label, shapes, first, names):
     """The entry points ``names`` and their plain versions (einsum,
-    cholesky_ex) timed on the first operands of each of their shapes in the
+    linalg.qr, cholesky_ex) timed on the first operands of each of their shapes in the
     solve; the totals weight each shape by its call count (the time the
     solve would spend in single calls of either)."""
     from ttipm_tpu_torch.checks import PLAIN
@@ -434,8 +452,8 @@ def phase_slice_times(label, shapes, first, names):
     for name in names:
         fn, plain = getattr(K, name), PLAIN[name]
         rows, total, plain_total = [], 0.0, 0.0
-        for key, args in first[name].items():
-            plain_ms, ms = _turns_ms([lambda: plain(*args), lambda: fn(*args)], runs=3,
+        for key, (args, kw) in first[name].items():
+            plain_ms, ms = _turns_ms([lambda: plain(*args), lambda: fn(*args, **kw)], runs=3,
                                      warmup=1)
             count = shapes[name][key]
             rows.append({"shape": key, "count": count, "ms": ms, "plain_ms": plain_ms})

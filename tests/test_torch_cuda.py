@@ -12,7 +12,9 @@ MaxCut solves give the kernels (rectangular interfaces, the 16-wide merged
 eigen-window core, small and partial panels, Cholesky orders that are not
 multiples of the 32-wide tile), and K4's own contract at and around its
 regime boundaries (failing and NaN pivots, NaN above the diagonal,
-non-contiguous operands, one kernel launch up to order 512).  The grouped
+non-contiguous operands, one kernel launch up to order 512), and K3's at
+every regime of its envelope (one CTA, a cluster of row slabs), on rank-deficient, NaN and non-contiguous panels, with the
+transposed output, one device kernel a call.  The grouped
 entries of K1 and K2 run at the same regular and odd shapes with
 non-contiguous operands, and every K1 / K2 call is one device kernel.
 """
@@ -34,6 +36,25 @@ def cuda():
 
 def _dev(rng, dev, *shape):
     return torch.as_tensor(rng.randn(*shape), device=dev)
+
+
+def _device_kernel_names(fn):
+    """Names of the device kernels of one call of ``fn`` (torch.profiler).
+    A trace now and then comes back empty, a process's first one more
+    often: the call is traced again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 @pytest.mark.cuda
@@ -157,8 +178,6 @@ def test_cuda_contractions_are_one_device_kernel(cuda, R, s):
     contiguous and on flipped operands: no GEMM, copy or elementwise
     kernel from inside the wrappers; and one wrapper call per block
     product of the fused algebra."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ttipm_tpu_torch.solvers import fused_algebra as fa
 
     rng = np.random.RandomState(R)
@@ -180,20 +199,13 @@ def test_cuda_contractions_are_one_device_kernel(cuda, R, s):
         "mixed_product": lambda: fa.mixed_product(pl, pr, A, x, True),
         "mixed_product_left": lambda: fa.mixed_product(pl, pr, A, x, False),
     }
-    with profile(activities=[ProfilerActivity.CUDA]):  # the first trace of a process
-        calls["schur_assemble"]()                      # may come back empty
-        torch.cuda.synchronize()
+    _device_kernel_names(calls["schur_assemble"])
     for name, call in calls.items():
-        call()
-        torch.cuda.synchronize()
-        K.reset_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = _device_kernel_names(call)
         assert len(kernels) == 1, (name, kernels)
         assert not any(w in kernels[0].lower() for w in ("gemm", "copy", "elementwise")), kernels
+        K.reset_counts()
+        call()
         assert sum(st.launches for st in K.STATS.values()) == 1, name
 
 
@@ -218,6 +230,155 @@ def test_cuda_panel_qr_odd_shapes(cuda, mn):
         a[:, 1] = a[:, 0]
         a[:, 2] = 0.0
         check_kernel("panel_qr", (a,), K.panel_qr(a))
+
+
+# K3's panels: the smoke test's list; the boundaries of its regimes (1, 2,
+# 4 or 6 rows a lane; one CTA up to 192 rows, a cluster of 2 up to 384, of 4
+# above); square panels, single columns, row counts that are no multiple
+# of 32 or of the cluster.
+K3_PANELS = [(24, 6), (40, 10), (32, 10), (64, 18), (128, 34), (144, 36), (512, 32), (512, 128),
+             (32, 8), (33, 8), (64, 8), (65, 8), (128, 8), (129, 8), (192, 20), (193, 20),
+             (384, 57), (385, 57), (300, 128), (511, 127), (257, 3),
+             (5, 5), (36, 36), (128, 128), (1, 1), (33, 1), (512, 1), (100, 34), (257, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mn", K3_PANELS)
+def test_cuda_panel_qr_envelope(cuda, mn):
+    """The contract at every regime, with LAPACK's signs on the full-rank
+    panel, then with a repeated and a zero column, then all zeros."""
+    m, n = mn
+    a = _dev(np.random.RandomState(m + n), cuda, m, n)
+    K.reset_counts()
+    q, r = K.panel_qr(a)
+    torch.cuda.synchronize()
+    assert (K.STATS["panel_qr"].launches, K.STATS["panel_qr"].plain_calls) == (1, 0)
+    check_kernel("panel_qr", (a,), (q, r))
+    r0 = torch.linalg.qr(a, mode="reduced")[1]
+    assert torch.equal(torch.sign(torch.diagonal(r)), torch.sign(torch.diagonal(r0)))
+    if n > 2:
+        a[:, 1] = a[:, 0]
+        a[:, 2] = 0.0
+        check_kernel("panel_qr", (a,), K.panel_qr(a))
+    z = torch.zeros_like(a)
+    q, r = K.panel_qr(z)
+    check_kernel("panel_qr", (z,), (q, r))
+    assert float(r.abs().max()) == 0.0  # tau = 0 throughout: Q = I[:, :n]
+    assert torch.equal(q, torch.eye(m, n, dtype=q.dtype, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mn", [(40, 10), (128, 34), (144, 36), (300, 20), (512, 128)])
+def test_cuda_panel_qr_layouts(cuda, mn):
+    """Transposed and strided operands are read in place; the transposed
+    output is the contiguous (n, m) array q^T with the same bits as q."""
+    m, n = mn
+    rng = np.random.RandomState(m)
+    a = _dev(rng, cuda, m, n)
+    q, r = K.panel_qr(a)
+    qt, rt = K.panel_qr(a, transposed=True)
+    assert tuple(qt.shape) == (n, m) and qt.is_contiguous()
+    assert torch.equal(qt, q.T) and torch.equal(rt, r)
+    for view in (_dev(rng, cuda, n, m).T, _dev(rng, cuda, 2 * m, 2 * n)[::2, ::2]):
+        assert not view.is_contiguous()
+        got = K.panel_qr(view)
+        check_kernel("panel_qr", (view,), got)
+        same = K.panel_qr(view.contiguous())
+        assert torch.equal(got[0], same[0]) and torch.equal(got[1], same[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mn", [(40, 10), (300, 20), (512, 100)])
+def test_cuda_panel_qr_nan_comes_out_as_nan(cuda, mn):
+    a = _dev(np.random.RandomState(3), cuda, *mn)
+    a[3, 4] = float("nan")
+    q, r = K.panel_qr(a)
+    torch.cuda.synchronize()  # no hang: no loop of the kernel depends on the data
+    assert bool(torch.isnan(q).any()) and bool(torch.isnan(r).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mn", [(513, 10), (512, 129), (3, 5)])
+def test_cuda_panel_qr_refuses_outside_the_envelope(cuda, mn):
+    K.reset_counts()
+    with pytest.raises(K.KernelError):
+        K.panel_qr(torch.zeros(mn, dtype=torch.float64, device=cuda))
+    assert (K.STATS["panel_qr"].launches, K.STATS["panel_qr"].plain_calls) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mn", [(24, 6), (40, 10), (128, 34), (144, 36), (512, 32), (512, 128)])
+def test_cuda_panel_qr_is_one_device_kernel(cuda, mn):
+    """One device kernel a call, in every regime and for either output
+    layout and a transposed operand: no copy or elementwise kernel from
+    inside the wrapper."""
+    a = _dev(np.random.RandomState(1), cuda, *mn)
+    at = _dev(np.random.RandomState(2), cuda, mn[1], mn[0]).T
+    for call in (lambda: K.panel_qr(a), lambda: K.panel_qr(a, transposed=True),
+                 lambda: K.panel_qr(at)):
+        names = _device_kernel_names(call)
+        assert len(names) == 1 and "panel_qr" in names[0], names
+        assert not any(w in names[0].lower() for w in ("gemm", "copy", "elementwise")), names
+
+
+@pytest.mark.cuda
+def test_cuda_backward_split_takes_q_transposed_without_a_copy(cuda):
+    """The K3 site of bck_split_step is one device kernel: the core is a
+    view of the kernel's q^T.  Against a K3 that hands back q for the caller
+    to transpose, the step runs fewer device kernels and gives the same
+    core."""
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    rng = np.random.RandomState(9)
+    u_aug = _dev(rng, cuda, 32, 10)
+
+    def site():
+        qt, _ = K.panel_qr(u_aug, transposed=True)
+        return qt.reshape(10, 4, 8)
+
+    _device_kernel_names(site)
+    names = _device_kernel_names(site)
+    assert len(names) == 1 and "panel_qr" in names[0], names
+    assert site().is_contiguous()
+
+    rl, rr, rz, n, bs, sb = 8, 8, 2, 4, 3, 2
+    keys = ("00", "01", "12", "21", "22")
+    pl = {k: _dev(rng, cuda, rl, 2, rl) for k in keys}
+    pr = {k: _dev(rng, cuda, rr, 2, rr) for k in keys}
+    zl = {k: _dev(rng, cuda, rz, 2, rl) for k in keys + ("10",)}
+    zr = {k: _dev(rng, cuda, rz, 2, rr) for k in keys + ("10",)}
+    A = {k: _dev(rng, cuda, 2, 4, 4, 2) for k in keys}
+    b = [_dev(rng, cuda, sb, n, sb) for _ in range(3)]
+    bl, br = ([_dev(rng, cuda, sb, r) for _ in range(3)] for r in (rl, rr))
+    zbl, zbr = ([_dev(rng, cuda, sb, rz) for _ in range(3)] for _ in range(2))
+    x_k, z_k = _dev(rng, cuda, rl, bs, n, rr), _dev(rng, cuda, rz, bs, n, rz)
+    x_nb, z_nb = _dev(rng, cuda, 2, n, rl), _dev(rng, cuda, 2, n, rz)
+
+    def solve_local(pl, A, pr, bl, b, br, x):
+        z = x.new_zeros(())
+        return 0.5 * x + 0.1 * torch.roll(x, 1, dims=2), None, z, z, z
+
+    def step():
+        return fa.bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
+                                 x_k, x_nb, z_k, z_nb, 8, 2, True)
+
+    new_names = _device_kernel_names(step)
+    core = step()[0]
+    assert sum("panel_qr" in name for name in new_names) == 1
+    original = K.panel_qr
+
+    def untransposed(a, transposed=False):
+        q, r = original(a)
+        return (q.T if transposed else q), r
+
+    K.panel_qr = untransposed
+    try:
+        old_names = _device_kernel_names(step)
+        old_core = step()[0]
+    finally:
+        K.panel_qr = original
+    assert len(new_names) < len(old_names), (len(new_names), len(old_names))
+    assert torch.equal(core, old_core)
 
 
 @pytest.mark.cuda
@@ -314,17 +475,10 @@ def test_cuda_panel_cholesky_non_contiguous(cuda, n):
 def test_cuda_panel_cholesky_launch_count(cuda, n):
     """One device kernel for every order up to 512; above it at most
     2 ceil(n / 64) + 2 (it takes two: a copy and one persistent kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-
     A = _spd(n, cuda)
-    K.panel_cholesky(A)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        K.panel_cholesky(A)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernel_names(lambda: K.panel_cholesky(A))
     if n <= K.K4_RESIDENT_MAX_N:
-        assert len(kernels) == 1, [e.name for e in kernels]
+        assert len(kernels) == 1, kernels
     else:
         assert 0 < len(kernels) <= 2 * -(-n // K.K4_PANEL) + 2
 

@@ -60,16 +60,23 @@ def test_schur_assemble_plain_matches_pallas():
         assert rel(got.numpy(), want) < 1e-12
 
 
-@pytest.mark.parametrize("mn", [(32, 8), (48, 12), (7, 3), (16, 16)])
+@pytest.mark.parametrize("mn", [(32, 8), (48, 12), (7, 3), (16, 16), (24, 6, "deficient")])
 def test_panel_qr_plain_matches_pallas(mn):
-    m, n = mn
+    m, n = mn[:2]
     a = np.random.RandomState(m).randn(m, n).astype(np.float32)
+    if len(mn) > 2:  # a repeated and a zero column: Q is not unique, the contract holds
+        a[:, 3] = a[:, 1]
+        a[:, 4] = 0.0
     qj, rj = (np.asarray(t) for t in JK.panel_qr(jnp.asarray(a), interpret=True))
     q, r = (t.numpy() for t in K.panel_qr(torch.as_tensor(a)))
     scale = np.abs(a).max()
     assert np.abs(q @ r - a).max() < 5e-6 * scale * max(m, n) ** 0.5
     assert np.abs(q.T @ q - np.eye(n)).max() < 5e-6 * n
     assert np.abs(np.tril(r, -1)).max() == 0.0
+    assert np.abs(qj @ rj - a).max() < 5e-6 * scale * max(m, n) ** 0.5
+    assert np.abs(qj.T @ qj - np.eye(n)).max() < 5e-6 * n
+    if len(mn) > 2:
+        return
     # the same factors up to column signs (the Pallas kernel reflects a
     # column that is already reduced, LAPACK leaves it)
     dj, d = np.sign(np.diag(rj)), np.sign(np.diag(r))
@@ -490,3 +497,169 @@ def test_kernel_sources_match_the_wrappers_constants():
     assert (k1["kMaxBlocks"], k1["kBlockWords"], k1["kMaxDynamicSmem"]) == (
         K.K1_MAX_BLOCKS, 21, K.SMEM_LIMIT)
     assert (k1["kTN"], k1["kKS"]) == (K._K1_TN, K._K1_KS)
+
+
+# ---------------------------------------------------------------------------
+# K3: launch plan, layouts, and the split steps that call it
+# ---------------------------------------------------------------------------
+
+def test_k3_plan_fits_every_shape_of_the_envelope():
+    """Every panel with n <= m <= 512, n <= 128 gets a plan that fits the
+    232,448 bytes a CTA may use: one CTA up to 192 rows, else the smallest
+    cluster whose row slabs have at most 192."""
+    assert (K.K3_MAX_M, K.K3_MAX_N, K.K3_SLAB_ROWS) == (512, 128, 192)
+    for n in range(1, K.K3_MAX_N + 1):
+        for m in range(n, K.K3_MAX_M + 1):
+            ctas, threads, ws, smem = K.k3_plan(m, n)
+            rows = -(-m // ctas)
+            assert smem == 8 * ((rows | 1) * n + 3 * n) <= K.SMEM_LIMIT == 232448
+            assert ctas in (1, 2, 4) and rows <= K.K3_SLAB_ROWS
+            assert ctas * rows >= m > (ctas - 1) * rows  # every CTA has rows
+            assert ctas == 1 or -(-m // (ctas // 2)) > K.K3_SLAB_ROWS  # no smaller cluster
+            assert threads == 32 * min(n, 16 if ctas == 1 else 32) <= K.K3_MAX_THREADS
+            assert ws == (0 if ctas == 1 else 2 * (ctas + 1) * n + ctas)
+    # every panel of the solve (4 R' x (R + kick), R <= 32) is one CTA
+    assert all(K.k3_plan(4 * R, R + 4)[0] == 1 for R in range(2, 37))
+    assert K.k3_plan(24, 6)[:2] == (1, 192) and K.k3_plan(144, 36)[:2] == (1, 512)
+    assert K.k3_plan(192, 20)[0] == 1 and K.k3_plan(193, 20)[0] == 2
+    assert K.k3_plan(384, 20)[0] == 2 and K.k3_plan(385, 20)[0] == 4
+    assert K.k3_plan(512, 128)[:2] == (4, 1024)
+
+
+@pytest.mark.parametrize("mn", [(513, 10), (512, 129), (600, 200), (3, 5), (4, 0)])
+def test_k3_plan_refuses_on_shape_alone(mn):
+    with pytest.raises(K.KernelError):
+        K.k3_plan(*mn)
+
+
+def test_panel_qr_constants_match_the_cuda_source():
+    import os
+    import re
+
+    from ttipm_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, "panel_qr.cu")) as fh:
+        c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", fh.read())}
+    assert (c["kMaxM"], c["kMaxN"], c["kMaxCtas"], c["kMaxThreads"]) == (
+        K.K3_MAX_M, K.K3_MAX_N, K.K3_MAX_CTAS, K.K3_MAX_THREADS)
+    assert c["kMaxThreadsOneCta"] == K.K3_ONE_CTA_THREADS
+    assert (c["kMaxDynamicSmem"], c["kScalarRows"]) == (K.SMEM_LIMIT, K._K3_SCALAR_ROWS)
+    assert c["kMaxSlabRows"] == K.K3_SLAB_ROWS and K.K3_SLAB_ROWS % 32 == 0
+
+
+@pytest.mark.parametrize("view", ["contiguous", "transposed", "strided"])
+def test_panel_qr_plain_layouts(view):
+    """The transposed-output option is q.T bit for bit, as a contiguous
+    (n, m) array, on contiguous and non-contiguous operands."""
+    rng = np.random.RandomState(21)
+    if view == "contiguous":
+        a = torch.as_tensor(rng.randn(20, 6))
+    elif view == "transposed":
+        a = torch.as_tensor(rng.randn(6, 20)).T
+    else:
+        a = torch.as_tensor(rng.randn(40, 12))[::2, ::2]
+    assert a.is_contiguous() == (view == "contiguous")
+    K.reset_counts()
+    q, r = K.panel_qr(a)
+    qt, rt = K.panel_qr(a, transposed=True)
+    assert K.STATS["panel_qr"].plain_calls == 2
+    assert tuple(qt.shape) == (6, 20) and qt.is_contiguous()
+    assert torch.equal(qt, q.T) and torch.equal(rt, r)
+    check_kernel("panel_qr", (a,), (q, r))
+    np.testing.assert_allclose((q @ r).numpy(), a.numpy(), rtol=0, atol=1e-13)
+    with pytest.raises(K.KernelError):
+        K.panel_qr(torch.zeros(2, 3, 4, dtype=torch.float64))
+
+
+def _split_operands(rng, direction):
+    """Operands of one split step with a solve: bond ranks 3 | 4, block
+    size 3, mode size 4, operator ranks of RANKS, z ranks 2 | 2."""
+    rl, rr, rz, rz1, n, bs = 3, 4, 2, 2, 4, 3
+    x_shape, z_shape = (rl, bs, n, rr), (rz, bs, n, rz1)
+    pl = {k: rng.randn(rl, RANKS[k][0], rl) for k in KEYS}
+    pr = {k: rng.randn(rr, RANKS[k][1], rr) for k in KEYS}
+    zl = {k: rng.randn(rz, RANKS[k][0], rl) for k in KEYS}
+    zr = {k: rng.randn(rz1, RANKS[k][1], rr) for k in KEYS}
+    zl["10"] = rng.randn(rz, RANKS["01"][0], rl)
+    zr["10"] = rng.randn(rz1, RANKS["01"][1], rr)
+    A = {k: rng.randn(RANKS[k][0], 4, 4, RANKS[k][1]) for k in KEYS}
+    sb = 2  # right-hand side rank; one core and one interface per block row
+    b = [rng.randn(sb, n, sb) for _ in range(3)]
+    bl, br = [rng.randn(sb, rl) for _ in range(3)], [rng.randn(sb, rr) for _ in range(3)]
+    zbl, zbr = [rng.randn(sb, rz) for _ in range(3)], [rng.randn(sb, rz1) for _ in range(3)]
+    x_k, z_k = rng.randn(*x_shape), rng.randn(*z_shape)
+    if direction == "bck":
+        x_nb, z_nb = rng.randn(2, n, rl), rng.randn(2, n, rz)
+    else:
+        x_nb, z_nb = rng.randn(rr, n, 2), rng.randn(rz1, n, 2)
+    return (pl, A, pr, bl, b, br, zl, zr, zbl, zbr, x_k, x_nb, z_k, z_nb)
+
+
+def _fix_gauge(core, other, direction):
+    """Fix the sign of every basis vector of a split (``core`` holds them
+    as rows for bck, as columns for fwd; ``other`` carries the inverse
+    sign on the shared bond): largest entry positive."""
+    if direction == "bck":
+        flat = core.reshape(core.shape[0], -1)
+        sgn = np.sign(flat[np.arange(flat.shape[0]), np.abs(flat).argmax(axis=1)])
+        return core * sgn[:, None, None], other * sgn
+    flat = core.reshape(-1, core.shape[-1])
+    sgn = np.sign(flat[np.abs(flat).argmax(axis=0), np.arange(flat.shape[1])])
+    return core * sgn, other * sgn[:, None, None, None]
+
+
+@pytest.mark.parametrize("direction", ["bck", "fwd"])
+def test_split_steps_match_jax_and_the_untransposed_call(direction, monkeypatch):
+    """A split step with enrichment (the K3 call site) gives the cores of
+    the JAX package's ``make_sweep_steps`` on the same numpy inputs, and
+    bit for bit those of a K3 that hands back q for the caller to transpose."""
+    from ttipm_tpu.solvers.fused_algebra import make_sweep_steps
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    ops = _split_operands(np.random.RandomState(30), direction)
+
+    def solve_np(pl, A, pr, bl, b, br, x, ineq=False):
+        return 0.5 * x + 0.1 * np.roll(x, 1, axis=2), None, 0.0, 0.0, 0.0
+
+    def solve_t(pl, A, pr, bl, b, br, x):
+        z = x.new_zeros(())
+        return 0.5 * x + 0.1 * torch.roll(x, 1, dims=2), None, z, z, z
+
+    steps = make_sweep_steps(
+        _jax_algebra(), np.einsum, np, solve_np,
+        lambda mat: np.linalg.svd(mat, full_matrices=False), np.linalg.qr,
+        np.ascontiguousarray, lambda ref: 0.0)
+    jstep = steps.bck_split_step if direction == "bck" else steps.fwd_split_step
+    want = jstep(*ops, False, 2, 2, True)
+
+    def tt(v):
+        if isinstance(v, dict):
+            return _torch_dict(v)
+        return [torch.as_tensor(t) for t in v] if isinstance(v, list) else torch.as_tensor(v)
+
+    tstep = fa.bck_split_step if direction == "bck" else fa.fwd_split_step
+    K.reset_counts()
+    got = tstep(solve_t, *(tt(v) for v in ops), 2, 2, True)
+    assert K.STATS["panel_qr"].plain_calls == 1
+
+    def old_panel_qr(a, transposed=False):
+        q, r = torch.linalg.qr(a, mode="reduced")
+        return (q.T if transposed else q), r
+
+    monkeypatch.setattr(fa.kernels, "panel_qr", old_panel_qr)
+    old = tstep(solve_t, *(tt(v) for v in ops), 2, 2, True)
+    for g, o in zip(got[:8], old[:8]):
+        if isinstance(g, dict):
+            assert all(torch.equal(g[k], o[k]) for k in g)
+        elif isinstance(g, (list, tuple)):
+            assert all(torch.equal(x, y) for x, y in zip(g, o))
+        else:
+            assert torch.equal(g, o)
+
+    width = 4  # r_out + kick
+    assert tuple(got[0].shape) == ((width, 4, 4) if direction == "bck" else (3, 4, width))
+    for ci, ni in ((0, 1), (2, 3)):  # (x core, x neighbour), (z core, z neighbour)
+        gc, gn = _fix_gauge(got[ci].numpy(), got[ni].numpy(), direction)
+        wc, wn = _fix_gauge(np.asarray(want[ci]), np.asarray(want[ni]), direction)
+        np.testing.assert_allclose(gc, wc, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(gn, wn, rtol=1e-12, atol=1e-12 * np.abs(wn).max())

@@ -3,163 +3,542 @@
 // Replaces: ttipm_tpu/ops/kernels.py::panel_qr (Pallas kernel
 // _panel_qr_kernel, dispatcher qr_reduced), used by the fused sweeps'
 // bond splits on the enrichment-augmented basis u_aug
-// (ttipm_tpu/solvers/fused_algebra.py:284,370).
+// (ttipm_tpu/solvers/fused_algebra.py:284,370).  In the port its callers
+// are bck_split_step (which takes Q transposed) and fwd_split_step of
+// ttipm_tpu_torch/solvers/fused_algebra.py.
 //
-// Bound on the H100: the panels are (4 R', w) with R' the neighbouring bond
-// rank and w <= R + kick, at most (144, 36) f64 = 41 KB at R = 32.  The
-// factorization is ~2 m n^2 = 0.4 MFLOP, a fraction of a microsecond of any
-// SM; what bounds it is the n sequential reflector steps, each a reduction
-// plus a rank-1 update with block-wide synchronisation.  So the kernel is
-// latency-bound, and the design keeps everything in one SM's shared memory.
+// Contract: a (m, n) f64 with any strides, n <= m <= 512, n <= 128 (the
+// envelope the reference documents).  q receives Q with orthonormal
+// columns, as the contiguous (m, n) array or, with q_trans, as the
+// contiguous (n, m) array Q^T; r the (n, n) upper triangle with exact
+// zeros below the diagonal; Q R = a.  The reflectors follow LAPACK's
+// dlarfg: beta = -sign(x_j) ||x||, and tau = 0 with the column left as it
+// is when the part below the diagonal is exactly zero, so R carries
+// LAPACK's signs.  sqrt and the divisions are correctly rounded.  A NaN in
+// a comes out as NaNs; no loop depends on the data.
 //
-// Design: one thread block per panel.  The panel (column-major) and the Q
-// accumulator live in dynamic shared memory (2 m n + n doubles; up to
-// 227 KB).  For each column a block reduction gives the norm below the
-// diagonal and LAPACK's dlarfg rule gives the reflector (tau = 0 when the
-// column is already reduced, beta = -sign(x_j) ||x||), so Q and R carry
-// LAPACK's signs.  The reflector is applied to the trailing columns one
-// warp per column.  Q is formed by backward accumulation of the reflectors
-// on I[:, :n]; R is written with exact zeros below the diagonal.
+// Bound on the H100: the solve's panels are (4 R', R + kick), 24 x 6 to
+// 40 x 10 at bond rank 8 and at most 144 x 36 at rank 32: a few KB and
+// under 1 MFLOP, a fraction of a microsecond of one SM by bytes or by
+// operations.  What bounds the kernel is the chain of the method: n
+// reflectors, each a reduction over the rows, a square root and a division,
+// and an update that the next reflector waits for; then n more steps that
+// form Q.  The design shortens every link of that chain and keeps
+// everything else off it.
+//
+// Design.  The panel sits in shared memory, column-major with an odd
+// leading dimension (the row-major load and store are then free of bank
+// conflicts), and column c belongs to warp c mod W for the whole kernel,
+// W = min(n, 16) warps (32 in a cluster), chosen in Python (k3_plan).
+// Lanes hold rows: a CTA has at most 192 of them, so a lane keeps its 1, 2,
+// 4 or 6 rows of the reflector and of the column it works on in registers
+// (the kernel is compiled for each), a column costs one load and one store
+// a step, and the row loops have no branches.
+//
+// Forward step j.  Column j is final when the step starts and is only read
+// in it: a warp reads it once and forms, in one pair of interleaved
+// shuffle reductions, the squared norm below the diagonal and the dot
+// product with its first own column.  Every warp then computes beta, tau
+// and scale = 1 / (x_j - beta) itself from the same numbers in the same
+// order, so all hold the same bits and no warp waits for another's
+// scalars.  The reflector is never written: v_i = scale x_i is formed
+// where it is used (rounded once, as dlarfg leaves it), and the dot
+// products take x, since w_c = tau (a_jc + scale sum_i x_i a_ic).  (The
+// update as a_ic - x_i (scale w_c) and Q's dot products on scale x_i are as
+// accurate, but MaxCut d8 seed 24 then takes 10 iterations instead of 8,
+// as it does with cuSOLVER's QR in this kernel's place: the path turns on
+// the last bits.)  Each
+// warp updates its own columns, the owner of column j + 1 that column
+// first, and one __syncthreads ends the step: one barrier and one
+// reduction deep per column, where the first form of this kernel spent
+// six block barriers, two reductions in sequence and a section of one
+// thread.  R's diagonal (beta), tau and scale go to three small arrays.
+//
+// Q is formed in place over the reflectors as LAPACK's dorg2r does it, so
+// there is no second m x n buffer: R is stored first, then for j = n - 2
+// down to 0 every warp applies H_j to its own columns c > j (which already
+// hold columns of Q), and the owner of column j + 1 first turns that
+// column into H_{j+1} e_{j+1} in its registers: the other warps read it as
+// a reflector during step j + 1 and are past that step's barrier.  Again
+// one barrier a step, no reflector to wait for.  The other way,
+// Q = I - V (T V_1^T) with the compact WY factor T, trades this chain for a
+// Gram matrix V^T V (n^2 / 2 reductions) and a triangular recurrence of the
+// same depth: not taken.
+//
+// Measured on an H100 (clock stamps, cycles): a forward step takes ~1040 at
+// 24 x 6 and ~1180 at 40 x 10, of which the reduction is ~230 and the
+// scalars ~380; a Q step 860-910.  With the rows read from shared memory in
+// loops (this kernel's first form) the steps took 1270-1700 and 1550-1800,
+// and at 128 x 34 the five passes over the trailing panel a step, not the
+// chain, set the time (3160 cycles a step against 2130 now).
+//
+// Panels of more than 192 rows go to a cluster of 2 or 4 CTAs, each with a
+// slab of at most 192 rows, launched together so that all are resident.
+// The step is the same; the per-column partial sums (norm and dot
+// products, one vector of n - j numbers a CTA) and row j of the trailing
+// panel are exchanged once a step through a workspace in device memory:
+// plain stores, a barrier, a release store of the CTA's step counter,
+// acquire loads of the others' (through L2; distributed shared memory
+// measured slower for this pattern in K4).  Every CTA adds the partials in
+// CTA order and computes the same scalars.  Two slots alternate, so a CTA a
+// step ahead never overwrites what another still reads.  This regime is
+// off the solve's path: 2 n exchanges of ~3K cycles each.
+//
+// The launch plan (CTAs, threads, workspace, shared memory) is chosen in
+// Python (ops/kernels.py::k3_plan) and checked here against the same
+// constants.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kQrThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxM = 512;
+constexpr int kMaxN = 128;
+constexpr int kMaxCtas = 4;
+constexpr int kMaxThreads = 1024;        // of a CTA in a cluster
+constexpr int kMaxThreadsOneCta = 512;   // of the one CTA: 128 registers a thread
+constexpr int kMaxDynamicSmem = 232448;
+constexpr int kScalarRows = 3;  // tau, scale, beta: n doubles each after the panel
+constexpr int kStamps = 6;      // phase stamps of ttipm_panel_qr_stamps
+constexpr int kMaxSlabRows = 192;  // rows of a CTA: at most 6 a lane, held in registers
 
-__device__ double block_sum(double v, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = (lane < (int)(blockDim.x >> 5)) ? red[lane] : 0.0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-__device__ double warp_sum(double v) {
+// Two sums at once: the shuffles of one hide the latency of the other.
+__device__ __forceinline__ void warp_sum2(double& u, double& v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) {
+    const double a = __shfl_xor_sync(kFull, u, off), b = __shfl_xor_sync(kFull, v, off);
+    u += a;
+    v += b;
+  }
+}
+
+struct Reflector {
+  double tau, scale, beta;
+};
+
+// dlarfg from the pivot x_j and the squared norm of the column below it.
+__device__ __forceinline__ Reflector make_reflector(double xj, double sigma2) {
+  Reflector h;
+  if (sigma2 == 0.0) {
+    h.tau = 0.0;
+    h.scale = 0.0;
+    h.beta = xj;
+  } else {
+    h.beta = -copysign(sqrt(xj * xj + sigma2), xj);
+    h.tau = (h.beta - xj) / h.beta;
+    h.scale = 1.0 / (xj - h.beta);
+  }
+  return h;
+}
+
+__device__ __forceinline__ void release_flag(int* flag, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(flag), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int acquire_flag(const int* flag) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
   return v;
 }
 
-// H = I - tau v v^T with v[j] = 1 and v[i > j] = V[i + j m], applied to
-// columns c0.. of the column-major m x n matrix X (rows j..m-1).
-__device__ void apply_reflector(const double* V, double* X, int m, int n, int j, int c0,
-                                double tau) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int c = c0 + warp; c < n; c += nwarps) {
-    double w = 0.0;
-    for (int i = j + lane; i < m; i += 32) {
-      const double vi = (i == j) ? 1.0 : V[i + (long long)j * m];
-      w += vi * X[i + (long long)c * m];
+// After the CTA's stores to the workspace: raise this CTA's step counter,
+// wait for every CTA's.  The CTAs of a cluster are resident together, so
+// the wait ends; one that lasts seconds is a fault and stops the kernel.
+__device__ __forceinline__ void exchange(int* flags, int ctas, int cta, int step) {
+  __syncthreads();
+  if (threadIdx.x == 0) release_flag(flags + cta, step);
+  if (threadIdx.x < ctas) {
+    long long spin = 0;
+    while (acquire_flag(flags + threadIdx.x) < step) {
+      if (++spin > (1LL << 24)) __trap();
+      __nanosleep(20);
     }
-    w = tau * warp_sum(w);
-    for (int i = j + lane; i < m; i += 32) {
-      const double vi = (i == j) ? 1.0 : V[i + (long long)j * m];
-      X[i + (long long)c * m] -= vi * w;
+  }
+  __syncthreads();
+}
+
+// The sum over the CTAs, in CTA order, of entry c of their partials.
+__device__ __forceinline__ double sum_partials(const double* slot, int ctas, int n, int c) {
+  double s = 0.0;
+  for (int k = 0; k < ctas; ++k) s += __ldcg(slot + k * n + c);
+  return s;
+}
+
+// The CTA's rows r0 .. r0 + ml - 1 of a into the column-major A.
+__device__ __forceinline__ void load_panel(double* A, int ld, const double* __restrict__ a,
+                                           long long s0, long long s1, int r0, int ml, int n) {
+  const bool along_rows = s1 <= s0;  // lanes along the unit (or smaller) stride of a
+  const int total = ml * n;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int li, c;
+    if (along_rows) {
+      li = e / n;
+      c = e - li * n;
+    } else {
+      c = e / ml;
+      li = e - c * ml;
+    }
+    A[li + c * ld] = a[(r0 + li) * s0 + c * s1];
+  }
+}
+
+// R from the columns' upper parts and beta; every CTA writes the rows it
+// holds (and the diagonal and the zeros, which all hold alike).
+__device__ __forceinline__ void store_r(const double* A, int ld, const double* bet_s,
+                                        double* __restrict__ r, int r0, int ml, int n) {
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, c = e - i * n;
+    if (i >= c) {
+      r[e] = i == c ? bet_s[c] : 0.0;
+    } else if (i >= r0 && i < r0 + ml) {
+      r[e] = A[i - r0 + c * ld];
     }
   }
 }
 
-__global__ void __launch_bounds__(kQrThreads)
-panel_qr_kernel(const double* __restrict__ a, double* __restrict__ q,
-                double* __restrict__ r, int m, int n) {
+__device__ __forceinline__ void store_q(const double* A, int ld, double* __restrict__ q,
+                                        int q_trans, int m, int r0, int ml, int n) {
+  const int total = ml * n;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    if (q_trans) {
+      const int c = e / ml, li = e - c * ml;
+      q[(long long)c * m + r0 + li] = A[li + c * ld];
+    } else {
+      const int li = e / n, c = e - li * n;
+      q[(long long)(r0 + li) * n + c] = A[li + c * ld];
+    }
+  }
+}
+
+// One value of column c turned into H_c e_c: zero above the diagonal,
+// 1 - tau on it, -tau v below (f = -tau scale; the column holds x).
+__device__ __forceinline__ double turned(double x, int gi, int c, double tc, double f) {
+  return gi < c ? 0.0 : (gi == c ? 1.0 - tc : (tc == 0.0 ? 0.0 : f * x));
+}
+
+// One warp turns its column c in place.
+__device__ __forceinline__ void turn_column(double* col, int c, int r0, int ml, double tc,
+                                            double sc) {
+  const double f = -tc * sc;
+  for (int li = threadIdx.x & 31; li < ml; li += 32) col[li] = turned(col[li], r0 + li, c, tc, f);
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// One CTA (kMulti false), or a cluster of gridDim.x CTAs that hold mb rows
+// each.  A CTA has at most 32 kRpl rows: a lane keeps its kRpl rows of the
+// reflector and of the column it works on in registers, so a column costs
+// one load and one store a step and the row loops have no branches.
+// ---------------------------------------------------------------------------
+template <int kRpl, bool kMulti>
+__global__ void __launch_bounds__(kMulti ? kMaxThreads : kMaxThreadsOneCta, 1)
+panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double* __restrict__ q,
+                int q_trans, double* __restrict__ r, int m, int n, int mb, double* ws,
+                long long* stamps) {
   extern __shared__ double smem[];
-  double* A = smem;                       // m x n, column-major; v below diag
-  double* Q = smem + (long long)m * n;    // m x n, column-major
-  double* tau = Q + (long long)m * n;     // n
-  __shared__ double red[32];
-  __shared__ double s_beta, s_tau, s_scale;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long long mn = (long long)m * n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
+  const int ctas = kMulti ? (int)gridDim.x : 1, cta = kMulti ? (int)blockIdx.x : 0;
+  const int ld = mb | 1;
+  const int r0 = cta * mb;                  // first row of this CTA's slab
+  const int ml = max(0, min(mb, m - r0));   // its rows
+  double* A = smem;                         // ml x n, column-major, leading dimension ld
+  double* tau_s = A + ld * n;
+  double* scl_s = tau_s + n;
+  double* bet_s = scl_s + n;
+  int* flags = kMulti ? reinterpret_cast<int*>(ws + 2 * (ctas + 1) * n) : nullptr;
+  auto stamp = [&](int k) {
+    if (stamps != nullptr && tid == 0 && cta == 0) stamps[k] = clock64();
+  };
+  // this lane's kRpl values of a column, zero past the slab
+  auto load_rows = [&](const double* col, double (&v)[kRpl]) {
+#pragma unroll
+    for (int k = 0; k < kRpl; ++k) v[k] = lane + 32 * k < ml ? col[lane + 32 * k] : 0.0;
+  };
+  auto dot_rows = [&](const double (&x)[kRpl], const double (&v)[kRpl]) {
+    double p = 0.0;
+#pragma unroll
+    for (int k = 0; k < kRpl; ++k) p = fma(x[k], v[k], p);
+    return p;
+  };
+  // the CTA that holds row j publishes it from column j on
+  auto publish_row = [&](double* rowv, int j) {
+    const int lj = j - r0;
+    if (lj >= 0 && lj < ml)
+      for (int c = j + tid; c < n; c += blockDim.x) rowv[c] = A[lj + c * ld];
+  };
+  stamp(0);
+  if (kMulti && tid == 0) flags[cta] = 0;
+  load_panel(A, ld, a, s0, s1, r0, ml, n);
+  if (kMulti) cg::this_cluster().sync();
+  else __syncthreads();
+  stamp(1);
 
-  for (long long e = tid; e < mn; e += nt) {
-    const int i = (int)(e / n), j = (int)(e % n);
-    A[i + (long long)j * m] = a[e];
-  }
-  __syncthreads();
-
+  // ---- forward: reflectors and R ----
+  int cur = warp;  // the smallest own column >= j (own: c = warp mod W)
   for (int j = 0; j < n; ++j) {
-    double part = 0.0;
-    for (int i = j + 1 + tid; i < m; i += nt) {
-      const double x = A[i + (long long)j * m];
-      part += x * x;
-    }
-    const double sigma2 = block_sum(part, red);
-    if (tid == 0) {
-      const double xj = A[j + (long long)j * m];
-      if (sigma2 == 0.0) {
-        s_tau = 0.0;
-        s_beta = xj;
-        s_scale = 0.0;
+    const bool owner = cur == j;
+    if (owner) cur += W;
+    const bool active = owner || cur < n;
+    const int lj = j - r0;  // local index of row j (in the slab or not)
+    const double* xcol = A + j * ld;
+    double* slot = kMulti ? ws + (j & 1) * (ctas + 1) * n : nullptr;
+    double* rowv = kMulti ? slot + ctas * n : nullptr;
+    int c = cur;
+    double* mine = A + min(c, n - 1) * ld;
+    double x[kRpl], v[kRpl];  // column j below the diagonal; the working column
+    double xj = 0.0, ajc = 0.0, sig = 0.0, p = 0.0;
+    if (active) {
+      load_rows(xcol, x);
+#pragma unroll
+      for (int k = 0; k < kRpl; ++k) x[k] = r0 + lane + 32 * k > j ? x[k] : 0.0;
+      if (!kMulti) {
+        load_rows(mine, v);
+        xj = xcol[j];
+        ajc = mine[j];
+        sig = dot_rows(x, x);
+        p = dot_rows(x, v);
+        warp_sum2(sig, p);
       } else {
-        const double beta = -copysign(sqrt(xj * xj + sigma2), xj);
-        s_tau = (beta - xj) / beta;
-        s_scale = 1.0 / (xj - beta);
-        s_beta = beta;
+        double* part = slot + cta * n;
+        if (owner) {
+          sig = warp_sum(dot_rows(x, x));
+          if (lane == 0) part[j] = sig;
+        }
+        for (int cc = c; cc < n; cc += W) {
+          load_rows(A + cc * ld, v);
+          p = warp_sum(dot_rows(x, v));
+          if (lane == 0) part[cc] = p;
+        }
+      }
+    }
+    if (kMulti) {
+      publish_row(rowv, j);
+      exchange(flags, ctas, cta, j + 1);
+      if (active) {
+        xj = __ldcg(rowv + j);
+        sig = sum_partials(slot, ctas, n, j);
+        load_rows(mine, v);
+        ajc = __ldcg(rowv + min(c, n - 1));
+        p = sum_partials(slot, ctas, n, min(c, n - 1));
+      }
+    }
+    if (active) {
+      const Reflector h = make_reflector(xj, sig);
+      if (owner && lane == 0) {
+        tau_s[j] = h.tau;
+        scl_s[j] = h.scale;
+        bet_s[j] = h.beta;
+      }
+      if (h.tau != 0.0 && c < n) {
+        double xs[kRpl];  // the reflector below the diagonal (zero on and above row j)
+#pragma unroll
+        for (int k = 0; k < kRpl; ++k) xs[k] = x[k] * h.scale;
+        for (;;) {
+          const double w = h.tau * (ajc + h.scale * p);
+#pragma unroll
+          for (int k = 0; k < kRpl; ++k) {
+            const int li = lane + 32 * k;
+            if (li < ml && li >= lj) mine[li] = li == lj ? v[k] - w : v[k] - xs[k] * w;
+          }
+          c += W;
+          if (c >= n) break;
+          mine = A + c * ld;
+          load_rows(mine, v);
+          if (kMulti) {
+            ajc = __ldcg(rowv + c);
+            p = sum_partials(slot, ctas, n, c);
+          } else {
+            ajc = mine[j];
+            p = warp_sum(dot_rows(x, v));
+          }
+        }
       }
     }
     __syncthreads();
-    const double tj = s_tau;
-    if (tj != 0.0) {
-      const double sc = s_scale;
-      for (int i = j + 1 + tid; i < m; i += nt) A[i + (long long)j * m] *= sc;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      A[j + (long long)j * m] = s_beta;
-      tau[j] = tj;
-    }
-    if (tj != 0.0) apply_reflector(A, A, m, n, j, j + 1, tj);
-    __syncthreads();
+    stamp(kStamps + j);
   }
-
-  for (long long e = tid; e < mn; e += nt) {
-    const int i = (int)(e % m), c = (int)(e / m);
-    Q[e] = (i == c) ? 1.0 : 0.0;
-  }
+  stamp(2);
+  store_r(A, ld, bet_s, r, r0, ml, n);
   __syncthreads();
-  for (int j = n - 1; j >= 0; --j) {
-    if (tau[j] != 0.0) apply_reflector(A, Q, m, n, j, j, tau[j]);
-    __syncthreads();
-  }
+  stamp(3);
 
-  for (long long e = tid; e < mn; e += nt) {
-    const int i = (int)(e / n), c = (int)(e % n);
-    q[e] = Q[i + (long long)c * m];
+  // ---- Q in place over the reflectors ----
+  int cq = warp;  // the smallest own column > j
+  while (cq < n) cq += W;
+  int step = n;  // exchanges made so far (the forward pass made n)
+  for (int j = n - 2; j >= 0; --j) {
+    if (cq - W > j) cq -= W;
+    const bool active = cq < n;
+    const double tj = tau_s[j], sj = scl_s[j];  // the same in every warp and CTA
+    const int lj = j - r0;
+    double* slot = nullptr;
+    if (kMulti && tj != 0.0) {  // steps without a reflector make no exchange
+      ++step;
+      slot = ws + ((step - 1) & 1) * (ctas + 1) * n;
+    }
+    double x[kRpl], xs[kRpl], v[kRpl];  // column j below the diagonal, the reflector there
+    if (active) {                       // (x scaled); the working column
+      load_rows(A + j * ld, x);
+#pragma unroll
+      for (int k = 0; k < kRpl; ++k) {
+        x[k] = r0 + lane + 32 * k > j ? x[k] : 0.0;
+        xs[k] = x[k] * sj;
+      }
+      for (int c = cq; c < n; c += W) {
+        double* col = A + c * ld;
+        const bool fresh = c == j + 1;  // still holds its reflector: turn it first
+        if (!fresh && tj == 0.0) continue;
+        load_rows(col, v);
+        if (fresh) {
+          const double tc = tau_s[c], f = -tc * scl_s[c];
+#pragma unroll
+          for (int k = 0; k < kRpl; ++k) {
+            const int li = lane + 32 * k;
+            v[k] = li < ml ? turned(v[k], r0 + li, c, tc, f) : 0.0;
+          }
+        }
+        // row j of the columns after j is still zero: w = tau v^T q_c has
+        // no term from it
+        double p = tj != 0.0 ? warp_sum(dot_rows(x, v)) : 0.0;
+        if (kMulti) {
+          if (tj != 0.0 && lane == 0) slot[cta * n + c] = p;
+          if (!fresh) continue;
+        } else if (tj != 0.0) {
+          const double w = tj * (sj * p);
+#pragma unroll
+          for (int k = 0; k < kRpl; ++k)
+            v[k] = lane + 32 * k == lj ? -w : v[k] - xs[k] * w;
+        }
+#pragma unroll
+        for (int k = 0; k < kRpl; ++k)
+          if (lane + 32 * k < ml) col[lane + 32 * k] = v[k];
+      }
+    }
+    if (kMulti && tj != 0.0) {
+      exchange(flags, ctas, cta, step);
+      if (active) {
+        for (int c = cq; c < n; c += W) {
+          double* col = A + c * ld;
+          load_rows(col, v);
+          const double w = tj * (sj * sum_partials(slot, ctas, n, c));
+#pragma unroll
+          for (int k = 0; k < kRpl; ++k) {
+            const int li = lane + 32 * k;
+            if (li < ml && li >= lj) col[li] = li == lj ? -w : v[k] - xs[k] * w;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    stamp(kStamps + n + j);
   }
-  for (long long e = tid; e < (long long)n * n; e += nt) {
-    const int i = (int)(e / n), c = (int)(e % n);
-    r[e] = (i <= c) ? A[i + (long long)c * m] : 0.0;
+  if (warp == 0) turn_column(A, 0, r0, ml, tau_s[0], scl_s[0]);
+  __syncthreads();
+  stamp(4);
+  store_q(A, ld, q, q_trans, m, r0, ml, n);
+  if (stamps != nullptr) {
+    __syncthreads();
+    stamp(5);
   }
+}
+
+size_t smem_bytes(int mb, int n) {
+  return ((size_t)(mb | 1) * n + (size_t)kScalarRows * n) * sizeof(double);
+}
+
+// One kernel for the slab height and the regime; the shared-memory limit
+// is raised once per device.
+template <int kRpl, bool kMulti>
+cudaError_t launch_as(const double* a, long long s0, long long s1, double* q, int q_trans,
+                      double* r, int m, int n, int ctas, int threads, double* ws,
+                      long long* stamps, cudaStream_t st) {
+  static unsigned raised = 0;  // one bit per device
+  auto kernel = panel_qr_kernel<kRpl, kMulti>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(raised & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxDynamicSmem);
+    if (err != cudaSuccess) return err;
+    raised |= bit;
+  }
+  int mb = (m + ctas - 1) / ctas;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes(mb, n);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kMulti ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a, s0, s1, q, q_trans, r, m, n, mb, ws, stamps);
+}
+
+template <bool kMulti>
+cudaError_t launch_rows(int mb, const double* a, long long s0, long long s1, double* q,
+                        int q_trans, double* r, int m, int n, int ctas, int threads, double* ws,
+                        long long* stamps, cudaStream_t st) {
+  if (mb <= 32)
+    return launch_as<1, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+  if (mb <= 64)
+    return launch_as<2, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+  if (mb <= 128)
+    return launch_as<4, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+  return launch_as<kMaxSlabRows / 32, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws,
+                                              stamps, st);
+}
+
+cudaError_t launch(const double* a, long long s0, long long s1, double* q, int q_trans, double* r,
+                   int m, int n, int ctas, int threads, double* ws, long long* stamps,
+                   cudaStream_t st) {
+  if (n < 1 || m < n || m > kMaxM || n > kMaxN || ctas < 1 || ctas > kMaxCtas || threads < 32 ||
+      threads > (ctas > 1 ? kMaxThreads : kMaxThreadsOneCta) || threads % 32 != 0 ||
+      (ctas > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  const int mb = (m + ctas - 1) / ctas;
+  if (mb > kMaxSlabRows || smem_bytes(mb, n) > (size_t)kMaxDynamicSmem)
+    return cudaErrorInvalidValue;
+  if (ctas > 1)
+    return launch_rows<true>(mb, a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+  return launch_rows<false>(mb, a, s0, s1, q, q_trans, r, m, n, 1, threads, ws, stamps, st);
 }
 
 }  // namespace
 
-extern "C" int ttipm_panel_qr(const double* a, double* q, double* r, int m, int n,
-                              void* stream) {
-  if (m < n || n < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = (2 * (size_t)m * n + n) * sizeof(double);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(panel_qr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  panel_qr_kernel<<<1, kQrThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a, q, r, m, n);
-  return (int)cudaGetLastError();
+// a: (m, n) with element strides s0, s1.  q: m n doubles, (m, n) row-major
+// or, with q_trans, (n, m) row-major.  r: n n doubles.  ctas, threads: the
+// launch plan of k3_plan.  ws: 2 (ctas + 1) n + ctas doubles when ctas > 1
+// (uninitialised), else unused.
+extern "C" int ttipm_panel_qr(const double* a, long long s0, long long s1, double* q,
+                              int q_trans, double* r, int m, int n, int ctas, int threads,
+                              double* ws, void* stream) {
+  return (int)launch(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, nullptr,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same factorization of a contiguous panel into a contiguous (m, n) q,
+// with clock stamps of CTA 0's thread 0 (kStamps + 2 n of them): start,
+// panel loaded, forward chain done, R stored, Q chain done, Q stored; then
+// the end of every forward step and of every Q step.
+extern "C" int ttipm_panel_qr_stamps(const double* a, double* q, double* r, int m, int n,
+                                     int ctas, int threads, double* ws, long long* stamps,
+                                     void* stream) {
+  if (stamps == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch(a, n, 1, q, 0, r, m, n, ctas, threads, ws, stamps,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -99,7 +99,8 @@ def load_library() -> ctypes.CDLL:
         "ttipm_schur_assemble": [table, i, p, i, i, i, p],
         "ttipm_kkt_product": [table, i, table, p, i, i, i, i, p],
         "ttipm_empty_launch": [p],
-        "ttipm_panel_qr": [p, p, p, i, i, p],
+        "ttipm_panel_qr": [p, ll, ll, p, i, p, i, i, i, i, p, p],
+        "ttipm_panel_qr_stamps": [p, p, p, i, i, i, i, p, p, p],
         "ttipm_panel_cholesky": [p, ll, ll, p, i, p, p, p],
         "ttipm_panel_cholesky_workspace": [i],
         "ttipm_error_string": [i],

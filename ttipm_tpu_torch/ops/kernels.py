@@ -42,7 +42,7 @@ __all__ = [
     "kkt_block_matvec", "kkt_block_matvec_plain",
     "kkt_block_product", "kkt_block_product_plain",
     "k1_tiles", "k2_tiles", "pack_k1_blocks", "pack_k2_terms", "empty_launch",
-    "panel_qr", "panel_qr_plain",
+    "panel_qr", "panel_qr_plain", "k3_plan",
     "panel_cholesky", "panel_cholesky_plain",
 ]
 
@@ -409,27 +409,76 @@ def kkt_block_matvec(phi_l, A, phi_r, x):
 # K3: reduced Householder QR of a tall panel
 # ---------------------------------------------------------------------------
 
-def panel_qr_plain(a):
-    return torch.linalg.qr(a, mode="reduced")
+# The envelope (that of the reference's kernel) and the launch limits: kMaxM,
+# kMaxN, kMaxCtas, kMaxThreads, kScalarRows in csrc/panel_qr.cu.
+K3_MAX_M = 512
+K3_MAX_N = 128
+K3_MAX_CTAS = 4
+K3_MAX_THREADS = 1024          # kMaxThreads: of a CTA in a cluster
+K3_ONE_CTA_THREADS = 512       # kMaxThreadsOneCta: of the one CTA
+_K3_SCALAR_ROWS = 3
+# Rows of one CTA (kMaxSlabRows): a lane keeps its rows, at most 6, in
+# registers; taller panels are cut into row slabs over a cluster.
+K3_SLAB_ROWS = 192
 
 
-def panel_qr(a):
-    """Reduced QR of a tall panel (m >= n): q (m, n) with orthonormal
-    columns, r (n, n) upper triangular with exact zeros below the diagonal,
-    q @ r == a; LAPACK's sign convention."""
+def panel_qr_plain(a, transposed=False):
+    q, r = torch.linalg.qr(a, mode="reduced")
+    return (q.T.contiguous() if transposed else q), r
+
+
+def _k3_smem(rows, n):
+    """Bytes of shared memory of a CTA that holds ``rows`` rows of the
+    panel: column-major with an odd leading dimension, then tau, scale and
+    beta."""
+    return 8 * ((rows | 1) * n + _K3_SCALAR_ROWS * n)
+
+
+@functools.lru_cache(maxsize=4096)
+def k3_plan(m, n):
+    """The launch plan of K3 for an (m, n) panel: ``(ctas, threads,
+    ws_doubles, smem_bytes)``.  One CTA up to 192 rows (every panel of the
+    solve), else a cluster of 2 or 4 CTAs with row slabs of at most 192
+    rows and a workspace for the exchange of the per-column partial sums.
+    One warp per column, a warp owning the columns c = w (mod W): up to 16
+    warps in one CTA (its kernels are compiled for 512 threads, 128
+    registers each; on an H100 128 x 34 takes 67 us of device time with 16
+    warps, 80 with 8), up to 32 in a cluster (512 x 128: 1.05 ms against
+    1.18 with 16).  Raises ``KernelError`` on shape
+    alone outside n <= m <= 512, n <= 128."""
+    if n < 1 or m < n:
+        raise KernelError(f"panel_qr: needs a tall panel, got {(m, n)}")
+    if m > K3_MAX_M or n > K3_MAX_N:
+        raise KernelError(f"panel_qr: the kernel factors panels up to {K3_MAX_M} x {K3_MAX_N}, "
+                          f"got {(m, n)}")
+    ctas = next(c for c in (1, 2, K3_MAX_CTAS) if -(-m // c) <= K3_SLAB_ROWS)
+    threads = 32 * min(n, (K3_ONE_CTA_THREADS if ctas == 1 else K3_MAX_THREADS) // 32)
+    ws_doubles = 0 if ctas == 1 else 2 * (ctas + 1) * n + ctas
+    return ctas, threads, ws_doubles, _k3_smem(-(-m // ctas), n)
+
+
+def panel_qr(a, transposed=False):
+    """Reduced Householder QR of a tall panel (n <= m <= 512, n <= 128, any
+    strides): q (m, n) with orthonormal columns, r (n, n) upper triangular
+    with exact zeros below the diagonal, q @ r == a; LAPACK's sign
+    convention.  With ``transposed`` the first result is q^T as a
+    contiguous (n, m) array (what the backward split step reshapes)."""
     stats = STATS["panel_qr"]
+    if a.dim() != 2:
+        raise KernelError(f"panel_qr: one panel expected, got {tuple(a.shape)}")
     if not _on_cuda(a):
         stats.plain_calls += 1
-        return panel_qr_plain(a)
+        return panel_qr_plain(a, transposed)
     m, n = a.shape
-    if m < n or n < 1:
-        raise KernelError(f"panel_qr: needs a tall panel, got {tuple(a.shape)}")
-    a = a.contiguous()
-    q = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    r = torch.empty((n, n), dtype=a.dtype, device=a.device)
+    ctas, threads, ws_doubles, _ = k3_plan(m, n)
+    buf = torch.empty(m * n + n * n + ws_doubles, dtype=a.dtype, device=a.device)
+    q = buf.as_strided((n, m), (m, 1)) if transposed else buf.as_strided((m, n), (n, 1))
+    r = buf.as_strided((n, n), (n, 1), m * n)
+    ws = ctypes.c_void_p(buf.data_ptr() + 8 * (m * n + n * n) if ws_doubles else None)
     stream, guard = _launch_env(a)
     with guard:
-        err = _lib().ttipm_panel_qr(_ptr(a), _ptr(q), _ptr(r), m, n, stream)
+        err = _lib().ttipm_panel_qr(_ptr(a), a.stride(0), a.stride(1), _ptr(q), int(transposed),
+                                    _ptr(r), m, n, ctas, threads, ws, stream)
     _check("panel_qr", err)
     stats.launches += 1
     return q, r

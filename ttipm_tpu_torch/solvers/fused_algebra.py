@@ -221,8 +221,8 @@ def bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
         resxz = (rhsxz - Axz).reshape(rz * bs, n * rr).T
         uz, _ = trunc_svd(resxz, width - r_out)
         u_aug = torch.cat([u[:, :r_out], uz], dim=1)
-        q, Rf = kernels.panel_qr(u_aug)
-        u_core = q.T.reshape(width, n, rr)
+        qt, Rf = kernels.panel_qr(u_aug, transposed=True)
+        u_core = qt.reshape(width, n, rr)
         v_new = (Rf[:, :r_out] @ v[:r_out]).T.reshape(rl, bs, width)
     else:
         u_core = u[:, :width].T.reshape(width, n, rr)

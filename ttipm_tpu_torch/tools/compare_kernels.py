@@ -1,4 +1,4 @@
-"""K1 and K2 of two checkouts of the port on one card, in turns.
+"""K1, K2 and K3 of two checkouts of the port on one card, in turns.
 
     python ttipm_tpu_torch/tools/compare_kernels.py --parent DIR [--dim 8 --seed 24]
 
@@ -9,19 +9,24 @@ change".  Every measurement runs in a process of its own that imports
 both have: ``kernels.kkt_block_matvec``, ``kernels.schur_assemble``,
 ``fused_algebra.local_product`` and, where the checkout has it,
 ``kernels.schur_assemble_group`` (else four ``kernels.schur_assemble``
-calls).
+calls), and ``kernels.panel_qr`` on one contiguous panel.
 
 1. bits: the change solves MaxCut d<dim> and records the operands and
-   the result of the first call of every distinct shape of its K1 and K2
-   entry points; the parent computes the same results from the same
-   operands with its kernels; the two are compared bit for bit.
+   the result of the first call of every distinct shape of its K1, K2 and
+   K3 entry points; the parent computes the same results from the same
+   operands with its kernels; the two are compared bit for bit (K3's bits
+   follow its reduction order: reported, not required equal).
 2. times, in the order parent, change, change, parent: at bond rank 8 /
    operator rank 4 and at 32 / 9, one block matvec, one Schur block, one
    ``local_product`` and the four Schur blocks of a local factor: median
    of single calls (CUDA events, host cost included), back-to-back calls
    (wall of a run of calls over their number), and the device kernels per
-   call with their summed device time (torch.profiler); then the wall and
-   the iteration count of the MaxCut solve.
+   call with their summed device time (torch.profiler); K3 at the panels
+   in ``K3_SHAPES`` the same way, beside ``torch.linalg.qr`` on the same
+   panel and, where the library exports ``ttipm_panel_qr_stamps``, the
+   kernel's own clock stamps (cycles of its load, forward chain, R store,
+   Q chain and store); then the wall and the iteration count of the
+   MaxCut solve.
 
 Prints one JSON line per step.  Needs one CUDA device.
 """
@@ -37,6 +42,10 @@ import tempfile
 import time
 
 import numpy as np
+
+# Panels K3 is timed at: the d8 solve's smallest and largest, the R = 16 and
+# R = 32 rungs' (4R, R + 2), and the largest of the reference's envelope.
+K3_SHAPES = ((24, 6), (40, 10), (64, 18), (128, 34), (512, 128))
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -68,17 +77,18 @@ def worker_record(args):
             return [cpu(x) for x in a]
         return a
 
-    names = ("kkt_block_product", "kkt_block_matvec", "schur_assemble_group", "schur_assemble")
+    names = ("kkt_block_product", "kkt_block_matvec", "schur_assemble_group", "schur_assemble",
+             "panel_qr")
     seen, calls = set(), []
     originals = {n: getattr(K, n) for n in names}
 
     def recorder(name):
-        def wrapped(*a):
-            out = originals[name](*a)
-            key = (name, shape_key(a))
+        def wrapped(*a, **kw):
+            out = originals[name](*a, **kw)
+            key = (name, shape_key(a), str(kw))
             if key not in seen:
                 seen.add(key)
-                calls.append((name, cpu(a), cpu(out)))
+                calls.append((name, cpu(a), kw, cpu(out)))
             return out
         return wrapped
 
@@ -98,10 +108,15 @@ def worker_replay(args):
     dev = torch.device("cuda")
     calls = torch.load(args.file, weights_only=False)
     report = {}
-    for name, a, want in calls:
+    for name, a, kw, want in calls:
         def cu(t):
             return t.to(dev)
-        if name == "kkt_block_product":
+        if name == "panel_qr":  # the parent's entry takes the panel alone
+            q, r = K.panel_qr(cu(a[0]))
+            got = torch.cat([q.T.reshape(-1) if kw.get("transposed") else q.reshape(-1),
+                             r.reshape(-1)])
+            want = torch.cat([t.reshape(-1) for t in want])
+        elif name == "kkt_block_product":
             terms, nrows = a
             rows = [None] * nrows
             for pl, A, pr, x, row in terms:
@@ -123,17 +138,53 @@ def worker_replay(args):
 
 
 def _device_kernels(fn):
-    """(device kernels, summed device microseconds) of one call."""
+    """(device kernels, summed device microseconds) of one call; traced
+    again, up to three times, when the trace comes back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ev:
+            break
     return len(ev), float(sum(e.time_range.elapsed_us() for e in ev))
+
+
+def _k3_stamps(K, a):
+    """Median cycles of K3's phases on the contiguous panel ``a`` from the
+    kernel's own clock stamps, or None where the checkout's library has no
+    ``ttipm_panel_qr_stamps(a, q, r, m, n, ctas, threads, ws, stamps,
+    stream)`` (six stamps: start, loaded, forward chain done, R stored, Q
+    chain done, stored)."""
+    import ctypes
+
+    import torch
+
+    lib = K._lib()
+    if not hasattr(lib, "ttipm_panel_qr_stamps"):
+        return None
+    fn = lib.ttipm_panel_qr_stamps
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [p, p, p, i, i, i, i, p, p, p], i
+    m, n = a.shape
+    ctas, threads, ws_doubles = K.k3_plan(m, n)[:3] if hasattr(K, "k3_plan") else (1, 256, 0)
+    q, r = torch.empty_like(a), a.new_empty((n, n))
+    ws = a.new_empty(max(ws_doubles, 1))
+    stamps = torch.zeros(6 + 2 * n, dtype=torch.int64, device=a.device)
+    runs = []
+    for _ in range(7):
+        err = fn(a.data_ptr(), q.data_ptr(), r.data_ptr(), m, n, ctas, threads, ws.data_ptr(),
+                 stamps.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"ttipm_panel_qr_stamps: CUDA error {err}")
+        runs.append(np.diff(stamps.cpu().numpy()[:6]))
+    med = np.median(np.array(runs[2:]), axis=0)
+    return dict(zip(("load", "forward", "r_store", "q_chain", "store"), map(float, med)))
 
 
 def worker_time(args):
@@ -196,6 +247,23 @@ def worker_time(args):
             rows.append({"case": name, "R": R, "s": s, "single_ms": single_ms(fn),
                          "back_to_back_ms": back_to_back_ms(fn, 200 if R == 8 else 50),
                          "device_kernels": n_dev, "device_us": dev_us})
+    for m, n in K3_SHAPES:
+        a = t(m, n)
+        row = {"case": "panel_qr", "m": m, "n": n,
+               "library_ms": single_ms(lambda: torch.linalg.qr(a, mode="reduced"))}
+        try:
+            K.panel_qr(a)
+            torch.cuda.synchronize()
+        except K.KernelError as e:  # a checkout whose kernel does not take the panel
+            row["refused"] = str(e)[:120]
+            rows.append(row)
+            continue
+        n_dev, dev_us = _device_kernels(lambda: K.panel_qr(a))
+        row.update({"single_ms": single_ms(lambda: K.panel_qr(a)),
+                    "back_to_back_ms": back_to_back_ms(lambda: K.panel_qr(a)),
+                    "device_kernels": n_dev, "device_us": dev_us,
+                    "stamps": _k3_stamps(K, a)})
+        rows.append(row)
     res = _solve(args.dim, args.seed)
     print(json.dumps({"times": rows, "solve": {k: res[k] for k in
                                                ("iters", "slack", "wall_s")}}))
