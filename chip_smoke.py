@@ -34,9 +34,22 @@ and prints no result line):
    first operands of each of their shapes, and the totals weighted by the
    solve's call counts are printed (slice_k12_times, slice_k3_times,
    slice_k4_times).
+6. fallback: MaxCut d10 (seed 41, configs/maxcut_10.yaml settings, quiet)
+   on the GPU through the runner's run_and_record: the fused ladder, the
+   ragged AMEn where the ladder exhausts its restarts, the fused
+   eigensolver.  Converged, at least one Newton solve through the ragged
+   AMEn, every kernel launched, no plain version run on a CUDA tensor, and
+   every kernel within phase 3's tolerances on the first call of up to 48
+   distinct shapes a kernel, the largest of each entry point included.
+   Printed: wall and iterations beside the JAX package's CPU run, the
+   solve counts and seconds of the three solver layers, the host syncs by
+   file, the peak device memory, the launches, the largest K1 block and K4
+   order, and the kernels timed at the solve's heaviest shapes.
 
-The line before the last is a JSON object with the per-kernel record; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with the per-kernel record
+(launches on the d8 and the d10 paths); the last line is
+{"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
+build always) and then prints neither.
 """
 
 from __future__ import annotations
@@ -79,19 +92,15 @@ K4_ORDERS = (16, 64, 144, 256, 400, 512, 513, 1024, 4096, 5184)
 K3_PANELS = ((512, 128), (512, 32), (144, 36), (128, 34), (64, 18), (32, 10), (24, 6), (40, 10))
 
 
+def config_path(dim: int) -> str:
+    return os.path.join(REPO, "configs", f"maxcut_{dim}.yaml")
+
+
 def load_config(dim: int) -> dict:
-    """The flat ``key: value`` entries of configs/maxcut_<dim>.yaml."""
-    out = {}
-    with open(os.path.join(REPO, "configs", f"maxcut_{dim}.yaml")) as fh:
-        for line in fh:
-            line = line.split("#", 1)[0].strip()
-            if ":" not in line or line.startswith("-"):
-                continue
-            key, val = (s.strip() for s in line.split(":", 1))
-            val = val.split()[-1] if val else ""
-            if val:
-                out[key] = val
-    return out
+    """configs/maxcut_<dim>.yaml, read by the port runner's YAML reader."""
+    from ttipm_tpu_torch.utils.runner import load_yaml
+
+    return load_yaml(config_path(dim))
 
 
 def ipm_settings(cfg: dict) -> dict:
@@ -351,6 +360,25 @@ def phase_parity():
         raise AssertionError(f"d3 <C,X> differ: cpu {cpu['cx']} cuda {gpu['cx']}")
 
 
+def report_checks(label, checked, where):
+    """Print the worst error of each kernel's checks ({kernel: {shape:
+    errors}}) on one line, and raise if a check was outside tolerance."""
+    worst = {}
+    for name, by_shape in checked.items():
+        w = {"shapes": len(by_shape)}
+        for errs in by_shape.values():
+            for k, v in errs.items():
+                if k in ("rel", "rel_terms", "fact", "orth", "below_diagonal", "max_abs_err"):
+                    w[k] = max(w.get(k, 0.0), v)
+        w["failed_info"] = sum(1 for e in by_shape.values() if e.get("info", 0) != 0)
+        worst[name] = w
+    print(json.dumps({label: worst}), flush=True)
+    bad = [(name, key, errs) for name, by_shape in checked.items()
+           for key, errs in by_shape.items() if not errs["ok"]]
+    if bad:
+        raise AssertionError(f"kernels outside tolerance on {where}: {bad[:8]}")
+
+
 def phase_slice(dim, seed):
     """The solve on the card.  On the first call of each distinct operand
     shape, each entry point's output is also held against its plain version
@@ -406,21 +434,7 @@ def phase_slice(dim, seed):
     print(json.dumps({"slice": res}), flush=True)
     print(json.dumps({"shape_histogram": {n: c.most_common(6) for n, c in shapes.items()}}),
           flush=True)
-    worst = {}
-    for name, by_shape in checked.items():
-        w = {"shapes": len(by_shape)}
-        for errs in by_shape.values():
-            for k, v in errs.items():
-                if k in ("rel", "rel_terms", "fact", "orth", "below_diagonal",
-                         "max_abs_err"):
-                    w[k] = max(w.get(k, 0.0), v)
-        w["failed_info"] = sum(1 for e in by_shape.values() if e.get("info", 0) != 0)
-        worst[name] = w
-    print(json.dumps({"slice_checks": worst}), flush=True)
-    bad = [(name, key, errs) for name, by_shape in checked.items()
-           for key, errs in by_shape.items() if not errs["ok"]]
-    if bad:
-        raise AssertionError(f"kernels outside tolerance on the slice's shapes: {bad[:8]}")
+    report_checks("slice_checks", checked, "the slice's shapes")
     phase_slice_times("slice_k12_times", shapes, first,
                       ("kkt_block_product", "kkt_block_matvec", "schur_assemble_group",
                        "schur_assemble"))
@@ -467,22 +481,276 @@ def phase_slice_times(label, shapes, first, names):
     print(json.dumps({label: report}), flush=True)
 
 
+# The fallback cell (maxcut d10 seed 41) and the JAX package's run of it on
+# the CPU (BENCH_r05.json): converged in 11 iterations, 410.6 s.
+FALLBACK_CELL = (10, 41)
+JAX_CPU_D10 = {"iters": 11, "wall_s": 410.6, "source": "BENCH_r05.json (CPU run)"}
+FALLBACK_CHECKS = 48  # kernel checks per kernel in phase 6
+
+
+def shape_spec(arg):
+    """The nested shapes of an entry point's arguments, hashable (a tensor
+    becomes the tuple of its shape, other values stay)."""
+    import torch
+
+    if isinstance(arg, torch.Tensor):
+        return ("T",) + tuple(arg.shape)
+    if isinstance(arg, (list, tuple)):
+        return tuple(shape_spec(a) for a in arg)
+    return arg
+
+
+def random_operands(name, spec, rng, dev):
+    """Random operands of the shapes ``spec`` (an SPD matrix for K4)."""
+    import torch
+
+    def build(sp):
+        if isinstance(sp, tuple) and sp[:1] == ("T",):
+            return torch.as_tensor(rng.randn(*sp[1:]), device=dev)
+        if isinstance(sp, tuple):
+            return type(sp)(build(x) for x in sp)
+        return sp
+
+    args = build(spec)
+    if name == "panel_cholesky":
+        n = args[0].shape[0]
+        args = (args[0] @ args[0].T + n * torch.eye(n, dtype=args[0].dtype, device=dev),)
+    if name in ("schur_assemble_group", "kkt_block_product"):
+        args = (list(args[0]),) + tuple(args[1:])
+    return args
+
+
+def phase_fallback(dim, seed):
+    """maxcut d<dim> seed <seed> through the runner's ``run_and_record``
+    with configs/maxcut_<dim>.yaml's settings (quiet): the fused ladder,
+    the ragged AMEn when the ladder exhausts, the fused eigensolver.  The
+    entry points of the fused ladder, the ragged AMEn and the eigensolver
+    are timed (synchronised) and counted; host syncs are counted by the
+    file that made them (``torch.cuda.set_sync_debug_mode``).  Each kernel
+    is held to phase 3's tolerances on the first call of a shape, for the
+    first 46 distinct shapes of a kernel and, at the end, for the largest
+    shape of each entry point if it was not among them.  The seconds of
+    these checks are reported apart.  Returns per kernel (launches, plain
+    calls, grouped launches)."""
+    import argparse
+    import warnings
+
+    import torch
+
+    import ttipm_tpu_torch.ipm as ipm
+    from ttipm_tpu_torch.checks import KERNEL_OF, kernel_errors, shape_key
+    from ttipm_tpu_torch.models.maxcut import create_problem
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.solvers.amen import AmenRestartsExhausted
+    from ttipm_tpu_torch.utils import runner
+
+    config = load_config(dim)
+    config["verbose"] = False
+    args = argparse.Namespace(device="cuda", track_mem=True, rank=1, config=config_path(dim))
+    rec = runner.new_record(1, dim - 1)
+    first_checks = FALLBACK_CHECKS - 2  # two kernels have two entry points
+
+    layer = [None]
+    layers = {k: {"calls": 0, "s": 0.0, "check_s": 0.0}
+              for k in ("fused", "ragged", "eigen")}
+    exhausted = [0]
+    calls = {}          # (layer, name, spec) -> count
+    bounds = {}         # (name, spec) -> bound_ms of its first call
+    largest = {}        # name -> (size, spec, args, kw) of its largest call
+    checked = {name: {} for name in K.STATS}
+    check_s = [0.0]
+    originals = {name: getattr(K, name) for name in KERNEL_OF}
+    solvers = {"fused": "tt_restarted_block_amen_fused", "ragged": "tt_restarted_block_amen",
+               "eigen": "tt_max_generalised_eigen_fused"}
+    solver_fns = {k: getattr(ipm, v) for k, v in solvers.items()}
+
+    def check(name, spec, a, kw, out):
+        t0 = time.perf_counter()
+        held = (out[0].T, out[1]) if kw.get("transposed") else out
+        checked[KERNEL_OF[name]][(name, spec)] = kernel_errors(name, a, held, cancelling=True)
+        dt = time.perf_counter() - t0
+        check_s[0] += dt
+        if layer[0]:
+            layers[layer[0]]["check_s"] += dt
+
+    def recorder(name):
+        fn = originals[name]
+
+        def wrapped(*a, **kw):
+            spec = shape_spec(a) + (tuple(sorted(kw.items())),)
+            key = (layer[0], name, spec)
+            calls[key] = calls.get(key, 0) + 1
+            out = fn(*a, **kw)
+            if (name, spec) not in bounds:
+                size = bounds[(name, spec)] = bound_ms(name, a)[0]
+                if name not in largest or size > largest[name][0]:
+                    kept = (a[0].clone(),) if name == "panel_cholesky" else a
+                    largest[name] = (size, spec, kept, kw)
+                if len(checked[KERNEL_OF[name]]) < first_checks:
+                    check(name, spec, a, kw, out)
+            return out
+        return wrapped
+
+    def timed(kind):
+        fn = solver_fns[kind]
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            outer, layer[0] = layer[0], kind
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            except AmenRestartsExhausted:
+                if kind == "fused":
+                    exhausted[0] += 1
+                raise
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                layers[kind]["calls"] += 1
+                layers[kind]["s"] += dt
+                layer[0] = outer
+                print(json.dumps({"fallback_solve": kind, "s": dt}), file=sys.stderr,
+                      flush=True)
+        return wrapped
+
+    for name in KERNEL_OF:
+        setattr(K, name, recorder(name))
+    for kind, attr in solvers.items():
+        setattr(ipm, attr, timed(kind))
+    K.reset_counts()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                runner.run_and_record(seed, 0, 1, config, args, create_problem, rec)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        for name, fn in originals.items():
+            setattr(K, name, fn)
+        for kind, attr in solvers.items():
+            setattr(ipm, attr, solver_fns[kind])
+    counts = {name: (s.launches, s.plain_calls, s.grouped) for name, s in K.STATS.items()}
+    syncs = Counter(os.path.relpath(w.filename, REPO) for w in caught
+                    if "synchroniz" in str(w.message))
+    solve_syncs = {f: c for f, c in syncs.items()
+                   if f.startswith("ttipm_tpu_torch") and not f.endswith("checks.py")}
+    for name, (_, spec, a, kw) in largest.items():
+        if (name, spec) not in checked[KERNEL_OF[name]]:
+            check(name, spec, a, kw, getattr(K, name)(*a, **kw))
+
+    res = {
+        "dim": dim, "seed": seed, "iters": int(rec["num_iters"][0]),
+        "slack": float(rec["complementary_slackness"][0]),
+        "primal_feas": float(rec["feasibility_errors"][0]),
+        "dual_feas": float(rec["dual_feasibility_errors"][0]),
+        "ranksX": rec["ranksX"][0].tolist(), "ranksZ": rec["ranksZ"][0].tolist(),
+        "wall_s": float(rec["runtimes"][0]), "check_s": check_s[0],
+        "wall_less_checks_s": float(rec["runtimes"][0]) - check_s[0],
+        "jax_cpu": JAX_CPU_D10,
+        "solves": {k: v["calls"] for k, v in layers.items()},
+        "fused_exhausted": exhausted[0],
+        "layer_s_less_checks": {k: v["s"] - v["check_s"] for k, v in layers.items()},
+        "host_syncs": sum(solve_syncs.values()),
+        "host_syncs_by_file": dict(sorted(solve_syncs.items(), key=lambda kv: -kv[1])),
+        "max_memory_allocated": int(rec["memory"][0] * 1e6),
+        "counts": {n: {"launches": c[0], "plain_calls": c[1], "grouped": c[2]}
+                   for n, c in counts.items()},
+        "entry_calls": {n: sum(c for (_, nm, _), c in calls.items() if nm == n)
+                        for n in KERNEL_OF},
+        "largest": {n: shape_key(v[2]) for n, v in largest.items()},
+    }
+    print(json.dumps({"fallback": res}), flush=True)
+    report_checks("fallback_checks", checked, f"the d{dim} shapes")
+    fallback_times(calls, bounds, largest)
+    abs_tol = float(config["abs_tol"])
+    if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
+            and res["dual_feas"] < abs_tol):
+        raise AssertionError(f"d{dim} seed {seed} did not converge: {res}")
+    if layers["ragged"]["calls"] < 1:
+        raise AssertionError(f"d{dim} seed {seed}: no Newton solve went through the ragged AMEn")
+    for name, (launches, plain, _) in counts.items():
+        if launches <= 0:
+            raise AssertionError(f"{name}: not launched in the d{dim} solve")
+        if plain != 0:
+            raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
+    return counts
+
+
+def fallback_times(calls, bounds, largest):
+    """Kernel, plain version, library call and bound at the heaviest shapes
+    of the fallback solve: per entry point and solver layer the two with
+    the most calls times bound, and per entry point the largest; timed on
+    random operands of those shapes (K4 on an SPD matrix)."""
+    import torch
+
+    from ttipm_tpu_torch.checks import PLAIN, shape_key
+    from ttipm_tpu_torch.ops import kernels as K
+
+    rng = np.random.RandomState(7)
+    dev = torch.device("cuda")
+    library = library_calls()
+    totals = Counter()
+    by_entry = {}
+    for (lay, name, spec), count in calls.items():
+        totals[(name, spec)] += count
+        by_entry.setdefault((lay, name), []).append((count * bounds[(name, spec)], spec, count))
+    picks = {}
+    for (lay, name), items in by_entry.items():
+        for _, spec, count in sorted(items, key=lambda x: -x[0])[:2]:
+            picks.setdefault((name, spec), []).append([lay, count])
+    for name, (_, spec, _, _) in largest.items():
+        picks.setdefault((name, spec), []).append(["largest", totals[(name, spec)]])
+    rows = []
+    for (name, spec), tags in picks.items():
+        a = random_operands(name, spec[:-1], rng, dev)
+        kw = dict(spec[-1])
+        fn, plain, lib = getattr(K, name), PLAIN[name], library.get(name)
+        fns = [lambda: plain(*a), lambda: fn(*a, **kw)]
+        if lib is not None:
+            fns.insert(1, lambda: lib(*a))
+        ms = _turns_ms(fns, runs=3, warmup=1)
+        b, by = bound_ms(name, a)
+        rows.append({"kernel": name, "shape": shape_key(a), "kw": kw or None, "tags": tags,
+                     "calls": totals[(name, spec)], "ms": ms[-1], "plain_ms": ms[0],
+                     "library_ms": ms[1] if lib is not None else None, "bound_ms": b,
+                     "bound_by": by})
+    for row in sorted(rows, key=lambda r: (r["kernel"], -r["calls"])):
+        print(json.dumps({"fallback_time": row}), flush=True)
+
+
+PHASES = ("kernels", "parity", "slice", "fallback")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dim", type=int, default=8)
     ap.add_argument("--seed", type=int, default=24)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES) + " (device and "
+                         "build always run); the result lines are printed only for all")
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     sys.path.insert(0, REPO)
 
     name = phase_device()
     phase_build()
-    summary = phase_kernels()
-    phase_parity()
-    counts = phase_slice(args.dim, args.seed)
+    summary = phase_kernels() if "kernels" in phases else None
+    if "parity" in phases:
+        phase_parity()
+    counts = phase_slice(args.dim, args.seed) if "slice" in phases else None
+    counts_fb = phase_fallback(*FALLBACK_CELL) if "fallback" in phases else None
+    if set(phases) != set(PHASES):
+        return 0
 
     record = [
         {"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
-         "launches": counts[n][0], **summary[n]}
+         "launches": counts[n][0], "launches_d10": counts_fb[n][0],
+         **summary[n]}
         for n in KERNELS
     ]
     import torch

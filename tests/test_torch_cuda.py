@@ -16,7 +16,12 @@ non-contiguous operands, one kernel launch up to order 512), and K3's at
 every regime of its envelope (one CTA, a cluster of row slabs), on rank-deficient, NaN and non-contiguous panels, with the
 transposed output, one device kernel a call.  The grouped
 entries of K1 and K2 run at the same regular and odd shapes with
-non-contiguous operands, and every K1 / K2 call is one device kernel.
+non-contiguous operands, and every K1 / K2 call is one device kernel.  The
+ragged local KKT solver runs on the card against its CPU run at m = 3600
+with r != R, a failed K4 factorization sends it to LGMRES, the ragged
+sweeps' block product is one K2 launch, the ragged eigensolver's LOBPCG
+reaches the extremal pair above its dense gate, and the fully ragged IPM
+(``set_fused_kkt(False)``) matches its CPU run.
 """
 
 import numpy as np
@@ -504,3 +509,166 @@ def test_cuda_solve_matches_cpu(cuda):
     assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-6)
     assert all(s.plain_calls == 0 for s in K.STATS.values())
     assert K.STATS["kkt_block_matvec"].launches > 0
+
+
+def _local_system(dev, r, R, spd=True, seed=0):
+    """A projected equality KKT system at one core of the ragged sweeps
+    (bond ranks r on the left, R on the right; m = 4 r R), as
+    ``ipm_local_solver`` takes it: the L_Z block is SPD (Kronecker product
+    of SPD factors) unless ``spd`` is false."""
+    from ttipm_tpu_torch.solvers.blocks import TTBlockMatrix, TTBlockVector
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.randn(*shape), device=dev)
+
+    def spd_mat(n, shift=1.0):
+        a = rng.randn(n, n)
+        return a @ a.T / n + shift * np.eye(n)
+
+    def phi(n, s):
+        return torch.as_tensor(np.stack([spd_mat(n)] * s, axis=1), device=dev)
+
+    lz = spd_mat(4)
+    if not spd:
+        lz -= 3.0 * np.eye(4)
+    mat = TTBlockMatrix()
+    mat[0, 0] = [t(1, 4, 4, 2)]
+    mat[0, 1] = [t(1, 4, 4, 2)]
+    mat[1, 2] = [torch.eye(4, dtype=torch.float64, device=dev).reshape(1, 4, 4, 1)]
+    mat[2, 1] = [torch.as_tensor(lz, device=dev).reshape(1, 4, 4, 1)]
+    mat[2, 2] = [torch.as_tensor(spd_mat(4), device=dev).reshape(1, 4, 4, 1)]
+    mat.add_alias((0, 1), (1, 0), is_transpose=True)
+    vec = TTBlockVector()
+    for i in range(3):
+        vec[i] = [t(2, 4, 3)]
+    def eye(n):
+        return torch.eye(n, dtype=torch.float64, device=dev).reshape(n, 1, n)
+
+    XL = {(0, 0): t(r, 1, r), (0, 1): t(r, 1, r), (1, 2): eye(r), (2, 1): phi(r, 1),
+          (2, 2): phi(r, 1)}
+    XR = {(0, 0): t(R, 2, R), (0, 1): t(R, 2, R), (1, 2): eye(R), (2, 1): phi(R, 1),
+          (2, 2): phi(R, 1)}
+    bl = {i: t(2, r) for i in range(3)}
+    br = {i: t(3, R) for i in range(3)}
+    return XL, mat[0], XR, bl, vec[0], br, t(r, 3, 4, R)
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_local_solver_matches_cpu(cuda):
+    """The ragged local KKT solve at m = 4 r R = 3600 with r != R (the d10
+    dense gate's largest order) on the card (K1 group, K4 blocked regime,
+    K2 applies) against the CPU run of the plain versions."""
+    from ttipm_tpu_torch.solvers.local_kkt import ipm_local_solver
+
+    out = {}
+    for dev in ("cpu", cuda):
+        K.reset_counts()
+        out[str(dev)] = ipm_local_solver(*_local_system(dev, 25, 36), 30)
+        if dev != "cpu":
+            assert K.STATS["schur_assemble"].launches == 1
+            assert K.STATS["panel_cholesky"].launches == 1
+            assert all(s.plain_calls == 0 for s in K.STATS.values())
+    sol_c, old_c, new_c, rhs_c, nrm_c, fail_c = out["cpu"]
+    sol_g, old_g, new_g, rhs_g, nrm_g, fail_g = out[str(cuda)]
+    assert not fail_c and not fail_g
+    # the two sum in different orders; the Schur system's conditioning
+    # carries that to the solution
+    assert float(torch.linalg.norm(sol_g.cpu() - sol_c)) <= 1e-9 * float(torch.linalg.norm(sol_c))
+    assert new_g < 1e-9 and new_c < 1e-9
+
+
+@pytest.mark.cuda
+def test_cuda_failed_cholesky_routes_local_solve_to_gmres(cuda):
+    """K4's info != 0 on an indefinite L_Z sends the local solve to LGMRES
+    (no exception, failure flagged), as a NaN Cholesky does in the JAX
+    package; the CPU run takes the same route."""
+    from ttipm_tpu_torch.solvers.local_kkt import ipm_local_solver
+
+    out = {}
+    for dev in ("cpu", cuda):
+        K.reset_counts()
+        out[str(dev)] = ipm_local_solver(*_local_system(dev, 3, 4, spd=False), 30)
+        if dev != "cpu":
+            assert K.STATS["panel_cholesky"].launches == 1
+    assert out["cpu"][5] and out[str(cuda)][5]
+    assert bool(torch.isfinite(out[str(cuda)][0]).all())
+    assert out[str(cuda)][2] == pytest.approx(out["cpu"][2], rel=1e-6, abs=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_block_local_product_is_one_k2_launch(cuda):
+    """The ragged sweeps' block_local_product (five blocks and the (1,0)
+    transpose: six terms) is one K2 launch and one device kernel."""
+    XL, view, XR, _, _, _, x = _local_system(cuda, 5, 7)
+    K.reset_counts()
+    y = view.block_local_product(XL, XR, x)
+    torch.cuda.synchronize()
+    assert K.STATS["kkt_block_matvec"].launches == 1
+    assert K.STATS["kkt_block_matvec"].grouped == 1
+    names = _device_kernel_names(lambda: view.block_local_product(XL, XR, x))
+    assert len(names) == 1, names
+    check_kernel("kkt_block_matvec", (XL[0, 0], view[0, 0], XR[0, 0], x[:, 0]),
+                 K.kkt_block_matvec(XL[0, 0], view[0, 0], XR[0, 0], x[:, 0]))
+    assert tuple(y.shape) == tuple(x.shape)
+
+
+@pytest.mark.cuda
+def test_cuda_lobpcg_window_above_the_dense_gate(cuda):
+    """The ragged eigensolver's LOBPCG (K2 matvecs) on a near-diagonal
+    window of 512 with an interior eigenvector as warm start reaches the
+    extremal eigenvalue on the card (tests/test_eigen.py:100)."""
+    from ttipm_tpu_torch.solvers.eigen import lobpcg_window
+
+    rng = np.random.RandomState(7)
+    l = nm = 8
+    eye = np.zeros((l, 1, l))
+    eye[:, 0, :] = np.eye(l)
+    diag = np.linspace(1.0, 2.0, nm)
+    diag[3] = 0.1
+    A_k = np.zeros((1, nm, nm, 1))
+    A_k[0, :, :, 0] = np.diag(diag)
+    coup = rng.randn(nm, nm) * 1e-9
+    A_k[0, :, :, 0] += coup + coup.T
+    x0 = np.zeros((l, nm, l))
+    x0[0, 5, 0] = 1.0
+    ops = tuple(torch.as_tensor(a, device=cuda) for a in (eye, A_k, eye))
+    K.reset_counts()
+    lam, _, _ = lobpcg_window("w1", ops, torch.as_tensor(x0, device=cuda), tol=1e-8,
+                              maxiter=600)
+    assert abs(lam - 0.1) < 1e-4
+    assert K.STATS["kkt_block_matvec"].launches > 0
+    assert all(s.plain_calls == 0 for s in K.STATS.values())
+
+
+@pytest.mark.cuda
+def test_cuda_fully_ragged_solve_matches_cpu(cuda):
+    """``set_fused_kkt(False)``: maxcut d2 seed 11 through the ragged AMEn and
+    the ragged eigensolver on the card (K1, K2, K4 launched, no plain
+    version) against the CPU run: same iterations, <C, X> to 1e-6."""
+    from ttipm_tpu_torch import config
+    from ttipm_tpu_torch.ipm import tt_ipm
+    from ttipm_tpu_torch.models.maxcut import create_problem
+    from ttipm_tpu_torch.ops import tt as T
+
+    out = {}
+    config.set_fused_kkt(False)
+    try:
+        for dev in ("cpu", cuda):
+            rng = np.random.RandomState(11)
+            obj, L, b, lag = create_problem(2, 1, device=dev, rng=rng)
+            K.reset_counts()
+            X, _, _, Z, info = tt_ipm({"y": T.tt_reshape(lag, (4, 4))}, obj, L, b,
+                                      max_iter=22, gap_tol=3e-4, op_tol=1e-4, abs_tol=1e-3,
+                                      mals_restarts=2, rng=rng)
+            out[str(dev)] = (info["num_iters"], T.tt_inner_prod(T.tt_reshape(obj, (2, 2)), X),
+                             abs(T.tt_inner_prod(X, Z)))
+    finally:
+        config.set_fused_kkt(True)
+    assert out[str(cuda)][0] == out["cpu"][0]
+    assert out[str(cuda)][1] == pytest.approx(out["cpu"][1], rel=1e-6)
+    assert out[str(cuda)][2] < 1e-3
+    assert all(s.plain_calls == 0 for s in K.STATS.values())
+    for name in ("schur_assemble", "kkt_block_matvec", "panel_cholesky"):
+        assert K.STATS[name].launches > 0, name

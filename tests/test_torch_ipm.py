@@ -9,6 +9,8 @@ tests/test_ipm_e2e.py::solve_metrics, computed with the port's ops by
 ttipm_tpu_torch.checks.solve_metrics).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from ttipm_tpu_torch.ipm import tt_ipm as ipm_t
 from ttipm_tpu_torch.models.maxcut import create_problem as cp_t
 from ttipm_tpu_torch.ops import kernels as K
 from ttipm_tpu_torch.ops import tt as T
+from ttipm_tpu_torch.utils.runner import run_experiment
 
 SETTINGS = dict(max_iter=22, gap_tol=3e-4, op_tol=1e-4, abs_tol=1e-3, warm_up=3,
                 aho_direction=False, mals_restarts=2, max_refinement=5, lambdaStar=1.0)
@@ -70,8 +73,11 @@ def test_unported_paths_raise():
         ipm_t(lag_maps, obj, L, b, checkpoint_path="unused")
     with pytest.raises(NotImplementedError):
         tconfig.set_dtype(torch.float32)
-    with pytest.raises(NotImplementedError):
-        tconfig.set_fused_kkt(False)
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "maxcut_3.yaml")
+    for argv in (["--problem", "graphm"], ["--problem", "maxcut", "--solver", "sdpa"]):
+        with pytest.raises(NotImplementedError):
+            run_experiment(argv=argv + ["--config", config, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name", ["kkt_block_matvec", "panel_cholesky"])

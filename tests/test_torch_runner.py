@@ -1,0 +1,122 @@
+"""The port's experiment runner and its config reader.
+
+* The runner with ``--device cpu`` on a one-seed config written to
+  ``tmp_path`` with ``configs/maxcut_3.yaml``'s settings, run with the
+  working directory at ``tmp_path``: its results JSON has the keys of the
+  JAX runner's ``save_results_summary``, and its iterations and ranks equal
+  those of a direct JAX ``tt_ipm`` on that seed.
+* The YAML reader returns what ``yaml.safe_load`` returns on every config
+  of ``configs/``.
+* The refusals: other problems and solvers, and ``--device cuda`` without a
+  CUDA device.
+"""
+
+import argparse
+import glob
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from ttipm_tpu.ipm import tt_ipm as ipm_j
+from ttipm_tpu.models.maxcut import create_problem as cp_j
+from ttipm_tpu.ops import tt as J
+from ttipm_tpu.utils.runner import save_results_summary as save_j
+from ttipm_tpu_torch import config as tconfig
+from ttipm_tpu_torch.utils import runner
+from ttipm_tpu_torch.utils.memtrack import PeakMemoryTracker
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
+
+
+@pytest.fixture(autouse=True)
+def _bucket1():
+    tconfig.set_rank_bucket(1)
+    yield
+    tconfig.set_rank_bucket(4)
+
+
+def _one_seed_config(tmp_path, seed):
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs", "maxcut_3.yaml")))
+    cfg["seeds"] = [seed]
+    cfg["verbose"] = False
+    path = tmp_path / "maxcut_3_one_seed.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return cfg, str(path)
+
+
+def test_runner_matches_jax(tmp_path, monkeypatch):
+    seed = 1015
+    cfg, path = _one_seed_config(tmp_path, seed)
+    monkeypatch.chdir(tmp_path)
+    rec = runner.run_experiment(argv=["--problem", "maxcut", "--config", path, "--device", "cpu",
+                                      "--track_mem"])
+    out = glob.glob(str(tmp_path / "results" / "*.json"))
+    assert len(out) == 1
+    data = json.load(open(out[0]))
+
+    rec_j = runner.new_record(1, cfg["dim"] - 1)
+    args_j = argparse.Namespace(config=path, track_mem=True, rank=1)
+    save_j(cfg, args_j, rec_j, filename=str(tmp_path / "jax_keys.json"))
+    assert set(data) == set(json.load(open(tmp_path / "jax_keys.json")))
+
+    np.random.seed(seed)
+    obj, L, b, lag = cp_j(cfg["dim"], 1)
+    _, _, _, _, info = ipm_j(
+        {"y": J.tt_reshape(lag, (4, 4))}, J.tt_reshape(obj, (4,)), L, J.tt_reshape(b, (4,)),
+        max_iter=cfg["max_iter"], gap_tol=float(cfg["gap_tol"]), op_tol=float(cfg["op_tol"]),
+        warm_up=cfg["warm_up"], abs_tol=float(cfg["abs_tol"]), aho_direction=False,
+        mals_restarts=cfg["mals_restarts"], max_refinement=cfg["max_refinement"],
+        lambdaStar=float(cfg["lambdaStar"]))
+    assert data["num_iters"] == [[float(info["num_iters"])]]
+    assert data["ranksX"] == [[[float(r) for r in info["ranksX"]]]]
+    assert data["ranksZ"] == [[[float(r) for r in info["ranksZ"]]]]
+    assert rec["complementary_slackness"][0] < 1e-3
+    assert rec["feasibility_errors"][0] < 1e-3 and rec["dual_feasibility_errors"][0] < 1e-3
+    assert rec["memory"][0] >= 0.0
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=[os.path.basename(p) for p in CONFIGS])
+def test_config_reader_matches_pyyaml(path):
+    want = yaml.safe_load(open(path))
+    got = runner.load_yaml(path)
+    assert got == want
+    assert {k: type(v) for k, v in got.items()} == {k: type(v) for k, v in want.items()}
+
+
+def test_config_reader_scalars(tmp_path):
+    text = ("a: !!int 10\nb: !!float 3e-4\nc: 1e-3\nd: 0.5  # note\ne: yes\nf:\ng: ~\n"
+            "h: 'x: y'\nlist:\n- 1\n#- 2\n- 2.0 \n")
+    path = tmp_path / "c.yaml"
+    path.write_text(text)
+    assert runner.load_yaml(str(path)) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("argv,error", [
+    (["--problem", "corr_clust"], NotImplementedError),
+    (["--problem", "max_stable_set"], NotImplementedError),
+    (["--problem", "graphm"], NotImplementedError),
+    (["--problem", "maxcut", "--solver", "scs"], NotImplementedError),
+])
+def test_runner_refuses_unported(argv, error):
+    path = os.path.join(REPO, "configs", "maxcut_3.yaml")
+    with pytest.raises(error):
+        runner.run_experiment(argv=argv + ["--config", path, "--device", "cpu"])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is present")
+def test_runner_refuses_cpu_fallback():
+    path = os.path.join(REPO, "configs", "maxcut_3.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_experiment(argv=["--problem", "maxcut", "--config", path])
+
+
+def test_memtrack_cpu():
+    with PeakMemoryTracker("cpu") as tracker:
+        block = np.ones(4_000_000)
+        block[::4096] = 2.0
+    assert tracker.peak_mb >= 0.0

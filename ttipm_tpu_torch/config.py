@@ -1,11 +1,11 @@
 """Numeric configuration of the PyTorch port.
 
 Holds only the switches that the MaxCut main path reads
-(``ttipm_tpu/config.py:20-60,170,273-330``): the rank bucket and
-Newton-residual refinement.  The float64 profile and the fused KKT solver
-are the only ones ported, so their setters accept nothing else.  The
-device is not a setting: every function follows the device of the tensors
-it is given.
+(``ttipm_tpu/config.py:20-60,170,273-330``): the rank bucket, the choice of
+the fused or the ragged (reference-faithful) KKT solver and eigensolver,
+and Newton-residual refinement.  The float64 profile is the only one
+ported, so its setter accepts nothing else.  The device is not a setting:
+every function follows the device of the tensors it is given.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 _RANK_BUCKET = 4
 _NEWTON_REFINE = True
+_FUSED_KKT = True
 
 
 def set_dtype(dtype) -> None:
@@ -44,11 +45,16 @@ def bucket_rank(r: int) -> int:
 
 
 def set_fused_kkt(flag: bool) -> None:
-    """The fused fixed-rank KKT solver is the only Newton solver ported."""
-    if not flag:
-        raise NotImplementedError(
-            "the ragged AMEn solver is not ported; fused_kkt stays on"
-        )
+    """On (the default): the IPM solves its Newton systems with the fused
+    fixed-rank ladder, falling back to the ragged AMEn when the ladder
+    exhausts, and takes its step sizes from the fused eigensolver.  Off:
+    the ragged AMEn and the ragged eigensolver throughout."""
+    global _FUSED_KKT
+    _FUSED_KKT = bool(flag)
+
+
+def fused_kkt() -> bool:
+    return _FUSED_KKT
 
 
 def set_newton_refine(flag: bool) -> None:

@@ -3,14 +3,14 @@ equality path.
 
 Solves  min <C, X>  s.t.  L(X) = b,  X PSD  with the iterates X, Y, Z held
 as tensor trains.  Each iteration assembles the block-TT Newton system,
-solves it with the fused fixed-rank AMEn ladder, line-searches the PSD
-cone with the fused TT generalised eigensolver, and rounds the updated
-iterates with PSD-preserving TT rounding.
+solves it with the fused fixed-rank AMEn ladder (the ragged AMEn when the
+ladder exhausts its restarts), line-searches the PSD cone with the fused
+TT generalised eigensolver, and rounds the updated iterates with
+PSD-preserving TT rounding.  ``config.set_fused_kkt(False)`` selects the
+ragged (reference-faithful) KKT solver and eigensolver throughout.
 
 Counterpart of ``ttipm_tpu/ipm.py`` (equality path).  Not ported yet:
-inequality constraints (``ineq_mask``), checkpointing, and the ragged
-AMEn fallback that the JAX package takes when the fused ladder exhausts
-its restarts; the port raises ``RaggedFallbackMissing`` there instead.
+inequality constraints (``ineq_mask``) and checkpointing.
 """
 
 from __future__ import annotations
@@ -43,23 +43,24 @@ from ttipm_tpu_torch.ops.tt import (
     tt_transpose,
     tt_zero_matrix,
 )
-from ttipm_tpu_torch.solvers.amen import AmenRestartsExhausted
+from ttipm_tpu_torch.solvers.amen import (
+    AmenRestartsExhausted,
+    ladder_rank_cap,
+    tt_restarted_block_amen,
+)
 from ttipm_tpu_torch.solvers.blocks import TTBlockMatrix, TTBlockVector, tt_get_block
+from ttipm_tpu_torch.solvers.eigen import tt_max_generalised_eigen
 from ttipm_tpu_torch.solvers.fused import tt_restarted_block_amen_fused
 from ttipm_tpu_torch.solvers.fused_eigen import tt_max_generalised_eigen_fused
+from ttipm_tpu_torch.solvers.local_kkt import ipm_local_solver
 
-__all__ = ["tt_ipm", "IPMStatus", "RaggedFallbackMissing"]
-
-
-class RaggedFallbackMissing(NotImplementedError):
-    """The fused ladder exhausted its restarts; the JAX package falls back
-    to the ragged AMEn solver there, which is not ported yet."""
+__all__ = ["tt_ipm", "IPMStatus"]
 
 
 # Faults that the Newton step's total-function recovery must not turn into
 # a zero step: a kernel that did not build or launch, a device error
 # surfacing from an earlier asynchronous launch, device memory exhausted.
-_NOT_RECOVERED = (RaggedFallbackMissing, KernelError, torch.cuda.OutOfMemoryError) + (
+_NOT_RECOVERED = (KernelError, torch.cuda.OutOfMemoryError) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 
@@ -321,7 +322,7 @@ def _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, X_tt, Z_tt, ZX, status,
                         solver, rng):
     """Predictor solve -> step sizes -> Mehrotra sigma -> corrector solve.
     A numerical failure routes the outer loop into its finishing branch;
-    a kernel or device fault, and the missing ragged fallback, raise."""
+    a kernel or device fault raises."""
     try:
         return _newton_step_inner(lhs_matrix_tt, rhs_vec_tt, X_tt, Z_tt, ZX,
                                   status, solver, rng)
@@ -381,9 +382,10 @@ def _tt_get_step_sizes(X_tt, Z_tt, Delta_X_tt, Delta_Z_tt, status, rng):
         # the refinement phase line-searches against a pushed-out boundary
         X_tt = _regularised(X_tt, status.boundary_val, dim)
         Z_tt = _regularised(Z_tt, status.boundary_val, dim)
-    x_step, status.eigen_x0 = tt_max_generalised_eigen_fused(
+    eigen = tt_max_generalised_eigen_fused if config.fused_kkt() else tt_max_generalised_eigen
+    x_step, status.eigen_x0 = eigen(
         X_tt, Delta_X_tt, x0=status.eigen_x0, tol=1e-8, verbose=status.verbose, rng=rng)
-    z_step, status.eigen_z0 = tt_max_generalised_eigen_fused(
+    z_step, status.eigen_z0 = eigen(
         Z_tt, Delta_Z_tt, x0=status.eigen_z0, tol=1e-8, verbose=status.verbose, rng=rng)
     tau = 0.9 + 0.05 * min(x_step, z_step)
     if status.verbose:
@@ -437,18 +439,51 @@ def _ipm_log_iteration(iteration, status, X_tt, Y_tt, Z_tt):
     print(f"Ranks: X={tt_ranks(X_tt)}, Z={tt_ranks(Z_tt)}, Y={tt_ranks(Y_tt)}", flush=True)
 
 
-def _make_solver(op_tol, mals_restarts, verbose, rng):
+def _make_solver(dim, op_tol, mals_restarts, verbose, rng):
+    """The Newton solver: the ragged AMEn with the local KKT solver when
+    ``config.fused_kkt()`` is off; else the fused ladder, which falls back
+    to the ragged AMEn when it exhausts its restarts.  The fallback is
+    sticky (later solves go straight to the ragged AMEn) until a warm start
+    fits the ladder's rank cap again, at most 3 consecutive failures."""
+    def ragged(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target=None):
+        return tt_restarted_block_amen(
+            lhs, rhs, rank_restriction=restriction, x0=x0, local_solver=ipm_local_solver,
+            op_tol=op_tol, termination_tol=termination_tol, num_restarts=mals_restarts,
+            inner_m=nwsp, verbose=verbose, refine_target=refine_target, rng=rng)
+
+    if not config.fused_kkt():
+        return ragged
+
+    state = {"fused_ok": True, "fails": 0}
+
+    def warm_fits_ladder(x0, restriction):
+        if x0 is None:
+            return False
+        warm_r = max((int(c.shape[-1]) for c in x0[:-1]), default=4)
+        return warm_r <= ladder_rank_cap(restriction, dim)
+
     def solver(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target=None):
+        if not state["fused_ok"]:
+            if state["fails"] < 3 and warm_fits_ladder(x0, restriction):
+                state["fused_ok"] = True
+                if verbose:
+                    print("\t[fused] warm start fits ladder cap -> retrying fused (un-stick)")
+            else:
+                return ragged(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target)
         try:
-            return tt_restarted_block_amen_fused(
+            out = tt_restarted_block_amen_fused(
                 lhs, rhs, rank_restriction=restriction, op_tol=op_tol,
                 termination_tol=termination_tol, num_restarts=mals_restarts,
                 inner_m=nwsp, x0=x0, verbose=verbose,
                 refine_target=refine_target, rng=rng)
-        except AmenRestartsExhausted as e:
-            raise RaggedFallbackMissing(
-                f"fused KKT ladder exhausted ({e}); the ragged AMEn fallback "
-                "(ttipm_tpu/ipm.py:876-883) is not ported") from e
+            state["fails"] = 0
+            return out
+        except AmenRestartsExhausted:
+            state["fused_ok"] = False
+            state["fails"] += 1
+            if verbose:
+                print(f"\t[fused] restarts exhausted -> ragged AMEn (sticky, fail {state['fails']})")
+            return ragged(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target)
     return solver
 
 
@@ -510,7 +545,7 @@ def tt_ipm(
 
     lhs = TTBlockMatrix()
     lhs[1, 2] = tt_reshape(tt_identity(2 * dim, device=ref.device, dtype=ref.dtype), (4, 4))
-    solver = _make_solver(op_tol, mals_restarts, verbose, rng)
+    solver = _make_solver(dim, op_tol, mals_restarts, verbose, rng)
 
     lin_op_tt_adj = tt_transpose(lin_op_tt)
     lhs[0, 1] = tt_scale(-1, lin_op_tt)

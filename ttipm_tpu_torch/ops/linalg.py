@@ -12,6 +12,9 @@ give on the CPU reference path:
 * ``lu_factor`` / ``lu_solve``: the host engine's LAPACK LU for the Schur
   systems (``solvers/fused_host.py:99-111``).
 * ``chol_solve``: two triangular solves with a lower Cholesky factor.
+* ``qr_factor`` / ``qr_apply`` / ``qr_solve``: the general square solve of
+  the ragged Schur systems, Householder QR and a triangular solve
+  (``ttipm_tpu/ops/linalg.py:23-37``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 __all__ = [
     "safe_svd", "fast_split_svd", "safe_eigh", "lu_factor", "lu_solve",
-    "chol_solve", "qr_econ",
+    "chol_solve", "qr_econ", "qr_factor", "qr_apply", "qr_solve",
 ]
 
 
@@ -68,3 +71,21 @@ def lu_solve(fac, b: torch.Tensor) -> torch.Tensor:
 def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, b, upper=False)
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
+def qr_factor(a: torch.Tensor):
+    """Householder QR of a square matrix, kept for several right-hand
+    sides."""
+    return torch.linalg.qr(a, mode="reduced")
+
+
+def qr_apply(qr, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given ``qr = qr_factor(A)``."""
+    q, r = qr
+    if b.dim() == 1:
+        return torch.linalg.solve_triangular(r, (q.T @ b)[:, None], upper=True)[:, 0]
+    return torch.linalg.solve_triangular(r, q.T @ b, upper=True)
+
+
+def qr_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return qr_apply(qr_factor(a), b)

@@ -23,7 +23,8 @@ from ttipm_tpu_torch.ops.tt import TT, tt_add, tt_ranks
 
 __all__ = [
     "prune_singular_vals", "pad_bond_factors", "tt_rl_orthogonalise",
-    "tt_rank_reduce", "tt_psd_rank_reduce", "add_kick_rank",
+    "tt_rank_reduce", "tt_psd_rank_reduce", "tt_rank_retraction", "truncated_svd",
+    "add_kick_rank", "add_kick_rank_rev",
 ]
 
 
@@ -176,6 +177,29 @@ def tt_psd_rank_reduce(train_tt: TT, eps: float = 1e-18,
     return out
 
 
+def tt_rank_retraction(train_tt: TT, upper_ranks) -> TT:
+    """Truncate the bond ranks to hard caps (no error budget)."""
+    out = tt_rl_orthogonalise(list(train_tt))
+    rank = 1
+    for idx, upper in enumerate(upper_ranks):
+        shape = tuple(out[idx].shape)
+        nxt = out[idx + 1]
+        u, s, v_t = safe_svd(out[idx].reshape(rank * int(np.prod(shape[1:-1])), -1))
+        next_rank = max(min(int(upper), int(s.shape[0])), 1)
+        out[idx] = u[:, :next_rank].reshape((rank,) + shape[1:-1] + (next_rank,))
+        sv = s[:next_rank, None] * v_t[:next_rank, :]
+        out[idx + 1] = (sv @ nxt.reshape(nxt.shape[0], -1)).reshape(
+            (next_rank,) + tuple(nxt.shape[1:-1]) + (-1,))
+        rank = next_rank
+    return out
+
+
+def truncated_svd(mat: torch.Tensor, trunc_rank: int):
+    """Rank-``trunc_rank`` factors (U, S Vt) of ``mat``."""
+    u, s, v_t = safe_svd(mat)
+    return u[:, :trunc_rank], s[:trunc_rank, None] * v_t[:trunc_rank]
+
+
 def add_kick_rank(u: torch.Tensor, v: torch.Tensor, r_add: int = 2, rng=None):
     """Append ``r_add`` random directions to U and re-orthogonalise
     (rank-adaptive enrichment).  ``rng``: a numpy RandomState, default
@@ -186,3 +210,16 @@ def add_kick_rank(u: torch.Tensor, v: torch.Tensor, r_add: int = 2, rng=None):
                            device=u.device)
     q, r_mat = qr_econ(torch.cat((u, kick), dim=1))
     return q, r_mat[:, :old_r] @ v, int(q.shape[1])
+
+
+def add_kick_rank_rev(u: torch.Tensor, v: torch.Tensor, r_add: int = 2, rng=None):
+    """Row-side enrichment: append ``r_add`` random rows to V and
+    re-orthogonalise them by RQ (a QR of the anti-transpose)."""
+    rng = np.random if rng is None else rng
+    old_r = v.shape[0]
+    kick = torch.as_tensor(rng.randn(r_add, v.shape[-1]), dtype=v.dtype, device=v.device)
+    stacked = torch.cat((v, kick), dim=0)
+    q_r, r_r = qr_econ(stacked.flip(0, 1).T)
+    q_new = q_r.T.flip(0, 1)
+    r_new = r_r.T.flip(0, 1)
+    return u @ r_new[:old_r], q_new, int(q_new.shape[0])

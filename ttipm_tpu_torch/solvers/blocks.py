@@ -3,8 +3,11 @@
 ``TTBlockMatrix`` stores a dict of TT operators keyed by (row, col) with
 two kinds of sharing: *aliases* (block (k,t) is the same TT as (i,j)) and
 *transposes* (block (k,t) is the TT transpose of (i,j)).  ``TTBlockVector``
-is the dict-of-rows right-hand side.  Counterpart of
-``ttipm_tpu/solvers/blocks.py`` (the parts the fused solver uses).
+is the dict-of-rows right-hand side.  Indexed by a core index, each gives
+a view of all its blocks' cores there, with the local products of the
+ragged AMEn sweeps; the block-operator ones go through one K2 launch
+(``kernels.kkt_block_product``) per product, the aliases and transposes
+included.  Counterpart of ``ttipm_tpu/solvers/blocks.py``.
 """
 
 from __future__ import annotations
@@ -14,10 +17,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
 from ttipm_tpu_torch.ops.tt import TT, tt_add, tt_inner_prod, tt_sub, tt_transpose
+from ttipm_tpu_torch.solvers.fused_algebra import _flip, _t
 
-__all__ = ["TTBlockVector", "TTBlockMatrix", "tt_get_block", "tt_block_train_add"]
+__all__ = ["TTBlockVector", "TTBlockMatrix", "TTBlockVectorView", "TTBlockMatrixView",
+           "tt_get_block", "tt_block_train_add"]
 
 
 def tt_get_block(i: int, block_train_tt: TT) -> TT:
@@ -85,6 +91,9 @@ class TTBlockVector:
     def get_row(self, index: int):
         return self._data.get(index, None)
 
+    def __getitem__(self, core_index: int) -> "TTBlockVectorView":
+        return TTBlockVectorView(self._data, core_index)
+
     def __iter__(self):
         return iter(self._data)
 
@@ -128,6 +137,8 @@ class TTBlockMatrix:
     def __getitem__(self, key):
         if isinstance(key, tuple) and len(key) == 2:
             return self._data.setdefault(key, [])
+        if isinstance(key, int):
+            return TTBlockMatrixView(self._data, self._aliases, self._transposes, key)
         raise KeyError(f"invalid key {key!r}")
 
     def __setitem__(self, key, value):
@@ -140,6 +151,9 @@ class TTBlockMatrix:
 
     def keys(self):
         return self._data.keys()
+
+    def tkeys(self):
+        return self._data.keys() | set(self._transposes.values())
 
     def block_product(self, x_cores: TT, op_tol: float, eps: float = 1e-12,
                       cache: dict = None, rng=None) -> TTBlockVector:
@@ -170,3 +184,125 @@ class TTBlockMatrix:
                 k, t = self._aliases[i, j]
                 accumulate(k, op, t, (i, j, "a"))
         return result
+
+
+class TTBlockVectorView:
+    """All rows' cores at one core index."""
+
+    def __init__(self, data: Dict[int, TT], core_index: int):
+        self._data = data
+        self._idx = core_index
+
+    def __getitem__(self, row_index: int):
+        return self._data[row_index][self._idx]
+
+    def __iter__(self):
+        return iter(self._data)
+
+    def __contains__(self, row_index: int):
+        return row_index in self._data
+
+    def block_local_product(self, Xb_k, Xb_kp1, nrmsc, shape) -> torch.Tensor:
+        """Every rhs row projected onto the local basis, stacked on axis 1
+        of a core of ``shape`` (rows without data are zero)."""
+        cols = {i: torch.einsum("br,bnB,BR->rnR", Xb_k[i], nrmsc * row[self._idx], Xb_kp1[i])
+                for i, row in self._data.items()}
+        ref = next(iter(cols.values()))
+        zero = ref.new_zeros(tuple(shape[:1]) + tuple(shape[2:]))
+        return torch.stack([cols.get(i, zero) for i in range(shape[1])], dim=1)
+
+
+class TTBlockMatrixView:
+    """All blocks' cores at one core index, with the local products of the
+    AMEn sweeps.  Each product is
+    ``y[:, row] = sum of phi_l[l,s,r] A[s,m,n,S] phi_r[L,S,R] x[r,n,R]``
+    over the stored blocks, their transposes (operator and basis indices
+    swapped) and their aliases."""
+
+    def __init__(self, data, aliases, transposes, core_index):
+        self._data = data
+        self._aliases = aliases
+        self._transposes = transposes
+        self._idx = core_index
+
+    def __getitem__(self, key):
+        return self._data[key][self._idx]
+
+    def __iter__(self):
+        return iter(self._data)
+
+    def keys(self):
+        return self._data.keys()
+
+    @property
+    def transposes(self):
+        return self._transposes
+
+    @property
+    def aliases(self):
+        return self._aliases
+
+    def _terms(self, x_core, direct, transposed):
+        """K2 terms of a product: ``direct(key)`` gives the (phi_l, phi_r)
+        of block ``key`` and its aliases, ``transposed(key, image)`` those
+        of its transpose image."""
+        terms = []
+        for (i, j), op in self._data.items():
+            A_k = op[self._idx]
+            pl, pr = direct((i, j))
+            terms.append((pl, A_k, pr, x_core[:, j], i))
+            if (i, j) in self._transposes:
+                k, t = self._transposes[i, j]
+                tl, tr = transposed((i, j), (k, t))
+                terms.append((tl, _t(A_k), tr, x_core[:, t], k))
+            if (i, j) in self._aliases:
+                k, t = self._aliases[i, j]
+                terms.append((pl, A_k, pr, x_core[:, t], k))
+        return terms
+
+    def block_local_product(self, XAX_k, XAX_kp1, x_core) -> torch.Tensor:
+        """y[:, i] += K_ij x[:, j] in the local projected basis."""
+        terms = self._terms(x_core, lambda key: (XAX_k[key], XAX_kp1[key]),
+                            lambda key, img: (_flip(XAX_k[key]), _flip(XAX_kp1[key])))
+        return kernels.kkt_block_product(terms, x_core.shape[1])
+
+    def block_local_product_batched(self, XAX_k, XAX_kp1, x_cores_q) -> torch.Tensor:
+        """``block_local_product`` over a leading axis q (all candidates
+        of the rank backoff at once): (q, r, block, n, R) -> same."""
+        cols = {}
+
+        def acc(i, val):
+            cols[i] = val if i not in cols else cols[i] + val
+
+        for (i, j), op in self._data.items():
+            A_k = op[self._idx]
+            pl, pr = XAX_k[i, j], XAX_kp1[i, j]
+            acc(i, torch.einsum("lsr,smnS,LSR,qrnR->qlmL", pl, A_k, pr, x_cores_q[:, :, j]))
+            if (i, j) in self._transposes:
+                k, t = self._transposes[i, j]
+                acc(k, torch.einsum("lsr,smnS,LSR,qlmL->qrnR", pl, A_k, pr, x_cores_q[:, :, t]))
+            if (i, j) in self._aliases:
+                k, t = self._aliases[i, j]
+                acc(k, torch.einsum("lsr,smnS,LSR,qrnR->qlmL", pl, A_k, pr, x_cores_q[:, :, t]))
+        q, r = x_cores_q.shape[0], x_cores_q.shape[1]
+        zero = x_cores_q.new_zeros((q, r, x_cores_q.shape[3], x_cores_q.shape[4]))
+        return torch.stack([cols.get(i, zero) for i in range(x_cores_q.shape[2])], dim=2)
+
+    def compressed_block_local_product(self, ZAX_k, ZAX_kp1, x_core, shape) -> torch.Tensor:
+        """Residual projection with z bases on both sides; a transpose
+        image has interfaces of its own."""
+        terms = self._terms(x_core, lambda key: (ZAX_k[key], ZAX_kp1[key]),
+                            lambda key, img: (ZAX_k[img], ZAX_kp1[img]))
+        return kernels.kkt_block_product(terms, shape[1])
+
+    def lcompressed_block_local_product(self, ZAX_k, XAX_kp1, x_core, shape) -> torch.Tensor:
+        """z basis on the left, x basis on the right."""
+        terms = self._terms(x_core, lambda key: (ZAX_k[key], XAX_kp1[key]),
+                            lambda key, img: (ZAX_k[img], _flip(XAX_kp1[key])))
+        return kernels.kkt_block_product(terms, shape[1])
+
+    def rcompressed_block_local_product(self, XAX_k, ZAX_kp1, x_core, shape) -> torch.Tensor:
+        """x basis on the left, z basis on the right."""
+        terms = self._terms(x_core, lambda key: (XAX_k[key], ZAX_kp1[key]),
+                            lambda key, img: (_flip(XAX_k[key]), ZAX_kp1[img]))
+        return kernels.kkt_block_product(terms, shape[1])
