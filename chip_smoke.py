@@ -45,9 +45,22 @@ and prints no result line):
    solve counts and seconds of the three solver layers, the host syncs by
    file, the peak device memory, the launches, the largest K1 block and K4
    order, and the kernels timed at the solve's heaviest shapes.
+7. ineq: corr_clust d6 (seed 764, the first of configs/corr_clust_6.yaml,
+   its settings, quiet) on the GPU through run_and_record: the inequality
+   path (the IneqStatus machine, the fused ladder's nine-term four-row
+   products and six-block Schur groups, the smallest-eigenvector step
+   sizes, the ragged inequality local solver where the ladder exhausts).
+   Converged, ineq_status left NOT_IN_USE, at least one nine-term K2
+   product and one six-block K1 group, every kernel launched, no plain
+   version on a CUDA tensor, kernels checked as in phase 6.  Printed as in
+   phase 6, with the final ineq_status and T ranks, the local solves and
+   the K2 / K1 launches by terms and blocks; also timed: the heaviest
+   nine-term product, six-block group and ragged L_Z.  If no ragged
+   inequality local solve ran, corr_clust d3 seed 291 is solved with the
+   fused ladder made to exhaust at once, so that it runs on the card.
 
 The line before the last is a JSON object with the per-kernel record
-(launches on the d8 and the d10 paths); the last line is
+(launches on the d8, the d10 and the corr_clust d6 paths); the last line is
 {"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
 build always) and then prints neither.
 """
@@ -92,15 +105,15 @@ K4_ORDERS = (16, 64, 144, 256, 400, 512, 513, 1024, 4096, 5184)
 K3_PANELS = ((512, 128), (512, 32), (144, 36), (128, 34), (64, 18), (32, 10), (24, 6), (40, 10))
 
 
-def config_path(dim: int) -> str:
-    return os.path.join(REPO, "configs", f"maxcut_{dim}.yaml")
+def config_path(dim: int, problem: str = "maxcut") -> str:
+    return os.path.join(REPO, "configs", f"{problem}_{dim}.yaml")
 
 
-def load_config(dim: int) -> dict:
-    """configs/maxcut_<dim>.yaml, read by the port runner's YAML reader."""
+def load_config(dim: int, problem: str = "maxcut") -> dict:
+    """configs/<problem>_<dim>.yaml, read by the port runner's YAML reader."""
     from ttipm_tpu_torch.utils.runner import load_yaml
 
-    return load_yaml(config_path(dim))
+    return load_yaml(config_path(dim, problem))
 
 
 def ipm_settings(cfg: dict) -> dict:
@@ -371,6 +384,7 @@ def report_checks(label, checked, where):
                 if k in ("rel", "rel_terms", "fact", "orth", "below_diagonal", "max_abs_err"):
                     w[k] = max(w.get(k, 0.0), v)
         w["failed_info"] = sum(1 for e in by_shape.values() if e.get("info", 0) != 0)
+        w["nonfinite_operands"] = sum(1 for e in by_shape.values() if e.get("nonfinite"))
         worst[name] = w
     print(json.dumps({label: worst}), flush=True)
     bad = [(name, key, errs) for name, by_shape in checked.items()
@@ -483,9 +497,18 @@ def phase_slice_times(label, shapes, first, names):
 
 # The fallback cell (maxcut d10 seed 41) and the JAX package's run of it on
 # the CPU (BENCH_r05.json): converged in 11 iterations, 410.6 s.
-FALLBACK_CELL = (10, 41)
+FALLBACK_CELL = ("maxcut", 10, 41)
 JAX_CPU_D10 = {"iters": 11, "wall_s": 410.6, "source": "BENCH_r05.json (CPU run)"}
-FALLBACK_CHECKS = 48  # kernel checks per kernel in phase 6
+# The inequality cell (corr_clust d6 seed 764, the first seed of
+# configs/corr_clust_6.yaml) and the JAX package's run of it on the CPU.
+INEQ_CELL = ("corr_clust", 6, 764)
+JAX_CPU_CC6 = {"iters": 11, "wall_s": 110.9, "slack": 4.175e-05,
+               "ranksX": [5, 13, 9, 5, 3], "ranksT": [5, 5, 3, 3, 3],
+               "source": "results/grid_r5_clean/grid_log.jsonl (CPU run)"}
+# A corr_clust solve whose fused ladder is made to exhaust at every Newton
+# step, so that the ragged inequality local solver runs on the card.
+EXHAUST_CELL = ("corr_clust", 3, 291)
+FALLBACK_CHECKS = 48  # kernel checks per kernel in phases 6 and 7
 
 
 def shape_spec(arg):
@@ -520,18 +543,23 @@ def random_operands(name, spec, rng, dev):
     return args
 
 
-def phase_fallback(dim, seed):
-    """maxcut d<dim> seed <seed> through the runner's ``run_and_record``
-    with configs/maxcut_<dim>.yaml's settings (quiet): the fused ladder,
-    the ragged AMEn when the ladder exhausts, the fused eigensolver.  The
-    entry points of the fused ladder, the ragged AMEn and the eigensolver
-    are timed (synchronised) and counted; host syncs are counted by the
-    file that made them (``torch.cuda.set_sync_debug_mode``).  Each kernel
-    is held to phase 3's tolerances on the first call of a shape, for the
-    first 46 distinct shapes of a kernel and, at the end, for the largest
-    shape of each entry point if it was not among them.  The seconds of
-    these checks are reported apart.  Returns per kernel (launches, plain
-    calls, grouped launches)."""
+def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tuple(KERNELS)):
+    """<problem> d<dim> seed <seed> through the runner's ``run_and_record``
+    with configs/<problem>_<dim>.yaml's settings (quiet), on the card.  The
+    fused ladder, the ragged AMEn, the fused generalised eigensolver and the
+    fused smallest-eigenvector sweep (the inequality step sizes) are timed
+    (synchronised) and counted, and so are the ragged local KKT solves;
+    host syncs are counted by the file that made them
+    (``torch.cuda.set_sync_debug_mode``).  With ``exhaust`` the fused ladder
+    raises AmenRestartsExhausted at once, so every Newton solve takes the
+    ragged AMEn.  Each kernel is held to phase 3's tolerances on the first
+    call of a shape, for the first 46 distinct shapes of a kernel and, at
+    the end, for the largest shape of each entry point if it was not among
+    them; the seconds of these checks are reported apart.  Prints one JSON
+    line under ``label``; raises unless the solve converged, each kernel of
+    ``must_launch`` launched and no plain version ran on a CUDA tensor.
+    Returns (result, per kernel (launches, plain calls, grouped launches),
+    the call record for ``solve_times``)."""
     import argparse
     import warnings
 
@@ -539,30 +567,35 @@ def phase_fallback(dim, seed):
 
     import ttipm_tpu_torch.ipm as ipm
     from ttipm_tpu_torch.checks import KERNEL_OF, kernel_errors, shape_key
-    from ttipm_tpu_torch.models.maxcut import create_problem
     from ttipm_tpu_torch.ops import kernels as K
     from ttipm_tpu_torch.solvers.amen import AmenRestartsExhausted
     from ttipm_tpu_torch.utils import runner
 
-    config = load_config(dim)
+    config = load_config(dim, problem)
     config["verbose"] = False
-    args = argparse.Namespace(device="cuda", track_mem=True, rank=1, config=config_path(dim))
+    args = argparse.Namespace(device="cuda", track_mem=True, rank=1,
+                              config=config_path(dim, problem))
     rec = runner.new_record(1, dim - 1)
     first_checks = FALLBACK_CHECKS - 2  # two kernels have two entry points
 
     layer = [None]
     layers = {k: {"calls": 0, "s": 0.0, "check_s": 0.0}
-              for k in ("fused", "ragged", "eigen")}
+              for k in ("fused", "ragged", "eigen", "min_eig")}
     exhausted = [0]
+    local = Counter()   # ragged local KKT solves: (solver, dense) -> count
+    info = {}
     calls = {}          # (layer, name, spec) -> count
     bounds = {}         # (name, spec) -> bound_ms of its first call
     largest = {}        # name -> (size, spec, args, kw) of its largest call
+    products, groups = Counter(), Counter()  # K2 (terms, rows), K1 blocks per launch
     checked = {name: {} for name in K.STATS}
     check_s = [0.0]
     originals = {name: getattr(K, name) for name in KERNEL_OF}
     solvers = {"fused": "tt_restarted_block_amen_fused", "ragged": "tt_restarted_block_amen",
-               "eigen": "tt_max_generalised_eigen_fused"}
+               "eigen": "tt_max_generalised_eigen_fused", "min_eig": "tt_min_eig_fused"}
     solver_fns = {k: getattr(ipm, v) for k, v in solvers.items()}
+    saved = {name: getattr(ipm, name)
+             for name in ("tt_ipm", "ipm_local_solver", "ipm_local_solver_ineq")}
 
     def check(name, spec, a, kw, out):
         t0 = time.perf_counter()
@@ -580,6 +613,10 @@ def phase_fallback(dim, seed):
             spec = shape_spec(a) + (tuple(sorted(kw.items())),)
             key = (layer[0], name, spec)
             calls[key] = calls.get(key, 0) + 1
+            if name == "kkt_block_product":
+                products[(len(a[0]), a[1])] += 1
+            elif name == "schur_assemble_group":
+                groups[len(a[0])] += 1
             out = fn(*a, **kw)
             if (name, spec) not in bounds:
                 size = bounds[(name, spec)] = bound_ms(name, a)[0]
@@ -591,8 +628,11 @@ def phase_fallback(dim, seed):
             return out
         return wrapped
 
+    def exhausted_ladder(*a, **kw):
+        raise AmenRestartsExhausted("fused ladder skipped (forced exhaustion)")
+
     def timed(kind):
-        fn = solver_fns[kind]
+        fn = exhausted_ladder if exhaust and kind == "fused" else solver_fns[kind]
 
         def wrapped(*a, **kw):
             torch.cuda.synchronize()
@@ -610,21 +650,40 @@ def phase_fallback(dim, seed):
                 layers[kind]["calls"] += 1
                 layers[kind]["s"] += dt
                 layer[0] = outer
-                print(json.dumps({"fallback_solve": kind, "s": dt}), file=sys.stderr,
-                      flush=True)
+                if kind in ("fused", "ragged"):
+                    print(json.dumps({f"{label}_solve": kind, "s": dt}), file=sys.stderr,
+                          flush=True)
         return wrapped
+
+    def counted(name):
+        fn = saved[name]
+
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            local[(name, not out[-1])] += 1  # out[-1]: the direct solve failed or was not tried
+            return out
+        return wrapped
+
+    def kept_info(*a, **kw):
+        out = saved["tt_ipm"](*a, **kw)
+        info.update(out[-1])
+        return out
 
     for name in KERNEL_OF:
         setattr(K, name, recorder(name))
     for kind, attr in solvers.items():
         setattr(ipm, attr, timed(kind))
+    ipm.tt_ipm = kept_info
+    for name in ("ipm_local_solver", "ipm_local_solver_ineq"):
+        setattr(ipm, name, counted(name))
     K.reset_counts()
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                runner.run_and_record(seed, 0, 1, config, args, create_problem, rec)
+                runner.run_and_record(seed, 0, 1, config, args,
+                                      runner.load_problem(problem), rec)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     finally:
@@ -632,6 +691,8 @@ def phase_fallback(dim, seed):
             setattr(K, name, fn)
         for kind, attr in solvers.items():
             setattr(ipm, attr, solver_fns[kind])
+        for name, fn in saved.items():
+            setattr(ipm, name, fn)
     counts = {name: (s.launches, s.plain_calls, s.grouped) for name, s in K.STATS.items()}
     syncs = Counter(os.path.relpath(w.filename, REPO) for w in caught
                     if "synchroniz" in str(w.message))
@@ -641,17 +702,20 @@ def phase_fallback(dim, seed):
         if (name, spec) not in checked[KERNEL_OF[name]]:
             check(name, spec, a, kw, getattr(K, name)(*a, **kw))
 
+    status = info["status"]
     res = {
-        "dim": dim, "seed": seed, "iters": int(rec["num_iters"][0]),
+        "problem": problem, "dim": dim, "seed": seed, "iters": int(rec["num_iters"][0]),
         "slack": float(rec["complementary_slackness"][0]),
         "primal_feas": float(rec["feasibility_errors"][0]),
         "dual_feas": float(rec["dual_feasibility_errors"][0]),
-        "ranksX": rec["ranksX"][0].tolist(), "ranksZ": rec["ranksZ"][0].tolist(),
+        "ineq_status": status.ineq_status.name,
+        "ranksX": info["ranksX"], "ranksZ": info["ranksZ"], "ranksT": info["ranksT"],
         "wall_s": float(rec["runtimes"][0]), "check_s": check_s[0],
         "wall_less_checks_s": float(rec["runtimes"][0]) - check_s[0],
-        "jax_cpu": JAX_CPU_D10,
+        "jax_cpu": jax_cpu,
         "solves": {k: v["calls"] for k, v in layers.items()},
         "fused_exhausted": exhausted[0],
+        "local_solves": {f"{n}{'_dense' if d else '_lgmres'}": c for (n, d), c in local.items()},
         "layer_s_less_checks": {k: v["s"] - v["check_s"] for k, v in layers.items()},
         "host_syncs": sum(solve_syncs.values()),
         "host_syncs_by_file": dict(sorted(solve_syncs.items(), key=lambda kv: -kv[1])),
@@ -660,30 +724,77 @@ def phase_fallback(dim, seed):
                    for n, c in counts.items()},
         "entry_calls": {n: sum(c for (_, nm, _), c in calls.items() if nm == n)
                         for n in KERNEL_OF},
+        "k2_products_by_terms_rows": {f"{t}x{r}": c for (t, r), c in sorted(products.items())},
+        "k1_groups_by_blocks": {str(b): c for b, c in sorted(groups.items())},
         "largest": {n: shape_key(v[2]) for n, v in largest.items()},
     }
-    print(json.dumps({"fallback": res}), flush=True)
-    report_checks("fallback_checks", checked, f"the d{dim} shapes")
-    fallback_times(calls, bounds, largest)
+    print(json.dumps({label: res}), flush=True)
+    report_checks(f"{label}_checks", checked, f"the {problem} d{dim} shapes")
     abs_tol = float(config["abs_tol"])
     if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
             and res["dual_feas"] < abs_tol):
-        raise AssertionError(f"d{dim} seed {seed} did not converge: {res}")
-    if layers["ragged"]["calls"] < 1:
-        raise AssertionError(f"d{dim} seed {seed}: no Newton solve went through the ragged AMEn")
+        raise AssertionError(f"{problem} d{dim} seed {seed} did not converge: {res}")
     for name, (launches, plain, _) in counts.items():
-        if launches <= 0:
-            raise AssertionError(f"{name}: not launched in the d{dim} solve")
+        if launches <= 0 and name in must_launch:
+            raise AssertionError(f"{name}: not launched in the {problem} d{dim} solve")
         if plain != 0:
             raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
+    return res, counts, (calls, bounds, largest)
+
+
+def phase_fallback(problem, dim, seed):
+    """Phase 6: the fused ladder, the ragged AMEn where the ladder exhausts
+    its restarts (at least one solve), the fused eigensolver; timed at the
+    solve's heaviest shapes."""
+    res, counts, record = drive(problem, dim, seed, "fallback", JAX_CPU_D10)
+    solve_times("fallback_time", *record)
+    if res["solves"]["ragged"] < 1:
+        raise AssertionError(f"d{dim} seed {seed}: no Newton solve went through the ragged AMEn")
     return counts
 
 
-def fallback_times(calls, bounds, largest):
+def phase_ineq(problem, dim, seed):
+    """Phase 7: the inequality path.  Converged, the inequalities in use at
+    some point (ineq_status left NOT_IN_USE), at least one nine-term K2
+    product and one six-block K1 group; timed at the solve's heaviest shapes
+    and at its heaviest nine-term product, six-block group and ragged L_Z.
+    If no ragged inequality local solve ran, a forced-exhaustion solve of
+    EXHAUST_CELL runs them on the card."""
+    res, counts, record = drive(problem, dim, seed, "ineq", JAX_CPU_CC6)
+    if res["ineq_status"] == "NOT_IN_USE":
+        raise AssertionError(f"{problem} d{dim} seed {seed}: the inequalities were never used")
+    if not res["k2_products_by_terms_rows"].get("9x4"):
+        raise AssertionError("no nine-term K2 product ran")
+    if not res["k1_groups_by_blocks"].get("6"):
+        raise AssertionError("no six-block K1 group ran")
+    calls = record[0]
+
+    def heaviest(name, pred):
+        items = Counter()
+        for (lay, nm, spec), c in calls.items():
+            if nm == name and pred(lay, spec):
+                items[spec] += c * record[1][(nm, spec)]
+        return [(name, spec) for spec, _ in items.most_common(1)]
+
+    extra = (heaviest("kkt_block_product", lambda lay, sp: len(sp[0]) == 9)
+             + heaviest("schur_assemble_group", lambda lay, sp: len(sp[0]) == 6)
+             + heaviest("panel_cholesky", lambda lay, sp: lay == "ragged"))
+    solve_times("ineq_time", *record, extra=extra)
+    if not any(k.startswith("ipm_local_solver_ineq") for k in res["local_solves"]):
+        # no fused ladder there, so no K3 (its split steps)
+        ex, _, _ = drive(*EXHAUST_CELL, "ineq_exhausted", exhaust=True,
+                         must_launch=("schur_assemble", "kkt_block_matvec", "panel_cholesky"))
+        if not any(k.startswith("ipm_local_solver_ineq") for k in ex["local_solves"]):
+            raise AssertionError("the ragged inequality local solver did not run")
+    return counts
+
+
+def solve_times(label, calls, bounds, largest, extra=()):
     """Kernel, plain version, library call and bound at the heaviest shapes
-    of the fallback solve: per entry point and solver layer the two with
-    the most calls times bound, and per entry point the largest; timed on
-    random operands of those shapes (K4 on an SPD matrix)."""
+    of a solve: per entry point and solver layer the two with the most calls
+    times bound, per entry point the largest, and the (name, spec) pairs of
+    ``extra``; timed on random operands of those shapes (K4 on an SPD
+    matrix)."""
     import torch
 
     from ttipm_tpu_torch.checks import PLAIN, shape_key
@@ -703,6 +814,8 @@ def fallback_times(calls, bounds, largest):
             picks.setdefault((name, spec), []).append([lay, count])
     for name, (_, spec, _, _) in largest.items():
         picks.setdefault((name, spec), []).append(["largest", totals[(name, spec)]])
+    for name, spec in extra:
+        picks.setdefault((name, spec), []).append(["heaviest_ineq", totals[(name, spec)]])
     rows = []
     for (name, spec), tags in picks.items():
         a = random_operands(name, spec[:-1], rng, dev)
@@ -718,10 +831,10 @@ def fallback_times(calls, bounds, largest):
                      "library_ms": ms[1] if lib is not None else None, "bound_ms": b,
                      "bound_by": by})
     for row in sorted(rows, key=lambda r: (r["kernel"], -r["calls"])):
-        print(json.dumps({"fallback_time": row}), flush=True)
+        print(json.dumps({label: row}), flush=True)
 
 
-PHASES = ("kernels", "parity", "slice", "fallback")
+PHASES = ("kernels", "parity", "slice", "fallback", "ineq")
 
 
 def main(argv=None) -> int:
@@ -744,13 +857,14 @@ def main(argv=None) -> int:
         phase_parity()
     counts = phase_slice(args.dim, args.seed) if "slice" in phases else None
     counts_fb = phase_fallback(*FALLBACK_CELL) if "fallback" in phases else None
+    counts_ineq = phase_ineq(*INEQ_CELL) if "ineq" in phases else None
     if set(phases) != set(PHASES):
         return 0
 
     record = [
         {"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
          "launches": counts[n][0], "launches_d10": counts_fb[n][0],
-         **summary[n]}
+         "launches_ineq": counts_ineq[n][0], **summary[n]}
         for n in KERNELS
     ]
     import torch

@@ -21,7 +21,11 @@ ragged local KKT solver runs on the card against its CPU run at m = 3600
 with r != R, a failed K4 factorization sends it to LGMRES, the ragged
 sweeps' block product is one K2 launch, the ragged eigensolver's LOBPCG
 reaches the extremal pair above its dense gate, and the fully ragged IPM
-(``set_fused_kkt(False)``) matches its CPU run.
+(``set_fused_kkt(False)``) matches its CPU run.  The inequality path: K2
+with the nine terms of its block products and K1 with groups of six blocks
+of unequal operator ranks against their plain versions, the ragged
+inequality local solver at its dense gate (r != R) and in its LGMRES
+branch against its CPU run, and corr_clust d3 against its CPU run.
 """
 
 import numpy as np
@@ -511,11 +515,13 @@ def test_cuda_solve_matches_cpu(cuda):
     assert K.STATS["kkt_block_matvec"].launches > 0
 
 
-def _local_system(dev, r, R, spd=True, seed=0):
+def _local_system(dev, r, R, spd=True, seed=0, ineq=False):
     """A projected equality KKT system at one core of the ragged sweeps
     (bond ranks r on the left, R on the right; m = 4 r R), as
     ``ipm_local_solver`` takes it: the L_Z block is SPD (Kronecker product
-    of SPD factors) unless ``spd`` is false."""
+    of SPD factors) unless ``spd`` is false.  With ``ineq`` the inequality
+    system of ``ipm_local_solver_ineq``: the (3,1) and (3,3) blocks, the
+    (1,2) -> (1,3) alias and a fourth row."""
     from ttipm_tpu_torch.solvers.blocks import TTBlockMatrix, TTBlockVector
 
     rng = np.random.RandomState(seed)
@@ -540,8 +546,9 @@ def _local_system(dev, r, R, spd=True, seed=0):
     mat[2, 1] = [torch.as_tensor(lz, device=dev).reshape(1, 4, 4, 1)]
     mat[2, 2] = [torch.as_tensor(spd_mat(4), device=dev).reshape(1, 4, 4, 1)]
     mat.add_alias((0, 1), (1, 0), is_transpose=True)
+    rows = 4 if ineq else 3
     vec = TTBlockVector()
-    for i in range(3):
+    for i in range(rows):
         vec[i] = [t(2, 4, 3)]
     def eye(n):
         return torch.eye(n, dtype=torch.float64, device=dev).reshape(n, 1, n)
@@ -550,9 +557,15 @@ def _local_system(dev, r, R, spd=True, seed=0):
           (2, 2): phi(r, 1)}
     XR = {(0, 0): t(R, 2, R), (0, 1): t(R, 2, R), (1, 2): eye(R), (2, 1): phi(R, 1),
           (2, 2): phi(R, 1)}
-    bl = {i: t(2, r) for i in range(3)}
-    br = {i: t(3, R) for i in range(3)}
-    return XL, mat[0], XR, bl, vec[0], br, t(r, 3, 4, R)
+    if ineq:
+        mat[3, 1] = [torch.as_tensor(np.diag(rng.rand(4)), device=dev).reshape(1, 4, 4, 1)]
+        mat[3, 3] = [torch.as_tensor(spd_mat(4), device=dev).reshape(1, 4, 4, 1)]
+        mat.add_alias((1, 2), (1, 3))
+        XL.update({(3, 1): phi(r, 1), (3, 3): phi(r, 1)})
+        XR.update({(3, 1): phi(R, 1), (3, 3): phi(R, 1)})
+    bl = {i: t(2, r) for i in range(rows)}
+    br = {i: t(3, R) for i in range(rows)}
+    return XL, mat[0], XR, bl, vec[0], br, t(r, rows, 4, R)
 
 
 @pytest.mark.cuda
@@ -672,3 +685,101 @@ def test_cuda_fully_ragged_solve_matches_cpu(cuda):
     assert all(s.plain_calls == 0 for s in K.STATS.values())
     for name in ("schur_assemble", "kkt_block_matvec", "panel_cholesky"):
         assert K.STATS[name].launches > 0, name
+
+
+def _ineq_group_operands(rng, dev, R):
+    """The nine terms on four rows of an inequality block product (the
+    (1,3) alias reads the identity block's operands against column 3) and a
+    group of six Schur blocks, operator ranks unequal within both; the
+    (1,0) term and its block are flipped / transposed views."""
+    ranks = {"00": (3, 2), "01": (2, 4), "12": (1, 1), "21": (4, 3), "22": (2, 2),
+             "31": (1, 2), "33": (5, 1)}
+    x = _dev(rng, dev, R, 4, 4, R)
+    op = {k: (_dev(rng, dev, R, s, R), _dev(rng, dev, s, 4, 4, S), _dev(rng, dev, R, S, R))
+          for k, (s, S) in ranks.items()}
+    pl, A, pr = op["01"]
+    t10 = (pl.permute(2, 1, 0), A.transpose(1, 2), pr.permute(2, 1, 0))
+    terms = [(*op["00"], x[:, 0], 0), (*op["01"], x[:, 1], 0), (*t10, x[:, 0], 1),
+             (*op["12"], x[:, 2], 1), (*op["21"], x[:, 1], 2), (*op["22"], x[:, 2], 2),
+             (*op["12"], x[:, 3], 1), (*op["31"], x[:, 1], 3), (*op["33"], x[:, 3], 3)]
+    blocks = [op["21"], t10, op["22"], op["31"], op["00"], op["33"]]
+    return terms, blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [5, 8, 16, 32])
+def test_cuda_ineq_products_and_groups_match_plain(cuda, R):
+    """K2 with the nine terms of an inequality block product and K1 with a
+    group of six blocks of unequal operator ranks, each one launch and one
+    device kernel, against their plain versions."""
+    rng = np.random.RandomState(300 + R)
+    terms, blocks = _ineq_group_operands(rng, cuda, R)
+    K.reset_counts()
+    y = K.kkt_block_product(terms, 4)
+    B = K.schur_assemble_group(blocks)
+    torch.cuda.synchronize()
+    for name in ("kkt_block_matvec", "schur_assemble"):
+        st = K.STATS[name]
+        assert (st.launches, st.grouped, st.plain_calls) == (1, 1, 0)
+    assert tuple(y.shape) == (R, 4, 4, R) and len(B) == 6
+    check_kernel("kkt_block_product", (terms, 4), y)
+    check_kernel("schur_assemble_group", (blocks,), B)
+    assert len(_device_kernel_names(lambda: K.kkt_block_product(terms, 4))) == 1
+    assert len(_device_kernel_names(lambda: K.schur_assemble_group(blocks))) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_local_solver_ineq_matches_cpu(cuda):
+    """The ragged inequality local KKT solve at its dense gate (sqrt(r R) <=
+    24: r = 25, R = 23, m = 2300) on the card (one K1 group of six, K4 in
+    its blocked regime, K2 applies) against the CPU run of the plain
+    versions, and its LGMRES branch at r = 3, R = 2 (one K2 launch of six
+    terms on three rows a matvec)."""
+    from ttipm_tpu_torch.solvers.local_kkt import ipm_local_solver_ineq
+
+    for dense, (r, R) in ((True, (25, 23)), (False, (3, 2))):
+        out = {}
+        for dev in ("cpu", cuda):
+            K.reset_counts()
+            out[str(dev)] = ipm_local_solver_ineq(*_local_system(dev, r, R, ineq=True), 30,
+                                                  dense)
+            if dev != "cpu":
+                assert K.STATS["schur_assemble"].launches == (1 if dense else 0)
+                assert K.STATS["panel_cholesky"].launches == (1 if dense else 0)
+                assert K.STATS["kkt_block_matvec"].launches > 0
+                assert all(s.plain_calls == 0 for s in K.STATS.values())
+        sol_c, old_c, new_c, _, _, fail_c = out["cpu"]
+        sol_g, old_g, new_g, _, _, fail_g = out[str(cuda)]
+        assert fail_c == fail_g == (not dense)
+        assert old_g == pytest.approx(old_c, rel=1e-9)
+        assert float(torch.linalg.norm(sol_g.cpu() - sol_c)) <= 1e-8 * float(
+            torch.linalg.norm(sol_c))
+        assert new_g < 1e-5 and new_c < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_corr_clust_solve_matches_cpu(cuda):
+    """corr_clust d3 seed 291 (the inequality path: the IneqStatus machine,
+    nine-term products, six-block groups, the min-eig step sizes) on the
+    card against its CPU run: same iterations, ineq_status and X / T ranks,
+    <C, X> to 1e-6, no plain version on a CUDA tensor."""
+    from ttipm_tpu_torch.ipm import tt_ipm
+    from ttipm_tpu_torch.models.corr_clust import create_problem
+    from ttipm_tpu_torch.ops import tt as T
+
+    out = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.RandomState(291)
+        obj, L, b, mask, lag = create_problem(3, 1, device=dev, rng=rng)
+        K.reset_counts()
+        X, _, Tm, Z, info = tt_ipm(lag, obj, L, b, ineq_mask=mask, max_iter=22, gap_tol=3e-4,
+                                   op_tol=1e-4, abs_tol=1e-3, mals_restarts=2,
+                                   lambdaStarIneq=1e-3, rng=rng)
+        out[str(dev)] = (info["num_iters"], info["status"].ineq_status, info["ranksX"],
+                         info["ranksT"], T.tt_inner_prod(T.tt_reshape(obj, (2, 2)), X),
+                         abs(T.tt_inner_prod(X, Z)))
+    assert out[str(cuda)][:4] == out["cpu"][:4]
+    assert out[str(cuda)][4] == pytest.approx(out["cpu"][4], rel=1e-6)
+    assert out[str(cuda)][5] < 1e-3
+    assert all(s.plain_calls == 0 for s in K.STATS.values())
+    assert all(s.launches > 0 for s in K.STATS.values())

@@ -68,8 +68,6 @@ def test_unported_paths_raise():
     obj, L, b, lag = cp_t(2, 1, device="cpu")
     lag_maps = {"y": T.tt_reshape(lag, (4, 4))}
     with pytest.raises(NotImplementedError):
-        ipm_t(lag_maps, obj, L, b, ineq_mask=T.tt_one_matrix(2, device="cpu"))
-    with pytest.raises(NotImplementedError):
         ipm_t(lag_maps, obj, L, b, checkpoint_path="unused")
     with pytest.raises(NotImplementedError):
         tconfig.set_dtype(torch.float32)

@@ -200,6 +200,28 @@ def test_check_kernel_accepts_plain_and_rejects_perturbed(name):
             check_kernel(name, args, (out[0], out[1] + 3))
 
 
+@pytest.mark.parametrize("name", ["kkt_block_matvec", "schur_assemble"])
+def test_check_kernel_nonfinite_operands(name):
+    """A NaN operand (a candidate the solver rejects): the check passes an
+    output that is non-finite exactly where the plain version's is and
+    within tolerance elsewhere, and refuses one that is not."""
+    args = _check_cases(np.random.RandomState(7))[name]
+    args[1][0, 1, 2, 0] = float("nan")  # entry (m, n) = (1, 2) of the operator core
+    out = getattr(K, name)(*args)
+    assert not bool(torch.isfinite(out).all()) and bool(torch.isfinite(out).any())
+    errs = check_kernel(name, args, out)
+    assert errs["nonfinite"] > 0 and errs["max_abs_err"] == 0.0
+    finite_wrong = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    with pytest.raises(AssertionError):
+        check_kernel(name, args, finite_wrong)
+    nan_wrong = out.clone()
+    nan_wrong[torch.isfinite(out).nonzero()[0].unbind()] = float("nan")
+    with pytest.raises(AssertionError):
+        check_kernel(name, args, nan_wrong)
+    with pytest.raises(AssertionError):
+        check_kernel(name, args, out * (1 + 1e-9))
+
+
 def test_check_kernel_scales_cancelling_contractions():
     """On the solver's operands (``cancelling=True``) a block matvec is held
     to the scale of its terms: a result that cancels to 1e-12 of its terms

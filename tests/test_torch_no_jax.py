@@ -10,6 +10,8 @@ MODULES = [
     "ttipm_tpu_torch.config",
     "ttipm_tpu_torch.interop",
     "ttipm_tpu_torch.ipm",
+    "ttipm_tpu_torch.models.corr_clust",
+    "ttipm_tpu_torch.models.max_stable_set",
     "ttipm_tpu_torch.models.maxcut",
     "ttipm_tpu_torch.ops._build",
     "ttipm_tpu_torch.ops.kernels",

@@ -5,10 +5,14 @@
   working directory at ``tmp_path``: its results JSON has the keys of the
   JAX runner's ``save_results_summary``, and its iterations and ranks equal
   those of a direct JAX ``tt_ipm`` on that seed.
+* The same for corr_clust d3 (``configs/corr_clust_3.yaml``, seed 291, the
+  inequality path) and max_stable_set d3 (``configs/max_stable_set_2.yaml``'s
+  settings at dim 3, seed 3), against the JAX runner's ``run_and_record``:
+  iterations and the X and T ranks.
 * The YAML reader returns what ``yaml.safe_load`` returns on every config
   of ``configs/``.
-* The refusals: other problems and solvers, and ``--device cuda`` without a
-  CUDA device.
+* The refusals: graphm, the dense baselines, and ``--device cuda`` without
+  a CUDA device.
 """
 
 import argparse
@@ -24,6 +28,8 @@ import yaml
 from ttipm_tpu.ipm import tt_ipm as ipm_j
 from ttipm_tpu.models.maxcut import create_problem as cp_j
 from ttipm_tpu.ops import tt as J
+from ttipm_tpu.utils.runner import load_problem as load_problem_j
+from ttipm_tpu.utils.runner import run_and_record as run_and_record_j
 from ttipm_tpu.utils.runner import save_results_summary as save_j
 from ttipm_tpu_torch import config as tconfig
 from ttipm_tpu_torch.utils import runner
@@ -40,11 +46,13 @@ def _bucket1():
     tconfig.set_rank_bucket(4)
 
 
-def _one_seed_config(tmp_path, seed):
-    cfg = yaml.safe_load(open(os.path.join(REPO, "configs", "maxcut_3.yaml")))
+def _one_seed_config(tmp_path, seed, name="maxcut_3", dim=None):
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs", f"{name}.yaml")))
     cfg["seeds"] = [seed]
     cfg["verbose"] = False
-    path = tmp_path / "maxcut_3_one_seed.yaml"
+    if dim is not None:
+        cfg["dim"] = dim
+    path = tmp_path / f"{name}_one_seed.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return cfg, str(path)
 
@@ -96,9 +104,31 @@ def test_config_reader_scalars(tmp_path):
     assert runner.load_yaml(str(path)) == yaml.safe_load(text)
 
 
+@pytest.mark.parametrize("problem,config,dim,seed", [
+    ("corr_clust", "corr_clust_3", None, 291),
+    ("max_stable_set", "max_stable_set_2", 3, 3),
+])
+def test_runner_ineq_problems_match_jax(tmp_path, monkeypatch, problem, config, dim, seed):
+    cfg, path = _one_seed_config(tmp_path, seed, config, dim)
+    monkeypatch.chdir(tmp_path)
+    rec = runner.run_experiment(argv=["--problem", problem, "--config", path, "--device", "cpu"])
+    out = glob.glob(str(tmp_path / "results" / "*.json"))
+    assert len(out) == 1
+    data = json.load(open(out[0]))
+    rec_j = runner.new_record(1, cfg["dim"] - 1)
+    args_j = argparse.Namespace(config=path, track_mem=False, rank=1)
+    save_j(cfg, args_j, rec_j, filename=str(tmp_path / "jax_keys.json"))
+    assert set(data) == set(json.load(open(tmp_path / "jax_keys.json")))
+
+    run_and_record_j(seed, 0, 1, cfg, args_j, load_problem_j(problem), rec_j)
+    assert data["num_iters"] == [rec_j["num_iters"].tolist()]
+    assert data["ranksX"] == [rec_j["ranksX"].tolist()]
+    assert data["ranksT"] == [rec_j["ranksT"].tolist()]
+    assert rec["complementary_slackness"][0] < 1e-3
+    assert rec["feasibility_errors"][0] < 1e-3 and rec["dual_feasibility_errors"][0] < 1e-3
+
+
 @pytest.mark.parametrize("argv,error", [
-    (["--problem", "corr_clust"], NotImplementedError),
-    (["--problem", "max_stable_set"], NotImplementedError),
     (["--problem", "graphm"], NotImplementedError),
     (["--problem", "maxcut", "--solver", "scs"], NotImplementedError),
 ])

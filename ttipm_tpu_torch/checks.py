@@ -22,8 +22,7 @@ plain PyTorch version on the same operands, in float64, and
 
 These are a few hundred ulps of f64 at the solver's sizes; the kernels sum
 in another order than cuBLAS / cuSOLVER.  ``solve_metrics`` gives the
-slackness and feasibility errors by which a MaxCut solve counts as
-converged.
+slackness and feasibility errors by which a solve counts as converged.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ttipm_tpu_torch.ops import kernels as K
-from ttipm_tpu_torch.ops import tt as T
+from ttipm_tpu_torch.ops import tt as tto
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
 from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
 
@@ -84,10 +83,19 @@ def kernel_errors(name: str, args, out, cancelling: bool = False) -> dict:
     if KERNEL_OF[name] in ("schur_assemble", "kkt_block_matvec"):
         if name == "schur_assemble_group":
             out = torch.stack(list(out))
-        diff = out - want
-        errs = {"max_abs_err": _max_abs(diff), "rel": _rel(diff, want),
-                "rel_terms": _rel(diff, PLAIN[name](*_abs(tuple(args))))}
-        ok = errs["rel_terms" if cancelling else "rel"] <= tol
+        scale = PLAIN[name](*_abs(tuple(args)))
+        finite = torch.isfinite(want)
+        # A non-finite operand (a candidate the solver then rejects) must
+        # give non-finite entries exactly where the plain version has them;
+        # the other entries are held to the tolerance.
+        same_pattern = bool((torch.isfinite(out) == finite).all())
+        zero = torch.zeros_like(want)
+        diff = torch.where(finite, out - want, zero)
+        errs = {"max_abs_err": _max_abs(diff), "rel": _rel(diff, torch.where(finite, want, zero)),
+                "rel_terms": _rel(diff, torch.where(finite, scale, zero))}
+        if not bool(finite.all()):
+            errs["nonfinite"] = int((~finite).sum())
+        ok = same_pattern and errs["rel_terms" if cancelling else "rel"] <= tol
     elif name == "panel_qr":
         (a,), (q, r), (q0, r0) = args, out, want
         eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
@@ -135,17 +143,20 @@ def check_kernel(name: str, args, out, cancelling: bool = False) -> dict:
     return errs
 
 
-def solve_metrics(X, Y, Z, obj_tt, L_tt, bias_tt):
+def solve_metrics(X, Y, Z, obj_tt, L_tt, bias_tt, T=None, ineq_active=False):
     """Slackness |<X,Z>| and the squared primal / dual feasibility errors
-    ||L vec(X) - b||^2 and ||L^T y - vec(Z + C)||^2 of a solve."""
-    slack = abs(T.tt_inner_prod(X, Z))
-    pr = tt_rank_reduce(T.tt_sub(tt_fast_matrix_vec_mul(L_tt, T.tt_reshape(X, (4,))),
+    ||L vec(X) - b||^2 and ||L^T y - vec(Z + C) [- vec(T)]||^2 of a solve;
+    T enters the dual residual where the inequalities are active."""
+    slack = abs(tto.tt_inner_prod(X, Z))
+    pr = tt_rank_reduce(tto.tt_sub(tt_fast_matrix_vec_mul(L_tt, tto.tt_reshape(X, (4,))),
                                  bias_tt), eps=1e-12)
     dr = tt_rank_reduce(
-        T.tt_sub(
-            tt_fast_matrix_vec_mul(T.tt_transpose(L_tt), T.tt_reshape(Y, (4,)), eps=1e-12),
-            tt_rank_reduce(T.tt_add(T.tt_reshape(Z, (4,)), obj_tt), eps=1e-12),
+        tto.tt_sub(
+            tt_fast_matrix_vec_mul(tto.tt_transpose(L_tt), tto.tt_reshape(Y, (4,)), eps=1e-12),
+            tt_rank_reduce(tto.tt_add(tto.tt_reshape(Z, (4,)), obj_tt), eps=1e-12),
         ),
         eps=1e-12,
     )
-    return slack, T.tt_inner_prod(pr, pr), T.tt_inner_prod(dr, dr)
+    if ineq_active:
+        dr = tt_rank_reduce(tto.tt_sub(dr, tto.tt_reshape(T, (4,))), eps=1e-12)
+    return slack, tto.tt_inner_prod(pr, pr), tto.tt_inner_prod(dr, dr)

@@ -1,16 +1,19 @@
-"""Primal-dual predictor-corrector interior-point method in TT format,
-equality path.
+"""Primal-dual predictor-corrector interior-point method in TT format.
 
-Solves  min <C, X>  s.t.  L(X) = b,  X PSD  with the iterates X, Y, Z held
-as tensor trains.  Each iteration assembles the block-TT Newton system,
-solves it with the fused fixed-rank AMEn ladder (the ragged AMEn when the
-ladder exhausts its restarts), line-searches the PSD cone with the fused
-TT generalised eigensolver, and rounds the updated iterates with
-PSD-preserving TT rounding.  ``config.set_fused_kkt(False)`` selects the
-ragged (reference-faithful) KKT solver and eigensolver throughout.
+Solves  min <C, X>  s.t.  L(X) = b,  X PSD  (optionally with entrywise
+inequality constraints X >= -beta on a mask) with the iterates X, Y, Z, T
+held as tensor trains.  Each iteration assembles the block-TT Newton
+system, solves it with the fused fixed-rank AMEn ladder (the ragged AMEn
+when the ladder exhausts its restarts), line-searches the PSD cone with the
+fused TT generalised eigensolver (the masked entries with the smallest-
+eigenvector sweep over ``Diag(.)``), and rounds the updated iterates with
+PSD-preserving (T: mask-preserving) TT rounding.  The inequality
+constraints go through the ``IneqStatus`` machine: they are switched off
+when they go slack and back on when a step would cross them.
+``config.set_fused_kkt(False)`` selects the ragged (reference-faithful) KKT
+solvers and eigensolvers throughout.
 
-Counterpart of ``ttipm_tpu/ipm.py`` (equality path).  Not ported yet:
-inequality constraints (``ineq_mask``) and checkpointing.
+Counterpart of ``ttipm_tpu/ipm.py``.  Not ported yet: checkpointing.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import sys
 import traceback
 from dataclasses import dataclass
+from enum import Enum
 from typing import Dict, Optional
 
 import numpy as np
@@ -25,16 +29,29 @@ import torch
 
 from ttipm_tpu_torch import config
 from ttipm_tpu_torch.ops.kernels import KernelError
-from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul, tt_mat_mat_mul, tt_mat_vec_mul
-from ttipm_tpu_torch.ops.rounding import tt_psd_rank_reduce, tt_rank_reduce
+from ttipm_tpu_torch.ops.products import (
+    tt_fast_hadamard,
+    tt_fast_matrix_vec_mul,
+    tt_mat_mat_mul,
+    tt_mat_vec_mul,
+)
+from ttipm_tpu_torch.ops.rounding import (
+    tt_mask_rank_reduce,
+    tt_psd_rank_reduce,
+    tt_rank_reduce,
+)
 from ttipm_tpu_torch.ops.tt import (
     TT,
     tt_add,
+    tt_diag_op,
+    tt_entrywise_sum,
     tt_identity,
     tt_IkronM,
     tt_inner_prod,
     tt_MkronI,
     tt_norm,
+    tt_normalise,
+    tt_one_matrix,
     tt_ranks,
     tt_reshape,
     tt_scale,
@@ -49,12 +66,12 @@ from ttipm_tpu_torch.solvers.amen import (
     tt_restarted_block_amen,
 )
 from ttipm_tpu_torch.solvers.blocks import TTBlockMatrix, TTBlockVector, tt_get_block
-from ttipm_tpu_torch.solvers.eigen import tt_max_generalised_eigen
+from ttipm_tpu_torch.solvers.eigen import tt_max_generalised_eigen, tt_min_eig
 from ttipm_tpu_torch.solvers.fused import tt_restarted_block_amen_fused
-from ttipm_tpu_torch.solvers.fused_eigen import tt_max_generalised_eigen_fused
-from ttipm_tpu_torch.solvers.local_kkt import ipm_local_solver
+from ttipm_tpu_torch.solvers.fused_eigen import tt_max_generalised_eigen_fused, tt_min_eig_fused
+from ttipm_tpu_torch.solvers.local_kkt import ipm_local_solver, ipm_local_solver_ineq
 
-__all__ = ["tt_ipm", "IPMStatus"]
+__all__ = ["tt_ipm", "IPMStatus", "IneqStatus"]
 
 
 # Faults that the Newton step's total-function recovery must not turn into
@@ -62,6 +79,19 @@ __all__ = ["tt_ipm", "IPMStatus"]
 # surfacing from an earlier asynchronous launch, device memory exhausted.
 _NOT_RECOVERED = (KernelError, torch.cuda.OutOfMemoryError) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
+
+
+class IneqStatus(Enum):
+    """Activation state of the inequality constraints."""
+
+    ACTIVE = 0
+    SETTING_ACTIVE = 1
+    SETTING_INACTIVE = 2
+    INACTIVE = 3
+    NOT_IN_USE = 4
+
+    def __str__(self):
+        return self.name.lower().replace("_", " ")
 
 
 @dataclass
@@ -84,6 +114,7 @@ class IPMStatus:
     mu: float
 
     is_last_iter: bool
+    ineq_status: IneqStatus
     verbose: bool
 
     primal_error_normalisation: float
@@ -91,11 +122,17 @@ class IPMStatus:
     mals_rank_restriction: int
 
     boundary_val: float = 1e-10
+    ineq_boundary_val: float = 0.01
     sigma: float = 0.5
+    num_ineq_constraints: float = 0
+    lag_map_t: Optional[TT] = None
     lag_map_y: Optional[TT] = None
+    compl_ineq_mask: Optional[TT] = None
     mals_delta0: Optional[TT] = None
     eigen_x0: Optional[TT] = None
     eigen_z0: Optional[TT] = None
+    eigen_xt0: Optional[TT] = None
+    eigen_zt0: Optional[TT] = None
     kkt_iterations: int = 7
     centrl_error_normalisation: float = 1.0
     eta: float = 1e-3
@@ -117,16 +154,23 @@ def tt_compute_primal_feasibility(lin_op_tt, bias_tt, X_tt, status, rng):
     )
 
 
-def tt_compute_dual_feasibility(obj_tt, lin_op_tt_adj, Z_tt, Y_tt, status):
-    """L^T(Y) - Z - C."""
+def _active(status) -> bool:
+    return status.ineq_status is IneqStatus.ACTIVE
+
+
+def tt_compute_dual_feasibility(obj_tt, lin_op_tt_adj, Z_tt, Y_tt, T_tt, status):
+    """L^T(Y) - Z - C [- T]."""
     budget = 0.01 * status.eta * status.dual_error_normalisation
-    return tt_rank_reduce(
+    dual_feas = tt_rank_reduce(
         tt_sub(
             tt_fast_matrix_vec_mul(lin_op_tt_adj, Y_tt, status.eps),
             tt_rank_reduce(tt_add(tt_reshape(Z_tt, (4,)), obj_tt), status.eps),
         ),
-        budget,
+        status.eps if _active(status) else budget,
     )
+    if _active(status) and T_tt is not None:
+        dual_feas = tt_rank_reduce(tt_sub(dual_feas, tt_reshape(T_tt, (4,))), budget)
+    return dual_feas
 
 
 def _tt_symmetrise(matrix_tt, err_bound):
@@ -140,6 +184,11 @@ def _tt_psd_symmetrise(matrix_tt, err_bound, return_shift=False):
         eps=err_bound, return_shift=return_shift)
 
 
+def _tt_mask_symmetrise(matrix_tt, mask_tt, err_bound):
+    return tt_mask_rank_reduce(
+        tt_scale(0.5, tt_add(matrix_tt, tt_transpose(matrix_tt))), mask_tt, eps=err_bound)
+
+
 def tt_compute_centrality(X_tt, Z_tt, status, rng):
     """-(XZ), symmetrised under AHO, as a vec'd TT."""
     budget = 0.01 * status.eta * status.centrl_error_normalisation
@@ -151,8 +200,8 @@ def tt_compute_centrality(X_tt, Z_tt, status, rng):
     return tt_reshape(tt_scale(-1, prod), (4,))
 
 
-def tt_infeasible_newton_system(lhs, obj_tt, X_tt, Y_tt, Z_tt, lin_op_tt,
-                                lin_op_tt_adj, bias_tt, status, rng):
+def tt_infeasible_newton_system(lhs, obj_tt, X_tt, Y_tt, Z_tt, T_tt, lin_op_tt,
+                                lin_op_tt_adj, bias_tt, ineq_mask, status, rng):
     """Assemble the per-iteration KKT blocks and right-hand side."""
     rhs = TTBlockVector()
 
@@ -160,9 +209,9 @@ def tt_infeasible_newton_system(lhs, obj_tt, X_tt, Y_tt, Z_tt, lin_op_tt,
     status.primal_error = tt_norm(primal_feas) / status.primal_error_normalisation
     status.is_primal_feasible = status.primal_error < status.feasibility_tol
 
-    dual_feas = tt_compute_dual_feasibility(obj_tt, lin_op_tt_adj, Z_tt, Y_tt, status)
+    dual_feas = tt_compute_dual_feasibility(obj_tt, lin_op_tt_adj, Z_tt, Y_tt, T_tt, status)
     status.dual_error = tt_norm(dual_feas) / status.dual_error_normalisation
-    status.is_dual_feasible = status.dual_error < status.feasibility_tol
+    status.is_dual_feasible = status.dual_error < (1 + _active(status)) * status.feasibility_tol
 
     status.is_last_iter = status.is_last_iter or (
         status.is_primal_feasible and status.is_dual_feasible and status.is_central)
@@ -184,20 +233,33 @@ def tt_infeasible_newton_system(lhs, obj_tt, X_tt, Y_tt, Z_tt, lin_op_tt,
         rhs[1] = dual_feas
     if not status.is_central or status.is_last_iter:
         rhs[2] = tt_compute_centrality(X_tt, Z_tt, status, rng)
+
+    if _active(status):
+        lhs[3, 1] = tt_diag_op(T_tt, dual_budget)
+        masked_X_tt = tt_rank_reduce(
+            tt_add(tt_scale(status.ineq_boundary_val, ineq_mask),
+                   tt_fast_hadamard(ineq_mask, X_tt, status.eps)),
+            eps=status.eps)
+        lhs[3, 3] = tt_rank_reduce(
+            tt_add(status.lag_map_t, tt_diag_op(masked_X_tt, status.eps)), eps=dual_budget)
+        if not status.is_central or status.is_last_iter:
+            rhs[3] = tt_rank_reduce(
+                tt_reshape(tt_scale(-1, tt_fast_hadamard(masked_X_tt, T_tt, status.eps)), (4,)),
+                eps=0.01 * status.eta * status.centrl_error_normalisation)
     return lhs, rhs, status
 
 
 # ---------------------------------------------------------------------------
 # KKT row equilibration: balance the feasibility rows (0, 1) against the
-# centrality row (2) by their rhs norms, clipped into [1e-6, 1e6], with a
-# geometric-mean compromise for blocks whose transpose mirror lives in a
-# differently-scaled row.
+# centrality rows (2, 3) by their rhs norms, clipped into [1e-6, 1e6], with
+# a geometric-mean compromise for blocks whose transpose or alias mirror
+# lives in a differently-scaled row.
 # ---------------------------------------------------------------------------
 
 _SCALE_FLOOR = 1e-6
 _SCALE_CEIL = 1e6
 _FEAS_ROWS = (0, 1)
-_CENT_ROWS = (2,)
+_CENT_ROWS = (2, 3)
 
 
 def _rhs_group_norm(rhs_vec_tt, rows) -> float:
@@ -277,15 +339,26 @@ def _solve_kkt(solver, lhs, rhs, status):
     return Delta_tt
 
 
-def _extract_directions(Delta_tt, status):
-    """Block order (0=dY, 1=dX, 2=dZ); dX/dZ symmetrised."""
+def _extract_directions(Delta_tt, ineq_mask, status):
+    """Block order (0=dY, 1=dX, 2=dZ, 3=dT); dX/dZ symmetrised, dT masked
+    (None unless the inequalities are active)."""
     for c in Delta_tt:
         if not bool(torch.isfinite(c).all()):
             raise FloatingPointError("non-finite Newton direction")
     dY = tt_rank_reduce(tt_get_block(0, Delta_tt), eps=status.eps)
     dX = _tt_symmetrise(tt_reshape(tt_get_block(1, Delta_tt), (2, 2)), status.eps)
     dZ = _tt_symmetrise(tt_reshape(tt_get_block(2, Delta_tt), (2, 2)), status.eps)
-    return dY, dX, dZ
+    dT = None
+    if _active(status):
+        raw = tt_rank_reduce(tt_get_block(3, Delta_tt), eps=status.eps)
+        dT = tt_fast_hadamard(ineq_mask, tt_reshape(raw, (2, 2)), status.eps)
+    return dY, dX, dZ, dT
+
+
+def _accumulate_directions(base, extra, status):
+    """Predictor + corrector direction sums (rounded per component)."""
+    return tuple(b if b is None or e is None else tt_rank_reduce(tt_add(b, e), eps=status.eps)
+                 for b, e in zip(base, extra))
 
 
 def _affine_gap_estimate(gap0, A_tt, dA, B_tt, dB, a, b):
@@ -300,32 +373,40 @@ def _mehrotra_sigma(mu_aff, gap, a, b):
     return min(0.99, max(mu_aff / gap, 0) ** e)
 
 
-def _corrector_rhs(rhs_vec_tt, dX, dZ, DXZ, status, dim, rng):
+def _rhs_augment(rhs_vec_tt, row, terms, budget):
+    acc = rhs_vec_tt.get_row(row)
+    for t in terms:
+        acc = tt_add(acc, t)
+    rhs_vec_tt[row] = tt_rank_reduce(acc, budget)
+
+
+def _corrector_rhs(rhs_vec_tt, dX, dZ, DXZ, ineq_mask, status, dim, rng):
     """Fold sigma*mu*I centering and the -dX dZ second-order term into the
-    centrality row."""
+    centrality row; mirror the centering onto the inequality row."""
     budget = 0.1 * status.eta * status.centrl_error_normalisation
+    centering = status.sigma > 1e-4
     terms = []
-    if status.sigma > 1e-4:
+    if centering:
         ref = dX[0]
         eye = tt_identity(dim, device=ref.device, dtype=ref.dtype)
         terms.append(tt_scale(status.sigma * status.mu, tt_reshape(eye, (4,))))
     if DXZ > 0.1 * status.centrality_tol:
         terms.append(tt_compute_centrality(dX, dZ, status, rng))
     if terms:
-        acc = rhs_vec_tt.get_row(2)
-        for t in terms:
-            acc = tt_add(acc, t)
-        rhs_vec_tt[2] = tt_rank_reduce(acc, budget)
+        _rhs_augment(rhs_vec_tt, 2, terms, budget)
+    if centering and _active(status):
+        _rhs_augment(rhs_vec_tt, 3,
+                     [tt_scale(status.sigma * status.mu, tt_reshape(ineq_mask, (4,)))], budget)
 
 
-def _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, X_tt, Z_tt, ZX, status,
-                        solver, rng):
+def _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt, ZX, TX,
+                        status, solver, rng):
     """Predictor solve -> step sizes -> Mehrotra sigma -> corrector solve.
     A numerical failure routes the outer loop into its finishing branch;
     a kernel or device fault raises."""
     try:
-        return _newton_step_inner(lhs_matrix_tt, rhs_vec_tt, X_tt, Z_tt, ZX,
-                                  status, solver, rng)
+        return _newton_step_inner(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt, ZX,
+                                  TX, status, solver, rng)
     except _NOT_RECOVERED:
         raise
     except Exception as e:
@@ -334,36 +415,41 @@ def _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, X_tt, Z_tt, ZX, status,
         # finishing branch, as in the JAX package.
         print(f"\n\tAttention: {e}")
         traceback.print_exc(file=sys.stdout)
-        return 0, 0, None, None, None, status
+        return 0, 0, None, None, None, None, status
 
 
-def _newton_step_inner(lhs_matrix_tt, rhs_vec_tt, X_tt, Z_tt, ZX, status,
-                       solver, rng):
+def _newton_step_inner(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt, ZX, TX,
+                       status, solver, rng):
     row_scales = _kkt_equilibration(rhs_vec_tt, status)
     lhs_p, rhs_p = _apply_equilibration(lhs_matrix_tt, rhs_vec_tt, row_scales)
     delta = _solve_kkt(solver, lhs_p, rhs_p, status)
-    dY, dX, dZ = _extract_directions(delta, status)
+    dY, dX, dZ, dT = _extract_directions(delta, ineq_mask, status)
 
-    x_step, z_step = _tt_get_step_sizes(X_tt, Z_tt, dX, dZ, status, rng)
+    x_step, z_step = _tt_get_step_sizes(X_tt, Z_tt, T_tt, dX, dZ, dT, ineq_mask, status, rng)
 
     if status.is_central or status.is_last_iter:
         status.sigma = 0
-        return x_step, z_step, dX, dY, dZ, status
+        return x_step, z_step, dX, dY, dZ, dT, status
 
     DXZ = tt_inner_prod(dX, dZ)
     mu_aff = _affine_gap_estimate(ZX, X_tt, dX, Z_tt, dZ, x_step, z_step)
-    status.sigma = _mehrotra_sigma(mu_aff, ZX, x_step, z_step)
+    gap = ZX
+    if _active(status):
+        mu_aff += _affine_gap_estimate(TX, X_tt, dX, T_tt, dT, x_step, z_step)
+        # the barrier shift beta contributes through sum(dT) on the mask
+        mu_aff += z_step * status.ineq_boundary_val * tt_entrywise_sum(dT)
+        gap = ZX + TX
+    status.sigma = _mehrotra_sigma(mu_aff, gap, x_step, z_step)
 
-    _corrector_rhs(rhs_vec_tt, dX, dZ, DXZ, status, len(X_tt), rng)
+    _corrector_rhs(rhs_vec_tt, dX, dZ, DXZ, ineq_mask, status, len(X_tt), rng)
 
     lhs_c, rhs_c = _apply_equilibration(lhs_matrix_tt, rhs_vec_tt, row_scales)
     delta_c = _solve_kkt(solver, lhs_c, rhs_c, status)
-    corr = _extract_directions(delta_c, status)
-    dY, dX, dZ = (tt_rank_reduce(tt_add(b, e), eps=status.eps)
-                  for b, e in zip((dY, dX, dZ), corr))
+    corr = _extract_directions(delta_c, ineq_mask, status)
+    dY, dX, dZ, dT = _accumulate_directions((dY, dX, dZ, dT), corr, status)
 
-    x_step, z_step = _tt_get_step_sizes(X_tt, Z_tt, dX, dZ, status, rng)
-    return x_step, z_step, dX, dY, dZ, status
+    x_step, z_step = _tt_get_step_sizes(X_tt, Z_tt, T_tt, dX, dZ, dT, ineq_mask, status, rng)
+    return x_step, z_step, dX, dY, dZ, dT, status
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +462,8 @@ def _regularised(A_tt, shift, dim):
     return tt_add(A_tt, tt_scale(shift, tt_identity(dim, device=ref.device, dtype=ref.dtype)))
 
 
-def _tt_get_step_sizes(X_tt, Z_tt, Delta_X_tt, Delta_Z_tt, status, rng):
+def _tt_get_step_sizes(X_tt, Z_tt, T_tt, Delta_X_tt, Delta_Z_tt, Delta_T_tt, ineq_mask,
+                       status, rng):
     dim = len(X_tt)
     if status.is_last_iter:
         # the refinement phase line-searches against a pushed-out boundary
@@ -387,10 +474,69 @@ def _tt_get_step_sizes(X_tt, Z_tt, Delta_X_tt, Delta_Z_tt, status, rng):
         X_tt, Delta_X_tt, x0=status.eigen_x0, tol=1e-8, verbose=status.verbose, rng=rng)
     z_step, status.eigen_z0 = eigen(
         Z_tt, Delta_Z_tt, x0=status.eigen_z0, tol=1e-8, verbose=status.verbose, rng=rng)
+
+    if status.ineq_status is not IneqStatus.NOT_IN_USE:
+        if status.is_last_iter:
+            shift = status.ineq_boundary_val + status.boundary_val
+            X_tt = tt_add(X_tt, tt_scale(shift, ineq_mask))
+            T_tt = tt_add(T_tt, tt_scale(shift, ineq_mask))
+        x_step, z_step = _tt_get_ineq_step_sizes(
+            x_step, z_step, X_tt, T_tt, Delta_X_tt, Delta_T_tt, ineq_mask, status, rng)
+
     tau = 0.9 + 0.05 * min(x_step, z_step)
     if status.verbose:
         print(f"Step sizes: a_p:{x_step:.2e}, a_d:{z_step:.2e}", flush=True)
     return tau * x_step, tau * z_step
+
+
+def _ineq_step_size(A_tt, Delta_tt, e_tt, status, rng):
+    """Largest alpha with (A + alpha Delta) >= 0 entrywise on the mask: one
+    smallest-eigenvector sweep over Diag(A + Delta); where the minimiser
+    localises on an entry of the mask, the entries of A and Delta there
+    give the exact boundary ratio.  Returns alpha and the eigenvector train
+    (the warm start of the next call).  Reads two or three inner products."""
+    trial = tt_add(A_tt, Delta_tt)
+    if status.compl_ineq_mask is not None:
+        trial = tt_add(trial, status.compl_ineq_mask)
+    trial = tt_rank_reduce(trial, status.eps)
+    min_eig = tt_min_eig_fused if config.fused_kkt() else tt_min_eig
+    e_tt, _ = min_eig(tt_diag_op(trial, status.eps), x0=e_tt, tol=1e-8, verbose=status.verbose,
+                      rng=rng)
+    e_sq = tt_reshape(e_tt, (2, 2))
+    if abs(tt_inner_prod(trial, e_sq)) <= status.eps:
+        # the minimiser sits on an entry off the mask: the step is free
+        return 1.0, e_tt
+    weight = tt_normalise(tt_fast_hadamard(e_sq, e_sq, status.eps))
+    here_A = abs(tt_inner_prod(A_tt, weight))
+    here_D = tt_inner_prod(Delta_tt, weight)
+    if here_D >= -status.eps:
+        return 1.0, e_tt
+    return float(np.clip(-here_A / here_D, 0, 1)), e_tt
+
+
+def _tt_get_ineq_step_sizes(x_step, z_step, X_tt, T_tt, Delta_X_tt, Delta_T_tt, ineq_mask,
+                            status, rng):
+    if x_step > 0:
+        masked_X = tt_fast_hadamard(ineq_mask, X_tt, status.eps)
+        masked_DX = tt_fast_hadamard(ineq_mask, Delta_X_tt, status.eps)
+        x_ineq_step, status.eigen_xt0 = _ineq_step_size(
+            tt_add(masked_X, tt_scale(status.ineq_boundary_val, ineq_mask)),
+            tt_scale(x_step, masked_DX), status.eigen_xt0, status, rng)
+        if not status.is_last_iter:
+            # the activation state machine: a full step with a vanished T
+            # means the inequality constraints have gone slack
+            if 1 - x_ineq_step < status.op_tol and tt_norm(T_tt) < status.op_tol:
+                if _active(status):
+                    status.ineq_status = IneqStatus.SETTING_INACTIVE
+            elif status.ineq_status is IneqStatus.INACTIVE:
+                status.ineq_status = IneqStatus.SETTING_ACTIVE
+        x_step *= x_ineq_step
+
+    if z_step > 0 and _active(status):
+        t_step, status.eigen_zt0 = _ineq_step_size(
+            T_tt, tt_scale(z_step, Delta_T_tt), status.eigen_zt0, status, rng)
+        z_step *= t_step
+    return x_step, z_step
 
 
 # ---------------------------------------------------------------------------
@@ -406,11 +552,11 @@ def _ipm_check_for_stalled_progress(prev_errors, status, gap_tol):
     return primal and dual and central
 
 
-def _ipm_check_convergence(status, finishing_steps, ZX, abs_tol, max_refinement,
+def _ipm_check_convergence(status, finishing_steps, ZX, TX, abs_tol, max_refinement,
                            prev_slack=np.inf, can_extend=False):
     if not status.is_last_iter:
         return status, finishing_steps
-    slack = abs(ZX)
+    slack = abs(ZX) + abs(TX)
     converged = (slack < abs_tol and status.primal_error < abs_tol
                  and status.dual_error < abs_tol)
     if converged:
@@ -428,26 +574,29 @@ def _ipm_check_convergence(status, finishing_steps, ZX, abs_tol, max_refinement,
     return status, finishing_steps
 
 
-def _ipm_log_iteration(iteration, status, X_tt, Y_tt, Z_tt):
+def _ipm_log_iteration(iteration, status, X_tt, Y_tt, Z_tt, T_tt):
     print(f"\n--- Iteration {iteration - 1} ---")
-    print(f"Status: Finishing up={status.is_last_iter}")
+    print(f"Status: Finishing up={status.is_last_iter}, Ineq={status.ineq_status}")
     print(f"Feasibility: Central={status.is_central}, "
           f"Primal={status.is_primal_feasible}, Dual={status.is_dual_feasible}")
     print(f"Direction: {'AHO' if status.aho_direction else 'XZ'}, Sigma: {status.sigma:.2e}")
     print(f"Errors: Centrality={status.centrality_error:.4e}, "
           f"Primal={status.primal_error:.4e}, Dual={status.dual_error:.4e}")
-    print(f"Ranks: X={tt_ranks(X_tt)}, Z={tt_ranks(Z_tt)}, Y={tt_ranks(Y_tt)}", flush=True)
+    print(f"Ranks: X={tt_ranks(X_tt)}, Z={tt_ranks(Z_tt)}, Y={tt_ranks(Y_tt)}, "
+          f"T={tt_ranks(T_tt) if T_tt else 'N/A'}", flush=True)
 
 
-def _make_solver(dim, op_tol, mals_restarts, verbose, rng):
-    """The Newton solver: the ragged AMEn with the local KKT solver when
-    ``config.fused_kkt()`` is off; else the fused ladder, which falls back
-    to the ragged AMEn when it exhausts its restarts.  The fallback is
-    sticky (later solves go straight to the ragged AMEn) until a warm start
-    fits the ladder's rank cap again, at most 3 consecutive failures."""
+def _make_solver(dim, op_tol, mals_restarts, verbose, rng, local, ineq):
+    """The Newton solver of the equality system, or of the inequality
+    system (``ineq``, with ``local`` its local KKT solver): the ragged AMEn
+    with ``local`` when ``config.fused_kkt()`` is off; else the fused
+    ladder, which falls back to the ragged AMEn when it exhausts its
+    restarts.  The fallback is sticky (later solves go straight to the
+    ragged AMEn) until a warm start fits the ladder's rank cap again, at
+    most 3 consecutive failures."""
     def ragged(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target=None):
         return tt_restarted_block_amen(
-            lhs, rhs, rank_restriction=restriction, x0=x0, local_solver=ipm_local_solver,
+            lhs, rhs, rank_restriction=restriction, x0=x0, local_solver=local,
             op_tol=op_tol, termination_tol=termination_tol, num_restarts=mals_restarts,
             inner_m=nwsp, verbose=verbose, refine_target=refine_target, rng=rng)
 
@@ -475,7 +624,7 @@ def _make_solver(dim, op_tol, mals_restarts, verbose, rng):
                 lhs, rhs, rank_restriction=restriction, op_tol=op_tol,
                 termination_tol=termination_tol, num_restarts=mals_restarts,
                 inner_m=nwsp, x0=x0, verbose=verbose,
-                refine_target=refine_target, rng=rng)
+                refine_target=refine_target, rng=rng, ineq=ineq)
             state["fails"] = 0
             return out
         except AmenRestartsExhausted:
@@ -513,16 +662,17 @@ def tt_ipm(
 ):
     """TT interior-point driver.  Returns ``(X_tt, Y_tt, T_tt, Z_tt,
     results)`` with results carrying the iteration count, the final TT
-    ranks and the final ``IPMStatus``; ``T_tt`` is None on the equality
-    path.  The device is that of the problem trains.  ``rng``: numpy
-    RandomState of every random draw of the solve (default numpy's global
-    one, as the JAX package draws).
+    ranks (``ranksT`` zeros without inequalities) and the final
+    ``IPMStatus``; ``T_tt`` is None without ``ineq_mask``.  ``ineq_mask``
+    (a TT matrix of 0/1 entries) adds the constraints X >= -beta on its
+    support, ``lag_maps["t"]`` their multiplier support map.  The device is
+    that of the problem trains.  ``rng``: numpy RandomState of every random
+    draw of the solve (default numpy's global one, as the JAX package
+    draws).
 
     ``aho_direction`` is accepted for signature parity and, as in the JAX
     package, overridden every iteration: XZ for the first ``warm_up``
     iterations, AHO after."""
-    if ineq_mask is not None:
-        raise NotImplementedError("inequality constraints are not ported yet")
     if checkpoint_path is not None or resume_from is not None:
         raise NotImplementedError("checkpointing is not ported yet")
     rng = np.random if rng is None else rng
@@ -533,7 +683,8 @@ def tt_ipm(
     status = IPMStatus(
         dim, feasibility_tol, centrality_tol, op_tol, eps,
         aho_direction, False, np.inf, False, np.inf, False, np.inf, np.inf,
-        False, verbose, 1, 1, r_max,
+        False, IneqStatus.NOT_IN_USE if ineq_mask is None else IneqStatus.ACTIVE,
+        verbose, 1, 1, r_max,
     )
     lag_maps = {k: tt_rank_reduce(v, eps=eps) for k, v in lag_maps.items()}
     obj_tt = tt_rank_reduce(obj_tt, eps=eps)
@@ -543,23 +694,47 @@ def tt_ipm(
     status.primal_error_normalisation = 1 + tt_norm(bias_tt)
     status.dual_error_normalisation = 1 + tt_norm(obj_tt)
 
-    lhs = TTBlockMatrix()
-    lhs[1, 2] = tt_reshape(tt_identity(2 * dim, device=ref.device, dtype=ref.dtype), (4, 4))
-    solver = _make_solver(dim, op_tol, mals_restarts, verbose, rng)
+    def identity(d):
+        return tt_identity(d, device=ref.device, dtype=ref.dtype)
+
+    lhs_skeleton = TTBlockMatrix()
+    lhs_skeleton[1, 2] = tt_reshape(identity(2 * dim), (4, 4))
+    solver_eq = _make_solver(dim, op_tol, mals_restarts, verbose, rng, ipm_local_solver, False)
+    solver_ineq = _make_solver(dim, op_tol, mals_restarts, verbose, rng,
+                               ipm_local_solver_ineq, True)
+    if _active(status):
+        solver = solver_ineq
+        status.num_ineq_constraints = tt_inner_prod(ineq_mask, ineq_mask)
+        status.compl_ineq_mask = tt_rank_reduce(
+            tt_sub(tt_one_matrix(dim, device=ref.device, dtype=ref.dtype), ineq_mask), eps=eps)
+        status.lag_map_t = lag_maps["t"]
+        lhs_skeleton.add_alias((1, 2), (1, 3))
+    else:
+        solver = solver_eq
 
     lin_op_tt_adj = tt_transpose(lin_op_tt)
-    lhs[0, 1] = tt_scale(-1, lin_op_tt)
-    lhs.add_alias((0, 1), (1, 0), is_transpose=True)
-    lhs[0, 0] = lag_maps["y"]
+    lhs_skeleton[0, 1] = tt_scale(-1, lin_op_tt)
+    lhs_skeleton.add_alias((0, 1), (1, 0), is_transpose=True)
+    lhs_skeleton[0, 0] = lag_maps["y"]
     status.lag_map_y = lag_maps["y"]
 
-    X_tt = tt_scale(lambdaStar, tt_identity(dim, device=ref.device, dtype=ref.dtype))
-    Z_tt = tt_scale(lambdaStar, tt_identity(dim, device=ref.device, dtype=ref.dtype))
+    # X = Z = lambda* I, Y = 0; with inequalities T = lambda*_ineq mask and X
+    # shifted along the mask as far as X stays PSD
+    X_tt = tt_scale(lambdaStar, identity(dim))
+    Z_tt = tt_scale(lambdaStar, identity(dim))
     Y_tt = tt_reshape(tt_zero_matrix(dim, device=ref.device, dtype=ref.dtype), (4,))
+    T_tt = None
+    if _active(status):
+        T_tt = tt_scale(lambdaStarIneq, ineq_mask)
+        eigen = tt_max_generalised_eigen_fused if config.fused_kkt() else tt_max_generalised_eigen
+        x_step, _ = eigen(X_tt, ineq_mask, tol=1e-7, verbose=verbose, rng=rng)
+        X_tt = tt_rank_reduce(tt_add(X_tt, tt_scale(0.1 * x_step, ineq_mask)),
+                              0.1 * status.eta * status.primal_error_normalisation)
 
     iteration = 0
     finishing_steps = max_refinement
     prev_errors = {"primal": np.inf, "dual": np.inf, "centrality": np.inf}
+    lhs = lhs_skeleton
 
     while finishing_steps > 0:
         iteration += 1
@@ -569,7 +744,9 @@ def tt_ipm(
                 print("=== maximum iterations reached: entering finishing phase ===")
             status.is_last_iter = True
         ZX = tt_inner_prod(Z_tt, X_tt)
-        status.mu = abs(ZX) / 2**dim
+        TX = (tt_inner_prod(X_tt, T_tt) + status.ineq_boundary_val * tt_entrywise_sum(T_tt)
+              if _active(status) else 0)
+        status.mu = (abs(ZX) + abs(TX)) / (2**dim + _active(status) * status.num_ineq_constraints)
         status.centrl_error_normalisation = 1 + abs(
             tt_inner_prod(obj_tt, tt_reshape(X_tt, (4,))))
         status.centrality_error = status.mu / status.centrl_error_normalisation
@@ -580,28 +757,29 @@ def tt_ipm(
         # relaxed while the current slack is still far above it.
         if config.newton_refine():
             tr_scale = max(1.0, abs(float(tt_trace(X_tt))), abs(float(tt_trace(Z_tt))))
-            status.refine_target = max(0.1 * abs_tol, 1e-3 * abs(ZX)) / tr_scale
+            status.refine_target = max(0.1 * abs_tol, 1e-3 * (abs(ZX) + abs(TX))) / tr_scale
         else:
             status.refine_target = None
 
         lhs_matrix_tt, rhs_vec_tt, status = tt_infeasible_newton_system(
-            lhs, obj_tt, X_tt, Y_tt, Z_tt, lin_op_tt, lin_op_tt_adj, bias_tt,
-            status, rng)
+            lhs, obj_tt, X_tt, Y_tt, Z_tt, T_tt, lin_op_tt, lin_op_tt_adj, bias_tt,
+            ineq_mask, status, rng)
 
         if verbose:
-            _ipm_log_iteration(iteration, status, X_tt, Y_tt, Z_tt)
+            _ipm_log_iteration(iteration, status, X_tt, Y_tt, Z_tt, T_tt)
 
         status, finishing_steps = _ipm_check_convergence(
-            status, finishing_steps, ZX, abs_tol, max_refinement,
+            status, finishing_steps, ZX, TX, abs_tol, max_refinement,
             prev_slack=prev_errors.get("slack", np.inf),
             can_extend=iteration < max_iter)
-        prev_errors["slack"] = abs(ZX)
+        prev_errors["slack"] = abs(ZX) + abs(TX)
         if finishing_steps == 0:
             iteration -= 1
             break
 
-        x_step, z_step, Delta_X_tt, Delta_Y_tt, Delta_Z_tt, status = _tt_ipm_newton_step(
-            lhs_matrix_tt, rhs_vec_tt, X_tt, Z_tt, ZX, status, solver, rng)
+        x_step, z_step, Delta_X_tt, Delta_Y_tt, Delta_Z_tt, Delta_T_tt, status = (
+            _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt, ZX, TX,
+                                status, solver, rng))
 
         if (Delta_X_tt is None and Delta_Z_tt is None) or (x_step < 1e-5 and z_step < 1e-5):
             if status.is_last_iter:
@@ -639,6 +817,21 @@ def tt_ipm(
                     dual_budget),
                 (4,))
 
+            if _active(status):
+                T_new = tt_add(T_tt, tt_scale(z_step, Delta_T_tt))
+                T_tt = (_tt_symmetrise(T_new, dual_budget) if finishing_steps <= 1
+                        else _tt_mask_symmetrise(T_new, ineq_mask, dual_budget))
+            elif status.ineq_status is IneqStatus.SETTING_INACTIVE:
+                solver = solver_eq
+                lhs = lhs_skeleton.get_submatrix(2, 2)
+                status.mals_delta0 = None
+                status.ineq_status = IneqStatus.INACTIVE
+            elif status.ineq_status is IneqStatus.SETTING_ACTIVE:
+                solver = solver_ineq
+                lhs = lhs_skeleton
+                status.mals_delta0 = None
+                status.ineq_status = IneqStatus.ACTIVE
+
         if _ipm_check_for_stalled_progress(prev_errors, status, gap_tol):
             if verbose:
                 print("=== progress stalled: entering finishing phase ===")
@@ -655,7 +848,7 @@ def tt_ipm(
         "ranksX": tt_ranks(X_tt),
         "ranksY": tt_ranks(Y_tt),
         "ranksZ": tt_ranks(Z_tt),
-        "ranksT": [0] * (dim - 1),
+        "ranksT": tt_ranks(T_tt) if T_tt else [0] * (dim - 1),
         "status": status,
     }
-    return X_tt, Y_tt, None, Z_tt, results
+    return X_tt, Y_tt, T_tt, Z_tt, results

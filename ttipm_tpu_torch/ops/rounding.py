@@ -3,7 +3,8 @@
 A right-to-left QR sweep puts the train in right-orthogonal form, then a
 left-to-right SVD sweep truncates each bond against a per-bond error budget
 ``eps / sqrt(d-1)``.  ``tt_psd_rank_reduce`` adds the discarded energy back
-as a multiple of the identity so that a PSD input stays PSD.
+as a multiple of the identity so that a PSD input stays PSD, and
+``tt_mask_rank_reduce`` along an entrywise mask.
 
 Counterpart of ``ttipm_tpu/ops/rounding.py`` with the semantics of its
 host (numpy) path.  The truncation rank is decided on the host from the
@@ -23,7 +24,7 @@ from ttipm_tpu_torch.ops.tt import TT, tt_add, tt_ranks
 
 __all__ = [
     "prune_singular_vals", "pad_bond_factors", "tt_rl_orthogonalise",
-    "tt_rank_reduce", "tt_psd_rank_reduce", "tt_rank_retraction", "truncated_svd",
+    "tt_rank_reduce", "tt_psd_rank_reduce", "tt_mask_rank_reduce", "tt_rank_retraction", "truncated_svd",
     "add_kick_rank", "add_kick_rank_rev",
 ]
 
@@ -174,6 +175,17 @@ def tt_psd_rank_reduce(train_tt: TT, eps: float = 1e-18,
         out = tt_add(out, [eye_core] * len(out))
     if return_shift:
         return out, shift
+    return out
+
+
+def tt_mask_rank_reduce(train_tt: TT, mask_tt: TT, eps: float = 1e-18,
+                        return_shift: bool = False):
+    """Mask-preserving rounding: the discarded energy is compensated along
+    ``mask_tt`` (added with its own ranks) instead of the identity."""
+    out, factor = _compensated_rank_reduce(train_tt, float(eps))
+    out = tt_add(out, [factor * c for c in mask_tt])
+    if return_shift:
+        return out, factor ** len(out)
     return out
 
 

@@ -7,7 +7,7 @@ tensors; every function follows the device and dtype of the cores it is
 given, and constructors take them explicitly.  Cores are never modified in
 place, so a list may hold the same tensor several times.
 
-Counterpart of ``ttipm_tpu/ops/tt.py`` (the main-path subset).
+Counterpart of ``ttipm_tpu/ops/tt.py`` (the subset the solver uses).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 from ttipm_tpu_torch.ops.linalg import safe_svd
 
 __all__ = [
-    "TT", "tt_identity", "tt_zero_matrix", "tt_one_matrix",
+    "TT", "E", "tt_identity", "tt_zero_matrix", "tt_one_matrix",
     "tt_transpose", "tt_ranks", "tt_scale", "tt_add", "tt_sub",
     "tt_inner_prod", "tt_norm",
     "tt_normalise", "tt_trace", "tt_entrywise_sum", "tt_diag", "tt_diagonal",
@@ -36,6 +36,13 @@ TT = List[torch.Tensor]
 # ---------------------------------------------------------------------------
 # Constructors
 # ---------------------------------------------------------------------------
+
+def E(i: int, j: int, *, device, dtype=torch.float64) -> torch.Tensor:
+    """Rank-1 core (1, 2, 2, 1) holding the 2x2 elementary matrix e_i e_j^T."""
+    core = torch.zeros((1, 2, 2, 1), device=device, dtype=dtype)
+    core[0, i, j, 0] = 1.0
+    return core
+
 
 def tt_identity(dim: int, n: int = 2, *, device, dtype=torch.float64) -> TT:
     core = torch.eye(n, device=device, dtype=dtype).reshape(1, n, n, 1)

@@ -155,6 +155,19 @@ class TTBlockMatrix:
     def tkeys(self):
         return self._data.keys() | set(self._transposes.values())
 
+    def get_submatrix(self, row_index: int, col_index: int) -> "TTBlockMatrix":
+        """The blocks (i, j) with i <= row_index and j <= col_index, and the
+        aliases and transposes whose images lie there (the stored cores are
+        shared, not copied)."""
+        sub = TTBlockMatrix()
+        sub._data = {k: v for k, v in self._data.items()
+                     if k[0] <= row_index and k[1] <= col_index}
+        sub._aliases = {k: v for k, v in self._aliases.items()
+                        if v[0] <= row_index and v[1] <= col_index}
+        sub._transposes = {k: v for k, v in self._transposes.items()
+                           if v[0] <= row_index and v[1] <= col_index}
+        return sub
+
     def block_product(self, x_cores: TT, op_tol: float, eps: float = 1e-12,
                       cache: dict = None, rng=None) -> TTBlockVector:
         """Full block operator applied to a block TT solution.  ``cache``

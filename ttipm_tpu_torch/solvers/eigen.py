@@ -1,4 +1,4 @@
-"""Ragged TT eigensolver for the IPM step sizes.
+"""Ragged TT eigensolvers for the IPM step sizes.
 
 ``tt_max_generalised_eigen(A, Delta)`` finds the largest step ``alpha`` with
 ``A + alpha * Delta`` PSD by MALS sweeps over 2-core windows with ragged
@@ -6,9 +6,10 @@ ranks: at each window it takes the smallest eigenpair of the projected
 pencil ``A / alpha + Delta`` and, when that eigenvalue is negative, shrinks
 ``alpha`` to ``1 / lambda_max(-Delta, A)``.
 
-Counterpart of ``ttipm_tpu/solvers/eigen.py`` (the step-size search; the
-plain smallest-eigenvector sweep ``tt_min_eig`` belongs to the inequality
-path).  A window of size up to 256 is assembled and solved densely, larger
+``tt_min_eig(A)`` is the plain smallest-eigenvector sweep of the same
+kind, used for the inequality step sizes over ``Diag(.)`` operators.
+
+Counterpart of ``ttipm_tpu/solvers/eigen.py``.  A window of size up to 256 is assembled and solved densely, larger
 ones by LOBPCG (k = 1, a host loop with one read of the residual a step),
 with a dense rescue up to 1024.  The two pencil matrices of a dense window
 come from one K1 launch (a 2-core window is one operator core of merged
@@ -31,6 +32,7 @@ import torch
 
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import safe_eigh, safe_svd
+from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
 from ttipm_tpu_torch.ops.random import tt_random_gaussian
 from ttipm_tpu_torch.ops.rounding import (
     add_kick_rank,
@@ -38,11 +40,15 @@ from ttipm_tpu_torch.ops.rounding import (
     pad_bond_factors,
     prune_singular_vals,
 )
-from ttipm_tpu_torch.ops.tt import TT, tt_normalise, tt_ranks
+from ttipm_tpu_torch.ops.tt import TT, tt_inner_prod, tt_normalise, tt_ranks
 from ttipm_tpu_torch.solvers.fused_algebra import phi_bck_A, phi_fwd_A
-from ttipm_tpu_torch.solvers.fused_eigen import _eigen_step_stalled, _merged
+from ttipm_tpu_torch.solvers.fused_eigen import (
+    _eigen_residual_stalled,
+    _eigen_step_stalled,
+    _merged,
+)
 
-__all__ = ["tt_max_generalised_eigen", "lobpcg_smallest", "lobpcg_window"]
+__all__ = ["tt_max_generalised_eigen", "tt_min_eig", "lobpcg_smallest", "lobpcg_window"]
 
 TINY = 1e-30
 _DENSE_EIG_DIRECT = 256   # assemble and eigh outright
@@ -120,12 +126,12 @@ def lobpcg_smallest(matvec: Callable, x0: torch.Tensor, tol: float, maxiter: int
 def _window_ops(kind, ops):
     """The one or two (phi_l, A, phi_r) triples of a window, 2-core windows
     merged into one core."""
-    if kind.startswith("w2"):
-        triples = [(ops[0], _merged(ops[1], ops[2]), ops[3]),
-                   (ops[4], _merged(ops[5], ops[6]), ops[7])]
-    else:
-        triples = [tuple(ops[:3]), tuple(ops[3:6])]
-    return triples if len(kind) > 2 else triples[:1]
+    per = 4 if kind.startswith("w2") else 3
+    triples = []
+    for i in range(2 if len(kind) > 2 else 1):
+        op = ops[per * i:per * (i + 1)]
+        triples.append((op[0], _merged(op[1], op[2]), op[3]) if per == 4 else tuple(op))
+    return triples
 
 
 def _x_shape(triple):
@@ -456,3 +462,125 @@ def tt_max_generalised_eigen(A: TT, Delta: TT, x0: Optional[TT] = None, nswp: in
     if worst > 1.0 and np.isfinite(max_res) and max_res > 0:
         step_size /= worst
     return step_size, x_cores
+
+
+# ---------------------------------------------------------------------------
+# Plain smallest-eigenvector sweeps (inequality step sizes)
+# ---------------------------------------------------------------------------
+
+def _eigen_window_solve(sol1, sol2, XAX_l, A_k, A_k1, XAX_r, trunc_tol, eps, max_rank, rng,
+                        bwd=True):
+    """Smallest-eigenpair window solve of one operator; re-splits the
+    window with a kick of 4 random directions.  Returns (sol1, sol2, the
+    previous iterate's residual)."""
+    prev = torch.einsum("rny,ytR->rntR", sol1, sol2)
+    shape = prev.shape
+    m = int(np.prod(shape))
+    ops = (XAX_l, A_k, A_k1, XAX_r)
+    prev_vec = prev.reshape(-1)
+    _, x, _ = lobpcg_window("w2", ops, prev_vec, eps, _maxiter_for(min(m, 60)))
+    mv, _ = _make_matvecs("w2", _window_ops("w2", ops), 1.0)
+    Ap = mv(prev_vec)
+    old_res = float(torch.linalg.norm(torch.dot(prev_vec, Ap) * prev_vec - Ap))
+    mat = x.reshape(int(np.prod(shape[:2])), int(np.prod(shape[2:])))
+    if bwd:
+        u, s, v_t = safe_svd(mat.T)
+        v = s[:, None] * v_t
+        r = min(prune_singular_vals(s, trunc_tol), max_rank)
+        s1, s2, r = add_kick_rank_rev(v[:r].T, u[:, :r].T, 4, rng)
+        s1, s2, r = pad_bond_factors(s1, s2, r, orth="right")
+        return s1.reshape(shape[0], shape[1], r), s2.reshape(r, shape[2], shape[3]), old_res
+    u, s, v_t = safe_svd(mat)
+    r = min(prune_singular_vals(s, trunc_tol), max_rank)
+    s1, s2, r = add_kick_rank(u[:, :r], s[:r, None] * v_t[:r], 4, rng)
+    s1, s2, r = pad_bond_factors(s1, s2, r)
+    return s1.reshape(shape[0], shape[1], r), s2.reshape(r, shape[2], shape[3]), old_res
+
+
+def tt_min_eig(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float = 1e-8,
+               size_limit: int = 64, return_eig_val: bool = False, verbose: bool = False,
+               rng=None):
+    """Smallest eigenvector of a symmetric TT operator by ragged MALS over
+    2-core windows; returns (the normalised eigenvector train, its Rayleigh
+    quotient or None).  ``rng``: numpy RandomState of the fresh start and
+    the kicks (default numpy's global one).  ``size_limit`` is accepted for
+    signature parity, as in the JAX package."""
+    rng = np.random if rng is None else rng
+    ref = A[0]
+    if x0 is None:
+        x_cores = tt_random_gaussian([2] * (len(A) - 1), (A[0].shape[2],), device=ref.device,
+                                     dtype=ref.dtype, rng=rng)
+    else:
+        x_cores = list(x0)
+    d = len(x_cores)
+    rx = np.array([1] + tt_ranks(x_cores) + [1])
+    N = np.array([c.shape[1] for c in x_cores])
+    ones3 = ref.new_ones((1, 1, 1))
+    XAX = [ones3] + [None] * (d - 1) + [ones3]
+    max_rank = int(np.floor(2 ** (d / 2)))
+    trunc_tol = 0.1 * tol / np.sqrt(d)
+    prev_sweep_res = np.inf
+
+    def finish(direction):
+        for k in (range(d) if direction > 0 else range(d - 1, -1, -1)):
+            prev = x_cores[k]
+            _, x, _ = lobpcg_window("w1", (XAX[k], A[k], XAX[k + 1]), prev.reshape(-1), tol,
+                                    _maxiter_for(min(int(np.prod(prev.shape)), 60)))
+            if direction > 0 and k < d - 1:
+                u, v, r = _split_bck(x.reshape(rx[k] * N[k], rx[k + 1]), trunc_tol, max_rank)
+                x_cores[k] = u.reshape(rx[k], N[k], r)
+                x_cores[k + 1] = torch.einsum("ij,jkl->ikl", v, x_cores[k + 1]).reshape(
+                    r, N[k + 1], rx[k + 2])
+                rx[k + 1] = r
+                XAX[k + 1] = phi_fwd_A(XAX[k], x_cores[k], A[k], x_cores[k])
+            elif direction < 0 and k > 0:
+                u, v, r = _split_bck(x.reshape(rx[k], N[k] * rx[k + 1]).T, trunc_tol,
+                                     max_rank)
+                x_cores[k] = u.T.reshape(r, N[k], rx[k + 1])
+                x_cores[k - 1] = torch.einsum("rdc,cR->rdR", x_cores[k - 1], v.T)
+                rx[k] = r
+                XAX[k] = phi_bck_A(XAX[k + 1], x_cores[k], A[k], x_cores[k])
+            else:
+                x_cores[k] = x.reshape(rx[k], N[k], rx[k + 1])
+
+    for swp in range(nswp):
+        max_res = np.inf if swp == 0 else 0.0
+        for k in range(d - 1, 0, -1):
+            if swp > 0:
+                x_cores[k - 1], x_cores[k], res = _eigen_window_solve(
+                    x_cores[k - 1], x_cores[k], XAX[k - 1], A[k - 1], A[k], XAX[k + 1],
+                    trunc_tol, tol, max_rank, rng, bwd=True)
+                max_res = max(max_res, res)
+            else:
+                u, v, r = _split_bck(x_cores[k].reshape(rx[k], N[k] * rx[k + 1]).T, trunc_tol,
+                                     max_rank)
+                x_cores[k] = u.T.reshape(r, N[k], rx[k + 1])
+                x_cores[k - 1] = torch.einsum("rdc,cR->rdR", x_cores[k - 1], v.T)
+            rx[k] = int(x_cores[k].shape[0])
+            XAX[k] = phi_bck_A(XAX[k + 1], x_cores[k], A[k], x_cores[k])
+
+        if max_res < tol or swp == nswp - 1:
+            finish(+1)
+            break
+
+        max_res = 0.0
+        for k in range(d - 1):
+            x_cores[k], x_cores[k + 1], res = _eigen_window_solve(
+                x_cores[k], x_cores[k + 1], XAX[k], A[k], A[k + 1], XAX[k + 2],
+                trunc_tol, tol, max_rank, rng, bwd=False)
+            max_res = max(max_res, res)
+            rx[k + 1] = int(x_cores[k + 1].shape[0])
+            XAX[k + 1] = phi_fwd_A(XAX[k], x_cores[k], A[k], x_cores[k])
+
+        if max_res < tol:
+            finish(-1)
+            break
+        if swp >= 2 and _eigen_residual_stalled(prev_sweep_res, max_res, tol):
+            break
+        prev_sweep_res = max_res
+
+    x_cores = tt_normalise(x_cores)
+    min_eig_value = None
+    if return_eig_val:
+        min_eig_value = tt_inner_prod(x_cores, tt_fast_matrix_vec_mul(A, x_cores, 1e-12))
+    return x_cores, min_eig_value

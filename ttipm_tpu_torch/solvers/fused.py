@@ -1,5 +1,4 @@
-"""Fused fixed-rank block-AMEn solver for the IPM's KKT systems, equality
-path.
+"""Fused fixed-rank block-AMEn solver for the IPM's KKT systems.
 
 One AMEn solve runs at a fixed bond rank R (capped near the boundaries by
 the dimension product); each per-core step solves the local KKT system by
@@ -16,14 +15,19 @@ never-regress and magnitude-sanity guards.  The port has one engine; its
 device is the device of the tensors.  The guards are evaluated on the
 device, and the host reads the residuals once per sweep.
 
-Local KKT block elimination (reference src/tt_ipm.py:196-223): dZ is
-eliminated elementwise through the projected identity diagonal, Lz is
-Cholesky-factored (K4, ``panel_cholesky``), and the Y Schur system is
-LU-solved.
+Local KKT block elimination: dZ is eliminated elementwise through the
+projected identity diagonal, Lz is Cholesky-factored (K4,
+``panel_cholesky``), and the Y Schur system is LU-solved.  With inequality
+constraints (``ineq``) dX is eliminated through L_Z as well and the coupled
+(dY, dT) system is solved by a second Schur step over the T block D (LU, as
+the host engine factors it where the JAX device engine takes a QR).  The
+projected blocks of a local solve come from one K1 launch: four on the
+equality path, six with inequalities.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,7 +46,8 @@ __all__ = ["tt_block_amen_fused", "tt_restarted_block_amen_fused",
            "fused_residual_norm", "prep_operator", "prep_rhs"]
 
 TINY = 1e-300
-_KEY_MAP = {"00": (0, 0), "01": (0, 1), "12": (1, 2), "21": (2, 1), "22": (2, 2)}
+_KEY_MAP = {"00": (0, 0), "01": (0, 1), "12": (1, 2), "21": (2, 1), "22": (2, 2),
+            "31": (3, 1), "33": (3, 3)}
 
 
 # ---------------------------------------------------------------------------
@@ -57,47 +62,78 @@ def _cholesky(S):
     return torch.where(info == 0, L, torch.full_like(L, float("nan")))
 
 
-def _dense_factor(pl, A, pr, inv_I):
-    B21, mL_eq, B22, B00 = kernels.schur_assemble_group(
-        [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "00")])
+def _dense_factor(pl, A, pr, inv_I, ineq=False):
+    """The factors of the Schur-elimination local solve, everything that
+    depends only on the operator."""
+    if not ineq:
+        B21, mL_eq, B22, B00 = kernels.schur_assemble_group(
+            [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "00")])
+        L_L_Z = _cholesky(fa.tikhonov(B21))
+        L_X_I_inv = B22 * inv_I.reshape(1, -1)
+        S = chol_solve(L_L_Z, L_X_I_inv)
+        S = mL_eq @ (S @ mL_eq.T)
+        S = fa.tikhonov(S + B00)
+        return L_L_Z, mL_eq, L_X_I_inv, lu_factor(S)
+
+    B21, mL_eq, B22, T_op, B00, B33 = kernels.schur_assemble_group(
+        [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "31", "00", "33")])
     L_L_Z = _cholesky(fa.tikhonov(B21))
-    L_X_I_inv = B22 * inv_I.reshape(1, -1)
-    S = chol_solve(L_L_Z, L_X_I_inv)
-    S = mL_eq @ (S @ mL_eq.T)
-    S = fa.tikhonov(S + B00)
-    return L_L_Z, mL_eq, L_X_I_inv, lu_factor(S)
+    Lz_inv_Lx = chol_solve(L_L_Z, B22)
+    Lz_inv_Lx_scaled = Lz_inv_Lx * inv_I.reshape(1, -1)
+    S = B00 + mL_eq @ (Lz_inv_Lx_scaled @ mL_eq.T)
+    D = fa.tikhonov(B33 + T_op @ Lz_inv_Lx)
+    TY = (T_op @ Lz_inv_Lx_scaled) @ mL_eq.T
+    YT = mL_eq @ Lz_inv_Lx
+    d_lu = lu_factor(D)
+    lhs_y = fa.tikhonov(S - YT @ lu_solve(d_lu, TY))
+    return L_L_Z, mL_eq, Lz_inv_Lx_scaled, T_op, TY, YT, d_lu, lu_factor(lhs_y)
 
 
-def _dense_apply(fac, pl, A, pr, inv_I, rhs):
+def _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq=False):
+    """Back substitution: the factors of ``_dense_factor`` applied to one
+    projected right-hand side."""
     r, _, n, R = rhs.shape
     m = r * n * R
     mR_p = rhs[:, 0].reshape(m, 1)
     mR_d = rhs[:, 1].reshape(m, 1)
     mR_c = rhs[:, 2].reshape(m, 1)
-    L_L_Z, mL_eq, L_X_I_inv, s_lu = fac
-    b_vec = mR_p - mL_eq @ chol_solve(L_L_Z, mR_c - L_X_I_inv @ mR_d)
-    y3 = lu_solve(s_lu, b_vec).reshape(r, n, R)
-    z = inv_I * (rhs[:, 1] - fa.apply_T(pl["01"], A["01"], pr["01"], y3))
-    x = chol_solve(L_L_Z, mR_c - fa.apply(pl["22"], A["22"], pr["22"], z).reshape(m, 1))
-    return torch.stack([y3, x.reshape(r, n, R), z], dim=1)
+    if not ineq:
+        L_L_Z, mL_eq, L_X_I_inv, s_lu = fac
+        b_vec = mR_p - mL_eq @ chol_solve(L_L_Z, mR_c - L_X_I_inv @ mR_d)
+        y3 = lu_solve(s_lu, b_vec).reshape(r, n, R)
+        z = inv_I * (rhs[:, 1] - fa.apply_T(pl["01"], A["01"], pr["01"], y3))
+        x = chol_solve(L_L_Z, mR_c - fa.apply(pl["22"], A["22"], pr["22"], z).reshape(m, 1))
+        return torch.stack([y3, x.reshape(r, n, R), z], dim=1)
+
+    L_L_Z, mL_eq, Lz_inv_Lx_scaled, T_op, TY, YT, d_lu, y_lu = fac
+    mR_t = rhs[:, 3].reshape(m, 1)
+    Lz_inv_Rc = chol_solve(L_L_Z, mR_c)
+    u = mR_p - mL_eq @ (Lz_inv_Rc - Lz_inv_Lx_scaled @ mR_d)
+    v = mR_t - T_op @ (Lz_inv_Rc - Lz_inv_Lx_scaled @ mR_d)
+    y = lu_solve(y_lu, u - YT @ lu_solve(d_lu, v))
+    t3 = lu_solve(d_lu, v - TY @ y).reshape(r, n, R)
+    y3 = y.reshape(r, n, R)
+    z3 = inv_I * (rhs[:, 1] - fa.apply_T(pl["01"], A["01"], pr["01"], y3)) - t3
+    x = chol_solve(L_L_Z, mR_c - fa.apply(pl["22"], A["22"], pr["22"], z3).reshape(m, 1))
+    return torch.stack([y3, x.reshape(r, n, R), z3, t3], dim=1)
 
 
-def _solve_local(pl, A, pr, bl, b, br, prev):
+def _solve_local(pl, A, pr, bl, b, br, prev, ineq=False):
     """Local KKT solve with the never-regress guard: the candidate replaces
     ``prev`` only if it is finite, does not raise the local residual and is
     not of absurd magnitude.  Returns (sol, rhs, res_old, res_min, dx) with
     the scalars as 0-d device tensors (no host sync)."""
-    rhs = fa.project_rhs(bl, b, br)
+    rhs = fa.project_rhs(bl, b, br, ineq)
     inv_I = 1.0 / fa.den_clamp(
         torch.einsum("lsr,smnS,LSR->lmL", pl["12"], A["12"], pr["12"]))
     norm_rhs = torch.clamp_min(torch.linalg.norm(rhs), 1e-10)
-    res_old = torch.linalg.norm(fa.local_product(pl, A, pr, prev) - rhs) / norm_rhs
-    fac = _dense_factor(pl, A, pr, inv_I)
-    cand = _dense_apply(fac, pl, A, pr, inv_I, rhs)
+    res_old = torch.linalg.norm(fa.local_product(pl, A, pr, prev, ineq) - rhs) / norm_rhs
+    fac = _dense_factor(pl, A, pr, inv_I, ineq)
+    cand = _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq)
     finite = torch.isfinite(cand).all()
     # a non-finite candidate is where the host engine's numpy raises
     cand = torch.where(finite, cand, prev)
-    res_new = torch.linalg.norm(fa.local_product(pl, A, pr, cand) - rhs) / norm_rhs
+    res_new = torch.linalg.norm(fa.local_product(pl, A, pr, cand, ineq) - rhs) / norm_rhs
     sane = torch.linalg.norm(cand) < 1e8 * (1.0 + torch.linalg.norm(prev))
     good = finite & torch.isfinite(res_new) & (res_new <= res_old) & sane
     sol = torch.where(good, cand, prev)
@@ -111,10 +147,11 @@ def _solve_local(pl, A, pr, bl, b, br, prev):
 # ---------------------------------------------------------------------------
 
 def _sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int,
-           solve: bool, direction: int):
+           solve: bool, direction: int, ineq: bool = False):
     """One full sweep; updates the passed lists in place and returns the
     maxima of (res_old, dx) over the cores as host floats."""
     d = len(x_cores)
+    solve_local = functools.partial(_solve_local, ineq=ineq)
     res_vals = []
     dx_vals = []
     if direction > 0:  # backward
@@ -122,24 +159,24 @@ def _sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int,
     else:
         order = range(d)
     for k in order:
-        A_k = {key: A[key][k] for key in fa.KEYS}
-        b_k = [b[i][k] for i in range(fa.NROWS)]
+        A_k = {key: A[key][k] for key in fa.keys(ineq)}
+        b_k = [b[i][k] for i in range(fa.nrows(ineq))]
         args = (XAX[k], A_k, XAX[k + 1], Xb[k], b_k, Xb[k + 1],
                 ZAX[k], ZAX[k + 1], Zb[k], Zb[k + 1])
         if direction > 0 and k > 0:
             (x_cores[k], x_cores[k - 1], z_cores[k], z_cores[k - 1],
              XAX[k], Xb[k], ZAX[k], Zb[k], r_old, _, dx) = fa.bck_split_step(
-                _solve_local, *args, x_cores[k], x_cores[k - 1],
-                z_cores[k], z_cores[k - 1], caps[k - 1], kick, solve)
+                solve_local, *args, x_cores[k], x_cores[k - 1],
+                z_cores[k], z_cores[k - 1], caps[k - 1], kick, solve, ineq)
         elif direction < 0 and k < d - 1:
             (x_cores[k], x_cores[k + 1], z_cores[k], z_cores[k + 1],
              XAX[k + 1], Xb[k + 1], ZAX[k + 1], Zb[k + 1], r_old, _, dx) = (
                 fa.fwd_split_step(
-                    _solve_local, *args, x_cores[k], x_cores[k + 1],
-                    z_cores[k], z_cores[k + 1], caps[k], kick, solve))
+                    solve_local, *args, x_cores[k], x_cores[k + 1],
+                    z_cores[k], z_cores[k + 1], caps[k], kick, solve, ineq))
         else:
             x_cores[k], z_cores[k], r_old, _, dx = fa.write_step(
-                _solve_local, *args, x_cores[k], z_cores[k], solve)
+                solve_local, *args, x_cores[k], z_cores[k], solve, ineq)
         res_vals.append(r_old)
         dx_vals.append(dx)
     res, dxm = torch.stack([torch.stack(res_vals).max(),
@@ -160,16 +197,16 @@ def _train_dot(tr1, tr2):
     return rho[0, 0]
 
 
-def fused_residual_norm(A, b, x_cores) -> float:
+def fused_residual_norm(A, b, x_cores, ineq: bool = False) -> float:
     block_pos = int(np.argmax([c.ndim for c in x_cores]))
     x_shared = [c for i, c in enumerate(x_cores) if i != block_pos]
     x_cols = []
-    for j in range(fa.NROWS):
+    for j in range(fa.nrows(ineq)):
         cores = list(x_shared)
         cores.insert(block_pos, x_cores[block_pos][:, j])
         x_cols.append(cores)
     res_sq = x_cores[0].new_zeros(())
-    for i, terms in enumerate(fa.ROW_TERMS):
+    for i, terms in enumerate(fa.row_terms(ineq)):
         acc = _train_dot(b[i], b[i])
         vts = [fa.virtual_term_cores(A, x_cols, key, col, tr) for (key, col, tr) in terms]
         for t in vts:
@@ -190,15 +227,16 @@ def _bucket4(r: int) -> int:
     return ((int(r) + 3) // 4) * 4
 
 
-def prep_operator(block_A) -> Dict[str, List[torch.Tensor]]:
+def prep_operator(block_A, ineq: bool = False) -> Dict[str, List[torch.Tensor]]:
     """Canonical operator keys; the ranks stay ragged."""
-    return {sk: list(block_A[_KEY_MAP[sk]]) for sk in fa.KEYS}
+    return {sk: list(block_A[_KEY_MAP[sk]]) for sk in fa.keys(ineq)}
 
 
-def prep_rhs(block_b, d: int, ref: torch.Tensor) -> List[List[torch.Tensor]]:
+def prep_rhs(block_b, d: int, ref: torch.Tensor,
+             ineq: bool = False) -> List[List[torch.Tensor]]:
     """Rows as a dense list; absent rows become rank-1 zero trains."""
     rows = []
-    for i in range(fa.NROWS):
+    for i in range(fa.nrows(ineq)):
         row = block_b.get_row(i)
         if row is None:
             row = [ref.new_zeros((1, 4, 1)) for _ in range(d)]
@@ -299,20 +337,20 @@ def _prep_z0(d, bs, kick, block_pos, rng, ref):
 def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
                         eps: float = 1e-12, nswp: int = 22, x0=None,
                         kick_rank: int = 2, verbose: bool = False, rng=None,
-                        prepped=None):
-    """Fixed-rank fused block-AMEn solve of the IPM KKT system; returns
-    (x_cores, final_local_res).  ``rng``: numpy RandomState for the random
-    starts (default numpy's global one)."""
+                        prepped=None, ineq: bool = False):
+    """Fixed-rank fused block-AMEn solve of the IPM KKT system (with the dT
+    row where ``ineq``); returns (x_cores, final_local_res).  ``rng``: numpy
+    RandomState for the random starts (default numpy's global one)."""
     rng = np.random if rng is None else rng
-    bs = fa.NROWS
+    bs = fa.nrows(ineq)
     first_row = next(iter(block_b.values()))
     d = len(first_row)
     ref = first_row[0]
     if prepped is not None:
         A, b = prepped
     else:
-        A = prep_operator(block_A)
-        b = prep_rhs(block_b, d, ref)
+        A = prep_operator(block_A, ineq)
+        b = prep_rhs(block_b, d, ref, ineq)
     caps_bck = _bond_caps(d, R, bs, +1)
     caps_fwd = _bond_caps(d, R, bs, -1)
     direction = _x0_direction(x0, d, bs) or 1
@@ -324,9 +362,9 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
 
     ones3 = ref.new_ones((1, 1, 1))
     ones2 = ref.new_ones((1, 1))
-    pA0 = {k: ones3 for k in fa.KEYS}
-    pz0 = {k: ones3 for k in fa.ZKEYS}
-    pb0 = [ones2] * fa.NROWS
+    pA0 = {k: ones3 for k in fa.keys(ineq)}
+    pz0 = {k: ones3 for k in fa.zkeys(ineq)}
+    pb0 = [ones2] * bs
     XAX: List = [pA0] + [None] * (d - 1) + [dict(pA0)]
     Xb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
     ZAX: List = [pz0] + [None] * (d - 1) + [dict(pz0)]
@@ -338,7 +376,7 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
         solve = (swp > 0) and not last
         caps = caps_bck if direction > 0 else caps_fwd
         res_d, dx_d = _sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps,
-                             kick_rank, solve, direction)
+                             kick_rank, solve, direction, ineq)
         if last:
             break
         local_res, local_dx = (res_d, dx_d) if solve else (np.inf, np.inf)
@@ -358,7 +396,7 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
                                   inner_m: int = 10, x0=None,
                                   verbose: bool = False,
                                   refine_target: Optional[float] = None,
-                                  rng=None):
+                                  rng=None, ineq: bool = False):
     """Restart ladder: the solve rank escalates per restart until a solve
     is accepted (strict: relative residual below ``termination_tol``;
     lenient: a tenfold reduction, taken once escalation stops paying).
@@ -369,9 +407,9 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
     first_row = next(iter(block_b.values()))
     d = len(first_row)
     ref = first_row[0]
-    bs = fa.NROWS
-    A = prep_operator(block_A)
-    b = prep_rhs(block_b, d, ref)
+    bs = fa.nrows(ineq)
+    A = prep_operator(block_A, ineq)
+    b = prep_rhs(block_b, d, ref, ineq)
 
     rhs_norm0 = block_b.norm
     if rhs_norm0 < 0.5 * op_tol:
@@ -394,7 +432,7 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
             return x_cores, res
         from ttipm_tpu_torch.solvers.blocks import tt_block_train_add
 
-        rn = fused_residual_norm(A, b, x_cores)
+        rn = fused_residual_norm(A, b, x_cores, ineq)
         if not np.isfinite(rn) or rn <= refine_target:
             return x_cores, min(res, rn / max(rhs_norm0, 1e-300))
         prod_cache: dict = {}  # ALS warm starts across refine rounds
@@ -409,7 +447,7 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
                 e_cores, _ = tt_block_amen_fused(
                     block_A, r_blk, termination_tol, R, eps=eps, nswp=inner_m,
                     kick_rank=2, verbose=False, rng=rng,
-                    prepped=(A, prep_rhs(r_blk, d, ref)),
+                    prepped=(A, prep_rhs(r_blk, d, ref, ineq)), ineq=ineq,
                 )
                 x_new = tt_block_train_add(x_cores, e_cores, bs, eps)
             except (torch.linalg.LinAlgError, FloatingPointError):
@@ -427,10 +465,10 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
 
     x_cores, res = tt_block_amen_fused(
         block_A, block_b, termination_tol, R, eps=eps, nswp=inner_m, x0=x0,
-        kick_rank=2, verbose=verbose, rng=rng, prepped=(A, b))
+        kick_rank=2, verbose=verbose, rng=rng, prepped=(A, b), ineq=ineq)
     if res < termination_tol:
         return refined(x_cores, res)
-    rn = fused_residual_norm(A, b, x_cores)
+    rn = fused_residual_norm(A, b, x_cores, ineq)
     if rn < termination_tol * rhs_norm0:
         return refined(x_cores, res)
     best = (rn, x_cores, res) if (np.isfinite(rn) and accepted(rn)) else None
@@ -442,8 +480,8 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
         R = R_next
         x_new, res_new = tt_block_amen_fused(
             block_A, block_b, termination_tol, R, eps=eps, nswp=inner_m,
-            x0=x_cores, kick_rank=4, verbose=verbose, rng=rng, prepped=(A, b))
-        rn_new = fused_residual_norm(A, b, x_new)
+            x0=x_cores, kick_rank=4, verbose=verbose, rng=rng, prepped=(A, b), ineq=ineq)
+        rn_new = fused_residual_norm(A, b, x_new, ineq)
         if rn_new < termination_tol * rhs_norm0:
             return refined(x_new, res_new)
         if np.isfinite(rn_new) and accepted(rn_new) and (best is None or rn_new < best[0]):

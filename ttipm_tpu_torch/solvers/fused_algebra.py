@@ -1,5 +1,4 @@
-"""Block algebra and per-core sweep steps of the fused fixed-rank AMEn,
-equality path.
+"""Block algebra and per-core sweep steps of the fused fixed-rank AMEn.
 
 Counterpart of ``ttipm_tpu/solvers/fused_algebra.py``, written directly
 over torch instead of closed over a numpy/jnp backend.  The hot
@@ -10,10 +9,13 @@ through one K2 launch each (``kkt_block_product``) and ``apply`` /
 projected blocks of the local solves through K1 (``schur_assemble_group``),
 and the enrichment panel QR of the split steps through K3 (``panel_qr``).
 
-KKT block layout: variables [dY, dX, dZ]; stored blocks (0,0), (0,1)
-(transpose-aliased to (1,0)), (1,2) = I, (2,1) = Lz, (2,2) = Lx, keyed as
-strings "00", "01", "12", "21", "22".  The z-side interfaces additionally
-carry "10", the transpose image of (0,1).
+KKT block layout: variables [dY, dX, dZ] and, with inequality constraints
+(``ineq``), dT; stored blocks (0,0), (0,1) (transpose-aliased to (1,0)),
+(1,2) = I (aliased to (1,3) with inequalities), (2,1) = Lz, (2,2) = Lx and,
+with inequalities, (3,1) = Diag(T), (3,3) = lag_t + Diag(masked X), keyed
+as strings "00", "01", "12", "21", "22", "31", "33".  The z-side interfaces
+additionally carry "10", the transpose image of (0,1).  A block product has
+six terms on three rows, or nine on four with inequalities.
 """
 
 from __future__ import annotations
@@ -23,18 +25,42 @@ import torch
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import fast_split_svd
 
-KEYS = ("00", "01", "12", "21", "22")
-ZKEYS = KEYS + ("10",)
-NROWS = 3
+EQ_KEYS = ("00", "01", "12", "21", "22")
+INEQ_KEYS = EQ_KEYS + ("31", "33")
 TINY = 1e-300
+
+
+def keys(ineq: bool):
+    """The stored block keys."""
+    return INEQ_KEYS if ineq else EQ_KEYS
+
+
+def zkeys(ineq: bool):
+    """The keys of the z-side interfaces: the stored ones and "10"."""
+    return keys(ineq) + ("10",)
+
+
+def nrows(ineq: bool) -> int:
+    return 4 if ineq else 3
+
 
 # Residual-expansion term tables: row i of K x is the sum of A_key x_col
 # (transposed where flagged).
-ROW_TERMS = (
+ROW_TERMS_EQ = (
     (("00", 0, False), ("01", 1, False)),
     (("01", 0, True), ("12", 2, False)),
     (("21", 1, False), ("22", 2, False)),
 )
+ROW_TERMS_INEQ = (
+    (("00", 0, False), ("01", 1, False)),
+    (("01", 0, True), ("12", 2, False), ("12", 3, False)),
+    (("21", 1, False), ("22", 2, False)),
+    (("31", 1, False), ("33", 3, False)),
+)
+
+
+def row_terms(ineq: bool):
+    return ROW_TERMS_INEQ if ineq else ROW_TERMS_EQ
 
 
 def _flip(phi: torch.Tensor) -> torch.Tensor:
@@ -57,52 +83,55 @@ def apply_T(p_l, a, p_r, v):
     return kernels.kkt_block_matvec(_flip(p_l), _t(a), _flip(p_r), v)
 
 
-def _block_product(x, t00, t01, t10, t12, t21, t22):
-    """Rows [t00 x0 + t01 x1, t10 x0 + t12 x2, t21 x1 + t22 x2] of a KKT
-    block product from one launch; each t is ``(p_l, a, p_r)``."""
-    x0, x1, x2 = x[:, 0], x[:, 1], x[:, 2]
-    return kernels.kkt_block_product(
-        [(*t00, x0, 0), (*t01, x1, 0), (*t10, x0, 1), (*t12, x2, 1), (*t21, x1, 2),
-         (*t22, x2, 2)], NROWS)
+def _block_product(x, t, ineq):
+    """The rows of a KKT block product from one launch: ``t`` maps each key
+    (and "10", the transpose image of (0,1)) to its ``(p_l, a, p_r)``.  The
+    terms of a row are summed in the JAX package's order."""
+    terms = [(*t["00"], x[:, 0], 0), (*t["01"], x[:, 1], 0), (*t["10"], x[:, 0], 1),
+             (*t["12"], x[:, 2], 1), (*t["21"], x[:, 1], 2), (*t["22"], x[:, 2], 2)]
+    if ineq:
+        # the (1,3) alias of the identity block, then the dT row
+        terms += [(*t["12"], x[:, 3], 1), (*t["31"], x[:, 1], 3), (*t["33"], x[:, 3], 3)]
+    return kernels.kkt_block_product(terms, nrows(ineq))
 
 
-def _terms(pl, A, pr):
-    """(p_l, a, p_r) of the five stored blocks, in the order of KEYS."""
-    return [(pl[k], A[k], pr[k]) for k in KEYS]
+def _terms(pl, A, pr, ineq):
+    """(p_l, a, p_r) of the stored blocks."""
+    return {k: (pl[k], A[k], pr[k]) for k in keys(ineq)}
 
 
-def local_product(pl, A, pr, x):
-    """K @ x in the projected basis; x: (rl, 3, n, rr)."""
-    t00, t01, t12, t21, t22 = _terms(pl, A, pr)
+def local_product(pl, A, pr, x, ineq=False):
+    """K @ x in the projected basis; x: (rl, nrows, n, rr)."""
+    t = _terms(pl, A, pr, ineq)
     # the (1,0) block is the transpose of (0,1): apply_T's operands
-    t10 = (_flip(pl["01"]), _t(A["01"]), _flip(pr["01"]))
-    return _block_product(x, t00, t01, t10, t12, t21, t22)
+    t["10"] = (_flip(pl["01"]), _t(A["01"]), _flip(pr["01"]))
+    return _block_product(x, t, ineq)
 
 
-def z_product(zl, A, zr, x):
+def z_product(zl, A, zr, x, ineq=False):
     """K @ x projected with z-bases on the left and the right."""
-    t00, t01, t12, t21, t22 = _terms(zl, A, zr)
+    t = _terms(zl, A, zr, ineq)
     # "lsr,snmS,LSR,rnR->lmL": the (1,0) block with its own z interfaces
-    t10 = (zl["10"], _t(A["01"]), zr["10"])
-    return _block_product(x, t00, t01, t10, t12, t21, t22)
+    t["10"] = (zl["10"], _t(A["01"]), zr["10"])
+    return _block_product(x, t, ineq)
 
 
-def mixed_product(ml, mr, A, x, transpose_right_phi: bool):
+def mixed_product(ml, mr, A, x, transpose_right_phi: bool, ineq=False):
     """K @ x with a z basis on one side and the x basis on the other,
     including the reversed outer indices on the transpose row."""
-    t00, t01, t12, t21, t22 = _terms(ml, A, mr)
+    t = _terms(ml, A, mr, ineq)
     if transpose_right_phi:
         # "rsl,snmS,LSR,rnR->lmL"
-        t10 = (_flip(ml["01"]), _t(A["01"]), mr["10"])
+        t["10"] = (_flip(ml["01"]), _t(A["01"]), mr["10"])
     else:
         # "lsr,snmS,RSL,rnR->lmL"
-        t10 = (ml["10"], _t(A["01"]), _flip(mr["01"]))
-    return _block_product(x, t00, t01, t10, t12, t21, t22)
+        t["10"] = (ml["10"], _t(A["01"]), _flip(mr["01"]))
+    return _block_product(x, t, ineq)
 
 
-def project_rhs(bl, b, br):
+def project_rhs(bl, b, br, ineq=False):
     return torch.stack(
-        [torch.einsum("br,bmB,BR->rmR", bl[i], b[i], br[i]) for i in range(NROWS)],
+        [torch.einsum("br,bmB,BR->rmR", bl[i], b[i], br[i]) for i in range(nrows(ineq))],
         dim=1,
     )
 
@@ -148,22 +177,22 @@ def phi_fwd_rhs(phi_prev, cb, c):
     return torch.einsum("br,bnB,rnR->BR", phi_prev, cb, c)
 
 
-def phis_bck(A, b, x_core, z_core, pr, br, zr, zbr):
+def phis_bck(A, b, x_core, z_core, pr, br, zr, zbr, ineq=False):
     """All right-to-left interface updates after core k is re-split."""
-    pl_new = {k: phi_bck_A(pr[k], x_core, A[k], x_core) for k in KEYS}
-    bl_new = [phi_bck_rhs(br[i], b[i], x_core) for i in range(NROWS)]
-    zl_new = {k: phi_bck_A(zr[k], z_core, A[k], x_core) for k in KEYS}
+    pl_new = {k: phi_bck_A(pr[k], x_core, A[k], x_core) for k in keys(ineq)}
+    bl_new = [phi_bck_rhs(br[i], b[i], x_core) for i in range(nrows(ineq))]
+    zl_new = {k: phi_bck_A(zr[k], z_core, A[k], x_core) for k in keys(ineq)}
     zl_new["10"] = phi_bck_A(zr["10"], z_core, _t(A["01"]), x_core)
-    zbl_new = [phi_bck_rhs(zbr[i], b[i], z_core) for i in range(NROWS)]
+    zbl_new = [phi_bck_rhs(zbr[i], b[i], z_core) for i in range(nrows(ineq))]
     return pl_new, bl_new, zl_new, zbl_new
 
 
-def phis_fwd(A, b, x_core, z_core, pl, bl, zl, zbl):
-    pr_new = {k: phi_fwd_A(pl[k], x_core, A[k], x_core) for k in KEYS}
-    br_new = [phi_fwd_rhs(bl[i], b[i], x_core) for i in range(NROWS)]
-    zr_new = {k: phi_fwd_A(zl[k], z_core, A[k], x_core) for k in KEYS}
+def phis_fwd(A, b, x_core, z_core, pl, bl, zl, zbl, ineq=False):
+    pr_new = {k: phi_fwd_A(pl[k], x_core, A[k], x_core) for k in keys(ineq)}
+    br_new = [phi_fwd_rhs(bl[i], b[i], x_core) for i in range(nrows(ineq))]
+    zr_new = {k: phi_fwd_A(zl[k], z_core, A[k], x_core) for k in keys(ineq)}
     zr_new["10"] = phi_fwd_A(zl["10"], z_core, _t(A["01"]), x_core)
-    zbr_new = [phi_fwd_rhs(zbl[i], b[i], z_core) for i in range(NROWS)]
+    zbr_new = [phi_fwd_rhs(zbl[i], b[i], z_core) for i in range(nrows(ineq))]
     return pr_new, br_new, zr_new, zbr_new
 
 
@@ -179,9 +208,10 @@ def virtual_term_cores(A, x_cols, key, col, transpose):
 
 
 # ---------------------------------------------------------------------------
-# Per-core sweep steps.  ``solve_local`` is the engine's local KKT solver:
-# (pl, A, pr, bl, b, br, prev) -> (sol, rhs, res_old, res_min, dx), the
-# last three as 0-d tensors on the solve's device.
+# Per-core sweep steps.  ``solve_local`` is the engine's local KKT solver
+# for the steps' system (``ineq`` or not): (pl, A, pr, bl, b, br, prev) ->
+# (sol, rhs, res_old, res_min, dx), the last three as 0-d tensors on the
+# solve's device.
 # ---------------------------------------------------------------------------
 
 def trunc_svd(mat, k):
@@ -194,7 +224,7 @@ def _zero(ref):
 
 
 def bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
-                   x_k, x_km1, z_k, z_km1, r_out, kick, solve):
+                   x_k, x_km1, z_k, z_km1, r_out, kick, solve, ineq=False):
     """Backward-sweep step at core k>0: (solve), re-split the bond to rank
     ``r_out`` plus ``kick`` projected-residual enrichment directions, merge
     the non-orthogonal factor left, update all backward interfaces."""
@@ -216,8 +246,8 @@ def bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
     width = min(r_out + kick, n * rr, rl * bs) if solve else r_out
     if solve and width > r_out:
         sol_trunc = (u[:, :r_out] @ v[:r_out]).T.reshape(rl, bs, n, rr)
-        Axz = mixed_product(zl, pr, A, sol_trunc, transpose_right_phi=False)
-        rhsxz = project_rhs(zbl, b, br)
+        Axz = mixed_product(zl, pr, A, sol_trunc, transpose_right_phi=False, ineq=ineq)
+        rhsxz = project_rhs(zbl, b, br, ineq)
         resxz = (rhsxz - Axz).reshape(rz * bs, n * rr).T
         uz, _ = trunc_svd(resxz, width - r_out)
         u_aug = torch.cat([u[:, :r_out], uz], dim=1)
@@ -233,8 +263,8 @@ def bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
     # z-train update from the (z,z)-projected residual; on no-solve sweeps
     # the raw z core is re-split instead.
     if solve:
-        Az = z_product(zl, A, zr, sol)
-        rhsz = project_rhs(zbl, b, zbr)
+        Az = z_product(zl, A, zr, sol, ineq)
+        rhsz = project_rhs(zbl, b, zbr, ineq)
         resz = (rhsz - Az).reshape(rz * bs, n * rz1).T
     else:
         resz = z_k.reshape(rz * bs, n * rz1).T
@@ -243,27 +273,27 @@ def bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
     vz_new = vzz.T.reshape(rz, bs, vzz.shape[0])
     z_km1_new = unit_fro(torch.einsum("rdc,cbR->rbdR", z_km1, vz_new) / scales)
 
-    pl_new, bl_new, zl_new, zbl_new = phis_bck(A, b, u_core, z_core, pr, br, zr, zbr)
+    pl_new, bl_new, zl_new, zbl_new = phis_bck(A, b, u_core, z_core, pr, br, zr, zbr, ineq)
     return (u_core, x_km1_new, z_core, z_km1_new, pl_new, bl_new,
             zl_new, zbl_new, res_old, res_min, dx)
 
 
 def write_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr, x_k, z_k,
-               solve):
+               solve, ineq=False):
     """Step at the sweep's last core: (solve and) write, no split.  The
     same for both sweep directions."""
     if not solve:
         zero = _zero(x_k)
         return x_k, z_k, zero, zero, zero
     sol, rhs, res_old, res_min, dx = solve_local(pl, A, pr, bl, b, br, x_k)
-    Az = z_product(zl, A, zr, sol)
-    rhsz = project_rhs(zbl, b, zbr)
+    Az = z_product(zl, A, zr, sol, ineq)
+    rhsz = project_rhs(zbl, b, zbr, ineq)
     z_new = unit_fro((rhsz - Az) / column_scales(sol))
     return sol, z_new, res_old, res_min, dx
 
 
 def fwd_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
-                   x_k, x_kp1, z_k, z_kp1, r_out, kick, solve):
+                   x_k, x_kp1, z_k, z_kp1, r_out, kick, solve, ineq=False):
     """Forward-sweep step at core k<d-1."""
     rl, bs, n, rr = x_k.shape
     rz = z_k.shape[0]
@@ -285,8 +315,8 @@ def fwd_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
     if solve and width > r_out:
         sol_trunc = torch.einsum("rbR,RdK->rdbK", u3[:, :, :r_out],
                                  v[:r_out].reshape(r_out, bs, rr))
-        Axz = mixed_product(pl, zr, A, sol_trunc, transpose_right_phi=True)
-        rhsxz = project_rhs(bl, b, zbr)
+        Axz = mixed_product(pl, zr, A, sol_trunc, transpose_right_phi=True, ineq=ineq)
+        rhsxz = project_rhs(bl, b, zbr, ineq)
         resxz = (rhsxz - Axz).permute(0, 2, 1, 3).reshape(rl * n, bs * rz1)
         uz, _ = trunc_svd(resxz, width - r_out)
         u_aug = torch.cat([u3.reshape(rl * n, -1)[:, :r_out], uz], dim=1)
@@ -301,8 +331,8 @@ def fwd_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
     x_kp1_new = torch.einsum("rbR,RdK->rbdK", v_new, x_kp1) / scales
 
     if solve:
-        Az = z_product(zl, A, zr, sol)
-        rhsz = project_rhs(zbl, b, zbr)
+        Az = z_product(zl, A, zr, sol, ineq)
+        rhsz = project_rhs(zbl, b, zbr, ineq)
         resz = (rhsz - Az).permute(0, 2, 1, 3).reshape(rz * n, bs * rz1)
     else:
         resz = z_k.permute(0, 2, 1, 3).reshape(rz * n, bs * rz1)
@@ -311,6 +341,6 @@ def fwd_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
     vz_new = vzz.reshape(vzz.shape[0], bs, rz1)
     z_kp1_new = unit_fro(torch.einsum("rbR,RdK->rbdK", vz_new, z_kp1) / scales)
 
-    pr_new, br_new, zr_new, zbr_new = phis_fwd(A, b, u_core, z_core, pl, bl, zl, zbl)
+    pr_new, br_new, zr_new, zbr_new = phis_fwd(A, b, u_core, z_core, pl, bl, zl, zbl, ineq)
     return (u_core, x_kp1_new, z_core, z_kp1_new, pr_new, br_new,
             zr_new, zbr_new, res_old, res_min, dx)

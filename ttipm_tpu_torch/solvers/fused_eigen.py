@@ -1,24 +1,28 @@
-"""Fused fixed-rank TT eigensolver for the IPM step sizes.
+"""Fused fixed-rank TT eigensolvers for the IPM step sizes.
 
 ``tt_max_generalised_eigen_fused`` finds the largest ``alpha`` with
 ``A + alpha * Delta`` PSD by a fixed-rank MALS sweep over 2-core windows:
 each window assembles the dense pencil, takes its smallest eigenpair,
 shrinks alpha when the shifted pencil goes indefinite, re-splits the
-window at the fixed rank and updates the interfaces.
+window at the fixed rank and updates the interfaces.  ``tt_min_eig_fused``
+is the same sweep for the smallest eigenvector of one symmetric operator
+(the inequality step sizes, over ``Diag(.)`` operators).
 
-Counterpart of ``ttipm_tpu/solvers/fused_eigen.py:623`` with the semantics
-of its numpy host engine (``fused_eigen_host.py``).  The window and
-single-core assemblies go through K1 (``schur_assemble_group``, the pencil's
-two matrices from one launch; a 2-core window
-is one operator core of physical size 16 after merging the pair), and the
-Cholesky of the whitened shrink pencil through K4 (``panel_cholesky``).
+Counterpart of ``ttipm_tpu/solvers/fused_eigen.py`` (``:623`` and ``:826``)
+with the semantics of its numpy host engine (``fused_eigen_host.py``), as
+eager host loops (the JAX package's whole-eigen ``lax.while_loop``
+programs are not ported).  The window and single-core assemblies go
+through K1 (``schur_assemble_group``, the pencil's two matrices from one
+launch; a 2-core window is one operator core of physical size 16 after
+merging the pair), and the Cholesky of the whitened shrink pencil through
+K4 (``panel_cholesky``).
 
 Deviation: the host engine switches to ARPACK ``eigsh`` (k=1) for windows
 of size >= 192 (``fused_eigen_host.py:41-80``); the port takes the dense
-``torch.linalg.eigh`` at every window size.  The window is at most
-``16 R^2`` (1024 at the default eigen rank R=8), which the dense solver
-handles directly, and dense eigh gives the exact extreme eigenpair where
-ARPACK gives it to its tolerance.
+``torch.linalg.eigh`` at every window size, in both solvers.  The window
+is at most ``16 R^2`` (1024 at the default eigen rank R=8), which the
+dense solver handles directly, and dense eigh gives the exact extreme
+eigenpair where ARPACK gives it to its tolerance.
 """
 
 from __future__ import annotations
@@ -30,11 +34,12 @@ import torch
 
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import fast_split_svd, safe_eigh
-from ttipm_tpu_torch.ops.tt import TT, tt_normalise
+from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
+from ttipm_tpu_torch.ops.tt import TT, tt_inner_prod, tt_normalise
 from ttipm_tpu_torch.solvers.fused import _bucket4, _svd_retract
 from ttipm_tpu_torch.solvers.fused_algebra import phi_bck_A, phi_fwd_A
 
-__all__ = ["tt_max_generalised_eigen_fused"]
+__all__ = ["tt_max_generalised_eigen_fused", "tt_min_eig_fused"]
 
 TINY = 1e-300
 
@@ -146,6 +151,47 @@ def _gen_last_step(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol,
         pA_upd = phi_fwd_A(pAl, core, A_k, core)
         pD_upd = phi_fwd_A(pDl, core, D_k, core)
     return core, nb_new, alpha_new, old_res, pA_upd, pD_upd
+
+
+def _min_window_step(pl, A_k, A_k1, pr, sol1, sol2, r_out: int, bwd: bool):
+    """Smallest eigenvector of a 2-core window of one operator, re-split at
+    the fixed rank; returns (sol1, sol2, the previous iterate's residual,
+    the updated interface)."""
+    prev = torch.einsum("rny,ytR->rntR", sol1, sol2)
+    rl, n1, n2, rr = prev.shape
+    M = kernels.schur_assemble(pl, _merged(A_k, A_k1), pr)
+    _, x = _smallest_eigpair(M)
+    prev_vec = prev.reshape(-1)
+    Mp = M @ prev_vec
+    old_res = torch.linalg.norm(torch.dot(prev_vec, Mp) * prev_vec - Mp)
+    x = _unit(x)
+    if bwd:
+        u, sv, r = _split(x.reshape(rl * n1, n2 * rr).T, r_out)
+        sol2_new = u.T.reshape(r, n2, rr)
+        sol1_new = sv.T.reshape(rl, n1, r)
+        p_upd = phi_bck_A(pr, sol2_new, A_k1, sol2_new)
+    else:
+        u, sv, r = _split(x.reshape(rl * n1, n2 * rr), r_out)
+        sol1_new = u.reshape(rl, n1, r)
+        sol2_new = sv.reshape(r, n2, rr)
+        p_upd = phi_fwd_A(pl, sol1_new, A_k, sol1_new)
+    return sol1_new, sol2_new, old_res, p_upd
+
+
+def _min_last_step(pl, A_k, pr, neighbor, prev, r_out: int, bwd: bool, split: bool):
+    """Single-core pass of the finishing sweep of ``tt_min_eig_fused``."""
+    rl, n, rr = prev.shape
+    _, x = _smallest_eigpair(kernels.schur_assemble(pl, A_k, pr))
+    x = _unit(x)
+    if not split:
+        return x.reshape(rl, n, rr), neighbor, pl
+    if bwd:
+        u, sv, r = _split(x.reshape(rl, n * rr).T, r_out)
+        core = u.T.reshape(r, n, rr)
+        return core, torch.einsum("rdc,cR->rdR", neighbor, sv.T), phi_bck_A(pr, core, A_k, core)
+    u, sv, r = _split(x.reshape(rl * n, rr), r_out)
+    core = u.reshape(rl, n, r)
+    return core, torch.einsum("ij,jkl->ikl", sv, neighbor), phi_fwd_A(pl, core, A_k, core)
 
 
 def _orth_bck_step(x_km1, x_k, ops_k, phis_r, r_out: int):
@@ -322,3 +368,76 @@ def tt_max_generalised_eigen_fused(A: TT, Delta: TT, x0: Optional[TT] = None,
     if max_res > tol and np.isfinite(max_res) and max_res > 0:
         step_size *= tol / max_res
     return step_size, x_cores
+
+
+def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float = 1e-8,
+                     R: int = 8, return_eig_val: bool = False, verbose: bool = False,
+                     rng=None):
+    """Smallest eigenvector of a symmetric TT operator by fixed-rank MALS
+    over 2-core windows; returns (the normalised eigenvector train, its
+    Rayleigh quotient or None).  ``rng``: numpy RandomState of the fresh
+    start (default numpy's global one).  The host reads each half sweep's
+    window residuals once."""
+    rng = np.random if rng is None else rng
+    d = len(A)
+    n = A[0].shape[1]
+    A_p = _prep_operator(A)
+    caps = _vec_caps(d, R, n)
+    x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
+    ones3 = A[0].new_ones((1, 1, 1))
+    XAX = [ones3] + [None] * (d - 1) + [ones3]
+    prev_sweep_res = np.inf
+
+    def finish(direction: int):
+        ks = range(d) if direction > 0 else range(d - 1, -1, -1)
+        for k in ks:
+            split = (k < d - 1) if direction > 0 else (k > 0)
+            nb_idx = k + 1 if direction > 0 else k - 1
+            neighbor = x_cores[nb_idx] if split else x_cores[k]
+            r_out = (caps[k] if direction > 0 else caps[k - 1]) if split else 1
+            core, nb_new, p_upd = _min_last_step(
+                XAX[k], A_p[k], XAX[k + 1], neighbor, x_cores[k],
+                r_out=r_out, bwd=direction < 0, split=split)
+            x_cores[k] = core
+            if split:
+                x_cores[nb_idx] = nb_new
+                XAX[k + 1 if direction > 0 else k] = p_upd
+
+    def half_sweep(bwd: bool) -> float:
+        res_list = []
+        for k in (range(d - 1, 0, -1) if bwd else range(d - 1)):
+            i = k - 1 if bwd else k
+            x_cores[i], x_cores[i + 1], res, p_upd = _min_window_step(
+                XAX[i], A_p[i], A_p[i + 1], XAX[i + 2], x_cores[i], x_cores[i + 1],
+                r_out=caps[i], bwd=bwd)
+            XAX[i + 1] = p_upd
+            res_list.append(res)
+        return float(torch.stack(res_list).max())
+
+    for swp in range(nswp):
+        if swp > 0:
+            max_res = half_sweep(bwd=True)
+        else:
+            max_res = np.inf
+            for k in range(d - 1, 0, -1):
+                core, x_prev, (p_upd,) = _orth_bck_step(
+                    x_cores[k - 1], x_cores[k], (A_p[k],), (XAX[k + 1],), r_out=caps[k - 1])
+                x_cores[k] = core
+                x_cores[k - 1] = x_prev
+                XAX[k] = p_upd
+        if max_res < tol or swp == nswp - 1:
+            finish(+1)
+            break
+        max_res = half_sweep(bwd=False)
+        if max_res < tol:
+            finish(-1)
+            break
+        if swp >= 2 and _eigen_residual_stalled(prev_sweep_res, max_res, tol):
+            break
+        prev_sweep_res = max_res
+
+    x_cores = tt_normalise(list(x_cores))
+    min_eig_value = None
+    if return_eig_val:
+        min_eig_value = tt_inner_prod(x_cores, tt_fast_matrix_vec_mul(A, x_cores, 1e-12))
+    return x_cores, min_eig_value

@@ -127,12 +127,15 @@ def load_yaml(path: str) -> dict:
 def load_problem(name: str):
     if name == "maxcut":
         from ttipm_tpu_torch.models.maxcut import create_problem
-
-        return create_problem
-    if name in PROBLEMS:
-        raise NotImplementedError(
-            f"--problem {name}: not ported yet (ROADMAP Queue 1: items 13 and 14)")
-    raise ValueError(f"unknown problem {name!r}; choose from {PROBLEMS}")
+    elif name == "corr_clust":
+        from ttipm_tpu_torch.models.corr_clust import create_problem
+    elif name == "max_stable_set":
+        from ttipm_tpu_torch.models.max_stable_set import create_problem
+    elif name in PROBLEMS:
+        raise NotImplementedError(f"--problem {name}: not ported yet (ROADMAP Queue 1, item 14)")
+    else:
+        raise ValueError(f"unknown problem {name!r}; choose from {PROBLEMS}")
+    return create_problem
 
 
 def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
@@ -141,7 +144,7 @@ def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
     ``seed``, as in the JAX package.  Returns (feasibility error,
     slackness)."""
     from ttipm_tpu_torch.checks import solve_metrics
-    from ttipm_tpu_torch.ipm import tt_ipm
+    from ttipm_tpu_torch.ipm import IneqStatus, tt_ipm
     from ttipm_tpu_torch.ops.tt import tt_reshape
     from ttipm_tpu_torch.utils.memtrack import PeakMemoryTracker
 
@@ -149,8 +152,14 @@ def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
     tracker = PeakMemoryTracker(device).__enter__() if args.track_mem else None
     np.random.seed(seed)
     t1 = time.time()
-    obj_tt, L_op_tt, bias_tt, lag_y = create_problem_fn(config["dim"], rank, device=device)
-    lag_maps = {"y": tt_reshape(lag_y, (4, 4))}
+    problem = create_problem_fn(config["dim"], rank, device=device)
+    if len(problem) == 5:
+        obj_tt, L_op_tt, bias_tt, ineq_mask, lag_maps = problem
+    else:
+        obj_tt, L_op_tt, bias_tt, lag_y = problem
+        ineq_mask = None
+        lag_maps = {"y": lag_y}
+    lag_maps = {k: tt_reshape(v, (4, 4)) for k, v in lag_maps.items()}
     obj_tt = tt_reshape(obj_tt, (4,))
     bias_tt = tt_reshape(bias_tt, (4,))
     if device.type == "cuda":
@@ -158,6 +167,7 @@ def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
     t2 = time.time()
     X_tt, Y_tt, T_tt, Z_tt, info = tt_ipm(
         lag_maps, obj_tt, L_op_tt, bias_tt,
+        ineq_mask=ineq_mask,
         max_iter=config["max_iter"],
         verbose=config.get("verbose", False),
         gap_tol=float(config["gap_tol"]),
@@ -176,7 +186,9 @@ def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
 
     rec["problem_creation_times"][s_i] = t2 - t1
     rec["runtimes"][s_i] = t3 - t2
-    slack, primal, dual = solve_metrics(X_tt, Y_tt, Z_tt, obj_tt, L_op_tt, bias_tt)
+    slack, primal, dual = solve_metrics(
+        X_tt, Y_tt, Z_tt, obj_tt, L_op_tt, bias_tt, T=T_tt,
+        ineq_active=info["status"].ineq_status is IneqStatus.ACTIVE)
     rec["complementary_slackness"][s_i] = slack
     rec["feasibility_errors"][s_i] = primal
     rec["dual_feasibility_errors"][s_i] = dual
