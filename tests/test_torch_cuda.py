@@ -25,7 +25,10 @@ reaches the extremal pair above its dense gate, and the fully ragged IPM
 with the nine terms of its block products and K1 with groups of six blocks
 of unequal operator ranks against their plain versions, the ragged
 inequality local solver at its dense gate (r != R) and in its LGMRES
-branch against its CPU run, and corr_clust d3 against its CPU run.
+branch against its CPU run, and corr_clust d3 against its CPU run.  graphm:
+the first Newton system of n=2 seed 256 (configs/graphm_2.yaml) solved by
+the ragged AMEn with the inequality local solver on the card and on the
+CPU, every kernel call of the card's solve held against its plain version.
 """
 
 import numpy as np
@@ -783,3 +786,98 @@ def test_cuda_corr_clust_solve_matches_cpu(cuda):
     assert out[str(cuda)][5] < 1e-3
     assert all(s.plain_calls == 0 for s in K.STATS.values())
     assert all(s.launches > 0 for s in K.STATS.values())
+
+
+class _Captured(BaseException):
+    """Stops a solve once its first Newton system is built."""
+
+
+def _first_graphm_system(dev):
+    """The port's first Newton system of graphm n=2 seed 256 at
+    configs/graphm_2.yaml's settings on ``dev``: (lhs, rhs, status)."""
+    import ttipm_tpu_torch.ipm as ipm
+    from ttipm_tpu_torch.models.graphm import create_problem
+    from ttipm_tpu_torch.ops.tt import tt_reshape
+
+    built, out = ipm.tt_infeasible_newton_system, {}
+
+    def capture(*args):
+        out["system"] = built(*args)
+        raise _Captured()
+
+    rng = np.random.RandomState(256)
+    C, L, b, mask, lag = create_problem(2, 1, device=dev, rng=rng)
+    lag = {k: tt_reshape(v, (4, 4)) for k, v in lag.items()}
+    ipm.tt_infeasible_newton_system = capture
+    try:
+        with pytest.raises(_Captured):
+            ipm.tt_ipm(lag, tt_reshape(C, (4,)), L, tt_reshape(b, (4,)), ineq_mask=mask,
+                       max_iter=25, gap_tol=5e-4, op_tol=1e-4, abs_tol=1e-3, warm_up=3,
+                       mals_restarts=2, max_refinement=5, lambdaStar=1.0,
+                       lambdaStarIneq=1e-8, rng=rng)
+    finally:
+        ipm.tt_infeasible_newton_system = built
+    return out["system"]
+
+
+def _dense_residual(lhs, rhs, x):
+    """||A x - b|| / ||b|| of a block system, densely on the CPU."""
+    from ttipm_tpu_torch.ops.tt import tt_matrix_to_matrix, tt_to_tensor
+    from ttipm_tpu_torch.solvers.blocks import tt_get_block
+
+    blocks = {k: tt_matrix_to_matrix([c.cpu() for c in v]) for k, v in lhs._data.items()}
+    for src, dst in lhs._aliases.items():
+        blocks[dst] = blocks[src]
+    for src, dst in lhs._transposes.items():
+        blocks[dst] = blocks[src].T
+    n = next(iter(blocks.values())).shape[0]
+    A = torch.zeros((4 * n, 4 * n), dtype=torch.float64)
+    for (i, j), blk in blocks.items():
+        A[i * n:(i + 1) * n, j * n:(j + 1) * n] = blk
+    xd = torch.cat([tt_to_tensor([c.cpu() for c in tt_get_block(i, x)]).reshape(-1)
+                    for i in range(4)])
+    bd = torch.cat([tt_to_tensor([c.cpu() for c in rhs.get_row(i)]).reshape(-1)
+                    for i in range(4)])
+    return float(torch.linalg.norm(A @ xd - bd) / torch.linalg.norm(bd))
+
+
+@pytest.mark.cuda
+def test_cuda_graphm_first_newton_system(cuda, monkeypatch):
+    """graphm n=2's first Newton system (the four-row inequality system)
+    through the ragged AMEn with ``ipm_local_solver_ineq`` on the card and
+    on the CPU: residual below the solver's tolerance (eta) in both, the
+    card's K1, K2 and K4 launched, each kernel entry within its tolerance
+    on the first call of every shape, no plain version on a CUDA tensor."""
+    from ttipm_tpu_torch.checks import KERNEL_OF, kernel_errors, shape_key
+    from ttipm_tpu_torch.solvers.amen import tt_restarted_block_amen
+    from ttipm_tpu_torch.solvers.local_kkt import ipm_local_solver_ineq
+
+    res = {}
+    for dev in ("cpu", cuda):
+        lhs, rhs, status = _first_graphm_system(dev)
+        checked = {}
+        if dev != "cpu":
+            for name in KERNEL_OF:
+                fn = getattr(K, name)
+
+                def wrapped(*a, _fn=fn, _name=name, **kw):
+                    out = _fn(*a, **kw)
+                    key = (_name, shape_key(a))
+                    if key not in checked:
+                        checked[key] = kernel_errors(_name, a, out, cancelling=True)
+                    return out
+                monkeypatch.setattr(K, name, wrapped)
+        K.reset_counts()
+        x, _ = tt_restarted_block_amen(
+            lhs, rhs, rank_restriction=status.mals_rank_restriction, op_tol=1e-4,
+            termination_tol=status.eta, num_restarts=2, inner_m=status.kkt_iterations,
+            local_solver=ipm_local_solver_ineq, rng=np.random.RandomState(256))
+        monkeypatch.undo()
+        res[str(dev)] = _dense_residual(lhs, rhs, x)
+        assert res[str(dev)] <= status.eta
+        if dev != "cpu":
+            for name in ("schur_assemble", "kkt_block_matvec", "panel_cholesky"):
+                assert K.STATS[name].launches > 0, name
+            assert all(s.plain_calls == 0 for s in K.STATS.values())
+            bad = {k: v for k, v in checked.items() if not v["ok"]}
+            assert checked and not bad, bad

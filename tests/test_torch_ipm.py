@@ -64,18 +64,32 @@ def test_maxcut_matches_jax(dim, seed):
 
 
 def test_unported_paths_raise():
-    np.random.seed(11)
-    obj, L, b, lag = cp_t(2, 1, device="cpu")
-    lag_maps = {"y": T.tt_reshape(lag, (4, 4))}
-    with pytest.raises(NotImplementedError):
-        ipm_t(lag_maps, obj, L, b, checkpoint_path="unused")
     with pytest.raises(NotImplementedError):
         tconfig.set_dtype(torch.float32)
     config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "configs", "maxcut_3.yaml")
-    for argv in (["--problem", "graphm"], ["--problem", "maxcut", "--solver", "sdpa"]):
+    for argv in (["--problem", "maxcut", "--solver", "sdpa"],
+                 ["--problem", "maxcut", "--solver", "cgal"]):
         with pytest.raises(NotImplementedError):
             run_experiment(argv=argv + ["--config", config, "--device", "cpu"])
+
+
+def test_checkpoint_path_writes_a_file(tmp_path):
+    """``checkpoint_path`` (a refusal until the port had checkpoints)
+    writes the final iterates, which ``resume_from`` takes back."""
+    from ttipm_tpu_torch.utils.checkpoint import load_ipm_checkpoint
+
+    path = str(tmp_path / "d2.npz")
+    np.random.seed(11)
+    obj, L, b, lag = cp_t(2, 1, device="cpu")
+    lag_maps = {"y": T.tt_reshape(lag, (4, 4))}
+    X, _, _, _, info = ipm_t(lag_maps, obj, L, b, checkpoint_path=path, **SETTINGS)
+    assert os.path.exists(path)
+    state = load_ipm_checkpoint(path, device="cpu")
+    assert state["iteration"] == info["num_iters"]
+    assert all(torch.equal(a, c) for a, c in zip(state["X"], X))
+    _, _, _, _, again = ipm_t(lag_maps, obj, L, b, resume_from=path, **SETTINGS)
+    assert again["num_iters"] >= info["num_iters"]
 
 
 @pytest.mark.parametrize("name", ["kkt_block_matvec", "panel_cholesky"])

@@ -11,6 +11,7 @@ MODULES = [
     "ttipm_tpu_torch.interop",
     "ttipm_tpu_torch.ipm",
     "ttipm_tpu_torch.models.corr_clust",
+    "ttipm_tpu_torch.models.graphm",
     "ttipm_tpu_torch.models.max_stable_set",
     "ttipm_tpu_torch.models.maxcut",
     "ttipm_tpu_torch.ops._build",
@@ -29,6 +30,7 @@ MODULES = [
     "ttipm_tpu_torch.solvers.lgmres",
     "ttipm_tpu_torch.solvers.local_kkt",
     "ttipm_tpu_torch.tools.compare_kernels",
+    "ttipm_tpu_torch.utils.checkpoint",
     "ttipm_tpu_torch.utils.memtrack",
     "ttipm_tpu_torch.utils.runner",
 ]

@@ -11,8 +11,13 @@
   iterations and the X and T ranks.
 * The YAML reader returns what ``yaml.safe_load`` returns on every config
   of ``configs/``.
-* The refusals: graphm, the dense baselines, and ``--device cuda`` without
-  a CUDA device.
+* graphm: ``load_problem("graphm")`` returns the port's ``create_problem``, and the
+  runner on graphm n=2 (configs/graphm_2.yaml, its Newton steps replaced by
+  empty ones so that the IPM stops at its initial point) writes results
+  whose rank arrays have the runner's 2n bonds.  The whole solve is
+  ``tests/test_torch_graphm.py``'s (slow) and ``chip_smoke.py``'s.
+* The refusals: the dense baselines, and ``--device cuda`` without a CUDA
+  device.
 """
 
 import argparse
@@ -129,13 +134,39 @@ def test_runner_ineq_problems_match_jax(tmp_path, monkeypatch, problem, config, 
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--problem", "graphm"], NotImplementedError),
+    (["--problem", "maxcut", "--solver", "sdpa"], NotImplementedError),
     (["--problem", "maxcut", "--solver", "scs"], NotImplementedError),
 ])
 def test_runner_refuses_unported(argv, error):
     path = os.path.join(REPO, "configs", "maxcut_3.yaml")
     with pytest.raises(error):
         runner.run_experiment(argv=argv + ["--config", path, "--device", "cpu"])
+
+
+def test_runner_graphm(tmp_path, monkeypatch):
+    import ttipm_tpu_torch.ipm as tipm
+    from ttipm_tpu_torch.models.graphm import create_problem
+
+    assert runner.load_problem("graphm") is create_problem
+    steps = []
+
+    def no_step(*args):
+        steps.append(args[-3])  # the IPM status
+        return 0.0, 0.0, None, None, None, None, args[-3]
+
+    monkeypatch.setattr(tipm, "_tt_ipm_newton_step", no_step)
+    _, path = _one_seed_config(tmp_path, 256, "graphm_2")
+    monkeypatch.chdir(tmp_path)
+    rec = runner.run_experiment(argv=["--problem", "graphm", "--config", path, "--device",
+                                      "cpu", "--no_resample"])
+    data = json.load(open(glob.glob(str(tmp_path / "results" / "*.json"))[0]))
+    assert len(steps) == 2 and rec["num_iters"][0] == 2
+    assert steps[0].ineq_status.name == "ACTIVE"
+    for key in ("ranksX", "ranksY", "ranksZ", "ranksT"):
+        assert np.shape(data[key]) == (1, 1, 4), key
+    # the initial point: X = I shifted along the mask, Z = I, T on the mask
+    assert data["ranksZ"] == [[[1.0] * 4]]
+    assert data["ranksT"] == [[[1.0, 2.0, 1.0, 2.0]]]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is present")

@@ -13,7 +13,11 @@ when they go slack and back on when a step would cross them.
 ``config.set_fused_kkt(False)`` selects the ragged (reference-faithful) KKT
 solvers and eigensolvers throughout.
 
-Counterpart of ``ttipm_tpu/ipm.py``.  Not ported yet: checkpointing.
+``checkpoint_path`` writes the iterates every ``checkpoint_every``
+iterations (``utils/checkpoint.py``, the JAX package's file layout) and
+``resume_from`` restarts from such a file.
+
+Counterpart of ``ttipm_tpu/ipm.py``.
 """
 
 from __future__ import annotations
@@ -672,9 +676,12 @@ def tt_ipm(
 
     ``aho_direction`` is accepted for signature parity and, as in the JAX
     package, overridden every iteration: XZ for the first ``warm_up``
-    iterations, AHO after."""
-    if checkpoint_path is not None or resume_from is not None:
-        raise NotImplementedError("checkpointing is not ported yet")
+    iterations, AHO after.
+
+    ``checkpoint_path`` / ``checkpoint_every`` write X, Y, Z, T, the
+    iteration and eta (with mu and the errors) every N iterations;
+    ``resume_from`` restarts from a checkpoint written by either package:
+    its iterates, iteration count and eta replace the initial point."""
     rng = np.random if rng is None else rng
     ref = obj_tt[0]
     dim = len(obj_tt)
@@ -732,6 +739,19 @@ def tt_ipm(
                               0.1 * status.eta * status.primal_error_normalisation)
 
     iteration = 0
+    if resume_from is not None:
+        from ttipm_tpu_torch.utils.checkpoint import load_ipm_checkpoint
+
+        ckpt = load_ipm_checkpoint(resume_from, device=ref.device, dtype=ref.dtype)
+        X_tt = ckpt["X"] or X_tt
+        Y_tt = ckpt["Y"] or Y_tt
+        Z_tt = ckpt["Z"] or Z_tt
+        T_tt = ckpt["T"] if ckpt["T"] is not None else T_tt
+        iteration = int(ckpt["iteration"])
+        status.eta = float(ckpt["scalars"].get("eta", status.eta))
+        if verbose:
+            print(f"resumed from {resume_from} at iteration {iteration}")
+
     finishing_steps = max_refinement
     prev_errors = {"primal": np.inf, "dual": np.inf, "centrality": np.inf}
     lhs = lhs_skeleton
@@ -840,6 +860,15 @@ def tt_ipm(
         prev_errors["primal"] = status.primal_error
         prev_errors["dual"] = status.dual_error
         prev_errors["centrality"] = status.centrality_error
+
+        if checkpoint_path is not None and iteration % max(checkpoint_every, 1) == 0:
+            from ttipm_tpu_torch.utils.checkpoint import save_ipm_checkpoint
+
+            save_ipm_checkpoint(
+                checkpoint_path, X_tt, Y_tt, Z_tt, T_tt, iteration=iteration,
+                scalars={"eta": status.eta, "mu": status.mu,
+                         "primal_error": status.primal_error,
+                         "dual_error": status.dual_error})
 
     if verbose:
         print(f"--- terminated after {iteration} iterations ---")

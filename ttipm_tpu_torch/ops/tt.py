@@ -7,11 +7,12 @@ tensors; every function follows the device and dtype of the cores it is
 given, and constructors take them explicitly.  Cores are never modified in
 place, so a list may hold the same tensor several times.
 
-Counterpart of ``ttipm_tpu/ops/tt.py`` (the subset the solver uses).
+Counterpart of ``ttipm_tpu/ops/tt.py``.
 """
 
 from __future__ import annotations
 
+from functools import reduce
 from typing import List, Sequence
 
 import numpy as np
@@ -21,11 +22,12 @@ from ttipm_tpu_torch.ops.linalg import safe_svd
 
 __all__ = [
     "TT", "E", "tt_identity", "tt_zero_matrix", "tt_one_matrix",
-    "tt_transpose", "tt_ranks", "tt_scale", "tt_add", "tt_sub",
-    "tt_inner_prod", "tt_norm",
+    "tt_transpose", "tt_ranks", "tt_scale", "tt_swap_all", "tt_copy", "tt_add",
+    "tt_sub", "tt_sum", "tt_inner_prod", "tt_norm", "tt_l2_dist",
     "tt_normalise", "tt_trace", "tt_entrywise_sum", "tt_diag", "tt_diagonal",
     "tt_diag_op", "tt_reshape", "tt_merge_cores", "tt_split_bonds",
-    "tt_merge_bonds", "tt_IkronM", "tt_MkronI",
+    "tt_merge_bonds", "tt_IkronM", "tt_MkronI", "tt_kron", "tt_tril_one_matrix",
+    "tt_triu_one_matrix", "tt_entry",
     "tt_to_tensor", "tt_matrix_to_matrix", "tt_vec_to_vec", "tt_svd",
     "tt_matrix_svd", "symmetric_powers_of_two",
 ]
@@ -78,6 +80,16 @@ def tt_scale(alpha, train_tt: TT) -> TT:
     return [train_tt[0] * alpha] + list(train_tt[1:])
 
 
+def tt_swap_all(train_tt: TT) -> TT:
+    """Reverse core order and flip every core's bond axes."""
+    return [c.transpose(0, -1) for c in reversed(train_tt)]
+
+
+def tt_copy(train_tt: TT) -> TT:
+    """Shallow list copy (cores are never modified in place)."""
+    return list(train_tt)
+
+
 # ---------------------------------------------------------------------------
 # Addition
 # ---------------------------------------------------------------------------
@@ -116,6 +128,19 @@ def tt_sub(train_1_tt: TT, train_2_tt: TT) -> TT:
     return tt_add(train_1_tt, tt_scale(-1.0, train_2_tt))
 
 
+def tt_sum(*args: TT, op_tol: float = 1e-18, rank_reduce: bool = True) -> TT:
+    """Sum of several trains, rounded to ``op_tol`` after each addition
+    unless ``rank_reduce`` is false."""
+    from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
+
+    acc = args[0]
+    for arg in args[1:]:
+        acc = tt_add(acc, arg)
+        if rank_reduce:
+            acc = tt_rank_reduce(acc, op_tol)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Inner products and norms (host floats: the IPM branches on them)
 # ---------------------------------------------------------------------------
@@ -138,6 +163,10 @@ def tt_inner_prod(train_1_tt: TT, train_2_tt: TT) -> float:
 def tt_norm(train_tt: TT) -> float:
     val = tt_inner_prod(train_tt, train_tt)
     return float(np.sqrt(val)) if val > 0 else 0.0
+
+
+def tt_l2_dist(train_1_tt: TT, train_2_tt: TT) -> float:
+    return tt_norm(tt_sub(train_1_tt, train_2_tt))
 
 
 def tt_normalise(train_tt: TT, radius: float = 1) -> TT:
@@ -287,9 +316,54 @@ def tt_MkronI(matrix_tt: TT) -> TT:
     return [_kron_cores(c, eye) for c in matrix_tt]
 
 
+def tt_kron(matrix_tt_1: TT, matrix_tt_2: TT) -> TT:
+    """Core-wise Kronecker product."""
+    return [_kron_cores(c1, c2) for c1, c2 in zip(matrix_tt_1, matrix_tt_2)]
+
+
+# ---------------------------------------------------------------------------
+# Triangular all-ones matrices (graphm constraint constructions)
+# ---------------------------------------------------------------------------
+
+def _triangular_one_matrix(strict_ij, dim: int, device, dtype) -> TT:
+    """All-ones matrix on and on one side of the diagonal: a rank-2 train
+    whose state is "the rows and columns were equal so far" (the diagonal
+    cores) or "the strict side was taken" (all-ones cores after)."""
+    strict = E(*strict_ij, device=device, dtype=dtype)
+    if dim == 1:
+        return [strict + E(0, 0, device=device, dtype=dtype) + E(1, 1, device=device,
+                                                                  dtype=dtype)]
+    one = torch.ones((1, 2, 2, 1), device=device, dtype=dtype)
+    zero = torch.zeros((1, 2, 2, 1), device=device, dtype=dtype)
+    diag = E(0, 0, device=device, dtype=dtype) + E(1, 1, device=device, dtype=dtype)
+    first = torch.cat((strict, diag), dim=-1)
+    mid = torch.cat((torch.cat((one, strict), dim=0), torch.cat((zero, diag), dim=0)), dim=-1)
+    last = torch.cat((one, strict + diag), dim=0)
+    return [first] + [mid] * (dim - 2) + [last]
+
+
+def tt_tril_one_matrix(dim: int, *, device, dtype=torch.float64) -> TT:
+    """TT of the lower-triangular all-ones 2^dim x 2^dim matrix."""
+    return _triangular_one_matrix((1, 0), dim, device, dtype)
+
+
+def tt_triu_one_matrix(dim: int, *, device, dtype=torch.float64) -> TT:
+    """TT of the upper-triangular all-ones 2^dim x 2^dim matrix."""
+    return _triangular_one_matrix((0, 1), dim, device, dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense converters (test oracles)
 # ---------------------------------------------------------------------------
+
+def tt_entry(train_tt: TT, indices: Sequence[int]) -> float:
+    """Single entry of the represented tensor (one index per core; a matrix
+    core takes the same index on both physical axes)."""
+    mats = []
+    for i, core in zip(indices, train_tt):
+        mats.append(core[(slice(None),) + (i,) * (core.ndim - 2)])
+    return float(reduce(torch.matmul, mats).sum())
+
 
 def tt_to_tensor(train_tt: TT) -> torch.Tensor:
     tensor = train_tt[0]

@@ -8,8 +8,9 @@ Counterpart of ``ttipm_tpu/utils/runner.py``: the same flags, printed
 summary and results JSON (written to ``results/`` under the working
 directory).  ``--device`` (``cuda``, the default, or ``cpu``) takes the
 place of ``--platform``; without a CUDA device the runner raises unless
-``--device cpu`` is given.  Only ``--problem maxcut`` and ``--solver ttipm``
-are ported.  The configs are read by ``load_yaml``, a reader of the YAML
+``--device cpu`` is given.  Every ``--problem`` is ported (graphm's
+``dim`` is n: 2n+1 cores, 2n bonds); of the solvers only ``--solver
+ttipm``.  The configs are read by ``load_yaml``, a reader of the YAML
 subset they use, since PyYAML is not everywhere the port runs.
 """
 
@@ -131,8 +132,8 @@ def load_problem(name: str):
         from ttipm_tpu_torch.models.corr_clust import create_problem
     elif name == "max_stable_set":
         from ttipm_tpu_torch.models.max_stable_set import create_problem
-    elif name in PROBLEMS:
-        raise NotImplementedError(f"--problem {name}: not ported yet (ROADMAP Queue 1, item 14)")
+    elif name == "graphm":
+        from ttipm_tpu_torch.models.graphm import create_problem
     else:
         raise ValueError(f"unknown problem {name!r}; choose from {PROBLEMS}")
     return create_problem
@@ -229,6 +230,11 @@ def _parser(problem_name=None):
     return parser
 
 
+def bond_count(problem: str, dim: int) -> int:
+    """Bonds of the solve's trains: graphm's ``dim`` is n, 2n+1 cores."""
+    return 2 * dim if problem == "graphm" else dim - 1
+
+
 def new_record(num_seeds: int, n_bonds: int) -> Dict[str, np.ndarray]:
     return {
         "problem_creation_times": np.zeros(num_seeds),
@@ -260,10 +266,7 @@ def run_experiment(create_problem_fn=None, argv=None, problem_name=None):
         create_problem_fn = load_problem(args.problem)
 
     config = load_yaml(args.config)
-    num_seeds = len(config["seeds"])
-    dim = config["dim"]
-    n_bonds = 2 * dim if (args.problem == "graphm") else dim - 1
-    rec = new_record(num_seeds, n_bonds)
+    rec = new_record(len(config["seeds"]), bond_count(args.problem, config["dim"]))
 
     used_seeds = set(config["seeds"])
     for s_i, seed in enumerate(config["seeds"]):
