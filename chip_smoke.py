@@ -74,9 +74,28 @@ and prints no result line):
    system and the kernels at the solve's heaviest shapes (the ladder's
    largest L_Z and six-block group, the ragged LGMRES product).
 
+9. f32: the float32 profile (``config.set_dtype(float32)``,
+   ``set_eigen_dtype("native")``, mixed-precision local solves "f64") on
+   maxcut d8 seed 319 at rank bucket 4 through run_and_record, with
+   scripts/f32_repro.py's settings (F32_SETTINGS), full width: the sweeps'
+   block products and split QRs in f32 (the f32 instances of K2 and K3),
+   the step-size pencils in f32 (K1 and K4 f32), the local Schur chains in
+   f64 on upcast operands (K1, K2 and K4 f64).  Checked as phase 6, every
+   f32 shape also against the plain version in f64 on the upcast operands;
+   it fails unless the solve converged, TF32 is off, no plain version ran
+   on a CUDA tensor and every f32 instance launched in the solve or in the
+   capture run: the solve's first Newton system, captured, solved again by
+   the fused ladder with the local solves in "refine" and in "off" (K1, K2
+   and K4 f32 in the Schur chains); the three modes' residuals are printed
+   side by side.  Printed as phase 6 with the launches by dtype, beside
+   the JAX package's record of its f32 run, and the f32 instances timed at
+   the solve's heaviest shapes.
+
 The line before the last is a JSON object with the per-kernel record
-(launches on the d8, d10, corr_clust d6 and graphm paths); the last line is
-{"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
+(launches on the d8, d10, corr_clust d6 and graphm paths; the f32
+instances as entries of their own: ``launches`` those of phase 9's solve,
+``launches_capture`` those of its capture run); the last line
+is {"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
 build always) and then prints neither.
 """
 
@@ -104,9 +123,10 @@ KERNELS = {
 
 
 # Peak rates of the roofline bounds (NVIDIA H100 SXM data sheet): device
-# memory, and float64 through the tensor cores (the kernels are float64).
+# memory, float64 through the tensor cores, and float32 on the SIMT cores
+# (the f32 instances use no tensor core: TF32 is ruled out).
 HBM_BYTES_PER_S = 3.35e12
-F64_FLOP_PER_S = 67e12
+FLOP_PER_S = {"float64": 67e12, "float32": 67e12}
 
 
 # Orders at which K4 is timed against torch.linalg.cholesky_ex: the d8
@@ -208,14 +228,17 @@ def _tensors(arg):
 def bound_ms(name, args):
     """Roofline bound of one call of entry point ``name`` on ``args``: the
     larger of its bytes (every distinct input read once, the output
-    written once) over the device memory rate and its operations over the
-    float64 peak; returns (ms, "bytes" or "operations")."""
+    written once, at the operands' element size) over the device memory
+    rate and its operations over the peak of their type; returns (ms,
+    "bytes" or "operations")."""
     seen, bytes_in = set(), 0
-    for t in _tensors(args):
+    tensors = _tensors(args)
+    esize = tensors[0].element_size()
+    for t in tensors:
         key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
         if key not in seen:
             seen.add(key)
-            bytes_in += 8 * t.numel()
+            bytes_in += esize * t.numel()
 
     def dims(term):
         (l, s, r), (_, m, n, S), (L, _, R) = (tuple(t.shape) for t in term[:3])
@@ -224,27 +247,27 @@ def bound_ms(name, args):
     if name in ("kkt_block_matvec", "kkt_block_product"):
         terms, nrows = ([args], 1) if name == "kkt_block_matvec" else args
         l, _, _, m, _, _, L, _ = dims(terms[0])
-        bytes_out = 8 * l * nrows * m * L
+        bytes_out = esize * l * nrows * m * L
         flops = sum(2 * (l * s * r * n * R + m * S * s * n * l * R + l * m * S * R * L)
                     for l, s, r, m, n, S, L, R in map(dims, terms))
     elif name in ("schur_assemble", "schur_assemble_group"):
         blocks = [args] if name == "schur_assemble" else args[0]
         bytes_out = flops = 0
         for l, s, r, m, n, S, L, R in map(dims, blocks):
-            bytes_out += 8 * l * m * L * r * n * R
+            bytes_out += esize * l * m * L * r * n * R
             flops += 2 * l * m * r * n * S * (s + L * R)
     elif name == "panel_qr":
         m, n = args[0].shape
-        bytes_out = 8 * (m * n + n * n)
+        bytes_out = esize * (m * n + n * n)
         flops = 4 * m * n * n - 4 * n**3 // 3  # Householder R, then Q formed
     elif name == "panel_cholesky":
         n = args[0].shape[0]
-        bytes_out = 8 * n * n + 4
+        bytes_out = esize * n * n + 4
         flops = n**3 // 3
     else:
         raise KeyError(name)
     by_bytes = 1e3 * (bytes_in + bytes_out) / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / F64_FLOP_PER_S
+    by_ops = 1e3 * flops / FLOP_PER_S[str(tensors[0].dtype).split(".")[-1]]
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -397,7 +420,8 @@ def report_checks(label, checked, where):
         w = {"shapes": len(by_shape)}
         for errs in by_shape.values():
             for k, v in errs.items():
-                if k in ("rel", "rel_terms", "fact", "orth", "below_diagonal", "max_abs_err"):
+                if k in ("rel", "rel_terms", "rel_f64", "fact", "orth", "below_diagonal",
+                         "max_abs_err"):
                     w[k] = max(w.get(k, 0.0), v)
         w["failed_info"] = sum(1 for e in by_shape.values() if e.get("info", 0) != 0)
         w["nonfinite_operands"] = sum(1 for e in by_shape.values() if e.get("nonfinite"))
@@ -529,23 +553,24 @@ FALLBACK_CHECKS = 48  # kernel checks per kernel in phases 6 and 7
 
 def shape_spec(arg):
     """The nested shapes of an entry point's arguments, hashable (a tensor
-    becomes the tuple of its shape, other values stay)."""
+    becomes "T", its type and its shape; other values stay)."""
     import torch
 
     if isinstance(arg, torch.Tensor):
-        return ("T",) + tuple(arg.shape)
+        return ("T", str(arg.dtype).split(".")[-1]) + tuple(arg.shape)
     if isinstance(arg, (list, tuple)):
         return tuple(shape_spec(a) for a in arg)
     return arg
 
 
 def random_operands(name, spec, rng, dev):
-    """Random operands of the shapes ``spec`` (an SPD matrix for K4)."""
+    """Random operands of the shapes and types ``spec`` (an SPD matrix for
+    K4)."""
     import torch
 
     def build(sp):
         if isinstance(sp, tuple) and sp[:1] == ("T",):
-            return torch.as_tensor(rng.randn(*sp[1:]), device=dev)
+            return torch.as_tensor(rng.randn(*sp[2:]), device=dev).to(getattr(torch, sp[1]))
         if isinstance(sp, tuple):
             return type(sp)(build(x) for x in sp)
         return sp
@@ -571,14 +596,15 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
     host syncs are counted by the file that made them
     (``torch.cuda.set_sync_debug_mode``).  With ``exhaust`` the fused ladder
     raises AmenRestartsExhausted at once, so every Newton solve takes the
-    ragged AMEn.  Each kernel is held to phase 3's tolerances on the first
-    call of a shape, for the first 46 distinct shapes of a kernel and, at
-    the end, for the largest shape of each entry point if it was not among
-    them; the seconds of these checks are reported apart.  Prints one JSON
-    line under ``label``; raises unless the solve converged, each kernel of
-    ``must_launch`` launched and no plain version ran on a CUDA tensor.
-    Returns (result, per kernel (launches, plain calls, grouped launches),
-    the call record for ``solve_times``)."""
+    ragged AMEn.  Each kernel is held to phase 3's tolerances (those of
+    its operands' type) on the first call of a shape, for the first 46
+    distinct shapes of a kernel and type and, at the end, for the largest
+    shape of each entry point if it was not among them; the seconds of
+    these checks are reported apart.  Prints one JSON line under ``label``;
+    raises unless the solve converged, each kernel of ``must_launch``
+    launched and no plain version ran on a CUDA tensor.  Returns (result,
+    per kernel (launches, plain calls, grouped launches, launches by
+    dtype), the call record for ``solve_times``)."""
     import argparse
     import warnings
 
@@ -609,6 +635,7 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
     largest = {}        # name -> (size, spec, args, kw) of its largest call
     products, groups = Counter(), Counter()  # K2 (terms, rows), K1 blocks per launch
     checked = {name: {} for name in K.STATS}
+    checks_by_dtype = Counter()  # (kernel, dtype) -> shapes checked
     check_s = [0.0]
     originals = {name: getattr(K, name) for name in KERNEL_OF}
     solvers = {"fused": "tt_restarted_block_amen_fused", "ragged": "tt_restarted_block_amen",
@@ -643,7 +670,9 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
                 if name not in largest or size > largest[name][0]:
                     kept = (a[0].clone(),) if name == "panel_cholesky" else a
                     largest[name] = (size, spec, kept, kw)
-                if len(checked[KERNEL_OF[name]]) < first_checks:
+                budget = (KERNEL_OF[name], _tensors(a)[0].dtype)
+                if checks_by_dtype[budget] < first_checks:
+                    checks_by_dtype[budget] += 1
                     check(name, spec, a, kw, out)
             return out
         return wrapped
@@ -717,7 +746,8 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
             setattr(ipm, attr, solver_fns[kind])
         for name, fn in saved.items():
             setattr(ipm, name, fn)
-    counts = {name: (s.launches, s.plain_calls, s.grouped) for name, s in K.STATS.items()}
+    counts = {name: (s.launches, s.plain_calls, s.grouped, dict(s.by_dtype))
+              for name, s in K.STATS.items()}
     syncs = Counter(os.path.relpath(w.filename, REPO) for w in caught
                     if "synchroniz" in str(w.message))
     solve_syncs = {f: c for f, c in syncs.items()
@@ -746,13 +776,16 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
         "host_syncs": sum(solve_syncs.values()),
         "host_syncs_by_file": dict(sorted(solve_syncs.items(), key=lambda kv: -kv[1])),
         "max_memory_allocated": int(rec["memory"][0] * 1e6),
-        "counts": {n: {"launches": c[0], "plain_calls": c[1], "grouped": c[2]}
-                   for n, c in counts.items()},
+        "counts": {n: {"launches": c[0], "plain_calls": c[1], "grouped": c[2],
+                       "by_dtype": c[3]} for n, c in counts.items()},
         "entry_calls": {n: sum(c for (_, nm, _), c in calls.items() if nm == n)
                         for n in KERNEL_OF},
         "k2_products_by_terms_rows": {f"{t}x{r}": c for (t, r), c in sorted(products.items())},
         "k1_groups_by_blocks": {str(b): c for b, c in sorted(groups.items())},
         "largest": {n: shape_key(v[2]) for n, v in largest.items()},
+        "max_abs_err_f32": {n: max([e.get("max_abs_err", 0.0) for (_, sp), e in by.items()
+                                    if "float32" in str(sp)], default=0.0)
+                            for n, by in checked.items()},
     }
     print(json.dumps({label: res}), flush=True)
     report_checks(f"{label}_checks", checked, f"the {problem} d{dim} shapes")
@@ -760,7 +793,7 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
     if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
             and res["dual_feas"] < abs_tol):
         raise AssertionError(f"{problem} d{dim} seed {seed} did not converge: {res}")
-    for name, (launches, plain, _) in counts.items():
+    for name, (launches, plain, _, _) in counts.items():
         if launches <= 0 and name in must_launch:
             raise AssertionError(f"{name}: not launched in the {problem} d{dim} solve")
         if plain != 0:
@@ -869,47 +902,183 @@ def solve_times(label, calls, bounds, largest, extra=(), tag="heaviest_ineq"):
     of a solve: per entry point and solver layer the two with the most calls
     times bound, per entry point the largest, and the (name, spec) pairs of
     ``extra``; timed on random operands of those shapes (K4 on an SPD
-    matrix)."""
+    matrix); per entry point, layer and operand type where the solve mixes
+    types.  Returns the rows."""
     import torch
-
-    from ttipm_tpu_torch.checks import PLAIN, shape_key
-    from ttipm_tpu_torch.ops import kernels as K
 
     rng = np.random.RandomState(7)
     dev = torch.device("cuda")
-    library = library_calls()
     totals = Counter()
     by_entry = {}
     for (lay, name, spec), count in calls.items():
         totals[(name, spec)] += count
-        by_entry.setdefault((lay, name), []).append((count * bounds[(name, spec)], spec, count))
+        dtype = "float32" in str(spec)
+        by_entry.setdefault((lay, name, dtype), []).append(
+            (count * bounds[(name, spec)], spec, count))
     picks = {}
-    for (lay, name), items in by_entry.items():
+    for (lay, name, _), items in by_entry.items():
         for _, spec, count in sorted(items, key=lambda x: -x[0])[:2]:
             picks.setdefault((name, spec), []).append([lay, count])
     for name, (_, spec, _, _) in largest.items():
         picks.setdefault((name, spec), []).append(["largest", totals[(name, spec)]])
     for name, spec in extra:
         picks.setdefault((name, spec), []).append([tag, totals[(name, spec)]])
-    rows = []
-    for (name, spec), tags in picks.items():
-        a = random_operands(name, spec[:-1], rng, dev)
-        kw = dict(spec[-1])
-        fn, plain, lib = getattr(K, name), PLAIN[name], library.get(name)
-        fns = [lambda: plain(*a), lambda: fn(*a, **kw)]
-        if lib is not None:
-            fns.insert(1, lambda: lib(*a))
-        ms = _turns_ms(fns, runs=3, warmup=1)
-        b, by = bound_ms(name, a)
-        rows.append({"kernel": name, "shape": shape_key(a), "kw": kw or None, "tags": tags,
-                     "calls": totals[(name, spec)], "ms": ms[-1], "plain_ms": ms[0],
-                     "library_ms": ms[1] if lib is not None else None, "bound_ms": b,
-                     "bound_by": by})
+    rows = [dict(time_spec(name, spec, rng, dev), tags=tags, calls=totals[(name, spec)])
+            for (name, spec), tags in picks.items()]
     for row in sorted(rows, key=lambda r: (r["kernel"], -r["calls"])):
-        print(json.dumps({label: row}), flush=True)
+        print(json.dumps({label: {k: v for k, v in row.items() if k != "spec"}}), flush=True)
+    return rows
 
 
-PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm")
+def time_spec(name, spec, rng, dev):
+    """Kernel, plain version, library call and bound of entry point
+    ``name`` on random operands of the shapes and types ``spec`` (the
+    recorder's: operand specs, then the keywords)."""
+    from ttipm_tpu_torch.checks import PLAIN, shape_key
+    from ttipm_tpu_torch.ops import kernels as K
+
+    a = random_operands(name, spec[:-1], rng, dev)
+    kw = dict(spec[-1])
+    fn, plain, lib = getattr(K, name), PLAIN[name], library_calls().get(name)
+    fns = [lambda: plain(*a), lambda: fn(*a, **kw)]
+    if lib is not None:
+        fns.insert(1, lambda: lib(*a))
+    ms = _turns_ms(fns, runs=3, warmup=1)
+    b, by = bound_ms(name, a)
+    return {"kernel": name, "shape": shape_key(a), "dtype": str(_tensors(a)[0].dtype)[6:],
+            "kw": kw or None, "ms": ms[-1], "plain_ms": ms[0],
+            "library_ms": ms[1] if lib is not None else None, "bound_ms": b, "bound_by": by,
+            "spec": spec}
+
+
+# The f32 cell: maxcut d8 seed 319 at rank bucket 4 in the float32 profile,
+# with scripts/f32_repro.py's settings (configs/maxcut_8.yaml's but
+# max_iter 22), and the JAX package's record of its f32 run on the CPU.
+# The JAX package builds the f32 instance in f32, where its graph
+# sampler's rank decisions fall on f32 SVD noise (it takes its 56th sample
+# at this seed, its f64 instance the 5th); the port builds it in f64 and
+# rounds it (models/maxcut.py), so the record is of another graph of the
+# same seed.
+F32_CELL = ("maxcut", 8, 319)
+F32_SETTINGS = {"max_iter": 22, "gap_tol": 3e-4, "op_tol": 1e-4, "abs_tol": 1e-3,
+                "warm_up": 3, "mals_restarts": 2, "max_refinement": 5, "lambdaStar": 1.0}
+JAX_CPU_F32_D8 = {"iters": 11, "slack": 1.131e-4, "wall_s": 660.2, "rank_bucket": 4,
+                  "source": "results/f32_d78.out:3914 (CPU run, its own f32 instance)"}
+
+
+def capture_first(kind_attr, box):
+    """Wrap ``ipm.<kind_attr>`` so that its first call's arguments land in
+    ``box``; returns the function to restore."""
+    import ttipm_tpu_torch.ipm as ipm
+
+    fn = getattr(ipm, kind_attr)
+
+    def grab(*a, **kw):
+        if "args" not in box:
+            box["args"], box["kw"] = a, dict(kw)
+        return fn(*a, **kw)
+
+    setattr(ipm, kind_attr, grab)
+    return fn
+
+
+def phase_f32(problem, dim, seed):
+    """Phase 9: the float32 profile on the card.  Returns per kernel the
+    f32 instance's launches in the solve and, apart, in the capture run,
+    its worst error and its times at the solve's heaviest f32 shape."""
+    import torch
+
+    import ttipm_tpu_torch.ipm as ipm
+    from ttipm_tpu_torch import config as tconfig
+    from ttipm_tpu_torch.checks import KERNEL_OF
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.solvers import fused as TF
+
+    tconfig.set_dtype(torch.float32)
+    tconfig.set_eigen_dtype("native")
+    tconfig.set_mixed_local("f64")
+    tconfig.set_rank_bucket(4)
+    box = {}
+    try:
+        original = capture_first("tt_restarted_block_amen_fused", box)
+        try:
+            res, counts, record = drive(problem, dim, seed, "f32", JAX_CPU_F32_D8,
+                                        settings=F32_SETTINGS)
+        finally:
+            ipm.tt_restarted_block_amen_fused = original
+        if not tconfig.tf32_off():
+            raise AssertionError("f32: TF32 was switched on during the solve")
+        # the first Newton system, solved again in each local-solve mode
+        lhs, rhs = box["args"][:2]
+        ref = next(iter(rhs.values()))[0]
+        d = len(next(iter(rhs.values())))
+        modes = {}
+        capture = {n: dict.fromkeys(K.DTYPES.values(), 0) for n in K.STATS}
+        for mode in ("f64", "refine", "off"):
+            tconfig.set_mixed_local(mode)
+            kw = dict(box["kw"], rng=np.random.RandomState(seed))
+            K.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, res_local = original(lhs, rhs, *box["args"][2:], **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rn = TF.fused_residual_norm(TF.prep_operator(lhs), TF.prep_rhs(rhs, d, ref), x)
+            modes[mode] = {"rel_residual": rn / rhs.norm, "local_res": res_local, "s": wall,
+                           "dtype": str(x[0].dtype).split(".")[-1],
+                           "launches_by_dtype": {n: dict(st.by_dtype) for n, st in K.STATS.items()},
+                           "plain_calls": sum(st.plain_calls for st in K.STATS.values())}
+            for n, st in K.STATS.items():
+                for tag, c in st.by_dtype.items():
+                    capture[n][tag] += c
+            if modes[mode]["plain_calls"]:
+                raise AssertionError(f"f32 capture ({mode}): a plain version ran on CUDA tensors")
+            if not np.isfinite(rn):
+                raise AssertionError(f"f32 capture ({mode}): non-finite residual")
+        tconfig.set_mixed_local("f64")
+        print(json.dumps({"f32_capture_modes": modes}), flush=True)
+        rows = solve_times("f32_time", *record)
+    finally:
+        tconfig.set_dtype(torch.float64)
+        tconfig.set_eigen_dtype("f64")
+        tconfig.set_mixed_local("f64")
+    launches = {n: counts[n][3]["f32"] for n in KERNELS}  # the solve's, counted from 0
+    launches_capture = {n: capture[n]["f32"] for n in KERNELS}
+    print(json.dumps({"f32_launches": {"solve": {n: counts[n][3] for n in KERNELS},
+                                       "capture": capture}}), flush=True)
+    missing = [n for n in KERNELS if launches[n] + launches_capture[n] <= 0]
+    if missing:
+        raise AssertionError(f"f32: the f32 instances of {missing} never launched")
+    summary = {}
+    rng = np.random.RandomState(8)
+    for n in KERNELS:
+        mine = [r for r in rows if KERNEL_OF[r["kernel"]] == n]
+        f32 = [r for r in mine if r["dtype"] == "float32"]
+        if not f32:  # launched in f32 only by the capture run: its heaviest shape in f32
+            base = max(mine, key=lambda r: r["calls"] * r["bound_ms"])
+            f32 = [dict(time_spec(base["kernel"], as_f32(base["spec"]), rng,
+                                  torch.device("cuda")), calls=0)]
+            print(json.dumps({"f32_time": {k: v for k, v in f32[0].items() if k != "spec"}}),
+                  flush=True)
+        best = max(f32, key=lambda r: r["calls"] * r["bound_ms"])
+        summary[n] = {"launches": launches[n], "launches_capture": launches_capture[n],
+                      "max_abs_err": res["max_abs_err_f32"].get(n, 0.0),
+                      **{k: best[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by")},
+                      "timed_entry": best["kernel"], "timed_shape": best["shape"]}
+    return summary
+
+
+def as_f32(spec):
+    """A recorder's spec with every float64 operand made float32."""
+    if isinstance(spec, tuple) and spec[:2] == ("T", "float64"):
+        return ("T", "float32") + spec[2:]
+    if isinstance(spec, tuple):
+        return tuple(as_f32(x) for x in spec)
+    return spec
+
+
+PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32")
 
 
 def main(argv=None) -> int:
@@ -934,13 +1103,18 @@ def main(argv=None) -> int:
     counts_fb = phase_fallback(*FALLBACK_CELL) if "fallback" in phases else None
     counts_ineq = phase_ineq(*INEQ_CELL) if "ineq" in phases else None
     counts_gm = phase_graphm(*GRAPHM_CELL) if "graphm" in phases else None
+    summary_f32 = phase_f32(*F32_CELL) if "f32" in phases else None
     if set(phases) != set(PHASES):
         return 0
 
     record = [
-        {"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
-         "launches": counts[n][0], "launches_d10": counts_fb[n][0],
+        {"name": n, "dtype": "float64", "route": "cuda", "source": KERNELS[n][0],
+         "replaces": KERNELS[n][1], "launches": counts[n][0], "launches_d10": counts_fb[n][0],
          "launches_ineq": counts_ineq[n][0], "launches_graphm": counts_gm[n][0], **summary[n]}
+        for n in KERNELS
+    ] + [
+        {"name": f"{n}_f32", "dtype": "float32", "route": "cuda", "source": KERNELS[n][0],
+         "replaces": KERNELS[n][1], **summary_f32[n]}
         for n in KERNELS
     ]
     import torch

@@ -31,11 +31,17 @@ the ragged AMEn with the inequality local solver on the card and on the
 CPU, every kernel call of the card's solve held against its plain version.
 """
 
+import functools
+import os
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from ttipm_tpu_torch.checks import check_kernel
+from ttipm_tpu_torch.checks import check_kernel, tolerance
 from ttipm_tpu_torch.ops import kernels as K
 
 
@@ -46,19 +52,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _dev(rng, dev, *shape):
-    return torch.as_tensor(rng.randn(*shape), device=dev)
+# Every kernel case runs on both instances: float64 and float32.
+DTYPES = [torch.float64, torch.float32]
+DTYPE_IDS = ["f64", "f32"]
+
+
+def _dev(rng, dev, *shape, dtype=torch.float64):
+    return torch.as_tensor(rng.randn(*shape), device=dev).to(dtype)
 
 
 def _device_kernel_names(fn):
     """Names of the device kernels of one call of ``fn`` (torch.profiler).
-    A trace now and then comes back empty, a process's first one more
-    often: the call is traced again, up to three times."""
+    A trace now and then comes back empty: the call is traced again, each
+    time by a fresh profiler, up to five times a fifth of a second apart.
+    Tests that call this run in a process of their own
+    (``_in_own_process``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -66,16 +79,42 @@ def _device_kernel_names(fn):
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
+        time.sleep(0.2)
     return names
 
 
+_OWN_PROCESS = "TTIPM_TEST_OWN_PROCESS"
+
+
+def _in_own_process(test):
+    """Run the test (this parametrisation of it) again in a pytest process
+    of its own, and pass or fail with it.  On the card, torch.profiler's
+    traces came back without device events, many in a row, late in most
+    whole runs of this file and never in its first tests, with the tests
+    in either order and whether or not CUPTI was torn down between traces
+    (the cause is not established); the device-kernel counts read those
+    traces."""
+    @functools.wraps(test)
+    def run(*args, **kwargs):
+        if os.environ.get(_OWN_PROCESS):
+            return test(*args, **kwargs)
+        node = os.environ["PYTEST_CURRENT_TEST"].rsplit(" ", 1)[0]
+        done = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+             node], env=dict(os.environ, **{_OWN_PROCESS: "1"}), capture_output=True,
+            text=True, timeout=600)
+        assert done.returncode == 0, done.stdout[-4000:] + done.stderr[-2000:]
+    return run
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("R", [8, 16, 32])
 @pytest.mark.parametrize("s", [1, 4, 9])
-def test_cuda_contractions_match_plain(cuda, R, s):
+def test_cuda_contractions_match_plain(cuda, dtype, R, s):
     rng = np.random.RandomState(R + s)
-    pl, A, pr = _dev(rng, cuda, R, s, R), _dev(rng, cuda, s, 4, 4, s), _dev(rng, cuda, R, s, R)
-    x = _dev(rng, cuda, R, 4, R)
+    pl, A, pr = (_dev(rng, cuda, *sh, dtype=dtype) for sh in ((R, s, R), (s, 4, 4, s), (R, s, R)))
+    x = _dev(rng, cuda, R, 4, R, dtype=dtype)
     K.reset_counts()
     y = K.kkt_block_matvec(pl, A, pr, x)
     B = K.schur_assemble(pl, A, pr)
@@ -99,28 +138,71 @@ ODD_CONTRACTIONS = [
 
 
 @pytest.mark.cuda
+def test_cuda_wrappers_launch_the_instance_of_the_operands_type(cuda):
+    """Each wrapper launches the instance of its operands' type and counts
+    it there; no wrapper changes an operand's type: f16 operands and
+    operands of mixed types are refused before any launch, on the card as
+    on the CPU."""
+    rng = np.random.RandomState(4)
+    for dtype, tag in zip(DTYPES, DTYPE_IDS):
+        pl, A, pr = (_dev(rng, cuda, *sh, dtype=dtype) for sh in ((4, 2, 4), (2, 4, 4, 2),
+                                                                 (4, 2, 4)))
+        x = _dev(rng, cuda, 4, 4, 4, dtype=dtype)
+        K.reset_counts()
+        outs = [K.kkt_block_matvec(pl, A, pr, x), K.schur_assemble(pl, A, pr),
+                *K.panel_qr(_dev(rng, cuda, 24, 6, dtype=dtype)),
+                K.panel_cholesky(_spd(40, cuda, dtype=dtype))[0]]
+        torch.cuda.synchronize()
+        assert all(o.dtype == dtype for o in outs)
+        for st in K.STATS.values():
+            assert st.by_dtype == {t: int(t == tag) for t in DTYPE_IDS}, (st.name, st.by_dtype)
+    a64, a32 = _dev(rng, cuda, 4, 2, 4), _dev(rng, cuda, 4, 2, 4, dtype=torch.float32)
+    A64, x64 = _dev(rng, cuda, 2, 4, 4, 2), _dev(rng, cuda, 4, 4, 4)
+    half = _dev(rng, cuda, 24, 6).half()
+    bad_calls = [
+        lambda: K.kkt_block_matvec(a32, A64, a64, x64),                 # mixed types
+        lambda: K.schur_assemble(a64, A64, a32),
+        lambda: K.kkt_block_product([(a64, A64, a64, x64, 0), (a32, A64.float(), a32,
+                                                              x64.float(), 0)], 1),
+        lambda: K.schur_assemble_group([(a64, A64, a64), (a32, A64.float(), a32)]),
+        lambda: K.panel_qr(half),                                        # f16
+        lambda: K.panel_cholesky(half[:6]),
+        lambda: K.kkt_block_matvec(a64.half(), A64.half(), a64.half(), x64.half()),
+    ]
+    K.reset_counts()
+    for i, call in enumerate(bad_calls):
+        with pytest.raises(K.KernelError):
+            call()
+            pytest.fail(f"call {i} was not refused")
+    assert all((s.launches, s.plain_calls) == (0, 0) for s in K.STATS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("shapes", ODD_CONTRACTIONS)
-def test_cuda_contractions_odd_shapes(cuda, shapes):
+def test_cuda_contractions_odd_shapes(cuda, dtype, shapes):
     rng = np.random.RandomState(sum(map(sum, shapes)))
-    pl, A, pr = (_dev(rng, cuda, *sh) for sh in shapes)
-    x = _dev(rng, cuda, shapes[0][2], shapes[1][2], shapes[2][2])
+    pl, A, pr = (_dev(rng, cuda, *sh, dtype=dtype) for sh in shapes)
+    x = _dev(rng, cuda, shapes[0][2], shapes[1][2], shapes[2][2], dtype=dtype)
     check_kernel("kkt_block_matvec", (pl, A, pr, x), K.kkt_block_matvec(pl, A, pr, x))
     check_kernel("schur_assemble", (pl, A, pr), K.schur_assemble(pl, A, pr))
 
 
-def _group_operands(rng, dev, left, right, ranks, m=4):
+def _group_operands(rng, dev, left, right, ranks, m=4, dtype=torch.float64):
     """A block product's six terms and a group of four Schur blocks on
     interfaces (l, s, r) / (L, S, R) with the outer dims ``left = (l, r)``,
     ``right = (L, R)`` and per-block operator ranks ``ranks``; the third
     term and second block are flipped / transposed views."""
     (l, r), (L, R) = left, right
-    x = _dev(rng, dev, r, 3, m, R)
-    ops = [(_dev(rng, dev, l, s, r), _dev(rng, dev, s, m, m, S), _dev(rng, dev, L, S, R))
-           for s, S in ranks]
+
+    def t(*shape):
+        return _dev(rng, dev, *shape, dtype=dtype)
+
+    x = t(r, 3, m, R)
+    ops = [(t(l, s, r), t(s, m, m, S), t(L, S, R)) for s, S in ranks]
     s, S = ranks[0]
-    flipped = (_dev(rng, dev, r, s, l).permute(2, 1, 0),
-               _dev(rng, dev, s, m, m, S).transpose(1, 2),
-               _dev(rng, dev, R, S, L).permute(2, 1, 0))
+    flipped = (t(r, s, l).permute(2, 1, 0), t(s, m, m, S).transpose(1, 2),
+               t(R, S, L).permute(2, 1, 0))
     assert not any(t.is_contiguous() for t in flipped) or min(l, r, L, R, s, S) == 1
     terms = [(*ops[0], x[:, 0], 0), (*ops[1], x[:, 1], 0), (*flipped, x[:, 0], 1),
              (*ops[2], x[:, 2], 1), (*ops[3], x[:, 1], 2), (*ops[4], x[:, 2], 2)]
@@ -128,12 +210,13 @@ def _group_operands(rng, dev, left, right, ranks, m=4):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("R", [8, 16, 32])
 @pytest.mark.parametrize("s", [1, 4, 9])
-def test_cuda_grouped_contractions_match_plain(cuda, R, s):
+def test_cuda_grouped_contractions_match_plain(cuda, dtype, R, s):
     rng = np.random.RandomState(100 + R + s)
     ranks = [(s, s), (s + 1, s), (1, 1), (s, s + 2), (2, s)]
-    terms, blocks = _group_operands(rng, cuda, (R, R), (R, R), ranks)
+    terms, blocks = _group_operands(rng, cuda, (R, R), (R, R), ranks, dtype=dtype)
     K.reset_counts()
     y = K.kkt_block_product(terms, 3)
     B = K.schur_assemble_group(blocks)
@@ -150,42 +233,51 @@ def test_cuda_grouped_contractions_match_plain(cuda, R, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("shapes", ODD_CONTRACTIONS)
-def test_cuda_grouped_contractions_odd_shapes(cuda, shapes):
+def test_cuda_grouped_contractions_odd_shapes(cuda, dtype, shapes):
     (l, s, r), (_, m, _, S), (L, _, R) = shapes
     rng = np.random.RandomState(7 + sum(map(sum, shapes)))
     ranks = [(s, S), (S, s), (1, 2), (s + 3, 1), (2, S + 1)]
-    terms, blocks = _group_operands(rng, cuda, (l, r), (L, R), ranks, m=m)
+    terms, blocks = _group_operands(rng, cuda, (l, r), (L, R), ranks, m=m, dtype=dtype)
     check_kernel("kkt_block_product", (terms, 3), K.kkt_block_product(terms, 3))
     check_kernel("schur_assemble_group", (blocks,), K.schur_assemble_group(blocks))
     check_kernel("schur_assemble_group", (blocks[:2],), K.schur_assemble_group(blocks[:2]))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("dims", [(36, 100, 36, 4, 4, 100, 36, 36), (3, 40, 5, 16, 16, 30, 4, 6),
                                   (70, 2, 3, 4, 4, 2, 3, 3)])
-def test_cuda_kkt_block_matvec_tiled_and_chunked(cuda, dims):
+def test_cuda_kkt_block_matvec_tiled_and_chunked(cuda, dtype, dims):
     """Operator ranks that force tiles of R, a wide physical index, and
     more values of l than the grid has chunks."""
     l, s, r, m, n, S, L, R = dims
     rng = np.random.RandomState(sum(dims))
-    args = (_dev(rng, cuda, l, s, r), _dev(rng, cuda, s, m, n, S), _dev(rng, cuda, L, S, R),
-            _dev(rng, cuda, r, n, R))
+    args = tuple(_dev(rng, cuda, *sh, dtype=dtype)
+                 for sh in ((l, s, r), (s, m, n, S), (L, S, R), (r, n, R)))
     check_kernel("kkt_block_matvec", args, K.kkt_block_matvec(*args))
 
 
 @pytest.mark.cuda
-def test_cuda_schur_assemble_rebuilds_w_for_huge_operator_rank(cuda):
-    """S beyond the resident chunk of W: the slice is rebuilt per column tile."""
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_cuda_schur_assemble_rebuilds_w_for_huge_operator_rank(cuda, dtype):
+    """S beyond the resident chunk of W: the slice is rebuilt per column tile
+    (the f32 instance holds twice the elements, so its S is twice as long)."""
     rng = np.random.RandomState(5)
-    args = (_dev(rng, cuda, 3, 2, 5), _dev(rng, cuda, 2, 4, 4, 2000), _dev(rng, cuda, 9, 2000, 9))
-    assert K.k1_tiles((K._dims("schur_assemble", args),))[1] < 2000
+    esize = K.ELEMENT_BYTES[K.DTYPES[dtype]]
+    S = 2000 * 8 // esize
+    args = tuple(_dev(rng, cuda, *sh, dtype=dtype) for sh in ((3, 2, 5), (2, 4, 4, S),
+                                                              (9, S, 9)))
+    assert K.k1_tiles((K._dims("schur_assemble", args),), esize)[1] < S
     check_kernel("schur_assemble", args, K.schur_assemble(*args))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("R,s", [(8, 4), (32, 9)])
-def test_cuda_contractions_are_one_device_kernel(cuda, R, s):
+@_in_own_process
+def test_cuda_contractions_are_one_device_kernel(cuda, dtype, R, s):
     """Exactly one device kernel per K1 / K2 call, single or grouped, on
     contiguous and on flipped operands: no GEMM, copy or elementwise
     kernel from inside the wrappers; and one wrapper call per block
@@ -194,12 +286,12 @@ def test_cuda_contractions_are_one_device_kernel(cuda, R, s):
 
     rng = np.random.RandomState(R)
     ranks = [(s, s), (s + 1, s), (1, 1), (s, s + 2), (2, s)]
-    terms, blocks = _group_operands(rng, cuda, (R, R), (R, R), ranks)
+    terms, blocks = _group_operands(rng, cuda, (R, R), (R, R), ranks, dtype=dtype)
     keys = ("00", "01", "12", "21", "22")
-    pl = {k: _dev(rng, cuda, R, s, R) for k in keys + ("10",)}
-    pr = {k: _dev(rng, cuda, R, s, R) for k in keys + ("10",)}
-    A = {k: _dev(rng, cuda, s, 4, 4, s) for k in keys}
-    x = _dev(rng, cuda, R, 3, 4, R)
+    pl = {k: _dev(rng, cuda, R, s, R, dtype=dtype) for k in keys + ("10",)}
+    pr = {k: _dev(rng, cuda, R, s, R, dtype=dtype) for k in keys + ("10",)}
+    A = {k: _dev(rng, cuda, s, 4, 4, s, dtype=dtype) for k in keys}
+    x = _dev(rng, cuda, R, 3, 4, R, dtype=dtype)
     calls = {
         "kkt_block_product": lambda: K.kkt_block_product(terms, 3),
         "kkt_block_matvec": lambda: K.kkt_block_matvec(*terms[2][:4]),
@@ -222,9 +314,10 @@ def test_cuda_contractions_are_one_device_kernel(cuda, R, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("R", [8, 16, 32])
-def test_cuda_panel_qr_contract(cuda, R):
-    a = _dev(np.random.RandomState(R), cuda, 4 * R, R + 2)
+def test_cuda_panel_qr_contract(cuda, dtype, R):
+    a = _dev(np.random.RandomState(R), cuda, 4 * R, R + 2, dtype=dtype)
     K.reset_counts()
     q, r = K.panel_qr(a)
     torch.cuda.synchronize()
@@ -233,15 +326,44 @@ def test_cuda_panel_qr_contract(cuda, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("mn", [(24, 6), (16, 6), (40, 10), (16, 10), (5, 5), (33, 1),
                                 (100, 34)])
-def test_cuda_panel_qr_odd_shapes(cuda, mn):
-    a = _dev(np.random.RandomState(sum(mn)), cuda, *mn)
+def test_cuda_panel_qr_odd_shapes(cuda, dtype, mn):
+    a = _dev(np.random.RandomState(sum(mn)), cuda, *mn, dtype=dtype)
     check_kernel("panel_qr", (a,), K.panel_qr(a))
     if mn[1] > 2:  # rank-deficient: a repeated and a zero column
         a[:, 1] = a[:, 0]
         a[:, 2] = 0.0
         check_kernel("panel_qr", (a,), K.panel_qr(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("scale", [1e-25, 1e-15, 1e15, 1e20])
+@pytest.mark.parametrize("mn", [(40, 10), (300, 20)])
+def test_cuda_panel_qr_column_scales(cuda, dtype, scale, mn):
+    """K3 forms ||x||^2 as an unscaled sum of squares (csrc/panel_qr.cu).
+    With its first column scaled by 1e-15 or 1e15 a panel keeps the
+    contract column by column in both types, and in f64 at every scale
+    here.  In f32 a first column at 1e-25 (squares below the smallest
+    subnormal) is reflected as zero: tau = 0, so R's first row is a's and
+    Q's first column is e_0; one at 1e20 (squares above the largest float)
+    comes out non-finite.  A scaled norm would move these two cases."""
+    a = _dev(np.random.RandomState(sum(mn)), cuda, *mn, dtype=dtype)
+    a[:, 0] *= scale
+    q, r = K.panel_qr(a)
+    torch.cuda.synchronize()
+    if dtype == torch.float32 and scale == 1e-25:
+        assert torch.equal(r[0], a[0])
+        assert torch.equal(q[:, 0], torch.eye(mn[0], 1, device=cuda, dtype=dtype)[:, 0])
+    elif dtype == torch.float32 and scale == 1e20:
+        assert not (torch.isfinite(q).all() and torch.isfinite(r).all())
+    else:
+        ad, qd, rd = a.double(), q.double(), r.double()
+        tol = tolerance("panel_qr", dtype)
+        assert float(((qd @ rd - ad).norm(dim=0) / ad.norm(dim=0)).max()) <= tol
+        assert float((qd.T @ qd - torch.eye(mn[1], device=cuda, dtype=qd.dtype)).abs().max()) <= tol
 
 
 # K3's panels: the smoke test's list; the boundaries of its regimes (1, 2,
@@ -255,12 +377,13 @@ K3_PANELS = [(24, 6), (40, 10), (32, 10), (64, 18), (128, 34), (144, 36), (512, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("mn", K3_PANELS)
-def test_cuda_panel_qr_envelope(cuda, mn):
+def test_cuda_panel_qr_envelope(cuda, dtype, mn):
     """The contract at every regime, with LAPACK's signs on the full-rank
     panel, then with a repeated and a zero column, then all zeros."""
     m, n = mn
-    a = _dev(np.random.RandomState(m + n), cuda, m, n)
+    a = _dev(np.random.RandomState(m + n), cuda, m, n, dtype=dtype)
     K.reset_counts()
     q, r = K.panel_qr(a)
     torch.cuda.synchronize()
@@ -280,18 +403,20 @@ def test_cuda_panel_qr_envelope(cuda, mn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("mn", [(40, 10), (128, 34), (144, 36), (300, 20), (512, 128)])
-def test_cuda_panel_qr_layouts(cuda, mn):
+def test_cuda_panel_qr_layouts(cuda, dtype, mn):
     """Transposed and strided operands are read in place; the transposed
     output is the contiguous (n, m) array q^T with the same bits as q."""
     m, n = mn
     rng = np.random.RandomState(m)
-    a = _dev(rng, cuda, m, n)
+    a = _dev(rng, cuda, m, n, dtype=dtype)
     q, r = K.panel_qr(a)
     qt, rt = K.panel_qr(a, transposed=True)
     assert tuple(qt.shape) == (n, m) and qt.is_contiguous()
     assert torch.equal(qt, q.T) and torch.equal(rt, r)
-    for view in (_dev(rng, cuda, n, m).T, _dev(rng, cuda, 2 * m, 2 * n)[::2, ::2]):
+    for view in (_dev(rng, cuda, n, m, dtype=dtype).T,
+                 _dev(rng, cuda, 2 * m, 2 * n, dtype=dtype)[::2, ::2]):
         assert not view.is_contiguous()
         got = K.panel_qr(view)
         check_kernel("panel_qr", (view,), got)
@@ -300,9 +425,10 @@ def test_cuda_panel_qr_layouts(cuda, mn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("mn", [(40, 10), (300, 20), (512, 100)])
-def test_cuda_panel_qr_nan_comes_out_as_nan(cuda, mn):
-    a = _dev(np.random.RandomState(3), cuda, *mn)
+def test_cuda_panel_qr_nan_comes_out_as_nan(cuda, dtype, mn):
+    a = _dev(np.random.RandomState(3), cuda, *mn, dtype=dtype)
     a[3, 4] = float("nan")
     q, r = K.panel_qr(a)
     torch.cuda.synchronize()  # no hang: no loop of the kernel depends on the data
@@ -310,22 +436,25 @@ def test_cuda_panel_qr_nan_comes_out_as_nan(cuda, mn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("mn", [(513, 10), (512, 129), (3, 5)])
-def test_cuda_panel_qr_refuses_outside_the_envelope(cuda, mn):
+def test_cuda_panel_qr_refuses_outside_the_envelope(cuda, dtype, mn):
     K.reset_counts()
     with pytest.raises(K.KernelError):
-        K.panel_qr(torch.zeros(mn, dtype=torch.float64, device=cuda))
+        K.panel_qr(torch.zeros(mn, dtype=dtype, device=cuda))
     assert (K.STATS["panel_qr"].launches, K.STATS["panel_qr"].plain_calls) == (0, 0)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("mn", [(24, 6), (40, 10), (128, 34), (144, 36), (512, 32), (512, 128)])
-def test_cuda_panel_qr_is_one_device_kernel(cuda, mn):
+@_in_own_process
+def test_cuda_panel_qr_is_one_device_kernel(cuda, dtype, mn):
     """One device kernel a call, in every regime and for either output
     layout and a transposed operand: no copy or elementwise kernel from
     inside the wrapper."""
-    a = _dev(np.random.RandomState(1), cuda, *mn)
-    at = _dev(np.random.RandomState(2), cuda, mn[1], mn[0]).T
+    a = _dev(np.random.RandomState(1), cuda, *mn, dtype=dtype)
+    at = _dev(np.random.RandomState(2), cuda, mn[1], mn[0], dtype=dtype).T
     for call in (lambda: K.panel_qr(a), lambda: K.panel_qr(a, transposed=True),
                  lambda: K.panel_qr(at)):
         names = _device_kernel_names(call)
@@ -334,6 +463,7 @@ def test_cuda_panel_qr_is_one_device_kernel(cuda, mn):
 
 
 @pytest.mark.cuda
+@_in_own_process
 def test_cuda_backward_split_takes_q_transposed_without_a_copy(cuda):
     """The K3 site of bck_split_step is one device kernel: the core is a
     view of the kernel's q^T.  Against a K3 that hands back q for the caller
@@ -394,10 +524,11 @@ def test_cuda_backward_split_takes_q_transposed_without_a_copy(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("R", [8, 16, 32])
-def test_cuda_panel_cholesky_contract(cuda, R):
+def test_cuda_panel_cholesky_contract(cuda, dtype, R):
     n = 4 * R * R
-    B = _dev(np.random.RandomState(R), cuda, n, n)
+    B = _dev(np.random.RandomState(R), cuda, n, n, dtype=dtype)
     A = B @ B.T + n * torch.eye(n, dtype=B.dtype, device=cuda)
     check_kernel("panel_cholesky", (A,), K.panel_cholesky(A))
     A[n // 3, n // 3] = -1.0
@@ -406,9 +537,10 @@ def test_cuda_panel_cholesky_contract(cuda, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n", [1, 4, 5, 16, 24, 33, 40, 96, 100, 144, 400])
-def test_cuda_panel_cholesky_odd_orders(cuda, n):
-    B = _dev(np.random.RandomState(n), cuda, n, n)
+def test_cuda_panel_cholesky_odd_orders(cuda, dtype, n):
+    B = _dev(np.random.RandomState(n), cuda, n, n, dtype=dtype)
     A = B @ B.T + n * torch.eye(n, dtype=B.dtype, device=cuda)
     check_kernel("panel_cholesky", (A,), K.panel_cholesky(A))
     A[n - 1, n - 1] = -1.0
@@ -416,8 +548,8 @@ def test_cuda_panel_cholesky_odd_orders(cuda, n):
     assert errs["info"] == n
 
 
-def _spd(n, dev, seed=None):
-    B = _dev(np.random.RandomState(n if seed is None else seed), dev, n, n)
+def _spd(n, dev, seed=None, dtype=torch.float64):
+    B = _dev(np.random.RandomState(n if seed is None else seed), dev, n, n, dtype=dtype)
     return B @ B.T + n * torch.eye(n, dtype=B.dtype, device=dev)
 
 
@@ -428,9 +560,10 @@ K4_BOUNDARY_ORDERS = [1, 31, 32, 33, 63, 64, 65, 159, 160, 161, 511, 512, 513,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n", K4_BOUNDARY_ORDERS)
-def test_cuda_panel_cholesky_regime_boundaries(cuda, n):
-    A = _spd(n, cuda)
+def test_cuda_panel_cholesky_regime_boundaries(cuda, dtype, n):
+    A = _spd(n, cuda, dtype=dtype)
     L, info = K.panel_cholesky(A)
     torch.cuda.synchronize()
     check_kernel("panel_cholesky", (A,), (L, info))
@@ -442,30 +575,33 @@ K4_FAILING_PIVOTS = [(144, 3), (144, 140), (400, 5), (400, 399), (1000, 10), (10
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n,p", K4_FAILING_PIVOTS)
-def test_cuda_panel_cholesky_failing_pivot(cuda, n, p):
+def test_cuda_panel_cholesky_failing_pivot(cuda, dtype, n, p):
     """info is the 1-based order of the first failing pivot (K4's contract;
     cholesky_ex on the card misses some negative last pivots, so the
     order is asserted, not compared with it)."""
-    A = _spd(n, cuda)
+    A = _spd(n, cuda, dtype=dtype)
     A[p, p] = -1.0
     _, info = K.panel_cholesky(A)
     assert int(info) == p + 1
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n,p", [(144, 70), (400, 200), (1000, 500)])
-def test_cuda_panel_cholesky_nan_pivot(cuda, n, p):
-    A = _spd(n, cuda)
+def test_cuda_panel_cholesky_nan_pivot(cuda, dtype, n, p):
+    A = _spd(n, cuda, dtype=dtype)
     A[p, p] = float("nan")
     _, info = K.panel_cholesky(A)
     assert int(info) == p + 1
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n", [100, 400, 1000])
-def test_cuda_panel_cholesky_reads_only_the_lower_triangle(cuda, n):
-    A = _spd(n, cuda)
+def test_cuda_panel_cholesky_reads_only_the_lower_triangle(cuda, dtype, n):
+    A = _spd(n, cuda, dtype=dtype)
     iu = torch.triu_indices(n, n, 1, device=cuda)
     A[iu[0], iu[1]] = float("nan")
     L, info = K.panel_cholesky(A)
@@ -474,20 +610,23 @@ def test_cuda_panel_cholesky_reads_only_the_lower_triangle(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n", [96, 400, 700])
-def test_cuda_panel_cholesky_non_contiguous(cuda, n):
-    big = _spd(2 * n, cuda)
+def test_cuda_panel_cholesky_non_contiguous(cuda, dtype, n):
+    big = _spd(2 * n, cuda, dtype=dtype)
     for A in (big[::2, ::2], big[:n, :n].T):  # strided and transposed views
         assert not A.is_contiguous()
         check_kernel("panel_cholesky", (A,), K.panel_cholesky(A))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n", [16, 144, 256, 400, 512, 4096])
-def test_cuda_panel_cholesky_launch_count(cuda, n):
+@_in_own_process
+def test_cuda_panel_cholesky_launch_count(cuda, dtype, n):
     """One device kernel for every order up to 512; above it at most
     2 ceil(n / 64) + 2 (it takes two: a copy and one persistent kernel)."""
-    A = _spd(n, cuda)
+    A = _spd(n, cuda, dtype=dtype)
     kernels = _device_kernel_names(lambda: K.panel_cholesky(A))
     if n <= K.K4_RESIDENT_MAX_N:
         assert len(kernels) == 1, kernels
@@ -572,6 +711,72 @@ def _local_system(dev, r, R, spd=True, seed=0, ineq=False):
 
 
 @pytest.mark.cuda
+def test_cuda_f32_solve_matches_cpu(cuda):
+    """maxcut d3 seed 319 in the f32 profile (native eigen pencils, f64
+    local solves) on the card and on the CPU: both converge, iterations
+    within one, <C, X> to 1e-3 relative (f32 sums in other orders move the
+    trajectory's last bits); on the card every f32 instance launches and no
+    plain version runs."""
+    from ttipm_tpu_torch import config as tconfig
+    from ttipm_tpu_torch.checks import solve_metrics
+    from ttipm_tpu_torch.ipm import tt_ipm
+    from ttipm_tpu_torch.models.maxcut import create_problem
+    from ttipm_tpu_torch.ops import tt as T
+
+    out = {}
+    tconfig.set_dtype(torch.float32)
+    tconfig.set_eigen_dtype("native")
+    try:
+        for dev in ("cpu", "cuda"):
+            rng = np.random.RandomState(319)
+            obj, L, b, lag = create_problem(3, 1, device=dev, dtype=torch.float32, rng=rng)
+            K.reset_counts()
+            X, Y, _, Z, info = tt_ipm({"y": T.tt_reshape(lag, (4, 4))}, obj, L, b,
+                                      max_iter=22, gap_tol=3e-4, op_tol=1e-4, abs_tol=1e-3,
+                                      warm_up=3, aho_direction=False, mals_restarts=2,
+                                      max_refinement=5, lambdaStar=1.0, rng=rng)
+            assert X[0].dtype == torch.float32
+            assert max(solve_metrics(X, Y, Z, obj, L, b)) < 1e-3, dev
+            out[dev] = (info["num_iters"], T.tt_inner_prod(T.tt_reshape(obj, (2, 2)), X))
+    finally:
+        tconfig.set_dtype(torch.float64)
+        tconfig.set_eigen_dtype("f64")
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-3)
+    assert all(s.plain_calls == 0 for s in K.STATS.values())
+    assert all(s.by_dtype["f32"] > 0 for s in K.STATS.values()), \
+        {n: s.by_dtype for n, s in K.STATS.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_f32_split_svd_keeps_u_orthonormal_at_zero_singular_values(cuda):
+    """tests/test_jacobi.py:114-139's rank-deficient gallery on the card's
+    f32 SVD (cuSOLVER) and on the port's split SVD (an f64 SVD rounded to
+    f32): u orthonormal to 1e-5, vt bounded, the split exact to 1e-4; and a
+    tall panel with a repeated and a zero column."""
+    from ttipm_tpu_torch.ops.linalg import fast_split_svd
+
+    rng = np.random.RandomState(5)
+    base = rng.randn(4, 24).astype(np.float32)
+    u0, s0, vt0 = np.linalg.svd(base, full_matrices=False)
+    s0[3] = 0.0
+    deficient = rng.randn(32, 10).astype(np.float32)
+    deficient[:, 3] = deficient[:, 1]
+    deficient[:, 5] = 0.0
+    for a in (u0 @ np.diag(s0) @ vt0, (u0 @ np.diag(s0) @ vt0).T, deficient, deficient.T):
+        at = torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+        for fn in (fast_split_svd, lambda t: torch.linalg.svd(t, full_matrices=False)):
+            _check_split(a, *(t.double().cpu().numpy() for t in fn(at)))
+
+
+def _check_split(a, u, s, vt):
+    assert np.abs(u).max() < 1.5
+    assert np.abs(u.T @ u - np.eye(u.shape[1])).max() < 1e-5
+    assert np.abs(vt).max() < 1e3
+    assert np.abs(u @ (s[:, None] * vt) - a).max() < 1e-4 * max(1.0, np.abs(a).max())
+
+
+@pytest.mark.cuda
 def test_cuda_ragged_local_solver_matches_cpu(cuda):
     """The ragged local KKT solve at m = 4 r R = 3600 with r != R (the d10
     dense gate's largest order) on the card (K1 group, K4 blocked regime,
@@ -614,6 +819,7 @@ def test_cuda_failed_cholesky_routes_local_solve_to_gmres(cuda):
 
 
 @pytest.mark.cuda
+@_in_own_process
 def test_cuda_block_local_product_is_one_k2_launch(cuda):
     """The ragged sweeps' block_local_product (five blocks and the (1,0)
     transpose: six terms) is one K2 launch and one device kernel."""
@@ -690,16 +896,19 @@ def test_cuda_fully_ragged_solve_matches_cpu(cuda):
         assert K.STATS[name].launches > 0, name
 
 
-def _ineq_group_operands(rng, dev, R):
+def _ineq_group_operands(rng, dev, R, dtype=torch.float64):
     """The nine terms on four rows of an inequality block product (the
     (1,3) alias reads the identity block's operands against column 3) and a
     group of six Schur blocks, operator ranks unequal within both; the
     (1,0) term and its block are flipped / transposed views."""
     ranks = {"00": (3, 2), "01": (2, 4), "12": (1, 1), "21": (4, 3), "22": (2, 2),
              "31": (1, 2), "33": (5, 1)}
-    x = _dev(rng, dev, R, 4, 4, R)
-    op = {k: (_dev(rng, dev, R, s, R), _dev(rng, dev, s, 4, 4, S), _dev(rng, dev, R, S, R))
-          for k, (s, S) in ranks.items()}
+
+    def t(*shape):
+        return _dev(rng, dev, *shape, dtype=dtype)
+
+    x = t(R, 4, 4, R)
+    op = {k: (t(R, s, R), t(s, 4, 4, S), t(R, S, R)) for k, (s, S) in ranks.items()}
     pl, A, pr = op["01"]
     t10 = (pl.permute(2, 1, 0), A.transpose(1, 2), pr.permute(2, 1, 0))
     terms = [(*op["00"], x[:, 0], 0), (*op["01"], x[:, 1], 0), (*t10, x[:, 0], 1),
@@ -710,13 +919,15 @@ def _ineq_group_operands(rng, dev, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("R", [5, 8, 16, 32])
-def test_cuda_ineq_products_and_groups_match_plain(cuda, R):
+@_in_own_process
+def test_cuda_ineq_products_and_groups_match_plain(cuda, dtype, R):
     """K2 with the nine terms of an inequality block product and K1 with a
     group of six blocks of unequal operator ranks, each one launch and one
     device kernel, against their plain versions."""
     rng = np.random.RandomState(300 + R)
-    terms, blocks = _ineq_group_operands(rng, cuda, R)
+    terms, blocks = _ineq_group_operands(rng, cuda, R, dtype=dtype)
     K.reset_counts()
     y = K.kkt_block_product(terms, 4)
     B = K.schur_assemble_group(blocks)

@@ -64,8 +64,10 @@ def test_maxcut_matches_jax(dim, seed):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        tconfig.set_dtype(torch.float32)
+    # float32 is ported (tests/test_torch_f32.py); any other dtype is refused
+    with pytest.raises(ValueError):
+        tconfig.set_dtype(torch.float16)
+    assert tconfig.dtype() == torch.float64
     config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "configs", "maxcut_3.yaml")
     for argv in (["--problem", "maxcut", "--solver", "sdpa"],

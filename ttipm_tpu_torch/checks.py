@@ -1,8 +1,8 @@
 """Acceptance checks shared by ``chip_smoke.py`` and the tests.
 
 ``kernel_errors`` holds one kernel call's output against the kernel's
-plain PyTorch version on the same operands, in float64, and
-``check_kernel`` raises where it is outside these tolerances:
+plain PyTorch version on the same operands, and ``check_kernel`` raises
+where it is outside these tolerances (float64 operands; float32 below):
 
 - ``schur_assemble`` (K1) and ``kkt_block_matvec`` (K2), and their
   grouped entries ``schur_assemble_group`` and ``kkt_block_product``
@@ -21,25 +21,49 @@ plain PyTorch version on the same operands, in float64, and
   and, on success, ||L L^T - A|| / ||A|| <= 1e-13.
 
 These are a few hundred ulps of f64 at the solver's sizes; the kernels sum
-in another order than cuBLAS / cuSOLVER.  ``solve_metrics`` gives the
-slackness and feasibility errors by which a solve counts as converged.
+in another order than cuBLAS / cuSOLVER.
+
+Float32 operands (the f32 instances), by the same rule of a few hundred
+ulps (f32's unit roundoff is 6.0e-8): K1 and K2 2e-5 (335 ulps: a sum of
+n random products in f32 is off by about u sqrt(n / 2) relative, 2.5e-6
+at the 3600-long stage-3 chains of the largest products, and two such
+sums in different orders differ by up to twice that); K3's ||QR - A|| /
+||A|| and ||Q^T Q - I||_max 1e-5, and K4's ||L L^T - A|| / ||A|| 1e-5
+(the backward errors of Householder QR and Cholesky are a small multiple
+of u).  The residuals of K3 and K4 are taken in f64 on the upcast factors,
+so they measure the kernel's rounding and not that of the check.  An f32
+output is held twice: against the plain version in f32 on the same
+operands, and (``rel_f64``) against the plain version in f64 on the
+operands upcast, with the same bound, so an f32 kernel is held to the
+exact product of its operands and not only to another f32 sum.
+``solve_metrics`` gives the slackness and feasibility errors by which a
+solve counts as converged.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ttipm_tpu_torch.config import cast_tree, first_dtype, tree_map
 from ttipm_tpu_torch.ops import kernels as K
 from ttipm_tpu_torch.ops import tt as tto
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
 from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
 
-__all__ = ["TOLERANCE", "PLAIN", "KERNEL_OF", "kernel_errors", "check_kernel", "shape_key",
-           "solve_metrics"]
+__all__ = ["TOLERANCE", "TOLERANCE_F32", "PLAIN", "KERNEL_OF", "tolerance", "kernel_errors",
+           "check_kernel", "shape_key", "solve_metrics"]
 
 TOLERANCE = {"schur_assemble": 1e-12, "kkt_block_matvec": 1e-12,
              "schur_assemble_group": 1e-12, "kkt_block_product": 1e-12,
              "panel_qr": 1e-13, "panel_cholesky": 1e-13}
+TOLERANCE_F32 = {"schur_assemble": 2e-5, "kkt_block_matvec": 2e-5,
+                 "schur_assemble_group": 2e-5, "kkt_block_product": 2e-5,
+                 "panel_qr": 1e-5, "panel_cholesky": 1e-5}
+
+
+def tolerance(name: str, dtype) -> float:
+    """The tolerance of entry point ``name`` for operands of ``dtype``."""
+    return (TOLERANCE_F32 if dtype == torch.float32 else TOLERANCE)[name]
 
 PLAIN = {"schur_assemble": K.schur_assemble_plain,
          "kkt_block_matvec": K.kkt_block_matvec_plain,
@@ -67,42 +91,55 @@ def _max_abs(t: torch.Tensor) -> float:
 
 def _abs(arg):
     """``arg`` with every tensor replaced by its absolute value."""
-    if isinstance(arg, torch.Tensor):
-        return arg.abs()
-    if isinstance(arg, (list, tuple)):
-        return type(arg)(_abs(a) for a in arg)
-    return arg
+    return tree_map(torch.abs, arg)
+
+
+def _contraction_errors(name, args, out, want):
+    """max_abs_err, rel and rel_terms of a K1 / K2 output against ``want``
+    (the plain version on ``args``), and whether the non-finite entries
+    fall where the plain version has them."""
+    if name == "schur_assemble_group":
+        out = torch.stack(list(out))
+    scale = PLAIN[name](*_abs(tuple(args)))
+    finite = torch.isfinite(want)
+    # A non-finite operand (a candidate the solver then rejects) must give
+    # non-finite entries exactly where the plain version has them; the
+    # other entries are held to the tolerance.
+    same_pattern = bool((torch.isfinite(out) == finite).all())
+    zero = torch.zeros_like(want)
+    diff = torch.where(finite, out.to(want.dtype) - want, zero)
+    errs = {"max_abs_err": _max_abs(diff), "rel": _rel(diff, torch.where(finite, want, zero)),
+            "rel_terms": _rel(diff, torch.where(finite, scale, zero))}
+    if not bool(finite.all()):
+        errs["nonfinite"] = int((~finite).sum())
+    return errs, same_pattern
 
 
 def kernel_errors(name: str, args, out, cancelling: bool = False) -> dict:
     """Errors of ``out = kernels.<name>(*args)`` against the plain version
-    on ``args``, with ``"ok"`` false where one exceeds its tolerance.
-    Calls the plain function directly, so no wrapper counter moves."""
-    tol = TOLERANCE[name]
+    on ``args``, with ``"ok"`` false where one exceeds its tolerance (by
+    the operands' type).  Calls the plain function directly, so no wrapper
+    counter moves."""
+    dtype = first_dtype(args)
+    tol = tolerance(name, dtype)
     want = PLAIN[name](*args)
     if KERNEL_OF[name] in ("schur_assemble", "kkt_block_matvec"):
-        if name == "schur_assemble_group":
-            out = torch.stack(list(out))
-        scale = PLAIN[name](*_abs(tuple(args)))
-        finite = torch.isfinite(want)
-        # A non-finite operand (a candidate the solver then rejects) must
-        # give non-finite entries exactly where the plain version has them;
-        # the other entries are held to the tolerance.
-        same_pattern = bool((torch.isfinite(out) == finite).all())
-        zero = torch.zeros_like(want)
-        diff = torch.where(finite, out - want, zero)
-        errs = {"max_abs_err": _max_abs(diff), "rel": _rel(diff, torch.where(finite, want, zero)),
-                "rel_terms": _rel(diff, torch.where(finite, scale, zero))}
-        if not bool(finite.all()):
-            errs["nonfinite"] = int((~finite).sum())
-        ok = same_pattern and errs["rel_terms" if cancelling else "rel"] <= tol
+        errs, same_pattern = _contraction_errors(name, args, out, want)
+        key = "rel_terms" if cancelling else "rel"
+        ok = same_pattern and errs[key] <= tol
+        if dtype == torch.float32:
+            hi_args = cast_tree(tuple(args), torch.float64)
+            hi, hi_pattern = _contraction_errors(name, hi_args, out, PLAIN[name](*hi_args))
+            errs["rel_f64"] = hi[key]
+            ok = ok and hi_pattern and hi[key] <= tol
     elif name == "panel_qr":
         (a,), (q, r), (q0, r0) = args, out, want
-        eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
         d, d0 = torch.sign(torch.diagonal(r)), torch.sign(torch.diagonal(r0))
+        max_abs = max(_max_abs(q * d - q0 * d0), _max_abs(d[:, None] * r - d0[:, None] * r0))
+        a, q, r = a.double(), q.double(), r.double()
+        eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
         errs = {
-            "max_abs_err": max(_max_abs(q * d - q0 * d0),
-                               _max_abs(d[:, None] * r - d0[:, None] * r0)),
+            "max_abs_err": max_abs,
             "fact": _rel(q @ r - a, a),
             "orth": _max_abs(q.T @ q - eye),
             "below_diagonal": _max_abs(torch.tril(r, -1)),
@@ -110,11 +147,12 @@ def kernel_errors(name: str, args, out, cancelling: bool = False) -> dict:
         ok = errs["fact"] <= tol and errs["orth"] <= tol and errs["below_diagonal"] == 0.0
     elif name == "panel_cholesky":
         (a,), (L, info), (L0, info0) = args, out, want
-        sym = torch.tril(a) + torch.tril(a, -1).T
         errs = {"info": int(info), "cholesky_ex_info": int(info0)}
         ok = errs["info"] == errs["cholesky_ex_info"]
         if ok and errs["info"] == 0:
             errs["max_abs_err"] = _max_abs(L - L0)
+            a, L = a.double(), L.double()
+            sym = torch.tril(a) + torch.tril(a, -1).T
             errs["fact"] = _rel(L @ L.T - sym, sym)
             ok = errs["fact"] <= tol
     else:
@@ -139,7 +177,8 @@ def check_kernel(name: str, args, out, cancelling: bool = False) -> dict:
     """``kernel_errors``, raising AssertionError outside the tolerance."""
     errs = kernel_errors(name, args, out, cancelling)
     if not errs["ok"]:
-        raise AssertionError(f"{name} {shape_key(args)}: outside tolerance {TOLERANCE[name]:g}: {errs}")
+        tol = tolerance(name, first_dtype(args))
+        raise AssertionError(f"{name} {shape_key(args)}: outside tolerance {tol:g}: {errs}")
     return errs
 
 

@@ -44,14 +44,23 @@
 //    its slices of phi_l, x, A and phi_r into shared memory (all threads,
 //    coalesced along the operand's contiguous index) and runs the chains
 //    from there; an operand that does not fit is read in place.
-//  * Arithmetic: plain f64 fma.  Each stage sums its contracted index in
-//    ascending order in one fma chain from zero (stage 2: s outer, n
-//    inner; stage 3: S outer, R inner), and the terms of a row are added
-//    in table order: while R is not tiled these are the bits of three
-//    chained fma GEMMs followed by adds of the terms.
+//  * Arithmetic: plain fma in the operands' type.  Each stage sums its
+//    contracted index in ascending order in one fma chain from zero (stage
+//    2: s outer, n inner; stage 3: S outer, R inner), and the terms of a
+//    row are added in table order: while R is not tiled these are the bits
+//    of three chained fma GEMMs followed by adds of the terms.
+//
+// Two instances, double and float (scalar.cuh), from one template.  The
+// float instance is the one the TPU ran: the Pallas kernel accumulates in
+// f32 for f32 operands (ttipm_tpu/ops/kernels.py:60-63).  It keeps every
+// operand, t1, t2 and the sums in float, in the same order; its plan
+// (k2_tiles) counts 4-byte elements, so a CTA holds twice as many values
+// of l (or R) before it has to tile.
 #include <cuda_runtime.h>
 
 #include <cstring>
+
+#include "scalar.cuh"
 
 namespace {
 
@@ -60,32 +69,36 @@ constexpr int kMaxThreads = 512;
 constexpr int kTermWords = 26;  // 64-bit words of one packed term
 constexpr int kMaxDynamicSmem = 232448;
 
+template <typename T>
 struct Term {
-  const double* phil;
-  const double* a;
-  const double* phir;
-  const double* x;
+  const T* phil;
+  const T* a;
+  const T* phir;
+  const T* x;
   int l, s, r, m, n, S, L, R, row;
   long long phl0, phl1, phl2, a0, a1, a2, a3, phr0, phr1, phr2, x0, x1, x2;
 };
 
+template <typename T>
 struct TermTable {
   int nterms;
-  Term t[kMaxTerms];
+  Term<T> t[kMaxTerms];
 };
 
 // The wrapper's launch plan: chunk of l and tile of R per CTA, threads and
-// bytes of shared memory of a CTA, and the doubles reserved for t1, t2 and
+// bytes of shared memory of a CTA, and the elements reserved for t1, t2 and
 // for the staged slices of phi_l, x, A and phi_r (0: read in place).
 constexpr int kPlanWords = 10;
 struct Plan {
   int lc, rt, threads, smem_bytes, cap1, cap2, cap_phl, cap_x, cap_a, cap_phr;
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ out, int l,
+kkt_product_kernel(const __grid_constant__ TermTable<T> tab, T* __restrict__ out, int l,
                    int m, int L, int nrows, const __grid_constant__ Plan plan) {
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int row = blockIdx.y;
@@ -96,20 +109,20 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
   const int nout = nlm * L;
   // Output element o = (L, (l,m)) is owned by thread o % blockDim.x in every
   // stage 3 and in the store, so yrow and yterm need no barrier of their own.
-  double* yrow = smem;
-  double* yterm = yrow + lc * m * L;
-  double* t1 = yterm + lc * m * L;
-  double* t2 = t1 + plan.cap1;
-  double* phl_s = t2 + plan.cap2;
-  double* x_s = phl_s + plan.cap_phl;
-  double* a_s = x_s + plan.cap_x;
-  double* phr_s = a_s + plan.cap_a;
+  T* yrow = smem;
+  T* yterm = yrow + lc * m * L;
+  T* t1 = yterm + lc * m * L;
+  T* t2 = t1 + plan.cap1;
+  T* phl_s = t2 + plan.cap2;
+  T* x_s = phl_s + plan.cap_phl;
+  T* a_s = x_s + plan.cap_x;
+  T* phr_s = a_s + plan.cap_a;
   const int Lp = L | 1;  // odd leading dimension of the staged phi_r
 
-  for (int o = tid; o < nout; o += nthreads) yrow[o] = 0.0;
+  for (int o = tid; o < nout; o += nthreads) yrow[o] = T(0);
   bool first = true;
   for (int ti = 0; ti < tab.nterms; ++ti) {
-    const Term& t = tab.t[ti];
+    const Term<T>& t = tab.t[ti];
     if (t.row != row) continue;
     for (int R0 = 0; R0 < t.R; R0 += rt) {
       const int nR = min(rt, t.R - R0);
@@ -117,7 +130,7 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
 
       // Operands: staged into shared memory where the plan has room (then
       // contiguous in the order the stages walk them), else in place.
-      const double* phl_p = t.phil + l0 * t.phl0;
+      const T* phl_p = t.phil + l0 * t.phl0;
       long long phl0 = t.phl0, phl1 = t.phl1, phl2 = t.phl2;
       if (nl * t.s * t.r <= plan.cap_phl) {  // [li][s][r]
         for (int e = tid; e < nl * t.s * t.r; e += nthreads) {
@@ -126,7 +139,7 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
         }
         phl_p = phl_s, phl0 = t.s * t.r, phl1 = t.r, phl2 = 1;
       }
-      const double* x_p = t.x + R0 * t.x2;
+      const T* x_p = t.x + R0 * t.x2;
       long long x0 = t.x0, x1 = t.x1, x2 = t.x2;
       if (t.r * t.n * nR <= plan.cap_x) {  // [r][n][Ri]
         for (int e = tid; e < t.r * t.n * nR; e += nthreads) {
@@ -135,7 +148,7 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
         }
         x_p = x_s, x0 = t.n * nR, x1 = nR, x2 = 1;
       }
-      const double* a_p = t.a;
+      const T* a_p = t.a;
       long long a0 = t.a0, a1 = t.a1, a2 = t.a2, a3 = t.a3;
       if (t.s * t.m * t.n * t.S <= plan.cap_a) {  // [s][m][n][S]
         for (int e = tid; e < t.s * t.m * t.n * t.S; e += nthreads) {
@@ -147,7 +160,7 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
         }
         a_p = a_s, a0 = t.m * t.n * t.S, a1 = t.n * t.S, a2 = t.S, a3 = 1;
       }
-      const double* phr_p = t.phir + R0 * t.phr2;
+      const T* phr_p = t.phir + R0 * t.phr2;
       long long phr0 = t.phr0, phr1 = t.phr1, phr2 = t.phr2;
       if (t.S * nR * Lp <= plan.cap_phr) {  // [S][Ri][L], L fastest and padded
         for (int e = tid; e < L * t.S * nR; e += nthreads) {
@@ -168,11 +181,11 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
         q /= nl;
         const int ni = q % t.n;
         const int si = q / t.n;
-        const double* p = phl_p + li * phl0 + si * phl1;
-        const double* xx = x_p + ni * x1 + Ri * x2;
-        double acc = 0.0;
+        const T* p = phl_p + li * phl0 + si * phl1;
+        const T* xx = x_p + ni * x1 + Ri * x2;
+        T acc = T(0);
 #pragma unroll 4
-        for (int ri = 0; ri < t.r; ++ri) acc = fma(p[ri * phl2], xx[ri * x0], acc);
+        for (int ri = 0; ri < t.r; ++ri) acc = ttipm::madd(p[ri * phl2], xx[ri * x0], acc);
         t1[e] = acc;
       }
       __syncthreads();
@@ -188,13 +201,13 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
         q /= t.S;
         const int mi = q % t.m;
         const int li = q / t.m;
-        const double* ap = a_p + mi * a1 + Si * a3;
-        const double* tp = t1 + li * nR + Ri;
-        double acc = 0.0;
+        const T* ap = a_p + mi * a1 + Si * a3;
+        const T* tp = t1 + li * nR + Ri;
+        T acc = T(0);
         for (int si = 0; si < t.s; ++si) {
 #pragma unroll 4
           for (int ni = 0; ni < t.n; ++ni)
-            acc = fma(ap[si * a0 + ni * a2], tp[(si * t.n + ni) * step1], acc);
+            acc = ttipm::madd(ap[si * a0 + ni * a2], tp[(si * t.n + ni) * step1], acc);
         }
         t2[(li * t.m + mi) * ld2 + Si * nR + Ri] = acc;
       }
@@ -206,13 +219,13 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
       for (int o = tid; o < nout; o += nthreads) {
         const int lm = o % nlm;
         const int Li = o / nlm;
-        const double* tp = t2 + lm * ld2;
-        const double* pp = phr_p + Li * phr0;
-        double acc = (R0 == 0) ? 0.0 : yterm[o];
+        const T* tp = t2 + lm * ld2;
+        const T* pp = phr_p + Li * phr0;
+        T acc = (R0 == 0) ? T(0) : yterm[o];
         for (int Si = 0; Si < t.S; ++Si) {
 #pragma unroll 4
           for (int Ri = 0; Ri < nR; ++Ri)
-            acc = fma(tp[Si * nR + Ri], pp[Si * phr1 + Ri * phr2], acc);
+            acc = ttipm::madd(tp[Si * nR + Ri], pp[Si * phr1 + Ri * phr2], acc);
         }
         if (!last_tile)
           yterm[o] = acc;
@@ -233,15 +246,14 @@ kkt_product_kernel(const __grid_constant__ TermTable tab, double* __restrict__ o
 
 __global__ void empty_kernel() {}
 
-}  // namespace
-
 // `table` holds nterms packed terms of kTermWords 64-bit words each: the
 // four operand addresses, l s r m n S L R, the element strides of phi_l
 // (3), A (4), phi_r (3) and x (3), and the output row.  `plan` holds the
 // kPlanWords 32-bit words of a Plan.  `out` is the contiguous
-// (l, nrows, m, L) result.
-extern "C" int ttipm_kkt_product(const long long* table, int nterms, const int* plan_words,
-                                 double* out, int l, int m, int L, int nrows, void* stream) {
+// (l, nrows, m, L) result, in the operands' type (double or float).
+template <typename T>
+int kkt_product(const long long* table, int nterms, const int* plan_words, T* out, int l, int m,
+                int L, int nrows, void* stream) {
   Plan plan;
   static_assert(sizeof(Plan) == kPlanWords * sizeof(int), "Plan is kPlanWords ints");
   memcpy(&plan, plan_words, sizeof(Plan));
@@ -249,18 +261,18 @@ extern "C" int ttipm_kkt_product(const long long* table, int nterms, const int* 
       nrows > 65535 || plan.lc <= 0 || plan.rt <= 0 || plan.smem_bytes > kMaxDynamicSmem ||
       plan.threads <= 0 || plan.threads > kMaxThreads)
     return (int)cudaErrorInvalidValue;
-  const long long doubles = 2LL * plan.lc * m * L + plan.cap1 + plan.cap2 + plan.cap_phl +
-                            plan.cap_x + plan.cap_a + plan.cap_phr;
-  if (doubles * (long long)sizeof(double) > plan.smem_bytes) return (int)cudaErrorInvalidValue;
-  TermTable tab;
+  const long long elems = 2LL * plan.lc * m * L + plan.cap1 + plan.cap2 + plan.cap_phl +
+                          plan.cap_x + plan.cap_a + plan.cap_phr;
+  if (elems * (long long)sizeof(T) > plan.smem_bytes) return (int)cudaErrorInvalidValue;
+  TermTable<T> tab;
   tab.nterms = nterms;
   for (int i = 0; i < nterms; ++i) {
     const long long* w = table + (long long)i * kTermWords;
-    Term& t = tab.t[i];
-    t.phil = reinterpret_cast<const double*>(w[0]);
-    t.a = reinterpret_cast<const double*>(w[1]);
-    t.phir = reinterpret_cast<const double*>(w[2]);
-    t.x = reinterpret_cast<const double*>(w[3]);
+    Term<T>& t = tab.t[i];
+    t.phil = reinterpret_cast<const T*>(w[0]);
+    t.a = reinterpret_cast<const T*>(w[1]);
+    t.phir = reinterpret_cast<const T*>(w[2]);
+    t.x = reinterpret_cast<const T*>(w[3]);
     t.l = (int)w[4], t.s = (int)w[5], t.r = (int)w[6], t.m = (int)w[7];
     t.n = (int)w[8], t.S = (int)w[9], t.L = (int)w[10], t.R = (int)w[11];
     t.phl0 = w[12], t.phl1 = w[13], t.phl2 = w[14];
@@ -276,13 +288,25 @@ extern "C" int ttipm_kkt_product(const long long* table, int nterms, const int* 
   }
   if (plan.smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kkt_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+        kkt_product_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((unsigned)((l + plan.lc - 1) / plan.lc), (unsigned)nrows);
-  kkt_product_kernel<<<grid, plan.threads, plan.smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(tab, out, l, m, L, nrows, plan);
+  kkt_product_kernel<T><<<grid, plan.threads, plan.smem_bytes,
+                          static_cast<cudaStream_t>(stream)>>>(tab, out, l, m, L, nrows, plan);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ttipm_kkt_product(const long long* table, int nterms, const int* plan_words,
+                                 double* out, int l, int m, int L, int nrows, void* stream) {
+  return kkt_product<double>(table, nterms, plan_words, out, l, m, L, nrows, stream);
+}
+
+extern "C" int ttipm_kkt_product_f32(const long long* table, int nterms, const int* plan_words,
+                                     float* out, int l, int m, int L, int nrows, void* stream) {
+  return kkt_product<float>(table, nterms, plan_words, out, l, m, L, nrows, stream);
 }
 
 // An empty kernel through the same path: the floor of a single call.

@@ -11,7 +11,7 @@
 // zero; `info` receives 0, or the 1-based order of the first pivot that is
 // not positive or not a number, like torch.linalg.cholesky_ex (L is then
 // unspecified).  Nothing is clamped: the fused local solve relies on the
-// failure signal to keep its previous core.  f64, any order n >= 1.
+// failure signal to keep its previous core.  f64 or f32, any order n >= 1.
 //
 // Orders: n = 4 R'^2 for the solve's bond ranks.  MaxCut d8 gives n <= 400
 // (mostly 16-144); R = 16-32 gives n up to ~5200.
@@ -55,10 +55,26 @@
 //    second one per SM, which costs the chain registers, gained nothing),
 //    and below n ~ 2048 the chain.  Code size counts here too: unrolling
 //    the loads of a task further made every order slower.
+//
+// Two instances, double and float (scalar.cuh), from one template.  The
+// float one is the TPU kernel's own type (the Pallas dispatcher takes f32
+// only, ttipm_tpu/ops/kernels.py:332) at full f32 precision: Hopper has no
+// f32 matrix instruction but TF32's, so its trailing updates, the DMMA
+// fragments of the double instance, are FFMA register tiles on the SIMT
+// cores instead (warp_update32 and tile_products below), in the same
+// regimes, tiles and task graph; each element's products form one chain in
+// ascending k.  Pivots are correctly rounded square roots and reciprocals
+// in float, as LAPACK spotf2 takes them; info is cholesky_ex's.  The
+// float bound is the FP32 SIMT rate (67 TFLOP/s at 700 W), equal to the
+// f64 tensor cores', so the blocked regime's update tasks cost about what
+// the double ones do while moving half the bytes.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
+
+#include "scalar.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -66,7 +82,8 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTs = 32;                 // tile order
-constexpr int kLd = 36;                 // shared row stride of a tile: DMMA fragments conflict-free
+constexpr int kLd = 36;                 // shared row stride of a tile: DMMA fragments conflict-free,
+                                        // rows on 16 bytes in float too
 constexpr int kTileElems = kTs * kLd;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -77,10 +94,15 @@ constexpr int kResidentMaxTiles = 17;   // 2 * kClusterCtas + 1
 constexpr int kNB = 64;                 // blocked regime panel width
 constexpr int kStageLd = kNB + 4;        // shared row stride of a staged 64-wide panel block
 
-constexpr size_t kResidentSmem =
-    (size_t)((kResidentMaxTiles + 3) * kTileElems + 4 * kTs) * sizeof(double);
-constexpr size_t kBlockedSmem =
-    (size_t)std::max(10 * kTileElems + 3 * kNB, 2 * kNB * kStageLd) * sizeof(double);
+// Bytes of dynamic shared memory of the two regimes' kernels.
+template <typename Real>
+constexpr size_t resident_smem() {
+  return (size_t)((kResidentMaxTiles + 3) * kTileElems + 4 * kTs) * sizeof(Real);
+}
+template <typename Real>
+constexpr size_t blocked_smem() {
+  return (size_t)std::max(10 * kTileElems + 3 * kNB, 2 * kNB * kStageLd) * sizeof(Real);
+}
 
 // Resident regime: tile row i lives on CTA row_owner(i); its tiles (i, 0..i)
 // are contiguous there from slot row_slot(i).
@@ -104,14 +126,16 @@ __device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1, doubl
       : "d"(a0), "d"(a1), "d"(b));
 }
 
-__device__ __forceinline__ void load_row(double (&x)[kTs], const double* tile) {
-  const double* p = tile + (threadIdx.x & 31) * kLd;
+template <typename Real>
+__device__ __forceinline__ void load_row(Real (&x)[kTs], const Real* tile) {
+  const Real* p = tile + (threadIdx.x & 31) * kLd;
 #pragma unroll
   for (int c = 0; c < kTs; ++c) x[c] = p[c];
 }
 
-__device__ __forceinline__ void store_row(const double (&x)[kTs], double* tile) {
-  double* p = tile + (threadIdx.x & 31) * kLd;
+template <typename Real>
+__device__ __forceinline__ void store_row(const Real (&x)[kTs], Real* tile) {
+  Real* p = tile + (threadIdx.x & 31) * kLd;
 #pragma unroll
   for (int c = 0; c < kTs; ++c) p[c] = x[c];
 }
@@ -134,24 +158,25 @@ __device__ __forceinline__ void store_row(const double (&x)[kTs], double* tile) 
 // of shuffles.  The next pivot does not wait for that round trip: lane
 // j + 1 computes it from its own x[j] (the value it would load), with the
 // same fma, and shuffles it out.
-__device__ __forceinline__ int warp_potrf32(double (&x)[kTs], double* inv, double* col) {
+template <typename Real>
+__device__ __forceinline__ int warp_potrf32(Real (&x)[kTs], Real* inv, Real* col) {
   const int lane = threadIdx.x & 31;
   int fail = 0;
-  double my_inv = 0.0;
-  double d = __shfl_sync(kFull, x[0], 0);
+  Real my_inv = Real(0);
+  Real d = __shfl_sync(kFull, x[0], 0);
 #pragma unroll
   for (int j = 0; j < kTs; ++j) {
-    fail = (fail == 0 && !(d > 0.0)) ? j + 1 : fail;
-    const double s = __dsqrt_rn(d);
-    const double r = __drcp_rn(s);
+    fail = (fail == 0 && !(d > Real(0))) ? j + 1 : fail;
+    const Real s = ttipm::sqrt_rn(d);
+    const Real r = ttipm::rcp_rn(s);
     my_inv = lane == j ? r : my_inv;
     x[j] = lane == j ? s : x[j] * r;
-    if (j + 1 < kTs) d = __shfl_sync(kFull, fma(-x[j], x[j], x[j + 1]), j + 1);
-    double* cj = col + (j & 1) * kTs;
+    if (j + 1 < kTs) d = __shfl_sync(kFull, ttipm::madd(-x[j], x[j], x[j + 1]), j + 1);
+    Real* cj = col + (j & 1) * kTs;
     cj[lane] = x[j];
     __syncwarp();
 #pragma unroll
-    for (int c = j + 1; c < kTs; ++c) x[c] = fma(-x[j], cj[c], x[c]);
+    for (int c = j + 1; c < kTs; ++c) x[c] = ttipm::madd(-x[j], cj[c], x[c]);
   }
   inv[lane] = my_inv;
   __syncwarp();
@@ -160,18 +185,22 @@ __device__ __forceinline__ int warp_potrf32(double (&x)[kTs], double* inv, doubl
 
 // One warp; lane r holds row r of X.  X := X L^{-T} for the lower factor L
 // (shared memory, stride kLd) whose inverse pivots are inv.
-__device__ __forceinline__ void warp_trsm32(double (&x)[kTs], const double* L, const double* inv) {
+template <typename Real>
+__device__ __forceinline__ void warp_trsm32(Real (&x)[kTs], const Real* L, const Real* inv) {
 #pragma unroll
   for (int c = 0; c < kTs; ++c) {
     x[c] *= inv[c];
 #pragma unroll
-    for (int q = c + 1; q < kTs; ++q) x[q] = fma(-x[c], L[q * kLd + c], x[q]);
+    for (int q = c + 1; q < kTs; ++q) x[q] = ttipm::madd(-x[c], L[q * kLd + c], x[q]);
   }
 }
 
 // One warp: C = Cin - A B^T for 32 x 32 tiles of stride kLd (row blocks
 // rb0 .. rb1 - 1 of 16 rows); C in this CTA's shared memory, Cin, A and B
-// anywhere in the cluster's (Cin may be C).  f64 tensor cores.
+// anywhere in the cluster's (Cin may be C).  Each element's products are
+// summed over k in one chain, then subtracted from Cin.
+//
+// double: the f64 tensor cores.
 __device__ __forceinline__ void warp_update32(double* C, const double* Cin, const double* A,
                                               const double* B, int rb0 = 0, int rb1 = 2) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -205,10 +234,49 @@ __device__ __forceinline__ void warp_update32(double* C, const double* Cin, cons
   }
 }
 
+// float: FFMA on the SIMT cores (Hopper's only f32 matrix instruction is
+// TF32, which keeps 10 bits of mantissa).  Lane c owns column c of C and
+// holds row c of B in registers; the rows of A come as float4 loads that
+// every lane shares (a broadcast), so a step of four k is one load for
+// four fma per element, ascending in k.
+__device__ __forceinline__ void warp_update32(float* C, const float* Cin, const float* A,
+                                              const float* B, int rb0 = 0, int rb1 = 2) {
+  const int lane = threadIdx.x & 31;
+  float b[kTs];
+  const float4* bp = reinterpret_cast<const float4*>(B + lane * kLd);
+#pragma unroll
+  for (int q = 0; q < kTs / 4; ++q) {
+    const float4 v = bp[q];
+    b[4 * q] = v.x, b[4 * q + 1] = v.y, b[4 * q + 2] = v.z, b[4 * q + 3] = v.w;
+  }
+  for (int rb = rb0; rb < rb1; ++rb) {
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kTs / 4; ++q) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(A + (16 * rb + i) * kLd + 4 * q);
+        acc[i] = fmaf(a.x, b[4 * q], acc[i]);
+        acc[i] = fmaf(a.y, b[4 * q + 1], acc[i]);
+        acc[i] = fmaf(a.z, b[4 * q + 2], acc[i]);
+        acc[i] = fmaf(a.w, b[4 * q + 3], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int idx = (16 * rb + i) * kLd + lane;
+      C[idx] = Cin[idx] - acc[i];
+    }
+  }
+}
+
 // One warp: D = factor of the 32 x 32 block (only its lower part is read),
 // inv its inverse pivots; returns the failure as warp_potrf32 does.
-__device__ __forceinline__ int warp_factor_tile(double* D, double* inv, double* col) {
-  double x[kTs];
+template <typename Real>
+__device__ __forceinline__ int warp_factor_tile(Real* D, Real* inv, Real* col) {
+  Real x[kTs];
   load_row(x, D);
   const int f = warp_potrf32(x, inv, col);
   store_row(x, D);
@@ -216,24 +284,26 @@ __device__ __forceinline__ int warp_factor_tile(double* D, double* inv, double* 
 }
 
 // One warp copies one tile (any address in the cluster) with 16-byte loads.
-__device__ __forceinline__ void warp_copy_tile(double* dst, const double* src) {
-  const double2* s = reinterpret_cast<const double2*>(src);
-  double2* d = reinterpret_cast<double2*>(dst);
+template <typename Real>
+__device__ __forceinline__ void warp_copy_tile(Real* dst, const Real* src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
 #pragma unroll 6
-  for (int e = threadIdx.x & 31; e < kTileElems / 2; e += 32) d[e] = s[e];
+  for (int e = threadIdx.x & 31; e < kTileElems * (int)sizeof(Real) / 16; e += 32) d[e] = s[e];
 }
 
 // One warp loads tile (i, j) of the matrix m (strides s0, s1) into a
 // shared tile, identity-padded past n; on a diagonal tile only c <= r is
 // read and the rest is zero.  The loads bypass L1, since another CTA may
 // have written m in this launch.
-__device__ __forceinline__ void warp_load_tile(double* dst, const double* m, long long s0,
+template <typename Real>
+__device__ __forceinline__ void warp_load_tile(Real* dst, const Real* m, long long s0,
                                                long long s1, int n, int i, int j) {
   const int lane = threadIdx.x & 31, gj = j * kTs + lane;
 #pragma unroll 8
   for (int r = 0; r < kTs; ++r) {
     const int gi = i * kTs + r;
-    double v = gi == gj ? 1.0 : 0.0;
+    Real v = gi == gj ? Real(1) : Real(0);
     if (gi < n && gj < n && (i != j || lane <= r)) v = __ldcg(m + gi * s0 + gj * s1);
     dst[r * kLd + lane] = v;
   }
@@ -241,7 +311,8 @@ __device__ __forceinline__ void warp_load_tile(double* dst, const double* m, lon
 
 // One warp stores the part of a shared tile (i, j) that lies inside the
 // n x n row-major matrix m.
-__device__ __forceinline__ void warp_store_tile(double* m, int n, int i, int j, const double* src) {
+template <typename Real>
+__device__ __forceinline__ void warp_store_tile(Real* m, int n, int i, int j, const Real* src) {
   const int lane = threadIdx.x & 31, gj = j * kTs + lane;
   if (gj >= n) return;
 #pragma unroll 8
@@ -288,20 +359,22 @@ __device__ __forceinline__ void named_wait() {
 // runs beside the panel solve and the trailing update.
 // Every CTA computes D_k and L(k+1, k) with the same code on the same
 // data, so all hold the same values and see the same failure.
+template <typename Real>
 __global__ void __launch_bounds__(kThreads, 1)
-chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
-                     double* __restrict__ out, int n, int T, int* __restrict__ info) {
-  extern __shared__ __align__(16) double smem[];
+chol_resident_kernel(const Real* __restrict__ a, long long s0, long long s1,
+                     Real* __restrict__ out, int n, int T, int* __restrict__ info) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Real* smem = reinterpret_cast<Real*>(smem_raw);
   __shared__ int fail[2];
   cg::cluster_group cluster = cg::this_cluster();
   const int ctas = (int)cluster.num_blocks();
   const int me = (int)cluster.block_rank();
   const int warp = threadIdx.x >> 5;
-  double* Dbuf = smem;                     // factored diagonal tiles k, k + 1 (by parity)
-  double* invbuf = smem + 2 * kTileElems;  // their inverse pivots
-  double* col = invbuf + 2 * kTs;          // column scratch of the diagonal factor
-  double* Lst = col + 2 * kTs;             // L(k + 1, k), solved in this CTA
-  double* tiles = Lst + kTileElems;        // the tile rows this CTA owns
+  Real* Dbuf = smem;                     // factored diagonal tiles k, k + 1 (by parity)
+  Real* invbuf = smem + 2 * kTileElems;  // their inverse pivots
+  Real* col = invbuf + 2 * kTs;          // column scratch of the diagonal factor
+  Real* Lst = col + 2 * kTs;             // L(k + 1, k), solved in this CTA
+  Real* tiles = Lst + kTileElems;        // the tile rows this CTA owns
   // address of tile (i, j) in the shared memory of row i's owner
   auto tile = [&](int i, int j) { return tiles + (row_slot(i, ctas) + j) * kTileElems; };
   auto remote = [&](int i, int j) {
@@ -310,23 +383,23 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
 
   if (warp == 0) {  // diagonal tile 0 straight from a, factored while the other warps load
     const int gi = threadIdx.x;
-    double x[kTs];
+    Real x[kTs];
 #pragma unroll
     for (int c = 0; c < kTs; ++c)
-      x[c] = c <= gi ? (gi < n ? a[gi * s0 + c * s1] : (c == gi ? 1.0 : 0.0)) : 0.0;
+      x[c] = c <= gi ? (gi < n ? a[gi * s0 + c * s1] : (c == gi ? Real(1) : Real(0))) : Real(0);
     const int f = warp_potrf32(x, invbuf, col);
     store_row(x, Dbuf);
     if (threadIdx.x == 0) fail[0] = f;
   } else {
     for (int i = 0; i < T; ++i) {  // this CTA's tile rows, identity-padded past n
       if (row_owner(i, ctas) != me) continue;
-      double* base = tile(i, 0);
+      Real* base = tile(i, 0);
 #pragma unroll 8
       for (int e = threadIdx.x - 32; e < (i + 1) * kTs * kTs; e += kThreads - 32) {
         const int j = e / (kTs * kTs), r = (e / kTs) % kTs, c = e % kTs;
         const int gi = i * kTs + r, gj = j * kTs + c;
-        double v = 0.0;  // strict upper part of a diagonal tile
-        if (gj <= gi) v = gi < n ? a[gi * s0 + gj * s1] : (gj == gi ? 1.0 : 0.0);
+        Real v = Real(0);  // strict upper part of a diagonal tile
+        if (gj <= gi) v = gi < n ? a[gi * s0 + gj * s1] : (gj == gi ? Real(1) : Real(0));
         base[j * kTileElems + r * kLd + c] = v;
       }
     }
@@ -335,14 +408,14 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
 
   int failed = 0;
   for (int k = 0; k < T; ++k) {
-    const double* D = Dbuf + (k & 1) * kTileElems;
-    const double* inv = invbuf + (k & 1) * kTs;
+    const Real* D = Dbuf + (k & 1) * kTileElems;
+    const Real* inv = invbuf + (k & 1) * kTs;
     if (fail[k & 1]) {  // the same verdict in every CTA
       failed = k * kTs + fail[k & 1];
       break;
     }
     const bool next = k + 1 < T;
-    double* Dn = Dbuf + ((k + 1) & 1) * kTileElems;
+    Real* Dn = Dbuf + ((k + 1) & 1) * kTileElems;
     if (warp == 0) {
       if (next) {  // read before the trailing update below overwrites it
         if (ctas == 1) warp_copy_tile(Lst, tile(k + 1, k));
@@ -352,7 +425,7 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
       }
       cluster_arrive();
       if (next) {
-        double x[kTs];
+        Real x[kTs];
         load_row(x, Lst);
         warp_trsm32(x, D, inv);
         store_row(x, Lst);
@@ -384,7 +457,7 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
         named_arrive<2, 96>();
       }
       if (row_owner(k, ctas) == me) {    // tile (k, k) was last read in step k - 1 (if k > 0)
-        double* dst = tile(k, k);
+        Real* dst = tile(k, k);
         for (int e = slot * 32 + (threadIdx.x & 31); e < kTs * kTs; e += kSolvers * 32) {
           const int idx = (e / kTs) * kLd + e % kTs;
           dst[idx] = D[idx];
@@ -392,7 +465,7 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
       }
       for (int i = k + 2, t = 0; i < T; ++i) {
         if (row_owner(i, ctas) != me || t++ % kSolvers != slot) continue;
-        double x[kTs];
+        Real x[kTs];
         load_row(x, tile(i, k));
         warp_trsm32(x, D, inv);
         store_row(x, tile(i, k));
@@ -406,7 +479,7 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
       const int slot = warp < 4 ? warp - 1 : warp - 2;
       named_wait<1, kThreads>();  // L(k+1, k) in Lst
       if (row_owner(k + 1, ctas) == me) {
-        double* dst = tile(k + 1, k);
+        Real* dst = tile(k + 1, k);
         for (int e = slot * 32 + (threadIdx.x & 31); e < kTs * kTs; e += kWork * 32) {
           const int idx = (e / kTs) * kLd + e % kTs;
           dst[idx] = Lst[idx];
@@ -432,12 +505,12 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
     if (row_owner(i, ctas) != me) continue;
 #pragma unroll 4
     for (int j = 0; j < T; ++j) {
-      const double* src = tile(i, min(i, j));
+      const Real* src = tile(i, min(i, j));
 #pragma unroll
       for (int it = 0; it < kTs * kTs / kThreads; ++it) {
         const int e = threadIdx.x + it * kThreads, r = e / kTs, c = e % kTs;
         const int gi = i * kTs + r, gj = j * kTs + c;
-        if (gi < n && gj < n) out[(long long)gi * n + gj] = gj <= gi ? src[r * kLd + c] : 0.0;
+        if (gi < n && gj < n) out[(long long)gi * n + gj] = gj <= gi ? src[r * kLd + c] : Real(0);
       }
     }
   }
@@ -473,10 +546,11 @@ chol_resident_kernel(const double* __restrict__ a, long long s0, long long s1,
 
 __host__ __device__ inline int blocked_panels(int n) { return (n + kNB - 1) / kNB; }
 
-// ws (ttipm_panel_cholesky_workspace doubles): 64 P doubles of inverse
-// pivots, then 3 + P + P^2 ints.
+// ws (workspace<Real>(n) elements): 64 P inverse pivots, then 3 + P + P^2
+// ints.
+template <typename Real>
 struct BlockedWs {
-  double* inv;   // inv[64 k + c]: inverse pivots of diagonal block k
+  Real* inv;   // inv[64 k + c]: inverse pivots of diagonal block k
   int* next;     // tasks taken
   int* chain;    // chain = k + 1 once diagonal block k is factored
   int* abort;    // a wait timed out
@@ -484,9 +558,10 @@ struct BlockedWs {
   int* updated;  // updated[i P + j] = panels applied to tile (i, j)
 };
 
-__device__ __forceinline__ BlockedWs blocked_ws(double* ws, int n) {
+template <typename Real>
+__device__ __forceinline__ BlockedWs<Real> blocked_ws(Real* ws, int n) {
   const int P = blocked_panels(n);
-  BlockedWs w;
+  BlockedWs<Real> w;
   w.inv = ws;
   w.next = reinterpret_cast<int*>(ws + (long long)P * kNB);
   w.chain = w.next + 1;
@@ -529,28 +604,32 @@ __device__ __forceinline__ void publish(int* flag, int v) {
 // Its chain runs them once per panel, beside CTAs that keep L2 busy, so
 // their instructions must stay in the SM's instruction cache: one copy of
 // each instead of one per call site.
-__device__ __noinline__ int factor_tile_ool(double* D, double* inv, double* col) {
+template <typename Real>
+__device__ __noinline__ int factor_tile_ool(Real* D, Real* inv, Real* col) {
   return warp_factor_tile(D, inv, col);
 }
 
 // One warp: X := X L^{-T} for 32 x 32 tiles (rows of X in lanes).
-__device__ __noinline__ void solve_tile_ool(double* X, const double* L, const double* inv) {
-  double x[kTs];
+template <typename Real>
+__device__ __noinline__ void solve_tile_ool(Real* X, const Real* L, const Real* inv) {
+  Real x[kTs];
   load_row(x, X);
   warp_trsm32(x, L, inv);
   store_row(x, X);
 }
 
-__device__ __noinline__ void update_tile_ool(double* C, const double* A, const double* B) {
+template <typename Real>
+__device__ __noinline__ void update_tile_ool(Real* C, const Real* A, const Real* B) {
   warp_update32(C, C, A, B);
 }
 
 // One warp: factor the 64 x 64 block held as its lower tiles G00 = G,
 // G10 = G + kTileElems, G11 = G + 2 kTileElems; inv gets its 64 inverse
 // pivots.  Returns 0 or the 1-based order of the first failing pivot.
-__device__ int warp_factor64(double* G, double* inv, double* col) {
-  double* G10 = G + kTileElems;
-  double* G11 = G + 2 * kTileElems;
+template <typename Real>
+__device__ int warp_factor64(Real* G, Real* inv, Real* col) {
+  Real* G10 = G + kTileElems;
+  Real* G11 = G + 2 * kTileElems;
   const int fail = factor_tile_ool(G, inv, col);
   solve_tile_ool(G10, G, inv);
   __syncwarp();
@@ -572,12 +651,13 @@ __device__ __forceinline__ int x_index(int r, int c) {
 
 // X (64 x 64 in tiles) := X L^{-T}, L = [[G00, 0], [G10, G11]]; warps 0
 // and 1 take one tile row each.  Starts and ends with a CTA barrier.
-__device__ __forceinline__ void solve_panel_block(double* X, const double* G, const double* inv) {
+template <typename Real>
+__device__ __forceinline__ void solve_panel_block(Real* X, const Real* G, const Real* inv) {
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   if (warp < 2) {
-    double* X0 = X + 2 * warp * kTileElems;
-    double* X1 = X0 + kTileElems;
+    Real* X0 = X + 2 * warp * kTileElems;
+    Real* X1 = X0 + kTileElems;
     solve_tile_ool(X0, G, inv);
     __syncwarp();
     update_tile_ool(X1, X0, G + kTileElems);
@@ -589,13 +669,14 @@ __device__ __forceinline__ void solve_panel_block(double* X, const double* G, co
 
 // The CTA loads diagonal block (d, d) of A (lower part, identity-padded
 // past n) into lower tiles G.
-__device__ __forceinline__ void load_diag_block(double* G, const double* A, int n, int d) {
+template <typename Real>
+__device__ __forceinline__ void load_diag_block(Real* G, const Real* A, int n, int d) {
   const int r0 = d * kNB;
 #pragma unroll 4
   for (int it = 0; it < kNB * kNB / kThreads; ++it) {
     const int e = threadIdx.x + it * kThreads, r = e / kNB, c = e % kNB;
     if (c / kTs > r / kTs) continue;
-    double v = r == c ? 1.0 : 0.0;
+    Real v = r == c ? Real(1) : Real(0);
     if (r0 + r < n && c <= r) v = __ldcg(A + (long long)(r0 + r) * n + r0 + c);
     G[g_index(r, c)] = v;
   }
@@ -603,39 +684,42 @@ __device__ __forceinline__ void load_diag_block(double* G, const double* A, int 
 
 // The CTA writes the factored block G, zeros above the diagonal, into
 // diagonal block (d, d) of A, and its inverse pivots into inv_out.
-__device__ __forceinline__ void store_diag_block(const double* G, const double* inv, double* A,
-                                                 int n, int d, double* inv_out) {
+template <typename Real>
+__device__ __forceinline__ void store_diag_block(const Real* G, const Real* inv, Real* A,
+                                                 int n, int d, Real* inv_out) {
   const int r0 = d * kNB;
 #pragma unroll 4
   for (int it = 0; it < kNB * kNB / kThreads; ++it) {
     const int e = threadIdx.x + it * kThreads, r = e / kNB, c = e % kNB;
     if (r0 + r < n && r0 + c < n)
-      A[(long long)(r0 + r) * n + r0 + c] = c <= r ? G[g_index(r, c)] : 0.0;
+      A[(long long)(r0 + r) * n + r0 + c] = c <= r ? G[g_index(r, c)] : Real(0);
   }
   if (threadIdx.x < kNB) inv_out[threadIdx.x] = inv[threadIdx.x];
 }
 
 // Panel block (i, k) of A into X, rows past n zero.
-__device__ __forceinline__ void load_panel_block(double* X, const double* A, int n, int i, int k) {
+template <typename Real>
+__device__ __forceinline__ void load_panel_block(Real* X, const Real* A, int n, int i, int k) {
 #pragma unroll 4
   for (int it = 0; it < kNB * kNB / kThreads; ++it) {
     const int e = threadIdx.x + it * kThreads, r = e / kNB, c = e % kNB, gi = i * kNB + r;
-    X[x_index(r, c)] = gi < n ? __ldcg(A + (long long)gi * n + k * kNB + c) : 0.0;
+    X[x_index(r, c)] = gi < n ? __ldcg(A + (long long)gi * n + k * kNB + c) : Real(0);
   }
 }
 
 // Solved panel block X into block (i, k) of A; zeros into block (k, i).
-__device__ __forceinline__ void store_panel_block(const double* X, double* A, int n, int i, int k) {
+template <typename Real>
+__device__ __forceinline__ void store_panel_block(const Real* X, Real* A, int n, int i, int k) {
 #pragma unroll 4
   for (int it = 0; it < kNB * kNB / kThreads; ++it) {
     const int e = threadIdx.x + it * kThreads, r = e / kNB, c = e % kNB, gi = i * kNB + r;
     if (gi < n) A[(long long)gi * n + k * kNB + c] = X[x_index(r, c)];
     const int gj = i * kNB + c;
-    if (gj < n) A[(long long)(k * kNB + r) * n + gj] = 0.0;
+    if (gj < n) A[(long long)(k * kNB + r) * n + gj] = Real(0);
   }
 }
 
-__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
@@ -649,24 +733,85 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// One thread's products of update_tile over one staged 32-column group:
+// acc[cf][2 rf + h] += sum_k Li[row(rf)][k] Lj[col(cf, h)][k] for the
+// rows 16 wr + 8 rf + g and columns 32 wc + 8 cf + 2 t + h of the tile.
+// double: on the f64 tensor cores, k in four-wide steps (m16n8k4).
+__device__ __forceinline__ void tile_products(double (&acc)[4][4], const double* Li,
+                                              const double* Lj, int half) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp >> 1, wc = warp & 1, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < kTs / 4; ++kc) {
+    const int kk = half * kTs + 4 * kc + t;
+    double af[2], bf[4];
+#pragma unroll
+    for (int rf = 0; rf < 2; ++rf) af[rf] = Li[(16 * wr + 8 * rf + g) * kStageLd + kk];
+#pragma unroll
+    for (int cf = 0; cf < 4; ++cf) bf[cf] = Lj[(32 * wc + 8 * cf + g) * kStageLd + kk];
+#pragma unroll
+    for (int cf = 0; cf < 4; ++cf) dmma(acc[cf], af[0], af[1], bf[cf]);
+  }
+}
+
+// float: FFMA, each element's products one chain ascending in k, the rows
+// and columns read four k at a time (float4); 10 loads for 64 fma.
+__device__ __forceinline__ void tile_products(float (&acc)[4][4], const float* Li,
+                                              const float* Lj, int half) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp >> 1, wc = warp & 1, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < kTs / 4; ++q) {
+    const int kk = half * kTs + 4 * q;
+    float4 af[2], bf[4][2];
+#pragma unroll
+    for (int rf = 0; rf < 2; ++rf)
+      af[rf] = *reinterpret_cast<const float4*>(Li + (16 * wr + 8 * rf + g) * kStageLd + kk);
+#pragma unroll
+    for (int cf = 0; cf < 4; ++cf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bf[cf][h] = *reinterpret_cast<const float4*>(
+            Lj + (32 * wc + 8 * cf + 2 * t + h) * kStageLd + kk);
+#pragma unroll
+    for (int rf = 0; rf < 2; ++rf)
+#pragma unroll
+      for (int cf = 0; cf < 4; ++cf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& c = acc[cf][2 * rf + h];
+          c = fmaf(af[rf].x, bf[cf][h].x, c);
+          c = fmaf(af[rf].y, bf[cf][h].y, c);
+          c = fmaf(af[rf].z, bf[cf][h].z, c);
+          c = fmaf(af[rf].w, bf[cf][h].w, c);
+        }
+  }
+}
+
 // The CTA: tile (i, j) of A -= L(i, k) L(j, k)^T (64 x 64 tiles; only the
 // lower triangle of a diagonal tile is stored).  The two panel blocks are
 // staged through shared memory (Li, Lj) in two 32-column groups, the
-// second in flight while the first is multiplied, on the f64 tensor cores.
-__device__ void update_tile(double* A, int n, int i, int j, int k, double* Li, double* Lj) {
+// second in flight while the first is multiplied (tile_products).
+template <typename Real>
+__device__ void update_tile(Real* A, int n, int i, int j, int k, Real* Li, Real* Lj) {
+  constexpr int V = 16 / sizeof(Real);  // elements of one 16-byte copy
   const int i0 = i * kNB, j0 = j * kNB, k0 = k * kNB;
-  const bool pairs = (n & 1) == 0;  // rows start on 16 bytes: copy pairs of doubles
+  const bool vectors = n % V == 0;  // rows start on 16 bytes: copy V elements at once
   for (int half = 0; half < 2; ++half) {
-    if (pairs) {
+    if (vectors) {
 #pragma unroll 2
-      for (int it = 0; it < kNB * kTs / kThreads; ++it) {
+      for (int it = 0; it < 2 * kNB * kTs / V / kThreads; ++it) {
         const int e = threadIdx.x + it * kThreads;
-        const int which = e / (kNB * kTs / 2), rem = e % (kNB * kTs / 2);
-        const int r = rem / (kTs / 2), c = half * kTs + 2 * (rem % (kTs / 2));
+        const int which = e / (kNB * kTs / V), rem = e % (kNB * kTs / V);
+        const int r = rem / (kTs / V), c = half * kTs + V * (rem % (kTs / V));
         const int gr = (which ? j0 : i0) + r;
-        double* dst = (which ? Lj : Li) + r * kStageLd + c;
-        if (gr < n) cp_async16(dst, A + (long long)gr * n + k0 + c);
-        else dst[0] = dst[1] = 0.0;
+        Real* dst = (which ? Lj : Li) + r * kStageLd + c;
+        if (gr < n) {
+          cp_async16(dst, A + (long long)gr * n + k0 + c);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) dst[v] = Real(0);
+        }
       }
     } else {
 #pragma unroll 2
@@ -675,7 +820,8 @@ __device__ void update_tile(double* A, int n, int i, int j, int k, double* Li, d
         const int which = e / (kNB * kTs), rem = e % (kNB * kTs);
         const int r = rem / kTs, c = half * kTs + rem % kTs;
         const int gr = (which ? j0 : i0) + r;
-        (which ? Lj : Li)[r * kStageLd + c] = gr < n ? __ldcg(A + (long long)gr * n + k0 + c) : 0.0;
+        (which ? Lj : Li)[r * kStageLd + c] =
+            gr < n ? __ldcg(A + (long long)gr * n + k0 + c) : Real(0);
       }
     }
     cp_async_commit();
@@ -686,7 +832,7 @@ __device__ void update_tile(double* A, int n, int i, int j, int k, double* Li, d
   // this thread's elements of the tile: rows i0 + row(rf), columns j0 + col(cf, h)
   auto row = [&](int rf) { return 16 * wr + 8 * rf + g; };
   auto col = [&](int cf, int h) { return 32 * wc + 8 * cf + 2 * t + h; };
-  double cv[2][4][2];
+  Real cv[2][4][2];
 #pragma unroll
   for (int rf = 0; rf < 2; ++rf)  // start all the C loads before the products
 #pragma unroll
@@ -694,27 +840,17 @@ __device__ void update_tile(double* A, int n, int i, int j, int k, double* Li, d
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int gi = i0 + row(rf), gj = j0 + col(cf, h);
-        cv[rf][cf][h] = (gi < n && gj <= gi) ? __ldcg(A + (long long)gi * n + gj) : 0.0;
+        cv[rf][cf][h] = (gi < n && gj <= gi) ? __ldcg(A + (long long)gi * n + gj) : Real(0);
       }
-  double acc[4][4];  // acc[cf][2 rf + h] is element (row(rf), col(cf, h))
+  Real acc[4][4];  // acc[cf][2 rf + h] is element (row(rf), col(cf, h))
 #pragma unroll
-  for (int cf = 0; cf < 4; ++cf) acc[cf][0] = acc[cf][1] = acc[cf][2] = acc[cf][3] = 0.0;
+  for (int cf = 0; cf < 4; ++cf) acc[cf][0] = acc[cf][1] = acc[cf][2] = acc[cf][3] = Real(0);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     if (half == 0) cp_async_wait<1>();
     else cp_async_wait<0>();
     __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kTs / 4; ++kc) {
-      const int kk = half * kTs + 4 * kc + t;
-      double af[2], bf[4];
-#pragma unroll
-      for (int rf = 0; rf < 2; ++rf) af[rf] = Li[row(rf) * kStageLd + kk];
-#pragma unroll
-      for (int cf = 0; cf < 4; ++cf) bf[cf] = Lj[(32 * wc + 8 * cf + g) * kStageLd + kk];
-#pragma unroll
-      for (int cf = 0; cf < 4; ++cf) dmma(acc[cf], af[0], af[1], bf[cf]);
-    }
+    tile_products(acc, Li, Lj, half);
   }
 #pragma unroll
   for (int rf = 0; rf < 2; ++rf)
@@ -729,17 +865,18 @@ __device__ void update_tile(double* A, int n, int i, int j, int k, double* Li, d
 
 // Lower triangle of a into out, one CTA per row; info and the flags of ws
 // start at 0.
+template <typename Real>
 __global__ void __launch_bounds__(kThreads)
-chol_copy_kernel(const double* __restrict__ a, long long s0, long long s1,
-                 double* __restrict__ out, int n, int* __restrict__ info, double* __restrict__ ws) {
+chol_copy_kernel(const Real* __restrict__ a, long long s0, long long s1,
+                 Real* __restrict__ out, int n, int* __restrict__ info, Real* __restrict__ ws) {
   const int i = blockIdx.x;
-  const double* src = a + i * s0;
-  double* dst = out + (long long)i * n;
+  const Real* src = a + i * s0;
+  Real* dst = out + (long long)i * n;
 #pragma unroll 4
   for (int j = threadIdx.x; j <= i; j += kThreads) dst[j] = src[j * s1];
   if (i == 0) {
     const int P = blocked_panels(n);
-    int* flags = blocked_ws(ws, n).next;
+    int* flags = blocked_ws<Real>(ws, n).next;
     for (int e = threadIdx.x; e < 3 + P + P * P; e += kThreads) flags[e] = 0;
     if (threadIdx.x == 0) *info = 0;
   }
@@ -751,15 +888,16 @@ __host__ __device__ inline int panel_tasks(int P, int k) {
   return T - 1 + T * (T + 1) / 2 - 1;
 }
 
-__device__ void chain_cta(double* A, int n, const BlockedWs& w, int* info, double* smem) {
+template <typename Real>
+__device__ void chain_cta(Real* A, int n, const BlockedWs<Real>& w, int* info, Real* smem) {
   __shared__ int fail, ok;
   const int P = blocked_panels(n);
   const int warp = threadIdx.x >> 5;
-  double* G = smem;                  // factored diagonal block k: tiles (0,0), (1,0), (1,1)
-  double* H = G + 3 * kTileElems;    // diagonal block k + 1
-  double* X = H + 3 * kTileElems;    // block (k+1, k), 4 tiles
-  double* inv = X + 4 * kTileElems;  // inverse pivots of G and H, by parity
-  double* col = inv + 2 * kNB;       // column scratch of the factor
+  Real* G = smem;                  // factored diagonal block k: tiles (0,0), (1,0), (1,1)
+  Real* H = G + 3 * kTileElems;    // diagonal block k + 1
+  Real* X = H + 3 * kTileElems;    // block (k+1, k), 4 tiles
+  Real* inv = X + 4 * kTileElems;  // inverse pivots of G and H, by parity
+  Real* col = inv + 2 * kNB;       // column scratch of the factor
   load_diag_block(G, A, n, 0);
   __syncthreads();
   if (warp == 0) {
@@ -771,8 +909,8 @@ __device__ void chain_cta(double* A, int n, const BlockedWs& w, int* info, doubl
   if (threadIdx.x == 0 && fail) *info = fail;
   publish(w.chain, 1);
   for (int k = 0; k + 1 < P; ++k) {
-    double* Gi = inv + (k & 1) * kNB;
-    double* Hi = inv + ((k + 1) & 1) * kNB;
+    Real* Gi = inv + (k & 1) * kNB;
+    Real* Hi = inv + ((k + 1) & 1) * kNB;
     if (threadIdx.x == 0) {
       ok = wait_flag(w.updated + (k + 1) * P + k, k, w.abort) &&
            wait_flag(w.updated + (k + 1) * P + k + 1, k, w.abort);
@@ -786,7 +924,7 @@ __device__ void chain_cta(double* A, int n, const BlockedWs& w, int* info, doubl
     publish(w.solved + k + 1, k + 1);
     if (warp < 3) {  // H -= X X^T on tiles (0,0), (1,0), (1,1), 32 columns of X at a time
       const int tr = warp == 0 ? 0 : 1, tc = warp == 2 ? 1 : 0;
-      double* C = H + (tr + tc) * kTileElems;
+      Real* C = H + (tr + tc) * kTileElems;
       update_tile_ool(C, X + 2 * tr * kTileElems, X + 2 * tc * kTileElems);
       __syncwarp();
       update_tile_ool(C, X + (2 * tr + 1) * kTileElems, X + (2 * tc + 1) * kTileElems);
@@ -800,19 +938,21 @@ __device__ void chain_cta(double* A, int n, const BlockedWs& w, int* info, doubl
     store_diag_block(H, Hi, A, n, k + 1, w.inv + (k + 1) * kNB);
     if (threadIdx.x == 0 && fail && *info == 0) *info = (k + 1) * kNB + fail;
     publish(w.chain, k + 2);
-    double* tmp = G;  // the new factor is the next step's G
+    Real* tmp = G;  // the new factor is the next step's G
     G = H;
     H = tmp;
   }
 }
 
 // The blocked factorization after the copy (see above).
+template <typename Real>
 __global__ void __launch_bounds__(kThreads, 1)
-chol_blocked_kernel(double* __restrict__ A, int n, double* __restrict__ ws,
+chol_blocked_kernel(Real* __restrict__ A, int n, Real* __restrict__ ws,
                     int* __restrict__ info) {
-  extern __shared__ __align__(16) double smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Real* smem = reinterpret_cast<Real*>(smem_raw);
   __shared__ int task, ok;
-  const BlockedWs w = blocked_ws(ws, n);
+  const BlockedWs<Real> w = blocked_ws(ws, n);
   if (blockIdx.x == 0) {
     chain_cta(A, n, w, info, smem);
   } else {
@@ -830,9 +970,9 @@ chol_blocked_kernel(double* __restrict__ A, int n, double* __restrict__ ws,
       const int T = P - 1 - k;
       if (t < T - 1) {  // solve block (i, k)
         const int i = k + 2 + t;
-        double* G = smem;
-        double* X = G + 3 * kTileElems;
-        double* inv = X + 4 * kTileElems;
+        Real* G = smem;
+        Real* X = G + 3 * kTileElems;
+        Real* inv = X + 4 * kTileElems;
         if (threadIdx.x == 0)
           ok = wait_flag(w.chain, k + 1, w.abort) &&
                wait_flag(w.updated + i * P + k, k, w.abort);
@@ -846,7 +986,7 @@ chol_blocked_kernel(double* __restrict__ A, int n, double* __restrict__ ws,
         publish(w.solved + i, k + 1);
       } else {  // update lower tile (k+1+bi, k+1+bj), b = 1 .. skips (k+1, k+1)
         const int b = t - (T - 1) + 1;
-        int bi = (int)((sqrt(8.0 * b + 1.0) - 1.0) * 0.5);
+        int bi = ((int)__fsqrt_rn((float)(8 * b + 1)) - 1) / 2;  // then made exact below
         while (bi * (bi + 1) / 2 > b) --bi;
         while ((bi + 1) * (bi + 2) / 2 <= b) ++bi;
         const int i = k + 1 + bi, j = k + 1 + b - bi * (bi + 1) / 2;
@@ -880,6 +1020,7 @@ int resident_tiles(int T, int ctas) {
 }
 
 // Raise the dynamic shared-memory limits once per device.
+template <typename Real>
 cudaError_t set_smem_limits() {
   static unsigned done = 0;  // one bit per device
   int dev = 0;
@@ -887,21 +1028,23 @@ cudaError_t set_smem_limits() {
   if (err != cudaSuccess) return err;
   const unsigned bit = dev < 32 ? 1u << dev : 0u;
   if (bit && (done & bit)) return cudaSuccess;
-  if ((err = cudaFuncSetAttribute(chol_resident_kernel,
+  if ((err = cudaFuncSetAttribute(chol_resident_kernel<Real>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kResidentSmem)) != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(chol_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kBlockedSmem)) != cudaSuccess) return err;
+                                  (int)resident_smem<Real>())) != cudaSuccess) return err;
+  if ((err = cudaFuncSetAttribute(chol_blocked_kernel<Real>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)blocked_smem<Real>())) != cudaSuccess) return err;
   done |= bit;
   return cudaSuccess;
 }
 
-cudaError_t launch_resident(const double* a, long long s0, long long s1, double* out, int n,
+template <typename Real>
+cudaError_t launch_resident(const Real* a, long long s0, long long s1, Real* out, int n,
                             int* info, cudaStream_t st) {
   const int T = (n + kTs - 1) / kTs;
   const int ctas = T <= kSingleCtaMaxT ? 1 : kClusterCtas;
   const size_t smem =
-      (size_t)((resident_tiles(T, ctas) + 3) * kTileElems + 4 * kTs) * sizeof(double);
+      (size_t)((resident_tiles(T, ctas) + 3) * kTileElems + 4 * kTs) * sizeof(Real);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(kThreads);
@@ -914,11 +1057,12 @@ cudaError_t launch_resident(const double* a, long long s0, long long s1, double*
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, chol_resident_kernel, a, s0, s1, out, n, T, info);
+  return cudaLaunchKernelEx(&cfg, chol_resident_kernel<Real>, a, s0, s1, out, n, T, info);
 }
 
-cudaError_t launch_blocked(const double* a, long long s0, long long s1, double* out, int n,
-                           int* info, double* ws, cudaStream_t st) {
+template <typename Real>
+cudaError_t launch_blocked(const Real* a, long long s0, long long s1, Real* out, int n,
+                           int* info, Real* ws, cudaStream_t st) {
   static int ctas[32] = {};  // resident CTAs of the persistent kernel, per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -926,39 +1070,55 @@ cudaError_t launch_blocked(const double* a, long long s0, long long s1, double* 
   if (dev >= 32) return cudaErrorInvalidDevice;
   if (ctas[dev] == 0) {
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_blocked_kernel, kThreads,
-                                                        kBlockedSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_blocked_kernel<Real>,
+                                                        kThreads, blocked_smem<Real>());
     if (err != cudaSuccess) return err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return err;
     if (per_sm * sms < 2) return cudaErrorInvalidConfiguration;
     ctas[dev] = per_sm * sms;
   }
-  chol_copy_kernel<<<n, kThreads, 0, st>>>(a, s0, s1, out, n, info, ws);
+  chol_copy_kernel<Real><<<n, kThreads, 0, st>>>(a, s0, s1, out, n, info, ws);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   void* args[] = {&out, &n, &ws, &info};
-  return cudaLaunchCooperativeKernel((void*)chol_blocked_kernel, dim3(ctas[dev]), dim3(kThreads),
-                                     args, kBlockedSmem, st);
+  return cudaLaunchCooperativeKernel((void*)chol_blocked_kernel<Real>, dim3(ctas[dev]),
+                                     dim3(kThreads), args, blocked_smem<Real>(), st);
 }
 
-}  // namespace
-
-// Doubles of workspace the factorization of order n needs (0 up to the
-// resident bound).
-extern "C" long long ttipm_panel_cholesky_workspace(int n) {
+// Elements of workspace the factorization of order n needs (0 up to the
+// resident bound): 64 P inverse pivots, then 3 + P + P^2 ints.
+template <typename Real>
+long long workspace(int n) {
   if (n <= kResidentMaxN) return 0;
   const long long P = blocked_panels(n);
-  return P * kNB + (4 + P + P * P) / 2;
+  const long long ints = 3 + P + P * P;
+  return P * kNB + (ints * (long long)sizeof(int) + sizeof(Real) - 1) / sizeof(Real);
 }
 
-// ws: ttipm_panel_cholesky_workspace(n) doubles, or null up to the resident
-// bound.
-extern "C" int ttipm_panel_cholesky(const double* a, long long s0, long long s1, double* out,
-                                    int n, int* info, double* ws, void* stream) {
+// ws: workspace<Real>(n) elements, or null up to the resident bound.
+template <typename Real>
+int factor(const Real* a, long long s0, long long s1, Real* out, int n, int* info, Real* ws,
+           void* stream) {
   if (n < 1 || (n > kResidentMaxN && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem_limits();
+  cudaError_t err = set_smem_limits<Real>();
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= kResidentMaxN) return (int)launch_resident(a, s0, s1, out, n, info, st);
   return (int)launch_blocked(a, s0, s1, out, n, info, ws, st);
+}
+
+}  // namespace
+
+extern "C" long long ttipm_panel_cholesky_workspace(int n) { return workspace<double>(n); }
+
+extern "C" long long ttipm_panel_cholesky_workspace_f32(int n) { return workspace<float>(n); }
+
+extern "C" int ttipm_panel_cholesky(const double* a, long long s0, long long s1, double* out,
+                                    int n, int* info, double* ws, void* stream) {
+  return factor(a, s0, s1, out, n, info, ws, stream);
+}
+
+extern "C" int ttipm_panel_cholesky_f32(const float* a, long long s0, long long s1, float* out,
+                                        int n, int* info, float* ws, void* stream) {
+  return factor(a, s0, s1, out, n, info, ws, stream);
 }

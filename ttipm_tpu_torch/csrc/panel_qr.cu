@@ -7,8 +7,8 @@
 // are bck_split_step (which takes Q transposed) and fwd_split_step of
 // ttipm_tpu_torch/solvers/fused_algebra.py.
 //
-// Contract: a (m, n) f64 with any strides, n <= m <= 512, n <= 128 (the
-// envelope the reference documents).  q receives Q with orthonormal
+// Contract: a (m, n) f64 or f32 with any strides, n <= m <= 512, n <= 128
+// (the envelope the reference documents).  q receives Q with orthonormal
 // columns, as the contiguous (m, n) array or, with q_trans, as the
 // contiguous (n, m) array Q^T; r the (n, n) upper triangle with exact
 // zeros below the diagonal; Q R = a.  The reflectors follow LAPACK's
@@ -16,6 +16,19 @@
 // is when the part below the diagonal is exactly zero, so R carries
 // LAPACK's signs.  sqrt and the divisions are correctly rounded.  A NaN in
 // a comes out as NaNs; no loop depends on the data.
+//
+// Two instances, double and float (scalar.cuh), from one template.  The
+// float one is the TPU's production kernel's counterpart (the Pallas
+// dispatcher takes f32 only, ttipm_tpu/ops/kernels.py:226): it keeps the
+// panel, the partial sums and the reflector scalars in float.  Like the
+// f64 instance it forms ||x||^2 as a sum of squares (dlarfg takes a scaled
+// norm), so a column whose entries lie below ~1e-19 in magnitude (whose
+// squares underflow in float) is reflected as if zero: tau = 0 exactly when
+// that sum is exactly 0, which LAPACK's slarfg decides on its scaled norm.
+// The solve's panels are orthonormal columns in [-1, 1] with an enrichment
+// block of unit scale, far inside that range.  The JAX kernel's 1e-30 guard
+// on v^T v is not needed: v^T v = 2 beta (beta - x_j) is zero only with
+// the sum of squares.
 //
 // Bound on the H100: the solve's panels are (4 R', R + kick), 24 x 6 to
 // 40 x 10 at bond rank 8 and at most 144 x 36 at rank 32: a few KB and
@@ -90,6 +103,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "scalar.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -101,41 +116,45 @@ constexpr int kMaxCtas = 4;
 constexpr int kMaxThreads = 1024;        // of a CTA in a cluster
 constexpr int kMaxThreadsOneCta = 512;   // of the one CTA: 128 registers a thread
 constexpr int kMaxDynamicSmem = 232448;
-constexpr int kScalarRows = 3;  // tau, scale, beta: n doubles each after the panel
+constexpr int kScalarRows = 3;  // tau, scale, beta: n elements each after the panel
 constexpr int kStamps = 6;      // phase stamps of ttipm_panel_qr_stamps
 constexpr int kMaxSlabRows = 192;  // rows of a CTA: at most 6 a lane, held in registers
 
-__device__ __forceinline__ double warp_sum(double v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
 // Two sums at once: the shuffles of one hide the latency of the other.
-__device__ __forceinline__ void warp_sum2(double& u, double& v) {
+template <typename T>
+__device__ __forceinline__ void warp_sum2(T& u, T& v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const double a = __shfl_xor_sync(kFull, u, off), b = __shfl_xor_sync(kFull, v, off);
+    const T a = __shfl_xor_sync(kFull, u, off), b = __shfl_xor_sync(kFull, v, off);
     u += a;
     v += b;
   }
 }
 
+template <typename T>
 struct Reflector {
-  double tau, scale, beta;
+  T tau, scale, beta;
 };
 
 // dlarfg from the pivot x_j and the squared norm of the column below it.
-__device__ __forceinline__ Reflector make_reflector(double xj, double sigma2) {
-  Reflector h;
-  if (sigma2 == 0.0) {
-    h.tau = 0.0;
-    h.scale = 0.0;
+template <typename T>
+__device__ __forceinline__ Reflector<T> make_reflector(T xj, T sigma2) {
+  Reflector<T> h;
+  if (sigma2 == T(0)) {
+    h.tau = T(0);
+    h.scale = T(0);
     h.beta = xj;
   } else {
-    h.beta = -copysign(sqrt(xj * xj + sigma2), xj);
+    h.beta = -ttipm::copysign_(ttipm::sqrt_rn(xj * xj + sigma2), xj);
     h.tau = (h.beta - xj) / h.beta;
-    h.scale = 1.0 / (xj - h.beta);
+    h.scale = T(1) / (xj - h.beta);
   }
   return h;
 }
@@ -167,14 +186,16 @@ __device__ __forceinline__ void exchange(int* flags, int ctas, int cta, int step
 }
 
 // The sum over the CTAs, in CTA order, of entry c of their partials.
-__device__ __forceinline__ double sum_partials(const double* slot, int ctas, int n, int c) {
-  double s = 0.0;
+template <typename T>
+__device__ __forceinline__ T sum_partials(const T* slot, int ctas, int n, int c) {
+  T s = T(0);
   for (int k = 0; k < ctas; ++k) s += __ldcg(slot + k * n + c);
   return s;
 }
 
 // The CTA's rows r0 .. r0 + ml - 1 of a into the column-major A.
-__device__ __forceinline__ void load_panel(double* A, int ld, const double* __restrict__ a,
+template <typename T>
+__device__ __forceinline__ void load_panel(T* A, int ld, const T* __restrict__ a,
                                            long long s0, long long s1, int r0, int ml, int n) {
   const bool along_rows = s1 <= s0;  // lanes along the unit (or smaller) stride of a
   const int total = ml * n;
@@ -193,19 +214,21 @@ __device__ __forceinline__ void load_panel(double* A, int ld, const double* __re
 
 // R from the columns' upper parts and beta; every CTA writes the rows it
 // holds (and the diagonal and the zeros, which all hold alike).
-__device__ __forceinline__ void store_r(const double* A, int ld, const double* bet_s,
-                                        double* __restrict__ r, int r0, int ml, int n) {
+template <typename T>
+__device__ __forceinline__ void store_r(const T* A, int ld, const T* bet_s,
+                                        T* __restrict__ r, int r0, int ml, int n) {
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n, c = e - i * n;
     if (i >= c) {
-      r[e] = i == c ? bet_s[c] : 0.0;
+      r[e] = i == c ? bet_s[c] : T(0);
     } else if (i >= r0 && i < r0 + ml) {
       r[e] = A[i - r0 + c * ld];
     }
   }
 }
 
-__device__ __forceinline__ void store_q(const double* A, int ld, double* __restrict__ q,
+template <typename T>
+__device__ __forceinline__ void store_q(const T* A, int ld, T* __restrict__ q,
                                         int q_trans, int m, int r0, int ml, int n) {
   const int total = ml * n;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
@@ -221,14 +244,16 @@ __device__ __forceinline__ void store_q(const double* A, int ld, double* __restr
 
 // One value of column c turned into H_c e_c: zero above the diagonal,
 // 1 - tau on it, -tau v below (f = -tau scale; the column holds x).
-__device__ __forceinline__ double turned(double x, int gi, int c, double tc, double f) {
-  return gi < c ? 0.0 : (gi == c ? 1.0 - tc : (tc == 0.0 ? 0.0 : f * x));
+template <typename T>
+__device__ __forceinline__ T turned(T x, int gi, int c, T tc, T f) {
+  return gi < c ? T(0) : (gi == c ? T(1) - tc : (tc == T(0) ? T(0) : f * x));
 }
 
 // One warp turns its column c in place.
-__device__ __forceinline__ void turn_column(double* col, int c, int r0, int ml, double tc,
-                                            double sc) {
-  const double f = -tc * sc;
+template <typename T>
+__device__ __forceinline__ void turn_column(T* col, int c, int r0, int ml, T tc,
+                                            T sc) {
+  const T f = -tc * sc;
   for (int li = threadIdx.x & 31; li < ml; li += 32) col[li] = turned(col[li], r0 + li, c, tc, f);
   __syncwarp();
 }
@@ -239,38 +264,39 @@ __device__ __forceinline__ void turn_column(double* col, int c, int r0, int ml, 
 // reflector and of the column it works on in registers, so a column costs
 // one load and one store a step and the row loops have no branches.
 // ---------------------------------------------------------------------------
-template <int kRpl, bool kMulti>
+template <typename T, int kRpl, bool kMulti>
 __global__ void __launch_bounds__(kMulti ? kMaxThreads : kMaxThreadsOneCta, 1)
-panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double* __restrict__ q,
-                int q_trans, double* __restrict__ r, int m, int n, int mb, double* ws,
+panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, T* __restrict__ q,
+                int q_trans, T* __restrict__ r, int m, int n, int mb, T* ws,
                 long long* stamps) {
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
   const int ctas = kMulti ? (int)gridDim.x : 1, cta = kMulti ? (int)blockIdx.x : 0;
   const int ld = mb | 1;
   const int r0 = cta * mb;                  // first row of this CTA's slab
   const int ml = max(0, min(mb, m - r0));   // its rows
-  double* A = smem;                         // ml x n, column-major, leading dimension ld
-  double* tau_s = A + ld * n;
-  double* scl_s = tau_s + n;
-  double* bet_s = scl_s + n;
+  T* A = smem;                         // ml x n, column-major, leading dimension ld
+  T* tau_s = A + ld * n;
+  T* scl_s = tau_s + n;
+  T* bet_s = scl_s + n;
   int* flags = kMulti ? reinterpret_cast<int*>(ws + 2 * (ctas + 1) * n) : nullptr;
   auto stamp = [&](int k) {
     if (stamps != nullptr && tid == 0 && cta == 0) stamps[k] = clock64();
   };
   // this lane's kRpl values of a column, zero past the slab
-  auto load_rows = [&](const double* col, double (&v)[kRpl]) {
+  auto load_rows = [&](const T* col, T (&v)[kRpl]) {
 #pragma unroll
-    for (int k = 0; k < kRpl; ++k) v[k] = lane + 32 * k < ml ? col[lane + 32 * k] : 0.0;
+    for (int k = 0; k < kRpl; ++k) v[k] = lane + 32 * k < ml ? col[lane + 32 * k] : T(0);
   };
-  auto dot_rows = [&](const double (&x)[kRpl], const double (&v)[kRpl]) {
-    double p = 0.0;
+  auto dot_rows = [&](const T (&x)[kRpl], const T (&v)[kRpl]) {
+    T p = T(0);
 #pragma unroll
-    for (int k = 0; k < kRpl; ++k) p = fma(x[k], v[k], p);
+    for (int k = 0; k < kRpl; ++k) p = ttipm::madd(x[k], v[k], p);
     return p;
   };
   // the CTA that holds row j publishes it from column j on
-  auto publish_row = [&](double* rowv, int j) {
+  auto publish_row = [&](T* rowv, int j) {
     const int lj = j - r0;
     if (lj >= 0 && lj < ml)
       for (int c = j + tid; c < n; c += blockDim.x) rowv[c] = A[lj + c * ld];
@@ -289,17 +315,17 @@ panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double
     if (owner) cur += W;
     const bool active = owner || cur < n;
     const int lj = j - r0;  // local index of row j (in the slab or not)
-    const double* xcol = A + j * ld;
-    double* slot = kMulti ? ws + (j & 1) * (ctas + 1) * n : nullptr;
-    double* rowv = kMulti ? slot + ctas * n : nullptr;
+    const T* xcol = A + j * ld;
+    T* slot = kMulti ? ws + (j & 1) * (ctas + 1) * n : nullptr;
+    T* rowv = kMulti ? slot + ctas * n : nullptr;
     int c = cur;
-    double* mine = A + min(c, n - 1) * ld;
-    double x[kRpl], v[kRpl];  // column j below the diagonal; the working column
-    double xj = 0.0, ajc = 0.0, sig = 0.0, p = 0.0;
+    T* mine = A + min(c, n - 1) * ld;
+    T x[kRpl], v[kRpl];  // column j below the diagonal; the working column
+    T xj = T(0), ajc = T(0), sig = T(0), p = T(0);
     if (active) {
       load_rows(xcol, x);
 #pragma unroll
-      for (int k = 0; k < kRpl; ++k) x[k] = r0 + lane + 32 * k > j ? x[k] : 0.0;
+      for (int k = 0; k < kRpl; ++k) x[k] = r0 + lane + 32 * k > j ? x[k] : T(0);
       if (!kMulti) {
         load_rows(mine, v);
         xj = xcol[j];
@@ -308,7 +334,7 @@ panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double
         p = dot_rows(x, v);
         warp_sum2(sig, p);
       } else {
-        double* part = slot + cta * n;
+        T* part = slot + cta * n;
         if (owner) {
           sig = warp_sum(dot_rows(x, x));
           if (lane == 0) part[j] = sig;
@@ -332,18 +358,18 @@ panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double
       }
     }
     if (active) {
-      const Reflector h = make_reflector(xj, sig);
+      const Reflector<T> h = make_reflector(xj, sig);
       if (owner && lane == 0) {
         tau_s[j] = h.tau;
         scl_s[j] = h.scale;
         bet_s[j] = h.beta;
       }
-      if (h.tau != 0.0 && c < n) {
-        double xs[kRpl];  // the reflector below the diagonal (zero on and above row j)
+      if (h.tau != T(0) && c < n) {
+        T xs[kRpl];  // the reflector below the diagonal (zero on and above row j)
 #pragma unroll
         for (int k = 0; k < kRpl; ++k) xs[k] = x[k] * h.scale;
         for (;;) {
-          const double w = h.tau * (ajc + h.scale * p);
+          const T w = h.tau * (ajc + h.scale * p);
 #pragma unroll
           for (int k = 0; k < kRpl; ++k) {
             const int li = lane + 32 * k;
@@ -378,42 +404,42 @@ panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double
   for (int j = n - 2; j >= 0; --j) {
     if (cq - W > j) cq -= W;
     const bool active = cq < n;
-    const double tj = tau_s[j], sj = scl_s[j];  // the same in every warp and CTA
+    const T tj = tau_s[j], sj = scl_s[j];  // the same in every warp and CTA
     const int lj = j - r0;
-    double* slot = nullptr;
-    if (kMulti && tj != 0.0) {  // steps without a reflector make no exchange
+    T* slot = nullptr;
+    if (kMulti && tj != T(0)) {  // steps without a reflector make no exchange
       ++step;
       slot = ws + ((step - 1) & 1) * (ctas + 1) * n;
     }
-    double x[kRpl], xs[kRpl], v[kRpl];  // column j below the diagonal, the reflector there
+    T x[kRpl], xs[kRpl], v[kRpl];  // column j below the diagonal, the reflector there
     if (active) {                       // (x scaled); the working column
       load_rows(A + j * ld, x);
 #pragma unroll
       for (int k = 0; k < kRpl; ++k) {
-        x[k] = r0 + lane + 32 * k > j ? x[k] : 0.0;
+        x[k] = r0 + lane + 32 * k > j ? x[k] : T(0);
         xs[k] = x[k] * sj;
       }
       for (int c = cq; c < n; c += W) {
-        double* col = A + c * ld;
+        T* col = A + c * ld;
         const bool fresh = c == j + 1;  // still holds its reflector: turn it first
-        if (!fresh && tj == 0.0) continue;
+        if (!fresh && tj == T(0)) continue;
         load_rows(col, v);
         if (fresh) {
-          const double tc = tau_s[c], f = -tc * scl_s[c];
+          const T tc = tau_s[c], f = -tc * scl_s[c];
 #pragma unroll
           for (int k = 0; k < kRpl; ++k) {
             const int li = lane + 32 * k;
-            v[k] = li < ml ? turned(v[k], r0 + li, c, tc, f) : 0.0;
+            v[k] = li < ml ? turned(v[k], r0 + li, c, tc, f) : T(0);
           }
         }
         // row j of the columns after j is still zero: w = tau v^T q_c has
         // no term from it
-        double p = tj != 0.0 ? warp_sum(dot_rows(x, v)) : 0.0;
+        T p = tj != T(0) ? warp_sum(dot_rows(x, v)) : T(0);
         if (kMulti) {
-          if (tj != 0.0 && lane == 0) slot[cta * n + c] = p;
+          if (tj != T(0) && lane == 0) slot[cta * n + c] = p;
           if (!fresh) continue;
-        } else if (tj != 0.0) {
-          const double w = tj * (sj * p);
+        } else if (tj != T(0)) {
+          const T w = tj * (sj * p);
 #pragma unroll
           for (int k = 0; k < kRpl; ++k)
             v[k] = lane + 32 * k == lj ? -w : v[k] - xs[k] * w;
@@ -423,13 +449,13 @@ panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double
           if (lane + 32 * k < ml) col[lane + 32 * k] = v[k];
       }
     }
-    if (kMulti && tj != 0.0) {
+    if (kMulti && tj != T(0)) {
       exchange(flags, ctas, cta, step);
       if (active) {
         for (int c = cq; c < n; c += W) {
-          double* col = A + c * ld;
+          T* col = A + c * ld;
           load_rows(col, v);
-          const double w = tj * (sj * sum_partials(slot, ctas, n, c));
+          const T w = tj * (sj * sum_partials(slot, ctas, n, c));
 #pragma unroll
           for (int k = 0; k < kRpl; ++k) {
             const int li = lane + 32 * k;
@@ -451,18 +477,19 @@ panel_qr_kernel(const double* __restrict__ a, long long s0, long long s1, double
   }
 }
 
+template <typename T>
 size_t smem_bytes(int mb, int n) {
-  return ((size_t)(mb | 1) * n + (size_t)kScalarRows * n) * sizeof(double);
+  return ((size_t)(mb | 1) * n + (size_t)kScalarRows * n) * sizeof(T);
 }
 
 // One kernel for the slab height and the regime; the shared-memory limit
 // is raised once per device.
-template <int kRpl, bool kMulti>
-cudaError_t launch_as(const double* a, long long s0, long long s1, double* q, int q_trans,
-                      double* r, int m, int n, int ctas, int threads, double* ws,
+template <typename T, int kRpl, bool kMulti>
+cudaError_t launch_as(const T* a, long long s0, long long s1, T* q, int q_trans,
+                      T* r, int m, int n, int ctas, int threads, T* ws,
                       long long* stamps, cudaStream_t st) {
   static unsigned raised = 0;  // one bit per device
-  auto kernel = panel_qr_kernel<kRpl, kMulti>;
+  auto kernel = panel_qr_kernel<T, kRpl, kMulti>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -477,7 +504,7 @@ cudaError_t launch_as(const double* a, long long s0, long long s1, double* q, in
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes(mb, n);
+  cfg.dynamicSmemBytes = smem_bytes<T>(mb, n);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -489,41 +516,42 @@ cudaError_t launch_as(const double* a, long long s0, long long s1, double* q, in
   return cudaLaunchKernelEx(&cfg, kernel, a, s0, s1, q, q_trans, r, m, n, mb, ws, stamps);
 }
 
-template <bool kMulti>
-cudaError_t launch_rows(int mb, const double* a, long long s0, long long s1, double* q,
-                        int q_trans, double* r, int m, int n, int ctas, int threads, double* ws,
+template <typename T, bool kMulti>
+cudaError_t launch_rows(int mb, const T* a, long long s0, long long s1, T* q,
+                        int q_trans, T* r, int m, int n, int ctas, int threads, T* ws,
                         long long* stamps, cudaStream_t st) {
   if (mb <= 32)
-    return launch_as<1, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+    return launch_as<T, 1, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
   if (mb <= 64)
-    return launch_as<2, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+    return launch_as<T, 2, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
   if (mb <= 128)
-    return launch_as<4, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
-  return launch_as<kMaxSlabRows / 32, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws,
-                                              stamps, st);
+    return launch_as<T, 4, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+  return launch_as<T, kMaxSlabRows / 32, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads,
+                                                 ws, stamps, st);
 }
 
-cudaError_t launch(const double* a, long long s0, long long s1, double* q, int q_trans, double* r,
-                   int m, int n, int ctas, int threads, double* ws, long long* stamps,
+template <typename T>
+cudaError_t launch(const T* a, long long s0, long long s1, T* q, int q_trans, T* r,
+                   int m, int n, int ctas, int threads, T* ws, long long* stamps,
                    cudaStream_t st) {
   if (n < 1 || m < n || m > kMaxM || n > kMaxN || ctas < 1 || ctas > kMaxCtas || threads < 32 ||
       threads > (ctas > 1 ? kMaxThreads : kMaxThreadsOneCta) || threads % 32 != 0 ||
       (ctas > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   const int mb = (m + ctas - 1) / ctas;
-  if (mb > kMaxSlabRows || smem_bytes(mb, n) > (size_t)kMaxDynamicSmem)
+  if (mb > kMaxSlabRows || smem_bytes<T>(mb, n) > (size_t)kMaxDynamicSmem)
     return cudaErrorInvalidValue;
   if (ctas > 1)
-    return launch_rows<true>(mb, a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
-  return launch_rows<false>(mb, a, s0, s1, q, q_trans, r, m, n, 1, threads, ws, stamps, st);
+    return launch_rows<T, true>(mb, a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+  return launch_rows<T, false>(mb, a, s0, s1, q, q_trans, r, m, n, 1, threads, ws, stamps, st);
 }
 
 }  // namespace
 
-// a: (m, n) with element strides s0, s1.  q: m n doubles, (m, n) row-major
-// or, with q_trans, (n, m) row-major.  r: n n doubles.  ctas, threads: the
-// launch plan of k3_plan.  ws: 2 (ctas + 1) n + ctas doubles when ctas > 1
-// (uninitialised), else unused.
+// a: (m, n) with element strides s0, s1.  q: m n elements, (m, n) row-major
+// or, with q_trans, (n, m) row-major.  r: n n elements.  ctas, threads: the
+// launch plan of k3_plan.  ws: 2 (ctas + 1) n + ctas elements when ctas > 1
+// (uninitialised), else unused.  One entry for double, one for float.
 extern "C" int ttipm_panel_qr(const double* a, long long s0, long long s1, double* q,
                               int q_trans, double* r, int m, int n, int ctas, int threads,
                               double* ws, void* stream) {
@@ -531,8 +559,15 @@ extern "C" int ttipm_panel_qr(const double* a, long long s0, long long s1, doubl
                      static_cast<cudaStream_t>(stream));
 }
 
-// The same factorization of a contiguous panel into a contiguous (m, n) q,
-// with clock stamps of CTA 0's thread 0 (kStamps + 2 n of them): start,
+extern "C" int ttipm_panel_qr_f32(const float* a, long long s0, long long s1, float* q,
+                                  int q_trans, float* r, int m, int n, int ctas, int threads,
+                                  float* ws, void* stream) {
+  return (int)launch(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, nullptr,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same factorization of a contiguous f64 panel into a contiguous (m, n)
+// q, with clock stamps of CTA 0's thread 0 (kStamps + 2 n of them): start,
 // panel loaded, forward chain done, R stored, Q chain done, Q stored; then
 // the end of every forward step and of every Q step.
 extern "C" int ttipm_panel_qr_stamps(const double* a, double* q, double* r, int m, int n,

@@ -30,9 +30,17 @@
 //    blockIdx.z; the table of blocks (pointers, dims, strides) is a kernel
 //    parameter passed by value.  Small blocks take 16-row tiles so that a
 //    group still spreads over the card.
-//  * Arithmetic: plain f64 fma, each contracted index ascending in one
-//    chain from zero.
+//  * Arithmetic: plain fma in the operands' type, each contracted index
+//    ascending in one chain from zero.
+//
+// Two instances, double and float (scalar.cuh), from one template.  The
+// float instance replaces the TPU kernel where it actually ran: the Pallas
+// kernel computes in f32 (ttipm_tpu/ops/kernels.py:127-137), at HIGHEST
+// matmul precision.  It sums in float in the same order; its staging plan
+// (k1_tiles) is sized in 4-byte elements, so twice as many fit.
 #include <cuda_runtime.h>
+
+#include "scalar.cuh"
 
 namespace {
 
@@ -43,31 +51,34 @@ constexpr int kTN = 64;  // columns (L | R) per tile
 constexpr int kKS = 32;  // slice of S staged from phi_r per step
 constexpr int kMaxDynamicSmem = 232448;
 
+template <typename T>
 struct Block {
-  const double* phil;
-  const double* a;
-  const double* phir;
+  const T* phil;
+  const T* a;
+  const T* phir;
   int l, s, r, m, n, S, L, R;
   long long phl0, phl1, phl2, a0, a1, a2, a3, phr0, phr1, phr2;
 };
 
+template <typename T>
 struct BlockTable {
   int nblocks;
-  Block b[kMaxBlocks];
+  Block<T> b[kMaxBlocks];
 };
 
 // P = rows of the tile / 16.  `sc` is the chunk of S whose W slice is
 // resident (sc >= S: built once), ldw the odd leading dimension of Ws.
-template <int P>
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads)
-schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
+schur_kernel(const __grid_constant__ BlockTable<T> tab, T* __restrict__ out,
              long long out_block_stride, int sc, int ldw) {
   constexpr int TM = 16 * P;
-  extern __shared__ double smem[];
-  double* Ws = smem;  // TM x ldw, then Ps: kKS x (kTN + 1)
-  double(*Ps)[kTN + 1] = reinterpret_cast<double(*)[kTN + 1]>(smem + TM * ldw);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* Ws = smem;  // TM x ldw, then Ps: kKS x (kTN + 1)
+  T(*Ps)[kTN + 1] = reinterpret_cast<T(*)[kTN + 1]>(smem + TM * ldw);
 
-  const Block& b = tab.b[blockIdx.z];
+  const Block<T>& b = tab.b[blockIdx.z];
   const long long Mw = (long long)b.l * b.m * b.r * b.n;
   const int Nw = b.L * b.R;
   const long long row0 = (long long)blockIdx.y * TM;
@@ -76,7 +87,7 @@ schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
   const int tx = tid % 16;
   const int ty = tid / 16;
   const long long N = (long long)b.r * b.n * b.R;
-  double* o = out + blockIdx.z * out_block_stride;
+  T* o = out + blockIdx.z * out_block_stride;
 
   // output offset of (row, column 0) for this thread's rows; -1 past the edge
   long long rowbase[P];
@@ -100,11 +111,11 @@ schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
   const int ncolt = (Nw + kTN - 1) / kTN;
   bool built = false;
   for (int ct = blockIdx.x; ct < ncolt; ct += gridDim.x) {
-    double acc[P][4];
+    T acc[P][4];
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[p][q] = 0.0;
+      for (int q = 0; q < 4; ++q) acc[p][q] = T(0);
 
     for (int S0 = 0; S0 < b.S; S0 += sc) {
       const int nS = min(sc, b.S - S0);
@@ -115,7 +126,7 @@ schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
           const int Si = e % nS;
           const int rr = e / nS;
           const long long gi = row0 + rr;
-          double w = 0.0;
+          T w = T(0);
           if (gi < Mw) {
             const int ni = (int)(gi % b.n);
             long long q = gi / b.n;
@@ -123,10 +134,10 @@ schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
             q /= b.r;
             const int mi = (int)(q % b.m);
             const long long li = q / b.m;
-            const double* p = b.phil + li * b.phl0 + ri * b.phl2;
-            const double* ap = b.a + mi * b.a1 + ni * b.a2 + (S0 + Si) * b.a3;
+            const T* p = b.phil + li * b.phl0 + ri * b.phl2;
+            const T* ap = b.a + mi * b.a1 + ni * b.a2 + (S0 + Si) * b.a3;
 #pragma unroll 4
-            for (int si = 0; si < b.s; ++si) w = fma(p[si * b.phl1], ap[si * b.a0], w);
+            for (int si = 0; si < b.s; ++si) w = ttipm::madd(p[si * b.phl1], ap[si * b.a0], w);
           }
           Ws[rr * ldw + Si] = w;
         }
@@ -140,12 +151,12 @@ schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
           const int gj = ct * kTN + cc;
           Ps[kk][cc] = gj < Nw ? b.phir[(gj / b.R) * b.phr0 + (S0 + k0 + kk) * b.phr1 +
                                         (gj % b.R) * b.phr2]
-                               : 0.0;
+                               : T(0);
         }
         __syncthreads();
 #pragma unroll 4
         for (int kk = 0; kk < nk; ++kk) {
-          double ar[P], br[4];
+          T ar[P], br[4];
 #pragma unroll
           for (int p = 0; p < P; ++p) ar[p] = Ws[(ty + 16 * p) * ldw + k0 + kk];
 #pragma unroll
@@ -153,7 +164,7 @@ schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
 #pragma unroll
           for (int p = 0; p < P; ++p)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) acc[p][q] = fma(ar[p], br[q], acc[p][q]);
+            for (int q = 0; q < 4; ++q) acc[p][q] = ttipm::madd(ar[p], br[q], acc[p][q]);
         }
       }
     }
@@ -169,38 +180,38 @@ schur_kernel(const __grid_constant__ BlockTable tab, double* __restrict__ out,
   }
 }
 
-template <int P>
-cudaError_t launch(const BlockTable& tab, double* out, long long stride, int sc, int ldw,
+template <typename T, int P>
+cudaError_t launch(const BlockTable<T>& tab, T* out, long long stride, int sc, int ldw,
                    dim3 grid, int smem_bytes, cudaStream_t st) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        schur_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+        schur_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
     if (err != cudaSuccess) return err;
   }
-  schur_kernel<P><<<grid, kThreads, smem_bytes, st>>>(tab, out, stride, sc, ldw);
+  schur_kernel<T, P><<<grid, kThreads, smem_bytes, st>>>(tab, out, stride, sc, ldw);
   return cudaGetLastError();
 }
-
-}  // namespace
 
 // `table` holds nblocks packed blocks of kBlockWords 64-bit words each:
 // the three operand addresses, l s r m n S L R, and the element strides of
 // phi_l (3), A (4) and phi_r (3).  `out` is the contiguous (nblocks, M, N)
-// result.  tm is the row tile (16, 32 or 64), sc the resident chunk of S,
-// colsplit the number of CTAs that share the column tiles of a row tile.
-extern "C" int ttipm_schur_assemble(const long long* table, int nblocks, double* out, int tm,
-                                    int sc, int colsplit, void* stream) {
+// result, in the operands' type (double or float).  tm is the row tile
+// (16, 32 or 64), sc the resident chunk of S, colsplit the number of CTAs
+// that share the column tiles of a row tile.
+template <typename T>
+int schur_assemble(const long long* table, int nblocks, T* out, int tm, int sc, int colsplit,
+                   void* stream) {
   if (nblocks <= 0 || nblocks > kMaxBlocks || sc <= 0 || colsplit <= 0)
     return (int)cudaErrorInvalidValue;
-  BlockTable tab;
+  BlockTable<T> tab;
   tab.nblocks = nblocks;
   long long rows = 0, M = 0, N = 0;
   for (int i = 0; i < nblocks; ++i) {
     const long long* w = table + (long long)i * kBlockWords;
-    Block& b = tab.b[i];
-    b.phil = reinterpret_cast<const double*>(w[0]);
-    b.a = reinterpret_cast<const double*>(w[1]);
-    b.phir = reinterpret_cast<const double*>(w[2]);
+    Block<T>& b = tab.b[i];
+    b.phil = reinterpret_cast<const T*>(w[0]);
+    b.a = reinterpret_cast<const T*>(w[1]);
+    b.phir = reinterpret_cast<const T*>(w[2]);
     b.l = (int)w[3], b.s = (int)w[4], b.r = (int)w[5], b.m = (int)w[6];
     b.n = (int)w[7], b.S = (int)w[8], b.L = (int)w[9], b.R = (int)w[10];
     b.phl0 = w[11], b.phl1 = w[12], b.phl2 = w[13];
@@ -216,14 +227,26 @@ extern "C" int ttipm_schur_assemble(const long long* table, int nblocks, double*
   const long long row_tiles = (rows + tm - 1) / tm;
   if (row_tiles > 65535 || colsplit > 65535) return (int)cudaErrorInvalidConfiguration;
   const int ldw = sc | 1;
-  const long long smem = ((long long)tm * ldw + (long long)kKS * (kTN + 1)) * sizeof(double);
+  const long long smem = ((long long)tm * ldw + (long long)kKS * (kTN + 1)) * sizeof(T);
   if (smem > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)colsplit, (unsigned)row_tiles, (unsigned)nblocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (tm) {
-    case 64: return (int)launch<4>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
-    case 32: return (int)launch<2>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
-    case 16: return (int)launch<1>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
+    case 64: return (int)launch<T, 4>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
+    case 32: return (int)launch<T, 2>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
+    case 16: return (int)launch<T, 1>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" int ttipm_schur_assemble(const long long* table, int nblocks, double* out, int tm,
+                                    int sc, int colsplit, void* stream) {
+  return schur_assemble<double>(table, nblocks, out, tm, sc, colsplit, stream);
+}
+
+extern "C" int ttipm_schur_assemble_f32(const long long* table, int nblocks, float* out, int tm,
+                                        int sc, int colsplit, void* stream) {
+  return schur_assemble<float>(table, nblocks, out, tm, sc, colsplit, stream);
 }

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttipm_tpu_torch import config
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
 from ttipm_tpu_torch.ops.random import tt_random_graph
 from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
@@ -24,7 +25,7 @@ from ttipm_tpu_torch.ops.tt import (
     tt_sub,
 )
 
-__all__ = ["create_problem", "tt_obj_matrix", "tt_diag_constraint_op"]
+__all__ = ["create_problem", "build_problem", "tt_obj_matrix", "tt_diag_constraint_op"]
 
 
 def tt_diag_constraint_op(dim: int, *, device, dtype=torch.float64):
@@ -43,7 +44,28 @@ def tt_obj_matrix(rank: int, dim: int, *, device, dtype=torch.float64, rng=None)
 
 def create_problem(dim: int, rank: int, *, device, dtype=torch.float64, rng=None):
     """Returns (obj_tt, L_tt, bias_tt, lag_y) on ``device``; the instance is
-    drawn from the numpy RandomState ``rng`` (default numpy's global one)."""
+    drawn from the numpy RandomState ``rng`` (default numpy's global one).
+
+    Another ``dtype`` than float64 gives the float64 instance rounded to
+    it.  Built in float32 (``build_problem``), the rank decisions of the
+    graph sampler's rounding fall on float32 noise: a graph of rank 1 keeps
+    a second singular value of ~1e-7 |G| against the bond threshold 7.1e-8
+    of the f32 eps floor, so which sample is taken depends on the last bits
+    of the factorizations and products.  At d8 seed 319 the f32-built
+    instance is another graph on the CPU than on an H100, and the JAX
+    package's f32 instance a third (its 56th sample; its f64 instance the
+    5th).  Built in f64 the instance is the one the seed means, on every
+    backend; at d3 seed 319 it is also the JAX package's f32 instance."""
+    if dtype != torch.float64:
+        with config.profile(torch.float64):
+            problem = build_problem(dim, rank, device=device, dtype=torch.float64, rng=rng)
+        return config.cast_tree(problem, dtype)
+    return build_problem(dim, rank, device=device, dtype=dtype, rng=rng)
+
+
+def build_problem(dim: int, rank: int, *, device, dtype, rng=None):
+    """The instance built in ``dtype`` under the active profile, as the
+    JAX package builds it (``ttipm_tpu/models/maxcut.py:44``)."""
     scale = np.sqrt(dim)
     obj_tt = tt_obj_matrix(rank, dim, device=device, dtype=dtype, rng=rng)
     L_tt, bias_tt = tt_diag_constraint_op(dim, device=device, dtype=dtype)

@@ -2,7 +2,9 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one compiler process
 per source, all started together) and links the objects into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library goes
+library with a plain C interface, loaded with ``ctypes``.  Each kernel is a
+template on its element type with a C entry point per instance: the f64 one
+under the kernel's name, the f32 one with the suffix ``_f32``.  The library goes
 to ``build/ttipm_kernels/`` at the repository root, named by a hash of the
 sources and flags, so a rebuild happens only when a source changes.  The
 build runs at the first kernel launch, never at import.  Every failure to
@@ -25,6 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ttipm_kernels")
 SOURCES = ("schur_assemble.cu", "kkt_matvec.cu", "panel_qr.cu", "panel_cholesky.cu")
+HEADERS = ("scalar.cuh",)
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
@@ -46,7 +49,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return h.hexdigest()[:16]
@@ -95,17 +98,21 @@ def load_library() -> ctypes.CDLL:
         raise KernelError(f"cannot load {path}: {e}") from e
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     table = ctypes.c_char_p  # packed words, read on the host
-    signatures = {
+    typed = {  # one entry per element type: name (f64), name + "_f32"
         "ttipm_schur_assemble": [table, i, p, i, i, i, p],
         "ttipm_kkt_product": [table, i, table, p, i, i, i, i, p],
-        "ttipm_empty_launch": [p],
         "ttipm_panel_qr": [p, ll, ll, p, i, p, i, i, i, i, p, p],
-        "ttipm_panel_qr_stamps": [p, p, p, i, i, i, i, p, p, p],
         "ttipm_panel_cholesky": [p, ll, ll, p, i, p, p, p],
         "ttipm_panel_cholesky_workspace": [i],
+    }
+    signatures = {
+        **typed, **{name + "_f32": args for name, args in typed.items()},
+        "ttipm_empty_launch": [p],
+        "ttipm_panel_qr_stamps": [p, p, p, i, i, i, i, p, p, p],
         "ttipm_error_string": [i],
     }
-    restypes = {"ttipm_error_string": ctypes.c_char_p, "ttipm_panel_cholesky_workspace": ll}
+    restypes = {"ttipm_error_string": ctypes.c_char_p, "ttipm_panel_cholesky_workspace": ll,
+                "ttipm_panel_cholesky_workspace_f32": ll}
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -20,7 +20,16 @@ K1 and K2 also have grouped entry points over the same kernels:
 A wrapper given CPU tensors runs the plain version (einsum or
 ``torch.linalg``) and counts a plain call.  Given CUDA tensors it launches
 its kernel and counts a launch, or raises ``KernelError``: it never falls
-back and never catches a build or launch error.  The kernels take float64 only.
+back and never catches a build or launch error.
+
+Every kernel has a float64 and a float32 instance (the f64 and the f32
+profile; the TPU ran its Pallas kernels in f32).  A wrapper takes operands
+of one of these two types, all of the same type, and launches the instance
+of that type; any other type, or operands of mixed types, raise
+``KernelError`` on every device.  No wrapper changes an operand's type:
+where the solver wants f64 arithmetic on f32 data (the mixed-precision
+local solves) it casts before the call.  ``STATS[...].by_dtype`` counts the
+launches of each instance.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from ttipm_tpu_torch.ops import _build
 from ttipm_tpu_torch.ops._build import KernelError
 
 __all__ = [
-    "KernelError", "KernelStats", "STATS", "reset_counts",
+    "KernelError", "KernelStats", "STATS", "DTYPES", "ELEMENT_BYTES", "reset_counts",
     "schur_assemble", "schur_assemble_plain",
     "schur_assemble_group", "schur_assemble_group_plain",
     "kkt_block_matvec", "kkt_block_matvec_plain",
@@ -47,9 +56,16 @@ __all__ = [
 ]
 
 
+# The element types the kernels are instantiated for, by the name the
+# counters and the C entry points use ("f32" adds the suffix "_f32").
+DTYPES = {torch.float64: "f64", torch.float32: "f32"}
+ELEMENT_BYTES = {"f64": 8, "f32": 4}
+
+
 class KernelStats:
     """Counts of one kernel: device launches (a grouped call is one), how
-    many of them came through the grouped entry point, and plain calls."""
+    many of them came through the grouped entry point, the launches of each
+    instance (``by_dtype``: "f64", "f32"), and plain calls."""
 
     def __init__(self, name: str):
         self.name = name
@@ -59,6 +75,13 @@ class KernelStats:
         self.launches = 0
         self.grouped = 0
         self.plain_calls = 0
+        self.by_dtype = dict.fromkeys(DTYPES.values(), 0)
+
+    def count(self, tag: str, grouped: bool = False) -> None:
+        """One device launch of the ``tag`` instance."""
+        self.launches += 1
+        self.grouped += int(grouped)
+        self.by_dtype[tag] += 1
 
 
 STATS = {
@@ -73,19 +96,35 @@ def reset_counts() -> None:
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA operands, False for CPU operands; raises otherwise."""
+    """True for CUDA operands, False for CPU operands; raises for any other
+    device, for operands on different devices, and for operands that are
+    not all float64 or all float32."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
             raise KernelError(f"operands on different devices: {dev} and {t.device}")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise KernelError(f"operands of mixed types {sorted(map(str, dtypes))}: the kernels "
+                          "take float64 or float32 operands, all of one type")
+    if tensors[0].dtype not in DTYPES:
+        raise KernelError(f"no kernel for {tensors[0].dtype}: the kernels take float64 or "
+                          "float32")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise KernelError(f"no kernel for device {dev}")
-    for t in tensors:
-        if t.dtype != torch.float64:
-            raise KernelError(f"the CUDA kernels take float64, got {t.dtype}")
     return True
+
+
+def _tag(t: torch.Tensor) -> str:
+    """"f64" or "f32": the instance for operands of ``t``'s type."""
+    return DTYPES[t.dtype]
+
+
+def _entry(name: str, tag: str):
+    """The C entry point of kernel ``name`` for the ``tag`` instance."""
+    return getattr(_lib(), name if tag == "f64" else name + "_f32")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -164,9 +203,10 @@ def _dims(name, ops):
 
 
 @functools.lru_cache(maxsize=4096)
-def k1_tiles(dims):
+def k1_tiles(dims, esize=8):
     """Row tile, resident chunk of S and column split of one K1 launch,
-    from the tuple of the blocks' ``(l, s, r, m, n, S, L, R)``: the largest
+    from the tuple of the blocks' ``(l, s, r, m, n, S, L, R)`` and the
+    element size in bytes (8 for the f64 instance, 4 for f32): the largest
     row tile of 64, 32, 16 that still gives the card a CTA per SM, all of
     S resident where the W slice fits in shared memory beside the staged
     slice of phi_r, and the column tiles of a row tile shared between CTAs
@@ -177,7 +217,7 @@ def k1_tiles(dims):
     tm = next((t for t in (64, 32) if len(dims) * -(-rows // t) >= _TARGET_CTAS), 16)
     ctas = len(dims) * -(-rows // tm)
     colsplit = min(col_tiles, max(1, -(-_TARGET_CTAS // ctas)))
-    cap = (SMEM_LIMIT // 8 - _K1_KS * (_K1_TN + 1)) // tm  # leading dimension of Ws
+    cap = (SMEM_LIMIT // esize - _K1_KS * (_K1_TN + 1)) // tm  # leading dimension of Ws
     sc = min(s_max, cap if cap % 2 else cap - 1)
     return tm, sc, colsplit
 
@@ -212,11 +252,12 @@ def _k1_launch(blocks, dims):
     out = torch.empty((len(blocks), l * m * L, r * n * R), dtype=ref.dtype, device=ref.device)
     words = pack_k1_blocks(blocks, dims)
     table = struct.pack(f"{len(words)}q", *words)
-    tm, sc, colsplit = k1_tiles(dims)
+    tag = _tag(ref)
+    tm, sc, colsplit = k1_tiles(dims, ELEMENT_BYTES[tag])
     stream, guard = _launch_env(ref)
     with guard:
-        err = _lib().ttipm_schur_assemble(table, len(blocks), _ptr(out), tm, sc, colsplit,
-                                          stream)
+        err = _entry("ttipm_schur_assemble", tag)(table, len(blocks), _ptr(out), tm, sc,
+                                                    colsplit, stream)
     _check("schur_assemble", err)
     return out
 
@@ -233,8 +274,7 @@ def schur_assemble_group(blocks):
         stats.plain_calls += 1
         return schur_assemble_group_plain(blocks)
     out = list(_k1_launch(blocks, dims).unbind(0))
-    stats.launches += 1
-    stats.grouped += 1
+    stats.count(_tag(blocks[0][0]), grouped=True)
     return out
 
 
@@ -247,7 +287,7 @@ def schur_assemble(phi_l, A, phi_r):
         return schur_assemble_plain(phi_l, A, phi_r)
     blocks = [(phi_l, A, phi_r)]
     out = _k1_launch(blocks, _k1_check(blocks))[0]
-    stats.launches += 1
+    stats.count(_tag(phi_l))
     return out
 
 
@@ -275,14 +315,15 @@ def kkt_block_product_plain(terms, nrows):
 
 
 @functools.lru_cache(maxsize=4096)
-def k2_tiles(dims, nrows):
+def k2_tiles(dims, nrows, esize=8):
     """The launch plan of one K2 launch, from the tuple of the terms'
-    ``(l, s, r, m, n, S, L, R)``: ``(lc, rt, threads, smem_bytes, cap1,
-    cap2, cap_phl, cap_x, cap_a, cap_phr)``, the ``Plan`` of
+    ``(l, s, r, m, n, S, L, R)`` and the element size in bytes (8 for the
+    f64 instance, 4 for f32): ``(lc, rt, threads, smem_bytes, cap1, cap2,
+    cap_phl, cap_x, cap_a, cap_phr)``, the ``Plan`` of
     ``csrc/kkt_matvec.cu``.
 
     A CTA owns ``lc`` values of l and walks over tiles of ``rt`` values of
-    R.  It holds, in doubles, ``2 lc m L`` (the row's sum and the running
+    R.  It holds, in elements, ``2 lc m L`` (the row's sum and the running
     term) and, sized by its widest term, ``t1 = s n lc rt`` and
     ``t2 = lc m (S rt | 1)``.  R stays whole while one value of l fits
     (then the stages sum exactly as three chained GEMMs); otherwise it is
@@ -300,7 +341,7 @@ def k2_tiles(dims, nrows):
         t2 = max(lc * m_ * ((S * min(rt, R)) | 1) for _, _, _, m_, _, S, _, R in dims)
         return t1, t2, 2 * lc * m * L + t1 + t2
 
-    limit = SMEM_LIMIT // 8
+    limit = SMEM_LIMIT // esize
     r_max = max(d[7] for d in dims)
     rt = r_max
     tiles = 1
@@ -328,7 +369,7 @@ def k2_tiles(dims, nrows):
         used += caps[-1]
     cap_phr, cap_a, cap_x, cap_phl = caps
     threads = 512 if max(cap1, cap2) > 256 else 256
-    return lc, rt, threads, 8 * used, cap1, cap2, cap_phl, cap_x, cap_a, cap_phr
+    return lc, rt, threads, esize * used, cap1, cap2, cap_phl, cap_x, cap_a, cap_phr
 
 
 def pack_k2_terms(terms, dims):
@@ -363,11 +404,12 @@ def _k2_launch(terms, nrows, dims):
     out = torch.empty((l, nrows, m, L), dtype=x.dtype, device=x.device)
     words = pack_k2_terms(terms, dims)
     table = struct.pack(f"{len(words)}q", *words)
-    plan = struct.pack("10i", *k2_tiles(dims, nrows))
+    tag = _tag(x)
+    plan = struct.pack("10i", *k2_tiles(dims, nrows, ELEMENT_BYTES[tag]))
     stream, guard = _launch_env(x)
     with guard:
-        err = _lib().ttipm_kkt_product(table, len(terms), plan, _ptr(out), l, m, L, nrows,
-                                       stream)
+        err = _entry("ttipm_kkt_product", tag)(table, len(terms), plan, _ptr(out), l, m, L,
+                                                 nrows, stream)
     _check("kkt_block_matvec", err)
     return out
 
@@ -386,8 +428,7 @@ def kkt_block_product(terms, nrows):
         stats.plain_calls += 1
         return kkt_block_product_plain(terms, nrows)
     out = _k2_launch(terms, nrows, dims)
-    stats.launches += 1
-    stats.grouped += 1
+    stats.count(_tag(terms[0][3]), grouped=True)
     return out
 
 
@@ -401,7 +442,7 @@ def kkt_block_matvec(phi_l, A, phi_r, x):
         return kkt_block_matvec_plain(phi_l, A, phi_r, x)
     terms = [(phi_l, A, phi_r, x, 0)]
     out = _k2_launch(terms, 1, _k2_check(terms, 1))[:, 0]
-    stats.launches += 1
+    stats.count(_tag(x))
     return out
 
 
@@ -427,17 +468,20 @@ def panel_qr_plain(a, transposed=False):
     return (q.T.contiguous() if transposed else q), r
 
 
-def _k3_smem(rows, n):
+def _k3_smem(rows, n, esize=8):
     """Bytes of shared memory of a CTA that holds ``rows`` rows of the
     panel: column-major with an odd leading dimension, then tau, scale and
-    beta."""
-    return 8 * ((rows | 1) * n + _K3_SCALAR_ROWS * n)
+    beta, in elements of ``esize`` bytes."""
+    return esize * ((rows | 1) * n + _K3_SCALAR_ROWS * n)
 
 
 @functools.lru_cache(maxsize=4096)
-def k3_plan(m, n):
-    """The launch plan of K3 for an (m, n) panel: ``(ctas, threads,
-    ws_doubles, smem_bytes)``.  One CTA up to 192 rows (every panel of the
+def k3_plan(m, n, esize=8):
+    """The launch plan of K3 for an (m, n) panel of elements of ``esize``
+    bytes (8 for the f64 instance, 4 for f32): ``(ctas, threads,
+    ws_elems, smem_bytes)``.  The slab height is set by the registers a
+    lane holds its rows in, not by shared memory, so both instances take
+    the same CTAs and threads; the f32 one uses half the bytes.  One CTA up to 192 rows (every panel of the
     solve), else a cluster of 2 or 4 CTAs with row slabs of at most 192
     rows and a workspace for the exchange of the per-column partial sums.
     One warp per column, a warp owning the columns c = w (mod W): up to 16
@@ -453,8 +497,8 @@ def k3_plan(m, n):
                           f"got {(m, n)}")
     ctas = next(c for c in (1, 2, K3_MAX_CTAS) if -(-m // c) <= K3_SLAB_ROWS)
     threads = 32 * min(n, (K3_ONE_CTA_THREADS if ctas == 1 else K3_MAX_THREADS) // 32)
-    ws_doubles = 0 if ctas == 1 else 2 * (ctas + 1) * n + ctas
-    return ctas, threads, ws_doubles, _k3_smem(-(-m // ctas), n)
+    ws_elems = 0 if ctas == 1 else 2 * (ctas + 1) * n + ctas
+    return ctas, threads, ws_elems, _k3_smem(-(-m // ctas), n, esize)
 
 
 def panel_qr(a, transposed=False):
@@ -470,17 +514,20 @@ def panel_qr(a, transposed=False):
         stats.plain_calls += 1
         return panel_qr_plain(a, transposed)
     m, n = a.shape
-    ctas, threads, ws_doubles, _ = k3_plan(m, n)
-    buf = torch.empty(m * n + n * n + ws_doubles, dtype=a.dtype, device=a.device)
+    tag = _tag(a)
+    esize = ELEMENT_BYTES[tag]
+    ctas, threads, ws_elems, _ = k3_plan(m, n, esize)
+    buf = torch.empty(m * n + n * n + ws_elems, dtype=a.dtype, device=a.device)
     q = buf.as_strided((n, m), (m, 1)) if transposed else buf.as_strided((m, n), (n, 1))
     r = buf.as_strided((n, n), (n, 1), m * n)
-    ws = ctypes.c_void_p(buf.data_ptr() + 8 * (m * n + n * n) if ws_doubles else None)
+    ws = ctypes.c_void_p(buf.data_ptr() + esize * (m * n + n * n) if ws_elems else None)
     stream, guard = _launch_env(a)
     with guard:
-        err = _lib().ttipm_panel_qr(_ptr(a), a.stride(0), a.stride(1), _ptr(q), int(transposed),
-                                    _ptr(r), m, n, ctas, threads, ws, stream)
+        err = _entry("ttipm_panel_qr", tag)(_ptr(a), a.stride(0), a.stride(1), _ptr(q),
+                                            int(transposed), _ptr(r), m, n, ctas, threads, ws,
+                                            stream)
     _check("panel_qr", err)
-    stats.launches += 1
+    stats.count(tag)
     return q, r
 
 
@@ -513,17 +560,18 @@ def panel_cholesky(a):
         stats.plain_calls += 1
         return panel_cholesky_plain(a)
     n = a.shape[0]
+    tag = _tag(a)
     out = torch.empty((n, n), dtype=a.dtype, device=a.device)
     info = torch.empty((), dtype=torch.int32, device=a.device)
     ws = None
     if n > K4_RESIDENT_MAX_N:
-        ws = torch.empty(_lib().ttipm_panel_cholesky_workspace(n), dtype=a.dtype,
+        ws = torch.empty(_entry("ttipm_panel_cholesky_workspace", tag)(n), dtype=a.dtype,
                          device=a.device)
     stream, guard = _launch_env(a)
     with guard:
-        err = _lib().ttipm_panel_cholesky(
+        err = _entry("ttipm_panel_cholesky", tag)(
             _ptr(a), a.stride(0), a.stride(1), _ptr(out), n, _ptr(info),
             ctypes.c_void_p(None if ws is None else ws.data_ptr()), stream)
     _check("panel_cholesky", err)
-    stats.launches += 1
+    stats.count(tag)
     return out, info

@@ -15,6 +15,19 @@ give on the CPU reference path:
 * ``qr_factor`` / ``qr_apply`` / ``qr_solve``: the general square solve of
   the ragged Schur systems, Householder QR and a triangular solve
   (``ttipm_tpu/ops/linalg.py:23-37``).
+
+Float32 operands: the SVD, the QR and the symmetric eigensolver run in
+f64 on the upcast operands and return their factors rounded to f32
+(``config.in_f64``).  The JAX package's host engine calls numpy's f32
+LAPACK; torch's f32 factorizations are noisier (MKL on the CPU: a rank-4
+64 x 64 matrix keeps a tail of 3e-6 against numpy's 1e-7), the TT
+roundings at the f32 eps floor 1e-7 keep that noise as rank, and with
+cuSOLVER's f32 factors maxcut d8 seed 24 in the f32 profile stops at
+slackness 0.44 where the upcast solve converges
+(``tools/f32_repairs.py``).  (torch's f32 SVD itself keeps
+u orthonormal at zero singular values, on the CPU and on the card, so the
+JAX package's Gram split is not needed: tests/test_torch_f32.py,
+tests/test_torch_cuda.py.)
 """
 
 from __future__ import annotations
@@ -22,12 +35,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttipm_tpu_torch.config import in_f64
+
 __all__ = [
-    "safe_svd", "fast_split_svd", "safe_eigh", "lu_factor", "lu_solve",
+    "safe_svd", "fast_split_svd", "svd_econ", "safe_eigh", "safe_eigvalsh", "lu_factor",
+    "lu_solve",
     "chol_solve", "qr_econ", "qr_factor", "qr_apply", "qr_solve",
 ]
 
 
+@in_f64
 def safe_svd(a: torch.Tensor):
     """Economy SVD.  LAPACK's gesdd can fail to converge where gesvd does
     not; the host engine retries with gesvd, and so does this."""
@@ -47,10 +64,24 @@ def safe_svd(a: torch.Tensor):
 fast_split_svd = safe_svd
 
 
+@in_f64
+def svd_econ(a: torch.Tensor):
+    """Economy SVD without the gesvd retry (the caller handles failure)."""
+    return torch.linalg.svd(a, full_matrices=False)
+
+
+@in_f64
 def safe_eigh(a: torch.Tensor):
     return torch.linalg.eigh(a)
 
 
+@in_f64
+def safe_eigvalsh(a: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of a symmetric matrix, ascending."""
+    return torch.linalg.eigvalsh(a)
+
+
+@in_f64
 def qr_econ(a: torch.Tensor):
     return torch.linalg.qr(a, mode="reduced")
 

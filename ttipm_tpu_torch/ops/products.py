@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ttipm_tpu_torch.config import in_f64
 from ttipm_tpu_torch.ops.rounding import (
     add_kick_rank,
     pad_bond_factors,
@@ -222,6 +223,11 @@ def _als_start(A: TT, other: TT, x0, nswp, kick_rank, shape, rng):
     return x_cores, kick_rank
 
 
+# f32 trains are fitted in f64 and the fit rounded back: the JAX package's
+# host fits turn f64 from their second sweep on (numpy promotes the f32
+# cores by the f64 norm scale ``nrmsc``: ``ttipm_tpu/ops/products.py:230``)
+# and return f64 trains; the port keeps the working dtype at the boundary.
+@in_f64
 def tt_approx_mat_mat_mul(A: TT, D: TT, x0: Optional[TT] = None, kick_rank=None,
                           nswp: int = 50, tol: float = 1e-6, rng=None) -> TT:
     """ALS fixed-point fit of the TT matrix product A @ D at bounded rank."""
@@ -244,6 +250,7 @@ def tt_approx_mat_mat_mul(A: TT, D: TT, x0: Optional[TT] = None, kick_rank=None,
                                nswp, tol, rng)
 
 
+@in_f64
 def tt_approx_mat_vec_mul(A: TT, d_vec: TT, x0: Optional[TT] = None,
                           kick_rank=None, nswp: int = 50, tol: float = 1e-6,
                           rng=None) -> TT:

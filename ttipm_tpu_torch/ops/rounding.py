@@ -134,8 +134,9 @@ def _truncation_sweep(train_tt: TT, eps: float,
 
 
 def tt_rank_reduce(train_tt: TT, eps: float = 1e-18) -> TT:
-    """Round a TT to the smallest ranks with total error <= eps."""
-    eps = float(eps)
+    """Round a TT to the smallest ranks with total error <= eps (clamped to
+    the dtype profile's floor, ``config.clamp_eps``)."""
+    eps = config.clamp_eps(eps)
     dim = len(train_tt)
     ranks = [1] + tt_ranks(train_tt) + [1]
     if dim == 1 or all(r == 1 for r in ranks):
@@ -163,7 +164,7 @@ def tt_psd_rank_reduce(train_tt: TT, eps: float = 1e-18,
     """PSD-preserving rounding: compensates the discarded energy with a
     multiple of the identity.  With ``return_shift`` also returns the
     magnitude of the identity shift added."""
-    eps = float(eps)
+    eps = config.clamp_eps(eps)
     out, factor = _compensated_rank_reduce(train_tt, eps)
     shift = factor ** len(out)
     if not (len(out) == 1 and factor == 0.0):
@@ -182,7 +183,7 @@ def tt_mask_rank_reduce(train_tt: TT, mask_tt: TT, eps: float = 1e-18,
                         return_shift: bool = False):
     """Mask-preserving rounding: the discarded energy is compensated along
     ``mask_tt`` (added with its own ranks) instead of the identity."""
-    out, factor = _compensated_rank_reduce(train_tt, float(eps))
+    out, factor = _compensated_rank_reduce(train_tt, config.clamp_eps(eps))
     out = tt_add(out, [factor * c for c in mask_tt])
     if return_shift:
         return out, factor ** len(out)

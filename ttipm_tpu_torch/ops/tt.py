@@ -146,17 +146,20 @@ def tt_sum(*args: TT, op_tol: float = 1e-18, rank_reduce: bool = True) -> TT:
 # ---------------------------------------------------------------------------
 
 def _inner_prod_tensor(train_1_tt: TT, train_2_tt: TT) -> torch.Tensor:
-    acc = train_1_tt[0].new_ones((1, 1))
+    """<A, B> accumulated in f64 whatever the cores' type, as the JAX
+    package's host engine does (its f64 accumulator promotes f32 cores:
+    ``ttipm_tpu/ops/tt.py:306``); the IPM branches on these scalars."""
+    acc = train_1_tt[0].new_ones((1, 1), dtype=torch.float64)
     for c1, c2 in zip(train_1_tt, train_2_tt):
         if c1.ndim == 4:
-            acc = torch.einsum("ab,aijc,bijd->cd", acc, c1, c2)
+            acc = torch.einsum("ab,aijc,bijd->cd", acc, c1.double(), c2.double())
         else:
-            acc = torch.einsum("ab,aic,bid->cd", acc, c1, c2)
+            acc = torch.einsum("ab,aic,bid->cd", acc, c1.double(), c2.double())
     return acc[0, 0]
 
 
 def tt_inner_prod(train_1_tt: TT, train_2_tt: TT) -> float:
-    """<A, B> by a left-to-right two-train contraction."""
+    """<A, B> by a left-to-right two-train contraction, in f64."""
     return float(_inner_prod_tensor(train_1_tt, train_2_tt))
 
 
@@ -182,12 +185,13 @@ def tt_trace(matrix_tt: TT) -> float:
 
 
 def tt_entrywise_sum(train_tt: TT) -> float:
-    acc = train_tt[0].new_ones((1,))
+    """Sum of all entries, accumulated in f64 (``ttipm_tpu/ops/tt.py:348``)."""
+    acc = train_tt[0].new_ones((1,), dtype=torch.float64)
     for c in train_tt:
         if c.ndim == 4:
-            acc = torch.einsum("a,aijb->b", acc, c)
+            acc = torch.einsum("a,aijb->b", acc, c.double())
         else:
-            acc = torch.einsum("a,aib->b", acc, c)
+            acc = torch.einsum("a,aib->b", acc, c.double())
     return float(acc.sum())
 
 

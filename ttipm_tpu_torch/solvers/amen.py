@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ttipm_tpu_torch import config
 from ttipm_tpu_torch.ops.linalg import qr_econ, qr_solve, safe_svd
 from ttipm_tpu_torch.ops.rounding import (
     pad_bond_factors,
@@ -524,7 +525,7 @@ def tt_restarted_block_amen(block_A, block_b, rank_restriction: int, op_tol: flo
         from ttipm_tpu_torch.solvers.blocks import tt_block_train_add
 
         num_blocks = int(x_cores[int(np.argmax([c.ndim for c in x_cores]))].shape[1])
-        prod_tol = max(0.01 * refine_target, float(eps))
+        prod_tol = max(0.01 * refine_target, config.clamp_eps(eps))
         r_blk = rhs - block_A.block_product(x_cores, prod_tol, cache=prod_cache, rng=rng)
         rn = r_blk.norm
         for _ in range(2):

@@ -17,13 +17,14 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ttipm_tpu_torch.config import cast_tree
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
 from ttipm_tpu_torch.ops.tt import TT, tt_add, tt_inner_prod, tt_sub, tt_transpose
 from ttipm_tpu_torch.solvers.fused_algebra import _flip, _t
 
 __all__ = ["TTBlockVector", "TTBlockMatrix", "TTBlockVectorView", "TTBlockMatrixView",
-           "tt_get_block", "tt_block_train_add"]
+           "tt_get_block", "tt_block_train_add", "cast_block_vector", "cast_block_matrix"]
 
 
 def tt_get_block(i: int, block_train_tt: TT) -> TT:
@@ -75,6 +76,25 @@ def tt_block_train_add(x_cores: TT, e_cores: TT, num_blocks: int,
                 orr += c.shape[-1]
         out.append(core)
     return tt_rank_reduce(out, eps)
+
+
+def cast_block_vector(b: "TTBlockVector", dtype) -> "TTBlockVector":
+    """Copy with every core cast to ``dtype``: the refinement residual
+    b - A x of the f32 profile is formed in f64, or it carries the noise it
+    is meant to remove (``ttipm_tpu/solvers/blocks.py:34-42``)."""
+    out = TTBlockVector()
+    out._data = cast_tree(b._data, dtype)
+    return out
+
+
+def cast_block_matrix(A: "TTBlockMatrix", dtype) -> "TTBlockMatrix":
+    """Copy with every stored block's cores cast to ``dtype``, aliases and
+    transposes kept."""
+    out = TTBlockMatrix()
+    out._data = cast_tree(A._data, dtype)
+    out._aliases = dict(A._aliases)
+    out._transposes = dict(A._transposes)
+    return out
 
 
 class TTBlockVector:

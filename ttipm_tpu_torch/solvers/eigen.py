@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ttipm_tpu_torch import config
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import safe_eigh, safe_svd
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
@@ -452,8 +453,9 @@ def tt_max_generalised_eigen(A: TT, Delta: TT, x0: Optional[TT] = None, nswp: in
     x_cores = tt_normalise(x_cores)
     # Unconverged-eigensolve penalty: shrink the step by tol/res, with each
     # window's tolerance floored at the dtype's achievable residual for its
-    # own pencil scale.
-    eps_dt = float(torch.finfo(ref.dtype).eps)
+    # own pencil scale; the coarser of the profile's dtype and the
+    # operator's sets it (``eigen.py:637-639``).
+    eps_dt = max(float(torch.finfo(config.dtype()).eps), float(torch.finfo(ref.dtype).eps))
     floors = np.maximum(max(tol, 30.0 * eps_dt), 4.0 * eps_dt * local_scale)
     with np.errstate(invalid="ignore"):
         ratios = local_res / floors

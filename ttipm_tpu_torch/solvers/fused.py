@@ -23,6 +23,13 @@ constraints (``ineq``) dX is eliminated through L_Z as well and the coupled
 the host engine factors it where the JAX device engine takes a QR).  The
 projected blocks of a local solve come from one K1 launch: four on the
 equality path, six with inequalities.
+
+Under the float32 profile the local solves are mixed-precision
+(``config.mixed_local``, ``fused_host.py:177-254``): "f64" runs the
+Schur chain in f64 on upcast operands (the kernels' f64 instances),
+"refine" factors in f32 and adds two f64-residual corrections, "off" is
+all f32.  The global residual and the refinement residuals are formed in
+f64 in every mode.
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ttipm_tpu_torch import config
 from ttipm_tpu_torch.ops import kernels
-from ttipm_tpu_torch.ops.linalg import chol_solve, lu_factor, lu_solve
+from ttipm_tpu_torch.ops.linalg import chol_solve, lu_factor, lu_solve, qr_econ, svd_econ
 from ttipm_tpu_torch.solvers import fused_algebra as fa
 from ttipm_tpu_torch.solvers.amen import (
     AmenRestartsExhausted,
@@ -118,22 +126,47 @@ def _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq=False):
     return torch.stack([y3, x.reshape(r, n, R), z3, t3], dim=1)
 
 
+def _inv_identity(pl, A, pr):
+    """1 / the clamped diagonal of the projected identity block."""
+    return 1.0 / fa.den_clamp(torch.einsum("lsr,smnS,LSR->lmL", pl["12"], A["12"], pr["12"]))
+
+
 def _solve_local(pl, A, pr, bl, b, br, prev, ineq=False):
     """Local KKT solve with the never-regress guard: the candidate replaces
     ``prev`` only if it is finite, does not raise the local residual and is
     not of absurd magnitude.  Returns (sol, rhs, res_old, res_min, dx) with
-    the scalars as 0-d device tensors (no host sync)."""
-    rhs = fa.project_rhs(bl, b, br, ineq)
-    inv_I = 1.0 / fa.den_clamp(
-        torch.einsum("lsr,smnS,LSR->lmL", pl["12"], A["12"], pr["12"]))
-    norm_rhs = torch.clamp_min(torch.linalg.norm(rhs), 1e-10)
-    res_old = torch.linalg.norm(fa.local_product(pl, A, pr, prev, ineq) - rhs) / norm_rhs
-    fac = _dense_factor(pl, A, pr, inv_I, ineq)
-    cand = _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq)
+    the scalars as 0-d device tensors (no host sync).  f32 operands take
+    the mixed mode of ``config.mixed_local()``: the residuals of the guard
+    in f64, the factorization in f64 ("f64") or in f32 ("refine", then two
+    corrections from f64 residuals; "off")."""
+    mode = config.mixed_local() if prev.dtype == torch.float32 else "off"
+    if mode != "off":
+        pl_h, A_h, pr_h, prev_h, bl_h, b_h, br_h = config.cast_tree(
+            (pl, A, pr, prev, bl, b, br), torch.float64)
+        rhs_h = fa.project_rhs(bl_h, b_h, br_h, ineq)
+        inv_I_h = _inv_identity(pl_h, A_h, pr_h)
+        inv_I, rhs = inv_I_h.to(prev.dtype), rhs_h.to(prev.dtype)
+    else:
+        pl_h, A_h, pr_h, prev_h = pl, A, pr, prev
+        rhs_h = rhs = fa.project_rhs(bl, b, br, ineq)
+        inv_I_h = inv_I = _inv_identity(pl, A, pr)
+    norm_rhs = torch.clamp_min(torch.linalg.norm(rhs_h), 1e-10)
+    res_old = torch.linalg.norm(fa.local_product(pl_h, A_h, pr_h, prev_h, ineq) - rhs_h) / norm_rhs
+    if mode == "f64":
+        fac = _dense_factor(pl_h, A_h, pr_h, inv_I_h, ineq)
+        cand = _dense_apply(fac, pl_h, A_h, pr_h, inv_I_h, rhs_h, ineq).to(prev.dtype)
+    else:
+        fac = _dense_factor(pl, A, pr, inv_I, ineq)
+        cand = _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq)
+    if mode == "refine":
+        for _ in range(2):
+            r_h = rhs_h - fa.local_product(pl_h, A_h, pr_h, cand.double(), ineq)
+            cand = cand + _dense_apply(fac, pl, A, pr, inv_I, r_h.to(prev.dtype), ineq)
     finite = torch.isfinite(cand).all()
     # a non-finite candidate is where the host engine's numpy raises
     cand = torch.where(finite, cand, prev)
-    res_new = torch.linalg.norm(fa.local_product(pl, A, pr, cand, ineq) - rhs) / norm_rhs
+    res_new = torch.linalg.norm(
+        fa.local_product(pl_h, A_h, pr_h, cand.to(rhs_h.dtype), ineq) - rhs_h) / norm_rhs
     sane = torch.linalg.norm(cand) < 1e8 * (1.0 + torch.linalg.norm(prev))
     good = finite & torch.isfinite(res_new) & (res_new <= res_old) & sane
     sol = torch.where(good, cand, prev)
@@ -191,9 +224,13 @@ def _sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int,
 # ---------------------------------------------------------------------------
 
 def _train_dot(tr1, tr2):
-    rho = tr1[0].new_ones((1, 1))
+    """<tr1, tr2> accumulated in f64: the residual expansion subtracts
+    near-equal O(|b|^2) terms, and in f32 it could not resolve a relative
+    residual below ~sqrt(eps32) = 3e-4, where the ladder's acceptance
+    thresholds are."""
+    rho = tr1[0].new_ones((1, 1), dtype=torch.float64)
     for c1, c2 in zip(tr1, tr2):
-        rho = torch.einsum("ab,amA,bmB->AB", rho, c1, c2)
+        rho = torch.einsum("ab,amA,bmB->AB", rho, c1.double(), c2.double())
     return rho[0, 0]
 
 
@@ -205,7 +242,7 @@ def fused_residual_norm(A, b, x_cores, ineq: bool = False) -> float:
         cores = list(x_shared)
         cores.insert(block_pos, x_cores[block_pos][:, j])
         x_cols.append(cores)
-    res_sq = x_cores[0].new_zeros(())
+    res_sq = x_cores[0].new_zeros((), dtype=torch.float64)
     for i, terms in enumerate(fa.row_terms(ineq)):
         acc = _train_dot(b[i], b[i])
         vts = [fa.virtual_term_cores(A, x_cols, key, col, tr) for (key, col, tr) in terms]
@@ -258,13 +295,13 @@ def _svd_retract(cores, caps):
     out = list(cores)
     for i in range(d - 1, 0, -1):
         sh = out[i].shape
-        q, r = torch.linalg.qr(out[i].reshape(sh[0], -1).T)
+        q, r = qr_econ(out[i].reshape(sh[0], -1).T)
         out[i] = q.T.reshape(-1, *sh[1:])
         prev = out[i - 1]
         out[i - 1] = (prev.reshape(-1, sh[0]) @ r.T).reshape(*prev.shape[:-1], -1)
     for k in range(d - 1):
         sh = out[k].shape
-        u, s, vt = torch.linalg.svd(out[k].reshape(-1, sh[-1]), full_matrices=False)
+        u, s, vt = svd_econ(out[k].reshape(-1, sh[-1]))
         r = min(caps[k], s.shape[0])
         u_k = u[:, :r]
         nxt = out[k + 1]
@@ -301,8 +338,9 @@ def _prep_x0(x0, d, bs, caps, direction, rng, ref):
     the block axis on core 0 (direction -1) or core d-1 (direction +1)."""
     if x0 is not None and _x0_direction(x0, d, bs) == direction:
         if all(bool(torch.isfinite(c).all()) for c in x0):
-            try:
-                return _svd_retract(list(x0), caps)
+            try:  # in f64, as the JAX package's (ttipm_tpu/solvers/fused.py:523,633)
+                hi = config.cast_tree(list(x0), torch.float64)
+                return [c.to(ref.dtype) for c in _svd_retract(hi, caps)]
             except torch.linalg.LinAlgError:
                 pass  # pathological warm start -> fresh Gaussian below
     if direction > 0:
@@ -402,7 +440,9 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
     lenient: a tenfold reduction, taken once escalation stops paying).
     ``refine_target`` (absolute residual) enables residual-equation
     refinement of the accepted solution: solve ``A e = b - A x`` at the
-    same rank and add ``e`` back while that clearly helps."""
+    same rank and add ``e`` back while that clearly helps.  The residual
+    ``b - A x`` is assembled and the correction added in f64 under the f32
+    profile too; only the correction solve runs in the working dtype."""
     rng = np.random if rng is None else rng
     first_row = next(iter(block_b.values()))
     d = len(first_row)
@@ -430,38 +470,43 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
         """Residual-equation refinement rounds on an accepted solution."""
         if refine_target is None:
             return x_cores, res
-        from ttipm_tpu_torch.solvers.blocks import tt_block_train_add
+        from ttipm_tpu_torch.solvers.blocks import (
+            cast_block_matrix, cast_block_vector, tt_block_train_add)
 
         rn = fused_residual_norm(A, b, x_cores, ineq)
         if not np.isfinite(rn) or rn <= refine_target:
             return x_cores, min(res, rn / max(rhs_norm0, 1e-300))
         prod_cache: dict = {}  # ALS warm starts across refine rounds
-        prod_tol = max(0.01 * refine_target, float(eps))
-        r_blk = block_b - block_A.block_product(x_cores, prod_tol,
-                                                cache=prod_cache, rng=rng)
+        prod_tol = max(0.01 * refine_target, config.clamp_eps(eps))
+        work_dt = x_cores[0].dtype
+        use_hi = work_dt != torch.float64
+        A_hi = cast_block_matrix(block_A, torch.float64) if use_hi else block_A
+        b_hi = cast_block_vector(block_b, torch.float64) if use_hi else block_b
+        x_hi = config.cast_tree(x_cores, torch.float64)
+        r_blk = b_hi - A_hi.block_product(x_hi, prod_tol, cache=prod_cache, rng=rng)
         rn = r_blk.norm
         for _ in range(2):
             if not np.isfinite(rn) or rn <= refine_target:
                 break
+            r_work = cast_block_vector(r_blk, work_dt) if use_hi else r_blk
             try:
                 e_cores, _ = tt_block_amen_fused(
-                    block_A, r_blk, termination_tol, R, eps=eps, nswp=inner_m,
+                    block_A, r_work, termination_tol, R, eps=eps, nswp=inner_m,
                     kick_rank=2, verbose=False, rng=rng,
-                    prepped=(A, prep_rhs(r_blk, d, ref, ineq)), ineq=ineq,
+                    prepped=(A, prep_rhs(r_work, d, ref, ineq)), ineq=ineq,
                 )
-                x_new = tt_block_train_add(x_cores, e_cores, bs, eps)
+                x_new = tt_block_train_add(x_hi, config.cast_tree(e_cores, torch.float64), bs, eps)
             except (torch.linalg.LinAlgError, FloatingPointError):
                 break
-            r_new = block_b - block_A.block_product(x_new, prod_tol,
-                                                    cache=prod_cache, rng=rng)
+            r_new = b_hi - A_hi.block_product(x_new, prod_tol, cache=prod_cache, rng=rng)
             rn_new = r_new.norm
             # keep only clear improvements
             if not np.isfinite(rn_new) or rn_new >= 0.5 * rn:
                 break
             if verbose:
                 print(f"\t[fused refine] res {rn:.3e} -> {rn_new:.3e}", flush=True)
-            x_cores, rn, r_blk = x_new, rn_new, r_new
-        return x_cores, min(res, rn / max(rhs_norm0, 1e-300))
+            x_hi, rn, r_blk = x_new, rn_new, r_new
+        return [c.to(work_dt) for c in x_hi], min(res, rn / max(rhs_norm0, 1e-300))
 
     x_cores, res = tt_block_amen_fused(
         block_A, block_b, termination_tol, R, eps=eps, nswp=inner_m, x0=x0,

@@ -138,21 +138,33 @@ def project_rhs(bl, b, br, ineq=False):
 
 def den_clamp(den):
     """Sign-preserving floor for the projected-identity diagonal that the
-    dZ elimination divides by."""
-    floor = 1e-14 * den.abs().max()
+    dZ elimination divides by: relative 1e-14 in f64, 1e-6 in f32 (a dead
+    basis direction makes den cross 0 at f32 noise level)."""
+    rel = 1e-6 if den.dtype == torch.float32 else 1e-14
+    floor = rel * den.abs().max()
     sign = torch.where(den >= 0, 1.0, -1.0).to(den.dtype)
     return sign * torch.maximum(den.abs(), floor)
 
 
 def tikhonov(S):
-    """The reference's absolute 1e-11 * I on the Schur systems (f64)."""
-    return S + 1e-11 * torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
+    """Tikhonov term of the (near-singular) Schur systems.  f64: the
+    reference's absolute 1e-11 * I.  f32: 1e-6 max|S| + 1e-11, above the
+    data noise eps32 |S|, or a basis-null direction gives a ~1e23 candidate
+    that the never-regress guard accepts."""
+    if S.dtype == torch.float64:
+        lam = 1e-11
+    else:
+        lam = 1e-6 * S.abs().max() + 1e-11
+    return S + lam * torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
 
 
 def column_scales(core):
-    """Per-block-column equilibration norms with a relative floor."""
+    """Per-block-column equilibration norms with a relative floor: 1e-12
+    in f64, 1e-5 in f32 (the absolute 1e-10 alone amplifies dead f32
+    columns)."""
     norms = torch.sqrt(torch.sum(core**2, dim=(0, 2, 3)))
-    floor = torch.clamp_min(1e-12 * norms.max(), 1e-10)
+    rel = 1e-5 if core.dtype == torch.float32 else 1e-12
+    floor = torch.clamp_min(rel * norms.max(), 1e-10)
     return torch.maximum(norms, floor).reshape(1, -1, 1, 1)
 
 

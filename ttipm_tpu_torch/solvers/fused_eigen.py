@@ -23,6 +23,11 @@ of size >= 192 (``fused_eigen_host.py:41-80``); the port takes the dense
 is at most ``16 R^2`` (1024 at the default eigen rank R=8), which the
 dense solver handles directly, and dense eigh gives the exact extreme
 eigenpair where ARPACK gives it to its tolerance.
+
+Precision: the pencils, interfaces and eigenvector trains are in
+``config.eigen_dtype()`` (``fused_eigen.py:553-562,585,615,641``): f64 by
+default, the profile's dtype with ``set_eigen_dtype("native")``, so under
+the f32 profile K1 and K4 run their f32 instances here.
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ttipm_tpu_torch import config
 from ttipm_tpu_torch.ops import kernels
-from ttipm_tpu_torch.ops.linalg import fast_split_svd, safe_eigh
+from ttipm_tpu_torch.ops.linalg import fast_split_svd, safe_eigh, safe_eigvalsh
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
 from ttipm_tpu_torch.ops.tt import TT, tt_inner_prod, tt_normalise
 from ttipm_tpu_torch.solvers.fused import _bucket4, _svd_retract
@@ -70,7 +76,7 @@ def _shrink_alpha(MA, MD, alpha: float, tol: float) -> float:
         W = torch.linalg.solve_triangular(L, 0.5 * (MD + MD.T), upper=False)
         W = torch.linalg.solve_triangular(L, W.T, upper=False)
         try:
-            lam_max = -float(torch.linalg.eigvalsh(0.5 * (W + W.T))[0])
+            lam_max = -float(safe_eigvalsh(0.5 * (W + W.T))[0])
         except torch.linalg.LinAlgError:
             pass
     if np.isfinite(lam_max) and lam_max > 0:
@@ -223,8 +229,10 @@ def _eigen_step_stalled(prev_step, step, prev_res, res, tol):
 # ---------------------------------------------------------------------------
 
 def _prep_operator(cores: TT) -> TT:
-    """Zero-pad the operator's bond ranks to one multiple of 4 (exact)."""
+    """The operator in the eigen dtype, its bond ranks zero-padded to one
+    multiple of 4 (exact)."""
     d = len(cores)
+    cores = [c.to(config.eigen_dtype()) for c in cores]
     if d == 1:
         return [cores[0]]
     ra = _bucket4(max(c.shape[-1] for c in cores[:-1]))
@@ -244,16 +252,27 @@ def _vec_caps(d: int, R: int, n: int) -> List[int]:
 
 def _prep_vec(x0, d: int, n: int, caps: List[int], rng, ref) -> TT:
     """Eigenvector warm start at exact cap ranks (RL-orthogonalise, then
-    truncate or zero-pad), or a fresh Gaussian drawn from ``rng``."""
+    truncate or zero-pad), or a fresh Gaussian drawn from ``rng``, in the
+    eigen dtype on ``ref``'s device."""
+    dtype = config.eigen_dtype()
     if x0 is None:
         cores = []
         for k in range(d):
             rl = 1 if k == 0 else caps[k - 1]
             rr = 1 if k == d - 1 else caps[k]
-            cores.append(torch.as_tensor(rng.randn(rl, n, rr), dtype=ref.dtype,
-                                         device=ref.device))
+            cores.append(torch.as_tensor(rng.randn(rl, n, rr), dtype=dtype, device=ref.device))
         return cores
-    return _svd_retract(list(x0), caps)
+    return _svd_retract([c.to(dtype) for c in x0], caps)
+
+
+def _eps_floor() -> float:
+    """The unit roundoff that floors an eigensolve's achievable residual:
+    that of the coarser of the pencil dtype and the iterates' dtype (the
+    pencil operands were rounded to the latter).  The pencil's alone lets
+    f64 pencils of f32 iterates penalise correct steps
+    (``fused_eigen.py:664-675``)."""
+    return max(float(torch.finfo(config.eigen_dtype()).eps),
+               float(torch.finfo(config.dtype()).eps))
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +293,7 @@ def tt_max_generalised_eigen_fused(A: TT, Delta: TT, x0: Optional[TT] = None,
     caps = _vec_caps(d, R, n)
     x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
 
-    ones3 = A[0].new_ones((1, 1, 1))
+    ones3 = A_p[0].new_ones((1, 1, 1))
     XAX = [ones3] + [None] * (d - 1) + [ones3]
     XDX = [ones3] + [None] * (d - 1) + [ones3]
     alpha = 1.0
@@ -362,8 +381,8 @@ def tt_max_generalised_eigen_fused(A: TT, Delta: TT, x0: Optional[TT] = None,
     max_res = float(np.max(local_res))
     x_cores = tt_normalise(list(x_cores))
     # Unconverged-eigensolve penalty: shrink the step by tol/res, with tol
-    # floored at the dtype's achievable residual.
-    eps_dt = float(torch.finfo(A[0].dtype).eps)
+    # floored at the dtypes' achievable residual.
+    eps_dt = _eps_floor()
     tol = max(tol, 30.0 * eps_dt, 4.0 * eps_dt * max_scale)
     if max_res > tol and np.isfinite(max_res) and max_res > 0:
         step_size *= tol / max_res
@@ -384,7 +403,7 @@ def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float 
     A_p = _prep_operator(A)
     caps = _vec_caps(d, R, n)
     x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
-    ones3 = A[0].new_ones((1, 1, 1))
+    ones3 = A_p[0].new_ones((1, 1, 1))
     XAX = [ones3] + [None] * (d - 1) + [ones3]
     prev_sweep_res = np.inf
 
@@ -439,5 +458,9 @@ def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float 
     x_cores = tt_normalise(list(x_cores))
     min_eig_value = None
     if return_eig_val:
-        min_eig_value = tt_inner_prod(x_cores, tt_fast_matrix_vec_mul(A, x_cores, 1e-12))
+        # in the wider of the two dtypes, as jnp promotes
+        wide = torch.promote_types(A[0].dtype, x_cores[0].dtype)
+        xw = [c.to(wide) for c in x_cores]
+        min_eig_value = tt_inner_prod(xw, tt_fast_matrix_vec_mul([c.to(wide) for c in A], xw,
+                                                                  1e-12))
     return x_cores, min_eig_value

@@ -142,8 +142,10 @@ def load_problem(name: str):
 def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
     """One seeded solve and its metrics, written into row ``s_i`` of
     ``rec``.  Every draw comes from numpy's global RandomState seeded with
-    ``seed``, as in the JAX package.  Returns (feasibility error,
+    ``seed``, as in the JAX package; the problem is made in the dtype of
+    the profile (``config.dtype()``).  Returns (feasibility error,
     slackness)."""
+    from ttipm_tpu_torch import config as tt_config
     from ttipm_tpu_torch.checks import solve_metrics
     from ttipm_tpu_torch.ipm import IneqStatus, tt_ipm
     from ttipm_tpu_torch.ops.tt import tt_reshape
@@ -153,7 +155,7 @@ def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
     tracker = PeakMemoryTracker(device).__enter__() if args.track_mem else None
     np.random.seed(seed)
     t1 = time.time()
-    problem = create_problem_fn(config["dim"], rank, device=device)
+    problem = create_problem_fn(config["dim"], rank, device=device, dtype=tt_config.dtype())
     if len(problem) == 5:
         obj_tt, L_op_tt, bias_tt, ineq_mask, lag_maps = problem
     else:
