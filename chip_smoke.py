@@ -91,10 +91,36 @@ and prints no result line):
    the JAX package's record of its f32 run, and the f32 instances timed at
    the solve's heaviest shapes.
 
+10. batch: batched seeds on the card (``ttipm_tpu_torch.parallel``).  The
+   batched entries of K1-K4 at the batch's shapes (K2's six terms and K1's
+   four blocks at R = 16 for 5 instances, K3's (64, 18) panels and a
+   cluster-regime (300, 20) one, K4's L_Z of order 1024, blocked and
+   launched once per instance, and the eigen windows' order 256 for 10
+   pencils), f64 and f32: every instance within phase 3's tolerances of its
+   plain version and equal bit for bit to a single launch on it, a batch
+   of one equal to the single launch; timed in f64 beside the plain
+   version, the batched library call (``linalg.qr``, ``cholesky_ex`` on
+   (B, ...)) and the B single launches.  Then the first Newton systems of
+   the five seeds of configs/maxcut_10.yaml through
+   ``tt_newton_step_batch`` in one batch (BATCH_STEP): finite directions,
+   steps in (0, 1], instance 0's steps a batch of one's (1e-5), every
+   predictor residual within 10x of the single ``tt_block_amen_fused``
+   solve's, every kernel launched through its batched entry, no plain
+   version on a CUDA tensor, the batched entries held to phase 3's
+   tolerances on the first call of each shape.  Printed: the walls of the
+   batch and of five batches of one, of the predictor solve batched and
+   five single solves, the host syncs, the device busy share of the
+   batched step (torch.profiler), the peak memory, launches and instances.
+   Last, ``run_batch`` on the five seeds of configs/maxcut_8.yaml with five
+   worker processes on the card: every seed converged, seed 24 in phase 5's
+   iterations.
+
 The line before the last is a JSON object with the per-kernel record
 (launches on the d8, d10, corr_clust d6 and graphm paths; the f32
 instances as entries of their own: ``launches`` those of phase 9's solve,
-``launches_capture`` those of its capture run); the last line
+``launches_capture`` those of its capture run; ``launches_batch`` and
+``instances_batch`` those of phase 10's batched step, ``batch`` the timed
+row of the kernel's heaviest batched shape); the last line
 is {"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
 build always) and then prints neither.
 """
@@ -439,8 +465,8 @@ def phase_slice(dim, seed):
     (called directly, so the counters do not move; K1/K2 errors relative to
     the scale of their terms, since the solver's operands cancel, see
     ttipm_tpu_torch.checks); the seconds these checks take are reported
-    apart from the solve's wall.  Returns per kernel (launches, plain
-    calls, launches through the grouped entry)."""
+    apart from the solve's wall.  Returns (per kernel (launches, plain
+    calls, launches through the grouped entry), the iterations)."""
     import torch
 
     from ttipm_tpu_torch.checks import KERNEL_OF, kernel_errors, shape_key
@@ -505,7 +531,7 @@ def phase_slice(dim, seed):
             raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
         if name in ("schur_assemble", "kkt_block_matvec") and grouped <= 0:
             raise AssertionError(f"{name}: its grouped entry was not launched on the main path")
-    return counts
+    return counts, res["iters"]
 
 
 def phase_slice_times(label, shapes, first, names):
@@ -1078,7 +1104,409 @@ def as_f32(spec):
     return spec
 
 
-PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32")
+# The batch cell: the first Newton systems of the five seeds of
+# configs/maxcut_10.yaml in one lockstep batch, at tt_newton_step_batch's
+# JAX defaults (R = 16, R_eig = 8, nswp = 12) and seed 5; then the five
+# seeds of configs/maxcut_8.yaml as worker processes on the card.
+BATCH_CELL = ("maxcut", 10)
+BATCH_STEP = {"R": 16, "R_eig": 8, "nswp": 12, "seed": 5}
+RUN_BATCH_CELL = ("maxcut", 8)
+SLICE_ITERS_D8_SEED24 = 8  # phase 5's iterations on d8 seed 24, used when phase 5 does not run
+
+
+def batch_operands(dev, dtype, rng):
+    """The batched entries' operands at the batch cell's shapes: K2's six
+    terms and K1's four blocks at R = 16 and operator rank 4 for 5
+    instances (flipped / transposed views, x strided columns of a block
+    core, as the batched algebra hands them over), K3's (64, 18) panels of
+    the R = 16 splits and a cluster-regime (300, 20) one, K4's L_Z of
+    order 1024 (blocked, once per instance) and the eigen windows' order
+    256 for the 10 pencils of a step-size batch.  {label: (entry, args,
+    kw)}."""
+    import torch
+
+    def t(*shape):
+        return torch.as_tensor(rng.randn(*shape), device=dev).to(dtype)
+
+    def spd(B, n):
+        a = t(B, n, n)
+        return a @ a.mT + n * torch.eye(n, dtype=dtype, device=dev)
+
+    B, R, s = 5, 16, 4
+    x = t(B, R, 3, 4, R)
+    ops = [(t(B, R, s, R), t(B, s, 4, 4, s), t(B, R, s, R)) for _ in range(5)]
+    flipped = (t(B, R, s, R).permute(0, 3, 2, 1), t(B, s, 4, 4, s).transpose(2, 3),
+               t(B, R, s, R).permute(0, 3, 2, 1))
+    terms = [(*ops[0], x[:, :, 0], 0), (*ops[1], x[:, :, 1], 0), (*flipped, x[:, :, 0], 1),
+             (*ops[2], x[:, :, 2], 1), (*ops[3], x[:, :, 1], 2), (*ops[4], x[:, :, 2], 2)]
+    return {
+        "kkt_block_product_batch": ("kkt_block_product_batch", (terms, 3), {}),
+        "kkt_block_product_batch_one_term": ("kkt_block_product_batch", ([terms[0]], 1), {}),
+        "schur_assemble_batch": ("schur_assemble_batch", ([ops[3], flipped, ops[4], ops[0]],), {}),
+        "schur_assemble_batch_one_block": ("schur_assemble_batch", ([ops[0]],), {}),
+        "panel_qr_batch": ("panel_qr_batch", (t(B, 64, 18),), {"transposed": True}),
+        "panel_qr_batch_cluster": ("panel_qr_batch", (t(B, 300, 20),), {}),
+        "panel_cholesky_batch": ("panel_cholesky_batch", (spd(B, 1024),), {}),
+        "panel_cholesky_batch_eigen": ("panel_cholesky_batch", (spd(2 * B, 256),), {}),
+    }
+
+
+def batch_library_call(name, args):
+    """The one PyTorch call computing what a batched entry computes on its
+    (B, ...) operands: batched ``einsum`` for a K2 product of one term and
+    a K1 group of one block, ``linalg.qr`` and ``cholesky_ex``; None for
+    the grouped K1 / K2 calls."""
+    import torch
+
+    if name == "panel_qr_batch":
+        return lambda a, transposed=False: torch.linalg.qr(a, mode="reduced")
+    if name == "panel_cholesky_batch":
+        return torch.linalg.cholesky_ex
+    if name == "kkt_block_product_batch" and len(args[0]) == 1:
+        return lambda terms, nrows: torch.einsum("zlsr,zsmnS,zLSR,zrnR->zlmL", *terms[0][:4])
+    if name == "schur_assemble_batch" and len(args[0]) == 1:
+        return lambda blocks: torch.einsum("zlsr,zsmnS,zLSR->zlmLrnR", *blocks[0])
+    return None
+
+
+def phase_batch_kernels():
+    """The batched entries of K1-K4 on the card at the batch cell's shapes,
+    f64 and f32: every instance within phase 3's tolerances of its plain
+    version, and equal bit for bit to a single launch on that instance (a
+    batch of one equal to the single launch too).  Timed in f64 (in turns:
+    plain, library, the B single launches, the batched launch, and back):
+    returns per kernel the row of its heaviest batched shape."""
+    import torch
+
+    from ttipm_tpu_torch.checks import SINGLE_OF, batch_instance, check_batch, shape_key
+    from ttipm_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(2025)
+    plain_batch = {"kkt_block_product_batch": K.kkt_block_product_batch_plain,
+                   "schur_assemble_batch": K.schur_assemble_batch_plain,
+                   "panel_qr_batch": K.panel_qr_batch_plain,
+                   "panel_cholesky_batch": K.panel_cholesky_batch_plain}
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        for label, (name, args, kw) in batch_operands(dev, dtype, rng).items():
+            fn = getattr(K, name)
+            single = getattr(K, SINGLE_OF[name])
+            out = fn(*args, **kw)
+            errs = check_batch(name, args, out, kw)
+            B = _tensors(args)[0].shape[0]
+            for i in range(B):
+                _, a_i, o_i = batch_instance(name, args, kw, out, i)
+                want = single(*a_i, **kw)
+                if name == "panel_qr_batch" and kw.get("transposed"):
+                    want = (want[0].T, want[1])
+                if not _same_bits(o_i, want):
+                    raise AssertionError(f"{label} {dtype}: instance {i} differs from a single "
+                                         "launch on it")
+            one = _batch_args(args, slice(0, 1))
+            _, a_0, o_0 = batch_instance(name, one, kw, fn(*one, **kw), 0)
+            want = single(*a_0, **kw)
+            if name == "panel_qr_batch" and kw.get("transposed"):
+                want = (want[0].T, want[1])
+            if not _same_bits(o_0, want):
+                raise AssertionError(f"{label} {dtype}: a batch of one differs from the single "
+                                     "launch")
+            row = {"entry": name, "dtype": str(dtype).split(".")[-1], "B": B,
+                   "shape": shape_key(args), **errs}
+            if dtype == torch.float64:
+                singles = [batch_instance(name, args, kw, out, i)[1] for i in range(B)]
+                fns = [lambda: plain_batch[name](*args, **kw),
+                       lambda: [single(*a, **kw) for a in singles], lambda: fn(*args, **kw)]
+                lib = batch_library_call(name, args)
+                if lib is not None:
+                    fns.insert(1, lambda: lib(*args, **kw))
+                ms = _turns_ms(fns, runs=5, warmup=2)
+                one_bound, by = bound_ms(SINGLE_OF[name], singles[0])
+                row.update({"ms": ms[-1], "singles_ms": ms[-2], "plain_ms": ms[0],
+                            "library_ms": ms[1] if lib is not None else None,
+                            "bound_ms": B * one_bound, "bound_by": by})
+                kernel = KERNEL_NAME[name]
+                if kernel not in rows or row["bound_ms"] > rows[kernel]["bound_ms"]:
+                    rows[kernel] = row
+            print(json.dumps({"batch_kernel": label, **row}), flush=True)
+    return rows
+
+
+# The kernel (key of kernels.STATS) of each batched entry.
+KERNEL_NAME = {"kkt_block_product_batch": "kkt_block_matvec",
+               "schur_assemble_batch": "schur_assemble",
+               "panel_qr_batch": "panel_qr", "panel_cholesky_batch": "panel_cholesky"}
+
+
+def _batch_args(args, index):
+    """``args`` with every tensor indexed along its batch axis."""
+    import torch
+
+    if isinstance(args, torch.Tensor):
+        return args[index]
+    if isinstance(args, (list, tuple)):
+        return type(args)(_batch_args(a, index) for a in args)
+    return args
+
+
+def _same_bits(a, b):
+    import torch
+
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and bool(torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0)))
+        for x, y in zip(ta, tb))
+
+
+def _busy_share(fn):
+    """Device busy share of one call of ``fn``: the union of the intervals
+    of its device activities (kernels, copies) in a torch.profiler trace of
+    the device alone, over the call's synchronised host wall (the
+    profiler's own cost included), and the device time by kernel.  Read
+    from the trace's raw events (parsing a trace of ~300,000 kernels into
+    profiler events took two minutes).  None where the trace holds no
+    device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation()]
+        if events:
+            busy, end = 0, -1
+            by_name, calls = Counter(), Counter()
+            for e in sorted(events, key=lambda e: e.start_ns()):
+                a, b = e.start_ns(), e.start_ns() + e.duration_ns()
+                if b > end:
+                    busy += b - max(a, end)
+                    end = b
+                by_name[e.name()[:80]] += e.duration_ns() / 1e6
+                calls[e.name()[:80]] += 1
+            return {"busy_share": busy / 1e6 / wall_ms, "device_busy_ms": busy / 1e6,
+                    "profiled_wall_ms": wall_ms, "device_activities": len(events),
+                    "top_kernels_ms": [(n, ms, calls[n]) for n, ms in by_name.most_common(12)]}
+        time.sleep(0.5)
+    return None
+
+
+def phase_batch(slice_iters=None):
+    """Phase 10: the batched seeds on the card.  (1) the batched kernels
+    (``phase_batch_kernels``); (2) the first Newton systems of the five
+    seeds of configs/maxcut_10.yaml through ``tt_newton_step_batch`` in one
+    batch (BATCH_STEP): finite directions, steps in (0, 1], instance 0's
+    steps those of a batch of one (1e-5, tests/test_parallel.py:168), every
+    instance's predictor residual at most 10x the single
+    ``tt_block_amen_fused`` residual on its system or 1e-8
+    (test_parallel.py:101, measured by ``checks.kkt_residual_norm``, which
+    resolves that bound), every kernel launched through its batched entry and no plain version
+    on a CUDA tensor; (3) walls: the batch of 5 against five batches of
+    one, and the predictor solve batched against five single solves, the
+    host syncs and the device busy share (torch.profiler) of the batched
+    step, the peak device memory; (4) ``run_batch`` on the five seeds of
+    configs/maxcut_8.yaml, five workers on the card: every seed ok and
+    converged, seed 24 in phase 5's iterations.  Returns per kernel the
+    launches and instances of each type ("f64", "f32") in the counted
+    batched step, and the rows of ``phase_batch_kernels``."""
+    import warnings
+
+    import torch
+
+    from ttipm_tpu_torch.checks import (batch_errors, first_newton_system, kkt_residual_norm,
+                                        shape_key)
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.parallel.batch import run_batch
+    from ttipm_tpu_torch.parallel.fused_mesh import (tt_block_amen_fused_batch,
+                                                     tt_newton_step_batch)
+    from ttipm_tpu_torch.solvers import fused as F
+
+    t_phase = time.perf_counter()
+    parts = {}
+    rows = phase_batch_kernels()
+    parts["kernels_s"] = time.perf_counter() - t_phase
+    dev = torch.device("cuda")
+    problem, dim = BATCH_CELL
+    cfg = load_config(dim, problem)
+    seeds = [int(s) for s in cfg["seeds"]]
+    t0 = time.perf_counter()
+    inst = [first_newton_system(problem, cfg, s, dev) for s in seeds]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    systems = [(i[0], i[1]) for i in inst]
+    Xs, Zs = [i[2] for i in inst], [i[3] for i in inst]
+
+    def step(k):
+        return tt_newton_step_batch(systems[:k], Xs[:k], Zs[:k], **BATCH_STEP)
+
+    # the counted run: launches, host syncs, peak memory, and every batched
+    # entry held to phase 3's tolerances on the first call of each shape
+    checked = {name: {} for name in K.STATS}
+    originals = {name: getattr(K, name) for name in KERNEL_NAME}
+
+    def recorder(name):
+        fn = originals[name]
+
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            key = (name, shape_key(a), str(kw))
+            if key not in checked[KERNEL_NAME[name]]:
+                checked[KERNEL_NAME[name]][key] = batch_errors(name, a, out, kw, cancelling=True)
+            return out
+        return wrapped
+
+    t_part = time.perf_counter()
+    for name in KERNEL_NAME:
+        setattr(K, name, recorder(name))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                xs, zs, dirs = step(len(seeds))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        for name, fn in originals.items():
+            setattr(K, name, fn)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {n: (s.launches, s.instances, s.batched, s.plain_calls)
+              for n, s in K.STATS.items()}
+    by_dtype = {n: {tag: (s.by_dtype[tag], s.instances_by_dtype[tag]) for tag in s.by_dtype}
+                for n, s in K.STATS.items()}
+    syncs = Counter(os.path.relpath(w.filename, REPO) for w in caught
+                    if "synchroniz" in str(w.message))
+    syncs = {f: c for f, c in syncs.items()
+             if f.startswith("ttipm_tpu_torch") and not f.endswith("checks.py")}
+    report_checks("batch_checks", checked, f"the {problem} d{dim} batch's shapes")
+    parts["counted_step_with_checks_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(len(seeds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    for d_i in dirs:
+        for t_tt in d_i:
+            if not all(bool(torch.isfinite(c).all()) for c in t_tt):
+                raise AssertionError("batch: a non-finite direction")
+    if not (np.all(xs > 0) and np.all(xs <= 1) and np.all(zs > 0) and np.all(zs <= 1)):
+        raise AssertionError(f"batch: steps outside (0, 1]: {xs} {zs}")
+    for name, (launches, instances, batched, plain) in counts.items():
+        if batched <= 0 or instances <= 0:
+            raise AssertionError(f"{name}: no batched launch in the d{dim} batch")
+        if plain != 0:
+            raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs1, zs1, _ = step(1)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    if (abs(xs[0] - xs1[0]) >= 1e-5 * max(1.0, abs(xs1[0]))
+            or abs(zs[0] - zs1[0]) >= 1e-5 * max(1.0, abs(zs1[0]))):
+        raise AssertionError(f"batch: instance 0's steps {xs[0]}, {zs[0]} against a batch of "
+                             f"one {xs1[0]}, {zs1[0]}")
+    singles_s = [one_s]
+    for k in range(1, len(seeds)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt_newton_step_batch([systems[k]], [Xs[k]], [Zs[k]], **BATCH_STEP)
+        torch.cuda.synchronize()
+        singles_s.append(time.perf_counter() - t0)
+
+    parts["timed_steps_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    # the predictor solve alone: batched against single solves
+    kw = {"R": BATCH_STEP["R"], "term_tol": 1e-6, "nswp": BATCH_STEP["nswp"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols, _ = tt_block_amen_fused_batch([s[0] for s in systems], [s[1] for s in systems],
+                                        ineq=False, seed=BATCH_STEP["seed"], **kw)
+    torch.cuda.synchronize()
+    solve_batch_s = time.perf_counter() - t0
+    res_batch, res_single, solve_single_s = [], [], 0.0
+    for (lhs, rhs), x_b in zip(systems, sols):
+        d = len(x_b)
+        A, b = F.prep_operator(lhs), F.prep_rhs(rhs, d, x_b[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_s, _ = F.tt_block_amen_fused(lhs, rhs, kw["term_tol"], kw["R"], nswp=kw["nswp"],
+                                       rng=np.random.RandomState(BATCH_STEP["seed"]))
+        torch.cuda.synchronize()
+        solve_single_s += time.perf_counter() - t0
+        res_batch.append(kkt_residual_norm(A, b, x_b) / rhs.norm)
+        res_single.append(kkt_residual_norm(A, b, x_s) / rhs.norm)
+    for rb, rs in zip(res_batch, res_single):
+        if not rb < max(10 * rs, 1e-8):
+            raise AssertionError(f"batch: predictor residual {rb} against the single solve's {rs}")
+
+    parts["predictor_solves_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    busy = _busy_share(lambda: step(len(seeds)))
+    parts["profiled_step_s"] = time.perf_counter() - t_part
+    res = {
+        "cell": f"{problem} d{dim} seeds {seeds}", **BATCH_STEP, "systems_build_s": build_s,
+        "x_steps": list(map(float, xs)), "z_steps": list(map(float, zs)),
+        "x_steps_batch_of_one": float(xs1[0]), "z_steps_batch_of_one": float(zs1[0]),
+        "wall_batch_s": wall, "wall_singles_s": sum(singles_s), "singles_s": singles_s,
+        "batch_over_singles": wall / sum(singles_s),
+        "predictor_solve_batch_s": solve_batch_s, "predictor_solves_single_s": solve_single_s,
+        "predictor_rel_res_batch": res_batch, "predictor_rel_res_single": res_single,
+        "host_syncs": sum(syncs.values()),
+        "host_syncs_by_file": dict(sorted(syncs.items(), key=lambda kv: -kv[1])),
+        "device": busy if busy is not None else "not measured (no device events traced)",
+        "max_memory_allocated": peak,
+        "counts": {n: {"launches": c[0], "instances": c[1], "batched": c[2], "plain_calls": c[3]}
+                   for n, c in counts.items()},
+        "parts_s": parts,
+    }
+    print(json.dumps({"batch": res}), flush=True)
+
+    problem8, dim8 = RUN_BATCH_CELL
+    cfg8 = load_config(dim8, problem8)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as log:  # the five solves' iteration logs
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(log.fileno(), 1)
+        try:
+            results = run_batch(problem8, config_path(dim8, problem8),
+                                [int(s) for s in cfg8["seeds"]], workers=5, device="cuda")
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+    run_s = time.perf_counter() - t0
+    print(json.dumps({"run_batch": {"config": f"{problem8}_{dim8}.yaml", "workers": 5,
+                                    "wall_s": run_s, "results": results}}), flush=True)
+    abs_tol = float(cfg8["abs_tol"])
+    for r in results:
+        if not r["ok"]:
+            raise AssertionError(f"run_batch: seed {r['seed']} failed: {r.get('error')}")
+        if not (r["slackness"] < abs_tol and r["feasibility_error"] < abs_tol
+                and r["dual_feasibility_error"] < abs_tol):
+            raise AssertionError(f"run_batch: seed {r['seed']} did not converge: {r}")
+    want = slice_iters if slice_iters is not None else SLICE_ITERS_D8_SEED24
+    got = {r["seed"]: int(r["num_iters"]) for r in results}
+    if got.get(24) != want:
+        raise AssertionError(f"run_batch: seed 24 took {got.get(24)} iterations, phase 5 {want}")
+    print(json.dumps({"batch_phase_s": time.perf_counter() - t_phase}), flush=True)
+    return {n: {tag: {"launches_batch": c[0], "instances_batch": c[1]}
+                for tag, c in by_dtype[n].items()} | {"batch": rows.get(n)}
+            for n in counts}
+
+
+PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32", "batch")
 
 
 def main(argv=None) -> int:
@@ -1099,22 +1527,25 @@ def main(argv=None) -> int:
     summary = phase_kernels() if "kernels" in phases else None
     if "parity" in phases:
         phase_parity()
-    counts = phase_slice(args.dim, args.seed) if "slice" in phases else None
+    counts, slice_iters = (phase_slice(args.dim, args.seed) if "slice" in phases
+                           else (None, None))
     counts_fb = phase_fallback(*FALLBACK_CELL) if "fallback" in phases else None
     counts_ineq = phase_ineq(*INEQ_CELL) if "ineq" in phases else None
     counts_gm = phase_graphm(*GRAPHM_CELL) if "graphm" in phases else None
     summary_f32 = phase_f32(*F32_CELL) if "f32" in phases else None
+    summary_batch = phase_batch(slice_iters) if "batch" in phases else None
     if set(phases) != set(PHASES):
         return 0
 
     record = [
         {"name": n, "dtype": "float64", "route": "cuda", "source": KERNELS[n][0],
          "replaces": KERNELS[n][1], "launches": counts[n][0], "launches_d10": counts_fb[n][0],
-         "launches_ineq": counts_ineq[n][0], "launches_graphm": counts_gm[n][0], **summary[n]}
+         "launches_ineq": counts_ineq[n][0], "launches_graphm": counts_gm[n][0], **summary[n],
+         **summary_batch[n]["f64"], "batch": summary_batch[n]["batch"]}
         for n in KERNELS
     ] + [
         {"name": f"{n}_f32", "dtype": "float32", "route": "cuda", "source": KERNELS[n][0],
-         "replaces": KERNELS[n][1], **summary_f32[n]}
+         "replaces": KERNELS[n][1], **summary_f32[n], **summary_batch[n]["f32"]}
         for n in KERNELS
     ]
     import torch

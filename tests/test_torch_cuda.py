@@ -281,8 +281,10 @@ def test_cuda_contractions_are_one_device_kernel(cuda, dtype, R, s):
     """Exactly one device kernel per K1 / K2 call, single or grouped, on
     contiguous and on flipped operands: no GEMM, copy or elementwise
     kernel from inside the wrappers; and one wrapper call per block
-    product of the fused algebra."""
-    from ttipm_tpu_torch.solvers import fused_algebra as fa
+    product of the fused algebra (a batch of one, as the single solve runs
+    it)."""
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
     rng = np.random.RandomState(R)
     ranks = [(s, s), (s + 1, s), (1, 1), (s, s + 2), (2, s)]
@@ -292,16 +294,17 @@ def test_cuda_contractions_are_one_device_kernel(cuda, dtype, R, s):
     pr = {k: _dev(rng, cuda, R, s, R, dtype=dtype) for k in keys + ("10",)}
     A = {k: _dev(rng, cuda, s, 4, 4, s, dtype=dtype) for k in keys}
     x = _dev(rng, cuda, R, 3, 4, R, dtype=dtype)
+    pl, pr, A, x = b1((pl, pr, A, x))
     calls = {
         "kkt_block_product": lambda: K.kkt_block_product(terms, 3),
         "kkt_block_matvec": lambda: K.kkt_block_matvec(*terms[2][:4]),
         "schur_assemble_group": lambda: K.schur_assemble_group(blocks),
         "schur_assemble": lambda: K.schur_assemble(*blocks[1]),
-        "apply_T": lambda: fa.apply_T(pl["01"], A["01"], pr["01"], x[:, 0]),
-        "local_product": lambda: fa.local_product(pl, A, pr, x),
-        "z_product": lambda: fa.z_product(pl, A, pr, x),
-        "mixed_product": lambda: fa.mixed_product(pl, pr, A, x, True),
-        "mixed_product_left": lambda: fa.mixed_product(pl, pr, A, x, False),
+        "apply_T": lambda: fb.apply_T(pl["01"], A["01"], pr["01"], x[:, :, 0]),
+        "local_product": lambda: fb.local_product(pl, A, pr, x),
+        "z_product": lambda: fb.z_product(pl, A, pr, x),
+        "mixed_product": lambda: fb.mixed_product(pl, pr, A, x, True),
+        "mixed_product_left": lambda: fb.mixed_product(pl, pr, A, x, False),
     }
     _device_kernel_names(calls["schur_assemble"])
     for name, call in calls.items():
@@ -469,7 +472,8 @@ def test_cuda_backward_split_takes_q_transposed_without_a_copy(cuda):
     view of the kernel's q^T.  Against a K3 that hands back q for the caller
     to transpose, the step runs fewer device kernels and gives the same
     core."""
-    from ttipm_tpu_torch.solvers import fused_algebra as fa
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
     rng = np.random.RandomState(9)
     u_aug = _dev(rng, cuda, 32, 10)
@@ -496,13 +500,14 @@ def test_cuda_backward_split_takes_q_transposed_without_a_copy(cuda):
     x_k, z_k = _dev(rng, cuda, rl, bs, n, rr), _dev(rng, cuda, rz, bs, n, rz)
     x_nb, z_nb = _dev(rng, cuda, 2, n, rl), _dev(rng, cuda, 2, n, rz)
 
-    def solve_local(pl, A, pr, bl, b, br, x):
-        z = x.new_zeros(())
-        return 0.5 * x + 0.1 * torch.roll(x, 1, dims=2), None, z, z, z
+    ops = b1((pl, A, pr, bl, b, br, zl, zr, zbl, zbr, x_k, x_nb, z_k, z_nb))
+
+    def solve_local(pl, A, pr, bl, b, br, x):  # a batch of one
+        z = x.new_zeros(x.shape[0])
+        return 0.5 * x + 0.1 * torch.roll(x, 1, dims=3), z, z, z
 
     def step():
-        return fa.bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
-                                 x_k, x_nb, z_k, z_nb, 8, 2, True)
+        return fb.bck_split_step(solve_local, *ops, 8, 2, True)
 
     new_names = _device_kernel_names(step)
     core = step()[0]
@@ -1092,3 +1097,170 @@ def test_cuda_graphm_first_newton_system(cuda, monkeypatch):
             assert all(s.plain_calls == 0 for s in K.STATS.values())
             bad = {k: v for k, v in checked.items() if not v["ok"]}
             assert checked and not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# Batches: the batched entries of K1-K4 (one call for B instances, the
+# lockstep batched solve of parallel/fused_mesh.py).  Each instance is held
+# against its plain version, and against a single call on it bit for bit
+# (the same code in the same order); a batch of one equals the single call.
+# ---------------------------------------------------------------------------
+
+def _batch_group_operands(rng, dev, B, R, ranks, dtype):
+    """``_group_operands`` with a leading batch axis of B: the third term
+    and the second block flipped / transposed views, x strided columns of
+    one block core, as the batched fused algebra hands them over."""
+    def t(*shape):
+        return _dev(rng, dev, B, *shape, dtype=dtype)
+
+    x = t(R, 3, 4, R)
+    ops = [(t(R, s, R), t(s, 4, 4, S), t(R, S, R)) for s, S in ranks]
+    s, S = ranks[0]
+    flipped = (t(R, s, R).permute(0, 3, 2, 1), t(s, 4, 4, S).transpose(2, 3),
+               t(R, S, R).permute(0, 3, 2, 1))
+    terms = [(*ops[0], x[:, :, 0], 0), (*ops[1], x[:, :, 1], 0), (*flipped, x[:, :, 0], 1),
+             (*ops[2], x[:, :, 2], 1), (*ops[3], x[:, :, 1], 2), (*ops[4], x[:, :, 2], 2)]
+    return terms, [ops[3], flipped, ops[4], ops[0]]
+
+
+def _instance(group, i):
+    return [tuple(t[i] if torch.is_tensor(t) else t for t in item) for item in group]
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and bool(torch.equal(torch.nan_to_num(a, 7.0), torch.nan_to_num(b, 7.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("R", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 4, 9])
+@pytest.mark.parametrize("B", [1, 5])
+def test_cuda_batched_contractions(cuda, dtype, R, s, B):
+    rng = np.random.RandomState(100 * R + s)
+    ranks = [(s, s), (s + 1, s), (1, 1), (s, s + 2), (2, s)]
+    terms, blocks = _batch_group_operands(rng, cuda, B, R, ranks, dtype)
+    y = K.kkt_block_product_batch(terms, 3)
+    G = K.schur_assemble_batch(blocks)
+    assert y.shape == (B, R, 3, 4, R) and G.shape == (4, B, 4 * R * R, 4 * R * R)
+    for i in range(B):
+        ti, bi = _instance(terms, i), _instance(blocks, i)
+        check_kernel("kkt_block_product", (ti, 3), y[i])
+        check_kernel("schur_assemble_group", (bi,), list(G[:, i]))
+        assert _same_bits(y[i], K.kkt_block_product(ti, 3))
+        assert _same_bits(G[:, i], torch.stack(K.schur_assemble_group(bi)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("mn", [(24, 6), (64, 18), (144, 36), (300, 20), (512, 128)])
+@pytest.mark.parametrize("B", [1, 3])
+def test_cuda_batched_panel_qr(cuda, dtype, mn, B):
+    """Every regime: one CTA an instance up to 192 rows, a cluster of 2 or
+    4 row slabs an instance above (with a workspace slice each)."""
+    m, n = mn
+    a = _dev(np.random.RandomState(m + n), cuda, B, n, m, dtype=dtype).transpose(1, 2)
+    a[0, :, n // 2] = a[0, :, 0]  # a rank-deficient instance
+    for transposed in (False, True):
+        q, r = K.panel_qr_batch(a, transposed=transposed)
+        assert q.is_contiguous() and q.shape == ((B, n, m) if transposed else (B, m, n))
+        for i in range(B):
+            qi = q[i].T if transposed else q[i]
+            check_kernel("panel_qr", (a[i],), (qi, r[i]))
+            q1, r1 = K.panel_qr(a[i], transposed=transposed)
+            assert _same_bits(q[i], q1) and _same_bits(r[i], r1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("n", [16, 144, 400, 1024])
+@pytest.mark.parametrize("B", [1, 4])
+def test_cuda_batched_panel_cholesky(cuda, dtype, n, B):
+    """One CTA (n <= 160), a cluster of 8 (to 512) an instance, and the
+    blocked regime launched once per instance; info per instance, an
+    indefinite instance beside SPD ones."""
+    a = torch.stack([_spd(n, cuda, seed=n + i, dtype=dtype) for i in range(B)])
+    if B > 1:
+        a[1, n // 3, n // 3] = -1.0
+    a = a.transpose(1, 2)  # the lower triangle read through strides
+    L, info = K.panel_cholesky_batch(a)
+    assert L.shape == (B, n, n) and info.shape == (B,)
+    for i in range(B):
+        check_kernel("panel_cholesky", (a[i],), (L[i], info[i]))
+        L1, info1 = K.panel_cholesky(a[i])
+        assert int(info1) == int(info[i])
+        if int(info1) == 0:
+            assert _same_bits(L[i], L1)
+    if B > 1:
+        assert int(info[1]) == n // 3 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@_in_own_process
+def test_cuda_batched_calls_are_one_launch(cuda, dtype):
+    """A batched K1, K2, K3 (one CTA and cluster regimes) and resident K4
+    call is one device kernel for all instances; the blocked K4 takes two
+    an instance (the copy and the persistent kernel).  STATS counts each
+    call once and its instances."""
+    rng = np.random.RandomState(5)
+    B = 5
+    terms, blocks = _batch_group_operands(rng, cuda, B, 16, [(4, 4)] * 5, dtype)
+    a = _dev(rng, cuda, B, 64, 18, dtype=dtype)
+    a2 = _dev(rng, cuda, B, 300, 20, dtype=dtype)
+    s1 = torch.stack([_spd(400, cuda, seed=i, dtype=dtype) for i in range(B)])
+    s2 = torch.stack([_spd(1024, cuda, seed=i, dtype=dtype) for i in range(B)])
+    calls = {"kkt_block_matvec": lambda: K.kkt_block_product_batch(terms, 3),
+             "schur_assemble": lambda: K.schur_assemble_batch(blocks),
+             "panel_qr": lambda: K.panel_qr_batch(a),
+             "panel_qr_cluster": lambda: K.panel_qr_batch(a2, transposed=True),
+             "panel_cholesky": lambda: K.panel_cholesky_batch(s1)}
+    _device_kernel_names(calls["schur_assemble"])
+    for name, call in calls.items():
+        kernels = _device_kernel_names(call)
+        assert len(kernels) == 1, (name, kernels)
+        K.reset_counts()
+        call()
+        st = K.STATS[name.replace("_cluster", "")]
+        assert (st.launches, st.batched, st.instances) == (1, 1, B), name
+    kernels = _device_kernel_names(lambda: K.panel_cholesky_batch(s2))
+    assert len(kernels) == 2 * B, kernels
+
+
+@pytest.mark.cuda
+def test_cuda_fused_batch_matches_cpu(cuda):
+    """The lockstep batched fused solve and Newton step of three maxcut d6
+    first Newton systems (configs/maxcut_6.yaml's first seeds) on the card
+    through the batched kernels, against the same on the CPU: each
+    instance's predictor residual within 10x of the CPU run's (the bound of
+    tests/test_parallel.py:101) and the steps to 1e-5 (its bound for two
+    runs of one batch); every kernel launched batched, no plain call."""
+    from ttipm_tpu_torch.checks import first_newton_system, kkt_residual_norm
+    from ttipm_tpu_torch.parallel.fused_mesh import (tt_block_amen_fused_batch,
+                                                     tt_newton_step_batch)
+    from ttipm_tpu_torch.utils.runner import load_yaml
+    from ttipm_tpu_torch.solvers import fused as F
+
+    seeds = (73, 54, 624)
+    runs = {}
+    for dev in ("cpu", cuda):
+        cfg = load_yaml(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                     "maxcut_6.yaml"))
+        inst = [first_newton_system("maxcut", cfg, s, dev) for s in seeds]
+        systems = [i[:2] for i in inst]
+        K.reset_counts()
+        sols, _ = tt_block_amen_fused_batch([s[0] for s in systems], [s[1] for s in systems],
+                                            R=8, ineq=False, term_tol=1e-6, nswp=8, seed=5)
+        res = []
+        for (lhs, rhs), x in zip(systems, sols):
+            A, b = F.prep_operator(lhs), F.prep_rhs(rhs, 6, x[0])
+            res.append(kkt_residual_norm(A, b, x) / rhs.norm)
+        steps = tt_newton_step_batch(systems, [i[2] for i in inst], [i[3] for i in inst], R=8,
+                                     seed=5)[:2]
+        runs[str(dev)] = (res, steps, {n: (s.batched, s.plain_calls) for n, s in K.STATS.items()})
+    (res_c, steps_c, _), (res_g, steps_g, counts) = runs["cpu"], runs[str(cuda)]
+    for rg, rc in zip(res_g, res_c):
+        assert rg < max(10 * rc, 1e-8), (res_g, res_c)
+    for sg, sc in zip(steps_g, steps_c):
+        assert np.all(np.abs(sg - sc) < 1e-5 * np.maximum(1.0, np.abs(sc))), (steps_g, steps_c)
+    assert all(batched > 0 and plain == 0 for batched, plain in counts.values()), counts

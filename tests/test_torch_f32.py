@@ -18,8 +18,9 @@ Each case states its tolerance:
 * the f32 split SVD on the rank-deficient gallery of
   ``tests/test_jacobi.py:114-139`` (``torch.linalg.svd`` keeps u
   orthonormal at zero singular values; no Gram split is needed on the CPU);
-* ``_solve_local`` in "f64", "refine" and "off" on a local system of the
-  captured maxcut d3 Newton system cast to f32, against
+* the fused local solve (``fused_batch.solve_local`` on a batch of one)
+  in "f64", "refine" and "off" on a local system of the captured maxcut
+  d3 Newton system cast to f32, against
   ``fused_host._solve_local`` on the same f32 operands;
 * the f32 fused KKT solve of ``tests/test_f32_profile.py:30`` (relative
   residual < 1e-3 in both packages);
@@ -102,6 +103,7 @@ def test_algebra_floors_f32_match_the_jax_package():
     arithmetic in both, so 1e-6 relative."""
     from ttipm_tpu.solvers.fused_host import _ALG
     from ttipm_tpu_torch.solvers import fused_algebra as fa
+    from ttipm_tpu_torch.solvers import fused_batch as fb
 
     rng = np.random.RandomState(3)
     den = rng.randn(3, 4, 5).astype(np.float32)
@@ -109,14 +111,20 @@ def test_algebra_floors_f32_match_the_jax_package():
     S = rng.randn(12, 12).astype(np.float32)
     core = rng.randn(2, 3, 4, 2).astype(np.float32)
     core[:, 1] *= 1e-8  # a dead block column
-    for name, arg in (("den_clamp", den), ("tikhonov", S), ("column_scales", core)):
+    # the fused solve's (a batch of one) and the ragged solvers' single ones
+    fns = [(name, lambda a, f=getattr(fb, name): f(a.unsqueeze(0))[0])
+           for name in ("den_clamp", "tikhonov", "column_scales")]
+    fns += [(name, getattr(fa, name)) for name in ("tikhonov", "column_scales")]
+    for name, fn in fns:
+        arg = {"den_clamp": den, "tikhonov": S, "column_scales": core}[name]
         want = getattr(_ALG, name)(arg)
-        got = getattr(fa, name)(torch.as_tensor(arg))
+        got = fn(torch.as_tensor(arg))
         assert got.dtype == F32 and want.dtype == np.float32, name
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0, err_msg=name)
     # the f32 floors are in force, not the f64 ones
-    assert float(fa.den_clamp(torch.as_tensor(den)).abs().min()) >= 1e-6 * np.abs(den).max() * 0.99
-    assert float(fa.column_scales(torch.as_tensor(core))[0, 1, 0, 0]) > 1e-6
+    assert (float(fb.den_clamp(torch.as_tensor(den)[None]).abs().min())
+            >= 1e-6 * np.abs(den).max() * 0.99)
+    assert float(fb.column_scales(torch.as_tensor(core)[None])[0, 0, 1, 0, 0]) > 1e-6
 
 
 @pytest.mark.parametrize("kernel", ["kkt_block_matvec", "schur_assemble", "panel_qr",
@@ -237,13 +245,14 @@ LOCAL_MODES = [("f64", 1e-6), ("refine", 1e-5), ("off", 1e-4)]
 @pytest.mark.parametrize("mode,bound", LOCAL_MODES, ids=[m for m, _ in LOCAL_MODES])
 def test_solve_local_modes_match_the_host_engine(f32_profile, mode, bound):
     from ttipm_tpu.solvers import fused_host as FH
-    from ttipm_tpu_torch.solvers import fused as TF
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
     jconfig.set_mixed_local(mode)
     tconfig.set_mixed_local(mode)
     pl, A, pr, bl, b, br, prev = _local_system()
     K.reset_counts()
-    sol, _, res_old, res_min, dx = TF._solve_local(pl, A, pr, bl, b, br, prev)
+    sol, res_old, res_min, dx = (v[0] for v in fb.solve_local(*b1((pl, A, pr, bl, b, br, prev))))
     npy = lambda t: {k: v.numpy() for k, v in t.items()} if isinstance(t, dict) \
         else [v.numpy() for v in t]  # noqa: E731
     sol_j, _, res_old_j, res_min_j, dx_j = FH._solve_local(npy(pl), npy(A), npy(pr), npy(bl),

@@ -31,6 +31,8 @@ from ttipm_tpu_torch.interop import (
     tt_to_torch,
 )
 from ttipm_tpu_torch.solvers import fused as TF
+from ttipm_tpu_torch.solvers import fused_batch as fb
+from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 from ttipm_tpu_torch.solvers.amen import AmenToleranceReached, ladder_rank_cap
 from ttipm_tpu_torch.solvers.fused_eigen import tt_max_generalised_eigen_fused as eig_t
 
@@ -169,12 +171,12 @@ def test_local_solve_keeps_prev_when_cholesky_fails():
     bl = [torch.ones((1, 1), dtype=torch.float64)] * 3
     b = [torch.as_tensor(rng.randn(1, 4, 1)) for _ in range(3)]
     prev = torch.as_tensor(rng.randn(1, 3, 4, 1))
-    sol, _, res_old, res_min, dx = TF._solve_local(pl, A, pl, bl, b, bl, prev)
+    sol, res_old, res_min, dx = (v[0] for v in fb.solve_local(*b1((pl, A, pl, bl, b, bl, prev))))
     assert torch.equal(sol, prev)
     assert float(res_min) == float(res_old) and float(dx) == 0.0
     # with a positive definite L_Z the same system is solved exactly
     A["21"] = 2.0 * eye
-    sol, _, res_old, res_min, _ = TF._solve_local(pl, A, pl, bl, b, bl, prev)
+    sol, res_old, res_min, _ = (v[0] for v in fb.solve_local(*b1((pl, A, pl, bl, b, bl, prev))))
     assert float(res_min) < 1e-9 < float(res_old)
 
 
@@ -260,7 +262,8 @@ def test_dense_factor_assembles_its_blocks_in_one_group():
     A["21"] = torch.eye(4, dtype=u.dtype).reshape(1, 4, 4, 1)
     inv_I = t(3, 4, 2)
     K.reset_counts()
-    L_L_Z, mL_eq, L_X_I_inv, s_lu = TF._dense_factor(pl, A, pr, inv_I)
+    L_L_Z, mL_eq, L_X_I_inv, _ = fb._dense_factor(*b1((pl, A, pr, inv_I)))
+    L_L_Z, mL_eq, L_X_I_inv = L_L_Z[0], mL_eq[0], L_X_I_inv[0]
     assert K.STATS["schur_assemble"].plain_calls == 1
     B = {k: K.schur_assemble_plain(pl[k], A[k], pr[k]) for k in ranks}
     assert torch.equal(mL_eq, B["01"])

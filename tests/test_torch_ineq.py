@@ -78,6 +78,8 @@ from ttipm_tpu_torch.models import max_stable_set as TMSS
 from ttipm_tpu_torch.ops import kernels as K
 from ttipm_tpu_torch.ops import tt as T
 from ttipm_tpu_torch.ops.rounding import tt_mask_rank_reduce as mask_rr_t
+from ttipm_tpu_torch.solvers import fused_batch as fb
+from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 from ttipm_tpu_torch.solvers import fused as TF
 from ttipm_tpu_torch.solvers import fused_algebra as fa
 from ttipm_tpu_torch.solvers import local_kkt as TK
@@ -219,15 +221,15 @@ def test_block_products_match_jax_algebra(kind, monkeypatch):
         pr["10"] = rng.randn(right[0], RANKS["01"][1], 3)
     x = rng.randn(5, 4, 4, 3)
     spy = Spy(monkeypatch)
-    args = (_torch_dict(pl), _torch_dict(A), _torch_dict(pr), torch.as_tensor(x))
+    args = b1((_torch_dict(pl), _torch_dict(A), _torch_dict(pr), torch.as_tensor(x)))
     if kind == "local":
-        want, got = alg.local_product(pl, A, pr, x, True), fa.local_product(*args, ineq=True)
+        want, got = alg.local_product(pl, A, pr, x, True), fb.local_product(*args, ineq=True)[0]
     elif kind == "z":
-        want, got = alg.z_product(pl, A, pr, x, True), fa.z_product(*args, ineq=True)
+        want, got = alg.z_product(pl, A, pr, x, True), fb.z_product(*args, ineq=True)[0]
     else:
         flag = kind == "mixed_right"
         want = alg.mixed_product(pl, pr, A, x, True, flag)
-        got = fa.mixed_product(args[0], args[2], args[1], args[3], flag, ineq=True)
+        got = fb.mixed_product(args[0], args[2], args[1], args[3], flag, ineq=True)[0]
     assert dict(spy.k2) == {(9, 4): 1}
     assert tuple(got.shape) == want.shape
     assert rel(got.numpy(), want) < 1e-12
@@ -240,8 +242,8 @@ def test_project_rhs_matches_jax_algebra():
     b = [rng.randn(2, 4, 3) for _ in range(4)]
     br = [rng.randn(3, 3) for _ in range(4)]
     want = alg.project_rhs(bl, b, br, True)
-    got = fa.project_rhs([torch.as_tensor(v) for v in bl], [torch.as_tensor(v) for v in b],
-                         [torch.as_tensor(v) for v in br], ineq=True)
+    got = fb.project_rhs(*b1(([torch.as_tensor(v) for v in bl], [torch.as_tensor(v) for v in b],
+                              [torch.as_tensor(v) for v in br])), ineq=True)[0]
     assert tuple(got.shape) == want.shape == (5, 4, 4, 3)
     assert rel(got.numpy(), want) < 1e-12
 
@@ -282,18 +284,18 @@ def test_dense_factor_and_apply_match_host_engine(monkeypatch):
     inv_j = 1.0 / JH._den_clamp(np.einsum("lsr,smnS,LSR->lmL", pl["12"], A["12"], pr["12"]))
     want = JH._dense_apply(JH._dense_factor(pl, A, pr, inv_j, True), pl, A, pr, inv_j, rhs_j,
                            True)
-    plt, At, prt = _torch_dict(pl), _torch_dict(A), _torch_dict(pr)
-    inv_t = torch.as_tensor(inv_j)
+    plt, At, prt = b1((_torch_dict(pl), _torch_dict(A), _torch_dict(pr)))
+    inv_t = b1(torch.as_tensor(inv_j))
     spy = Spy(monkeypatch)
-    fac = TF._dense_factor(plt, At, prt, inv_t, ineq=True)
+    fac = fb._dense_factor(plt, At, prt, inv_t, ineq=True)
     assert dict(spy.k1) == {6: 1}
-    got = TF._dense_apply(fac, plt, At, prt, inv_t, torch.as_tensor(rhs_j), ineq=True)
+    got = fb._dense_apply(fac, plt, At, prt, inv_t, b1(torch.as_tensor(rhs_j)), ineq=True)[0]
     assert tuple(got.shape) == want.shape == (4, 4, 4, 3)
     assert rel(got.numpy(), want) < 1e-9
 
-    rows = ([torch.as_tensor(v) for v in vs] for vs in (bl, b, br))
-    sol_t, _, old_t, min_t, _ = TF._solve_local(plt, At, prt, *rows, torch.as_tensor(prev),
-                                                ineq=True)
+    rows = (b1([torch.as_tensor(v) for v in vs]) for vs in (bl, b, br))
+    sol_t, old_t, min_t, _ = (v[0] for v in fb.solve_local(
+        plt, At, prt, *rows, b1(torch.as_tensor(prev)), ineq=True))
     sol_j, _, old_j, min_j, _ = JH._solve_local(pl, A, pr, bl, b, br, prev, True)
     assert rel(sol_t.numpy(), sol_j) < 1e-9
     assert float(old_t) == pytest.approx(old_j, rel=1e-10)
@@ -429,20 +431,21 @@ def replay_fused_solve(captured, port=True, numpy_svd=False, verbose=False):
     import ttipm_tpu.solvers.fused_host as JH
 
     A, b, kw = captured["A"], captured["b"], dict(captured["kw"], verbose=verbose)
-    module = TF if port else JH
-    local, svd, res_old = module._solve_local, fa.fast_split_svd, []
+    # the port's local solve is the batched one, on a batch of one
+    module, name = (fb, "solve_local") if port else (JH, "_solve_local")
+    local, svd, res_old = getattr(module, name), fb.fast_split_svd, []
 
     def spy(*args, **kw_local):
         out = local(*args, **kw_local)
-        res_old.append(float(out[2]))
+        res_old.append(float(out[1][0]) if port else float(out[2]))
         return out
 
     def np_svd(a):
         return tuple(torch.from_numpy(t) for t in np.linalg.svd(a.numpy(), full_matrices=False))
 
-    module._solve_local = spy
+    setattr(module, name, spy)
     if numpy_svd:
-        fa.fast_split_svd = np_svd
+        fb.fast_split_svd = np_svd
     np.random.set_state(captured["state"])
     try:
         if port:
@@ -457,7 +460,8 @@ def replay_fused_solve(captured, port=True, numpy_svd=False, verbose=False):
         else:
             x, res = jfused.tt_restarted_block_amen_fused(A, b, **kw)
     finally:
-        module._solve_local, fa.fast_split_svd = local, svd
+        setattr(module, name, local)
+        fb.fast_split_svd = svd
     return full(x), float(res), res_old
 
 

@@ -270,21 +270,24 @@ def _torch_dict(d):
 
 
 def test_local_product_matches_jax_algebra():
-    from ttipm_tpu_torch.solvers import fused_algebra as fa
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
     rng = np.random.RandomState(10)
     pl, A, pr = _kkt_operands(rng, (5, 5), (3, 3), RANKS)
     x = rng.randn(5, 3, 4, 3)
     want = _jax_algebra().local_product(pl, A, pr, x, False)
     K.reset_counts()
-    got = fa.local_product(_torch_dict(pl), _torch_dict(A), _torch_dict(pr), torch.as_tensor(x))
+    got = fb.local_product(*b1((_torch_dict(pl), _torch_dict(A), _torch_dict(pr),
+                                torch.as_tensor(x))))[0]
     assert K.STATS["kkt_block_matvec"].plain_calls == 1  # one wrapper call a product
     assert tuple(got.shape) == want.shape == (5, 3, 4, 3)
     assert rel(got.numpy(), want) < 1e-12
 
 
 def test_z_product_matches_jax_algebra():
-    from ttipm_tpu_torch.solvers import fused_algebra as fa
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
     rng = np.random.RandomState(11)
     zl, A, zr = _kkt_operands(rng, (2, 5), (4, 3), RANKS)
@@ -293,7 +296,8 @@ def test_z_product_matches_jax_algebra():
     x = rng.randn(5, 3, 4, 3)
     want = _jax_algebra().z_product(zl, A, zr, x, False)
     K.reset_counts()
-    got = fa.z_product(_torch_dict(zl), _torch_dict(A), _torch_dict(zr), torch.as_tensor(x))
+    got = fb.z_product(*b1((_torch_dict(zl), _torch_dict(A), _torch_dict(zr),
+                            torch.as_tensor(x))))[0]
     assert K.STATS["kkt_block_matvec"].plain_calls == 1
     assert tuple(got.shape) == want.shape == (2, 3, 4, 4)
     assert rel(got.numpy(), want) < 1e-12
@@ -301,7 +305,8 @@ def test_z_product_matches_jax_algebra():
 
 @pytest.mark.parametrize("transpose_right_phi", [False, True])
 def test_mixed_product_matches_jax_algebra(transpose_right_phi):
-    from ttipm_tpu_torch.solvers import fused_algebra as fa
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
     rng = np.random.RandomState(12)
     if transpose_right_phi:  # x basis on the left, z basis on the right
@@ -313,8 +318,8 @@ def test_mixed_product_matches_jax_algebra(transpose_right_phi):
     x = rng.randn(5, 3, 4, 3)
     want = _jax_algebra().mixed_product(ml, mr, A, x, False, transpose_right_phi)
     K.reset_counts()
-    got = fa.mixed_product(_torch_dict(ml), _torch_dict(mr), _torch_dict(A),
-                           torch.as_tensor(x), transpose_right_phi)
+    got = fb.mixed_product(*b1((_torch_dict(ml), _torch_dict(mr), _torch_dict(A),
+                                torch.as_tensor(x))), transpose_right_phi)[0]
     assert K.STATS["kkt_block_matvec"].plain_calls == 1
     assert rel(got.numpy(), want) < 1e-12
 
@@ -464,6 +469,24 @@ def test_k1_tile_chooser_fits_every_shape():
     assert K.k1_tiles(((32, 9, 32, 4, 4, 9, 32, 32),)) == (64, 9, 1)
 
 
+@pytest.mark.parametrize("batch", [2, 5, 10, 40])
+def test_batch_plans_keep_an_instances_arithmetic(batch):
+    """A batched launch shares the card between its instances, so its plan
+    may take a larger chunk of l (K2) or another row tile (K1), but K2's tile of
+    R, the only choice that orders a sum, is the single launch's: an
+    instance of a batch sums as a single launch on it does."""
+    for R in (1, 4, 8, 16, 32, 36):
+        for s in (1, 4, 9, 100):
+            dims = ((R, s, R, 4, 4, s, R, R),)
+            for nrows in (1, 3):
+                one, many = K.k2_tiles(dims, nrows), K.k2_tiles(dims, nrows, batch=batch)
+                assert many[1] == one[1] and many[0] >= one[0]
+                _check_k2_plan(dims, many)
+            tm, sc, colsplit = K.k1_tiles(dims * 4, batch=batch)
+            assert tm in (16, 32, 64) and 1 <= sc <= s and colsplit >= 1
+            assert 8 * (tm * (sc | 1) + 32 * 65) <= K.SMEM_LIMIT
+
+
 def test_grouped_wrappers_count_and_refuse():
     rng = np.random.RandomState(16)
     t = lambda *s: torch.as_tensor(rng.randn(*s))  # noqa: E731
@@ -518,6 +541,8 @@ def test_kernel_sources_match_the_wrappers_constants():
     assert k2["kPlanWords"] == len(K.k2_tiles(((8, 4, 8, 4, 4, 4, 8, 8),), 3)) == 10
     assert (k1["kMaxBlocks"], k1["kBlockWords"], k1["kMaxDynamicSmem"]) == (
         K.K1_MAX_BLOCKS, 21, K.SMEM_LIMIT)
+    # a batch stride for each operand: phi_l, A, phi_r (and x in K2)
+    assert (k1["kBatchWords"], k2["kBatchWords"]) == (3, 4)
     assert (k1["kTN"], k1["kKS"]) == (K._K1_TN, K._K1_KS)
 
 
@@ -636,16 +661,17 @@ def test_split_steps_match_jax_and_the_untransposed_call(direction, monkeypatch)
     the JAX package's ``make_sweep_steps`` on the same numpy inputs, and
     bit for bit those of a K3 that hands back q for the caller to transpose."""
     from ttipm_tpu.solvers.fused_algebra import make_sweep_steps
-    from ttipm_tpu_torch.solvers import fused_algebra as fa
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
     ops = _split_operands(np.random.RandomState(30), direction)
 
     def solve_np(pl, A, pr, bl, b, br, x, ineq=False):
         return 0.5 * x + 0.1 * np.roll(x, 1, axis=2), None, 0.0, 0.0, 0.0
 
-    def solve_t(pl, A, pr, bl, b, br, x):
-        z = x.new_zeros(())
-        return 0.5 * x + 0.1 * torch.roll(x, 1, dims=2), None, z, z, z
+    def solve_t(pl, A, pr, bl, b, br, x):  # a batch of one: the block axis is 2 of (1, ...)
+        z = x.new_zeros(x.shape[0])
+        return 0.5 * x + 0.1 * torch.roll(x, 1, dims=3), z, z, z
 
     steps = make_sweep_steps(
         _jax_algebra(), np.einsum, np, solve_np,
@@ -659,17 +685,17 @@ def test_split_steps_match_jax_and_the_untransposed_call(direction, monkeypatch)
             return _torch_dict(v)
         return [torch.as_tensor(t) for t in v] if isinstance(v, list) else torch.as_tensor(v)
 
-    tstep = fa.bck_split_step if direction == "bck" else fa.fwd_split_step
+    tstep = fb.bck_split_step if direction == "bck" else fb.fwd_split_step
     K.reset_counts()
-    got = tstep(solve_t, *(tt(v) for v in ops), 2, 2, True)
+    got = tstep(solve_t, *b1([tt(v) for v in ops]), 2, 2, True)
     assert K.STATS["panel_qr"].plain_calls == 1
 
     def old_panel_qr(a, transposed=False):
         q, r = torch.linalg.qr(a, mode="reduced")
         return (q.T if transposed else q), r
 
-    monkeypatch.setattr(fa.kernels, "panel_qr", old_panel_qr)
-    old = tstep(solve_t, *(tt(v) for v in ops), 2, 2, True)
+    monkeypatch.setattr(fb.kernels, "panel_qr", old_panel_qr)
+    old = tstep(solve_t, *b1([tt(v) for v in ops]), 2, 2, True)
     for g, o in zip(got[:8], old[:8]):
         if isinstance(g, dict):
             assert all(torch.equal(g[k], o[k]) for k in g)
@@ -679,9 +705,9 @@ def test_split_steps_match_jax_and_the_untransposed_call(direction, monkeypatch)
             assert torch.equal(g, o)
 
     width = 4  # r_out + kick
-    assert tuple(got[0].shape) == ((width, 4, 4) if direction == "bck" else (3, 4, width))
+    assert tuple(got[0].shape) == ((1, width, 4, 4) if direction == "bck" else (1, 3, 4, width))
     for ci, ni in ((0, 1), (2, 3)):  # (x core, x neighbour), (z core, z neighbour)
-        gc, gn = _fix_gauge(got[ci].numpy(), got[ni].numpy(), direction)
+        gc, gn = _fix_gauge(got[ci][0].numpy(), got[ni][0].numpy(), direction)
         wc, wn = _fix_gauge(np.asarray(want[ci]), np.asarray(want[ni]), direction)
         np.testing.assert_allclose(gc, wc, rtol=1e-12, atol=1e-12)
         np.testing.assert_allclose(gn, wn, rtol=1e-12, atol=1e-12 * np.abs(wn).max())

@@ -21,15 +21,20 @@ MODULES = [
     "ttipm_tpu_torch.ops.random",
     "ttipm_tpu_torch.ops.rounding",
     "ttipm_tpu_torch.ops.tt",
+    "ttipm_tpu_torch.parallel.batch",
+    "ttipm_tpu_torch.parallel.fused_mesh",
     "ttipm_tpu_torch.solvers.amen",
     "ttipm_tpu_torch.solvers.blocks",
     "ttipm_tpu_torch.solvers.eigen",
     "ttipm_tpu_torch.solvers.fused",
     "ttipm_tpu_torch.solvers.fused_algebra",
+    "ttipm_tpu_torch.solvers.fused_batch",
     "ttipm_tpu_torch.solvers.fused_eigen",
+    "ttipm_tpu_torch.solvers.fused_eigen_batch",
     "ttipm_tpu_torch.solvers.lgmres",
     "ttipm_tpu_torch.solvers.local_kkt",
     "ttipm_tpu_torch.tools.compare_kernels",
+    "ttipm_tpu_torch.tools.compare_solves",
     "ttipm_tpu_torch.utils.checkpoint",
     "ttipm_tpu_torch.utils.memtrack",
     "ttipm_tpu_torch.utils.runner",

@@ -36,8 +36,15 @@ output is held twice: against the plain version in f32 on the same
 operands, and (``rel_f64``) against the plain version in f64 on the
 operands upcast, with the same bound, so an f32 kernel is held to the
 exact product of its operands and not only to another f32 sum.
+The batched entries (``schur_assemble_batch``, ``kkt_block_product_batch``,
+``panel_qr_batch``, ``panel_cholesky_batch``) are held instance by
+instance: instance i of a batched call against the single entry's plain
+version on instance i, to that entry's tolerance (``check_batch``).
 ``solve_metrics`` gives the slackness and feasibility errors by which a
-solve counts as converged.
+solve counts as converged; ``kkt_residual_norm`` the residual of a fused
+KKT solve to the last digits (the solver's own expansion stops at ~1.5e-8
+relative).  ``first_newton_system`` captures the IPM's first equilibrated
+Newton system of a seeded problem, the batched Newton step's operands.
 """
 
 from __future__ import annotations
@@ -48,10 +55,12 @@ from ttipm_tpu_torch.config import cast_tree, first_dtype, tree_map
 from ttipm_tpu_torch.ops import kernels as K
 from ttipm_tpu_torch.ops import tt as tto
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
-from ttipm_tpu_torch.ops.rounding import tt_rank_reduce
+from ttipm_tpu_torch.ops.rounding import tt_rank_reduce, tt_rl_orthogonalise
 
-__all__ = ["TOLERANCE", "TOLERANCE_F32", "PLAIN", "KERNEL_OF", "tolerance", "kernel_errors",
-           "check_kernel", "shape_key", "solve_metrics"]
+__all__ = ["TOLERANCE", "TOLERANCE_F32", "PLAIN", "KERNEL_OF", "SINGLE_OF", "tolerance",
+           "kernel_errors", "check_kernel", "batch_instance", "batch_errors", "check_batch",
+           "shape_key",
+           "solve_metrics", "kkt_residual_norm", "first_newton_system"]
 
 TOLERANCE = {"schur_assemble": 1e-12, "kkt_block_matvec": 1e-12,
              "schur_assemble_group": 1e-12, "kkt_block_product": 1e-12,
@@ -76,6 +85,11 @@ PLAIN = {"schur_assemble": K.schur_assemble_plain,
 KERNEL_OF = {"schur_assemble": "schur_assemble", "schur_assemble_group": "schur_assemble",
              "kkt_block_matvec": "kkt_block_matvec", "kkt_block_product": "kkt_block_matvec",
              "panel_qr": "panel_qr", "panel_cholesky": "panel_cholesky"}
+
+# The single entry whose contract an instance of each batched entry keeps.
+SINGLE_OF = {"schur_assemble_batch": "schur_assemble_group",
+             "kkt_block_product_batch": "kkt_block_product",
+             "panel_qr_batch": "panel_qr", "panel_cholesky_batch": "panel_cholesky"}
 
 
 def _rel(diff: torch.Tensor, ref: torch.Tensor) -> float:
@@ -173,6 +187,66 @@ def shape_key(arg) -> str:
     return str(walk(list(arg)))
 
 
+def batch_instance(name: str, args, kw, out, i: int):
+    """Instance ``i`` of a call ``out = kernels.<name>(*args, **kw)`` of a
+    batched entry, as a call of its single entry: (single name, args,
+    out)."""
+    def take(a):
+        if isinstance(a, torch.Tensor):
+            return a[i]
+        if isinstance(a, (list, tuple)):
+            return type(a)(take(x) for x in a)
+        return a
+
+    single = SINGLE_OF[name]
+    if name == "schur_assemble_batch":
+        return single, take(tuple(args)), list(out[:, i])
+    if name == "panel_qr_batch":
+        q, r = out[0][i], out[1][i]
+        return single, take(tuple(args)), ((q.T if kw.get("transposed") else q), r)
+    return single, take(tuple(args)), take(out)
+
+
+def batch_errors(name: str, args, out, kw=None, cancelling: bool = False) -> dict:
+    """``kernel_errors`` of every instance of a batched call: the worst of
+    each error over the instances, K4's ``info`` the first nonzero info of
+    an instance (0 where there is none) and ``infos`` the list of them, and
+    ``ok`` false where an instance is outside its tolerance."""
+    kw = kw or {}
+    worst = {"ok": True}
+    infos = []
+    for i in range(_batch_len(args)):
+        single, a, o = batch_instance(name, args, kw, out, i)
+        errs = kernel_errors(single, a, o, cancelling)
+        worst["ok"] = worst["ok"] and errs["ok"]
+        infos.append(errs.get("info"))
+        for k, v in errs.items():
+            if isinstance(v, float):
+                worst[k] = max(worst.get(k, 0.0), v)
+    if name == "panel_cholesky_batch":
+        worst["info"] = next((int(v) for v in infos if v), 0)
+        worst["infos"] = infos
+    worst["instances"] = len(infos)
+    return worst
+
+
+def check_batch(name: str, args, out, kw=None, cancelling: bool = False) -> dict:
+    """``batch_errors``, raising AssertionError where an instance is
+    outside its tolerance."""
+    errs = batch_errors(name, args, out, kw, cancelling)
+    if not errs["ok"]:
+        raise AssertionError(f"{name} {shape_key(args)}: an instance outside its tolerance: "
+                             f"{errs}")
+    return errs
+
+
+def _batch_len(args) -> int:
+    t = args[0]
+    while not isinstance(t, torch.Tensor):
+        t = t[0]
+    return t.shape[0]
+
+
 def check_kernel(name: str, args, out, cancelling: bool = False) -> dict:
     """``kernel_errors``, raising AssertionError outside the tolerance."""
     errs = kernel_errors(name, args, out, cancelling)
@@ -199,3 +273,68 @@ def solve_metrics(X, Y, Z, obj_tt, L_tt, bias_tt, T=None, ineq_active=False):
     if ineq_active:
         dr = tt_rank_reduce(tto.tt_sub(dr, tto.tt_reshape(T, (4,))), eps=1e-12)
     return slack, tto.tt_inner_prod(pr, pr), tto.tt_inner_prod(dr, dr)
+
+
+def kkt_residual_norm(A, b, x_cores, ineq=False) -> float:
+    """||b - K x|| of a fused KKT solve's solution ``x_cores`` (``A`` and
+    ``b`` as ``solvers/fused.py``'s ``prep_operator`` / ``prep_rhs`` give
+    them).  Each row's residual is formed as an exact train (b_i minus the
+    row's terms A_key x_col, concatenated) and RL-orthogonalised; its norm
+    is that of the first core.  The orthogonalisation's rounding is
+    relative to the trains' scale, so relative residuals resolve to about
+    1e-15, where ``fused_residual_norm``'s expansion
+    ||b||^2 - 2 <b, Kx> + ||Kx||^2 cancels below ~1.5e-8."""
+    from ttipm_tpu_torch.solvers import fused_algebra as fa
+
+    block_pos = max(range(len(x_cores)), key=lambda i: x_cores[i].dim())
+    x_cols = []
+    for j in range(fa.nrows(ineq)):
+        cols = list(x_cores)
+        cols[block_pos] = x_cores[block_pos][:, j]
+        x_cols.append(cols)
+    total = 0.0
+    for i, terms in enumerate(fa.row_terms(ineq)):
+        train = list(b[i])
+        for key, col, transpose in terms:
+            train = tto.tt_sub(train, fa.virtual_term_cores(A, x_cols, key, col, transpose))
+        total += float(torch.sum(tt_rl_orthogonalise(train)[0].double() ** 2))
+    return float(total ** 0.5)
+
+
+class _Captured(BaseException):
+    """Stops a solve at its first KKT solve (the IPM's Newton step turns an
+    ``Exception`` into a zero step)."""
+
+
+def first_newton_system(problem: str, config: dict, seed: int, device):
+    """The first Newton system of ``problem`` at seed ``seed`` and the
+    settings of ``config`` (a runner config), as ``ipm.tt_ipm`` builds and
+    equilibrates it when the runner solves that seed: ``(lhs, rhs, X, Z)``,
+    captured at its first KKT solve, with the iterates it was built at.
+    One instance's arguments of ``parallel.fused_mesh.tt_newton_step_batch``."""
+    from ttipm_tpu_torch import ipm
+    from ttipm_tpu_torch.utils import runner
+
+    build, solve, seen = ipm.tt_infeasible_newton_system, ipm._solve_kkt, {}
+
+    def build_seen(lhs, obj, X, Y, Z, *rest):
+        seen["X"], seen["Z"] = X, Z
+        return build(lhs, obj, X, Y, Z, *rest)
+
+    def solve_seen(solver, lhs, rhs, status):
+        seen["system"] = (lhs, rhs)
+        raise _Captured
+
+    lag_maps, obj, L, bias, mask = runner.seeded_problem(
+        runner.load_problem(problem), config["dim"], 1, seed, device)
+    ipm.tt_infeasible_newton_system, ipm._solve_kkt = build_seen, solve_seen
+    try:
+        ipm.tt_ipm(lag_maps, obj, L, bias, ineq_mask=mask,
+                   **{**runner.ipm_kwargs(config), "verbose": False})
+    except _Captured:
+        pass
+    finally:
+        ipm.tt_infeasible_newton_system, ipm._solve_kkt = build, solve
+    if "system" not in seen:
+        raise RuntimeError(f"{problem} seed {seed}: the solve ended before its first KKT solve")
+    return (*seen["system"], seen["X"], seen["Z"])

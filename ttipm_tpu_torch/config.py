@@ -128,7 +128,7 @@ def tf32_off() -> bool:
             and torch.get_float32_matmul_precision() == "highest")
 
 
-# Mixed-precision local solves of the f32 profile (``fused.py::_solve_local``):
+# Mixed-precision local solves of the f32 profile (``fused_batch.solve_local``):
 # an all-f32 fused Newton solve stalls (maxcut d3 at slackness ~1e-2 in the
 # JAX package), so by default the dense Schur chain of each local solve runs
 # in f64 on upcast operands.

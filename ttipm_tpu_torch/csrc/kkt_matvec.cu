@@ -36,6 +36,13 @@
 //    allocation and no copy for it.
 //  * Every operand is read through its element strides, so transposed and
 //    flipped views cost no copy.
+//  * A batch of B structurally identical products (the lockstep batched
+//    solve, one product an instance) is the same launch: the table is one
+//    instance's, each operand of a term has a batch stride besides, and the
+//    grid's z dimension is the instance.  The chunk of l may be smaller for
+//    a batch (the grid is fuller); neither it nor the staging changes an
+//    instance's arithmetic, so an instance gets the bits of a launch of its
+//    product alone.
 //  * A dependent fma whose operand comes from device memory costs the load's
 //    latency every step (measured on the card: 8 cycles a step from
 //    registers, 22 from shared memory, 55-105 from L1, ~150 from L2), and
@@ -67,6 +74,7 @@ namespace {
 constexpr int kMaxTerms = 12;
 constexpr int kMaxThreads = 512;
 constexpr int kTermWords = 26;  // 64-bit words of one packed term
+constexpr int kBatchWords = 4;  // 64-bit words of one term's batch strides
 constexpr int kMaxDynamicSmem = 232448;
 
 template <typename T>
@@ -77,6 +85,7 @@ struct Term {
   const T* x;
   int l, s, r, m, n, S, L, R, row;
   long long phl0, phl1, phl2, a0, a1, a2, a3, phr0, phr1, phr2, x0, x1, x2;
+  long long bphl, ba, bphr, bx;  // element strides between the instances of a batch
 };
 
 template <typename T>
@@ -102,6 +111,7 @@ kkt_product_kernel(const __grid_constant__ TermTable<T> tab, T* __restrict__ out
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int row = blockIdx.y;
+  const long long bi = blockIdx.z;  // the instance
   const int lc = plan.lc, rt = plan.rt;
   const int l0 = blockIdx.x * lc;
   const int nl = min(lc, l - l0);
@@ -130,7 +140,7 @@ kkt_product_kernel(const __grid_constant__ TermTable<T> tab, T* __restrict__ out
 
       // Operands: staged into shared memory where the plan has room (then
       // contiguous in the order the stages walk them), else in place.
-      const T* phl_p = t.phil + l0 * t.phl0;
+      const T* phl_p = t.phil + bi * t.bphl + l0 * t.phl0;
       long long phl0 = t.phl0, phl1 = t.phl1, phl2 = t.phl2;
       if (nl * t.s * t.r <= plan.cap_phl) {  // [li][s][r]
         for (int e = tid; e < nl * t.s * t.r; e += nthreads) {
@@ -139,7 +149,7 @@ kkt_product_kernel(const __grid_constant__ TermTable<T> tab, T* __restrict__ out
         }
         phl_p = phl_s, phl0 = t.s * t.r, phl1 = t.r, phl2 = 1;
       }
-      const T* x_p = t.x + R0 * t.x2;
+      const T* x_p = t.x + bi * t.bx + R0 * t.x2;
       long long x0 = t.x0, x1 = t.x1, x2 = t.x2;
       if (t.r * t.n * nR <= plan.cap_x) {  // [r][n][Ri]
         for (int e = tid; e < t.r * t.n * nR; e += nthreads) {
@@ -148,7 +158,7 @@ kkt_product_kernel(const __grid_constant__ TermTable<T> tab, T* __restrict__ out
         }
         x_p = x_s, x0 = t.n * nR, x1 = nR, x2 = 1;
       }
-      const T* a_p = t.a;
+      const T* a_p = t.a + bi * t.ba;
       long long a0 = t.a0, a1 = t.a1, a2 = t.a2, a3 = t.a3;
       if (t.s * t.m * t.n * t.S <= plan.cap_a) {  // [s][m][n][S]
         for (int e = tid; e < t.s * t.m * t.n * t.S; e += nthreads) {
@@ -160,7 +170,7 @@ kkt_product_kernel(const __grid_constant__ TermTable<T> tab, T* __restrict__ out
         }
         a_p = a_s, a0 = t.m * t.n * t.S, a1 = t.n * t.S, a2 = t.S, a3 = 1;
       }
-      const T* phr_p = t.phir + R0 * t.phr2;
+      const T* phr_p = t.phir + bi * t.bphr + R0 * t.phr2;
       long long phr0 = t.phr0, phr1 = t.phr1, phr2 = t.phr2;
       if (t.S * nR * Lp <= plan.cap_phr) {  // [S][Ri][L], L fastest and padded
         for (int e = tid; e < L * t.S * nR; e += nthreads) {
@@ -237,10 +247,11 @@ kkt_product_kernel(const __grid_constant__ TermTable<T> tab, T* __restrict__ out
     first = false;
   }
 
+  T* outb = out + bi * l * nrows * m * L;
   for (int o = tid; o < nout; o += nthreads) {
     const int lm = o % nlm;
     const int Li = o / nlm;
-    out[(((long long)(l0 + lm / m) * nrows + row) * m + lm % m) * L + Li] = yrow[o];
+    outb[(((long long)(l0 + lm / m) * nrows + row) * m + lm % m) * L + Li] = yrow[o];
   }
 }
 
@@ -248,17 +259,20 @@ __global__ void empty_kernel() {}
 
 // `table` holds nterms packed terms of kTermWords 64-bit words each: the
 // four operand addresses, l s r m n S L R, the element strides of phi_l
-// (3), A (4), phi_r (3) and x (3), and the output row.  `plan` holds the
-// kPlanWords 32-bit words of a Plan.  `out` is the contiguous
-// (l, nrows, m, L) result, in the operands' type (double or float).
+// (3), A (4), phi_r (3) and x (3), and the output row.  `bstrides` holds,
+// for a batch of nbatch instances, kBatchWords words a term: the element
+// strides between the instances of phi_l, A, phi_r and x (unread when
+// nbatch is 1).  `plan` holds the kPlanWords 32-bit words of a Plan.
+// `out` is the contiguous (nbatch, l, nrows, m, L) result, in the operands'
+// type (double or float).
 template <typename T>
-int kkt_product(const long long* table, int nterms, const int* plan_words, T* out, int l, int m,
-                int L, int nrows, void* stream) {
+int kkt_product(const long long* table, const long long* bstrides, int nterms, int nbatch,
+                const int* plan_words, T* out, int l, int m, int L, int nrows, void* stream) {
   Plan plan;
   static_assert(sizeof(Plan) == kPlanWords * sizeof(int), "Plan is kPlanWords ints");
   memcpy(&plan, plan_words, sizeof(Plan));
   if (nterms < 0 || nterms > kMaxTerms || l <= 0 || m <= 0 || L <= 0 || nrows <= 0 ||
-      nrows > 65535 || plan.lc <= 0 || plan.rt <= 0 || plan.smem_bytes > kMaxDynamicSmem ||
+      nrows > 65535 || nbatch <= 0 || nbatch > 65535 || (nbatch > 1 && bstrides == nullptr) || plan.lc <= 0 || plan.rt <= 0 || plan.smem_bytes > kMaxDynamicSmem ||
       plan.threads <= 0 || plan.threads > kMaxThreads)
     return (int)cudaErrorInvalidValue;
   const long long elems = 2LL * plan.lc * m * L + plan.cap1 + plan.cap2 + plan.cap_phl +
@@ -280,6 +294,9 @@ int kkt_product(const long long* table, int nterms, const int* plan_words, T* ou
     t.phr0 = w[19], t.phr1 = w[20], t.phr2 = w[21];
     t.x0 = w[22], t.x1 = w[23], t.x2 = w[24];
     t.row = (int)w[25];
+    const long long* bw = nbatch > 1 ? bstrides + (long long)i * kBatchWords : nullptr;
+    t.bphl = bw ? bw[0] : 0, t.ba = bw ? bw[1] : 0, t.bphr = bw ? bw[2] : 0;
+    t.bx = bw ? bw[3] : 0;
     const int nR = t.R < plan.rt ? t.R : plan.rt;
     if (t.l != l || t.m != m || t.L != L || t.row < 0 || t.row >= nrows ||
         (long long)t.s * t.n * plan.lc * nR > plan.cap1 ||
@@ -291,7 +308,7 @@ int kkt_product(const long long* table, int nterms, const int* plan_words, T* ou
         kkt_product_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((unsigned)((l + plan.lc - 1) / plan.lc), (unsigned)nrows);
+  dim3 grid((unsigned)((l + plan.lc - 1) / plan.lc), (unsigned)nrows, (unsigned)nbatch);
   kkt_product_kernel<T><<<grid, plan.threads, plan.smem_bytes,
                           static_cast<cudaStream_t>(stream)>>>(tab, out, l, m, L, nrows, plan);
   return (int)cudaGetLastError();
@@ -299,14 +316,18 @@ int kkt_product(const long long* table, int nterms, const int* plan_words, T* ou
 
 }  // namespace
 
-extern "C" int ttipm_kkt_product(const long long* table, int nterms, const int* plan_words,
-                                 double* out, int l, int m, int L, int nrows, void* stream) {
-  return kkt_product<double>(table, nterms, plan_words, out, l, m, L, nrows, stream);
+extern "C" int ttipm_kkt_product(const long long* table, const long long* bstrides, int nterms,
+                                 int nbatch, const int* plan_words, double* out, int l, int m,
+                                 int L, int nrows, void* stream) {
+  return kkt_product<double>(table, bstrides, nterms, nbatch, plan_words, out, l, m, L, nrows,
+                             stream);
 }
 
-extern "C" int ttipm_kkt_product_f32(const long long* table, int nterms, const int* plan_words,
-                                     float* out, int l, int m, int L, int nrows, void* stream) {
-  return kkt_product<float>(table, nterms, plan_words, out, l, m, L, nrows, stream);
+extern "C" int ttipm_kkt_product_f32(const long long* table, const long long* bstrides,
+                                     int nterms, int nbatch, const int* plan_words, float* out,
+                                     int l, int m, int L, int nrows, void* stream) {
+  return kkt_product<float>(table, bstrides, nterms, nbatch, plan_words, out, l, m, L, nrows,
+                            stream);
 }
 
 // An empty kernel through the same path: the floor of a single call.

@@ -56,6 +56,15 @@
 //    and below n ~ 2048 the chain.  Code size counts here too: unrolling
 //    the loads of a task further made every order slower.
 //
+// A batch of B matrices of one order (the lockstep batched solve, one
+// matrix an instance, a batch stride apart; info one int each) is one call.
+// In the resident regime it is one launch, the instance the grid's y
+// dimension (one CTA or one cluster each).  In the blocked regime the call
+// launches the copy and the persistent kernel once per instance, in turn on
+// the stream, each with its own slice of the workspace: the persistent
+// kernel takes every SM for one factorization.  An instance runs the code
+// of a single call, so it gets its bits.
+//
 // Two instances, double and float (scalar.cuh), from one template.  The
 // float one is the TPU kernel's own type (the Pallas dispatcher takes f32
 // only, ttipm_tpu/ops/kernels.py:332) at full f32 precision: Hopper has no
@@ -361,7 +370,7 @@ __device__ __forceinline__ void named_wait() {
 // data, so all hold the same values and see the same failure.
 template <typename Real>
 __global__ void __launch_bounds__(kThreads, 1)
-chol_resident_kernel(const Real* __restrict__ a, long long s0, long long s1,
+chol_resident_kernel(const Real* __restrict__ a, long long s0, long long s1, long long sa,
                      Real* __restrict__ out, int n, int T, int* __restrict__ info) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Real* smem = reinterpret_cast<Real*>(smem_raw);
@@ -370,6 +379,10 @@ chol_resident_kernel(const Real* __restrict__ a, long long s0, long long s1,
   const int ctas = (int)cluster.num_blocks();
   const int me = (int)cluster.block_rank();
   const int warp = threadIdx.x >> 5;
+  const long long bi = blockIdx.y;  // the instance: its matrix, factor and info
+  a += bi * sa;
+  out += bi * n * n;
+  info += bi;
   Real* Dbuf = smem;                     // factored diagonal tiles k, k + 1 (by parity)
   Real* invbuf = smem + 2 * kTileElems;  // their inverse pivots
   Real* col = invbuf + 2 * kTs;          // column scratch of the diagonal factor
@@ -1039,14 +1052,14 @@ cudaError_t set_smem_limits() {
 }
 
 template <typename Real>
-cudaError_t launch_resident(const Real* a, long long s0, long long s1, Real* out, int n,
-                            int* info, cudaStream_t st) {
+cudaError_t launch_resident(const Real* a, long long s0, long long s1, long long sa, int nbatch,
+                            Real* out, int n, int* info, cudaStream_t st) {
   const int T = (n + kTs - 1) / kTs;
   const int ctas = T <= kSingleCtaMaxT ? 1 : kClusterCtas;
   const size_t smem =
       (size_t)((resident_tiles(T, ctas) + 3) * kTileElems + 4 * kTs) * sizeof(Real);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
+  cfg.gridDim = dim3(ctas, nbatch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -1057,7 +1070,7 @@ cudaError_t launch_resident(const Real* a, long long s0, long long s1, Real* out
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, chol_resident_kernel<Real>, a, s0, s1, out, n, T, info);
+  return cudaLaunchKernelEx(&cfg, chol_resident_kernel<Real>, a, s0, s1, sa, out, n, T, info);
 }
 
 template <typename Real>
@@ -1095,16 +1108,24 @@ long long workspace(int n) {
   return P * kNB + (ints * (long long)sizeof(int) + sizeof(Real) - 1) / sizeof(Real);
 }
 
-// ws: workspace<Real>(n) elements, or null up to the resident bound.
+// nbatch matrices, sa elements apart; out nbatch contiguous n x n
+// factors, info nbatch ints.  ws: nbatch times workspace<Real>(n)
+// elements, or null up to the resident bound.
 template <typename Real>
-int factor(const Real* a, long long s0, long long s1, Real* out, int n, int* info, Real* ws,
-           void* stream) {
-  if (n < 1 || (n > kResidentMaxN && ws == nullptr)) return (int)cudaErrorInvalidValue;
+int factor(const Real* a, long long s0, long long s1, long long sa, int nbatch, Real* out, int n,
+           int* info, Real* ws, void* stream) {
+  if (n < 1 || nbatch < 1 || nbatch > 65535 || (n > kResidentMaxN && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem_limits<Real>();
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= kResidentMaxN) return (int)launch_resident(a, s0, s1, out, n, info, st);
-  return (int)launch_blocked(a, s0, s1, out, n, info, ws, st);
+  if (n <= kResidentMaxN) return (int)launch_resident(a, s0, s1, sa, nbatch, out, n, info, st);
+  const long long wsz = workspace<Real>(n);
+  for (long long i = 0; i < nbatch; ++i) {
+    err = launch_blocked(a + i * sa, s0, s1, out + i * n * n, n, info + i, ws + i * wsz, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -1113,12 +1134,14 @@ extern "C" long long ttipm_panel_cholesky_workspace(int n) { return workspace<do
 
 extern "C" long long ttipm_panel_cholesky_workspace_f32(int n) { return workspace<float>(n); }
 
-extern "C" int ttipm_panel_cholesky(const double* a, long long s0, long long s1, double* out,
-                                    int n, int* info, double* ws, void* stream) {
-  return factor(a, s0, s1, out, n, info, ws, stream);
+extern "C" int ttipm_panel_cholesky(const double* a, long long s0, long long s1, long long sa,
+                                    int nbatch, double* out, int n, int* info, double* ws,
+                                    void* stream) {
+  return factor(a, s0, s1, sa, nbatch, out, n, info, ws, stream);
 }
 
-extern "C" int ttipm_panel_cholesky_f32(const float* a, long long s0, long long s1, float* out,
-                                        int n, int* info, float* ws, void* stream) {
-  return factor(a, s0, s1, out, n, info, ws, stream);
+extern "C" int ttipm_panel_cholesky_f32(const float* a, long long s0, long long s1, long long sa,
+                                        int nbatch, float* out, int n, int* info, float* ws,
+                                        void* stream) {
+  return factor(a, s0, s1, sa, nbatch, out, n, info, ws, stream);
 }

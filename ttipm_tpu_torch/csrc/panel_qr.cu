@@ -97,6 +97,12 @@
 // step ahead never overwrites what another still reads.  This regime is
 // off the solve's path: 2 n exchanges of ~3K cycles each.
 //
+// A batch of B panels of one shape (the lockstep batched solve, one panel
+// an instance, a batch stride apart) is one launch: the grid's y dimension
+// is the instance, one CTA or one cluster each, with its own slice of the
+// workspace.  An instance runs the code of a single launch, so it gets its
+// bits.
+//
 // The launch plan (CTAs, threads, workspace, shared memory) is chosen in
 // Python (ops/kernels.py::k3_plan) and checked here against the same
 // constants.
@@ -266,13 +272,18 @@ __device__ __forceinline__ void turn_column(T* col, int c, int r0, int ml, T tc,
 // ---------------------------------------------------------------------------
 template <typename T, int kRpl, bool kMulti>
 __global__ void __launch_bounds__(kMulti ? kMaxThreads : kMaxThreadsOneCta, 1)
-panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, T* __restrict__ q,
-                int q_trans, T* __restrict__ r, int m, int n, int mb, T* ws,
+panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, long long sa,
+                T* __restrict__ q, int q_trans, T* __restrict__ r, int m, int n, int mb, T* ws,
                 long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
   const int ctas = kMulti ? (int)gridDim.x : 1, cta = kMulti ? (int)blockIdx.x : 0;
+  const long long bi = blockIdx.y;  // the instance: its panel, factors and workspace
+  a += bi * sa;
+  q += bi * m * n;
+  r += bi * n * n;
+  if (kMulti) ws += bi * (2 * (ctas + 1) * n + ctas);
   const int ld = mb | 1;
   const int r0 = cta * mb;                  // first row of this CTA's slab
   const int ml = max(0, min(mb, m - r0));   // its rows
@@ -485,8 +496,8 @@ size_t smem_bytes(int mb, int n) {
 // One kernel for the slab height and the regime; the shared-memory limit
 // is raised once per device.
 template <typename T, int kRpl, bool kMulti>
-cudaError_t launch_as(const T* a, long long s0, long long s1, T* q, int q_trans,
-                      T* r, int m, int n, int ctas, int threads, T* ws,
+cudaError_t launch_as(const T* a, long long s0, long long s1, long long sa, int nbatch, T* q,
+                      int q_trans, T* r, int m, int n, int ctas, int threads, T* ws,
                       long long* stamps, cudaStream_t st) {
   static unsigned raised = 0;  // one bit per device
   auto kernel = panel_qr_kernel<T, kRpl, kMulti>;
@@ -502,7 +513,7 @@ cudaError_t launch_as(const T* a, long long s0, long long s1, T* q, int q_trans,
   }
   int mb = (m + ctas - 1) / ctas;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
+  cfg.gridDim = dim3(ctas, nbatch);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem_bytes<T>(mb, n);
   cfg.stream = st;
@@ -513,56 +524,64 @@ cudaError_t launch_as(const T* a, long long s0, long long s1, T* q, int q_trans,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kMulti ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, a, s0, s1, q, q_trans, r, m, n, mb, ws, stamps);
+  return cudaLaunchKernelEx(&cfg, kernel, a, s0, s1, sa, q, q_trans, r, m, n, mb, ws, stamps);
 }
 
 template <typename T, bool kMulti>
-cudaError_t launch_rows(int mb, const T* a, long long s0, long long s1, T* q,
-                        int q_trans, T* r, int m, int n, int ctas, int threads, T* ws,
+cudaError_t launch_rows(int mb, const T* a, long long s0, long long s1, long long sa, int nbatch,
+                        T* q, int q_trans, T* r, int m, int n, int ctas, int threads, T* ws,
                         long long* stamps, cudaStream_t st) {
   if (mb <= 32)
-    return launch_as<T, 1, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+    return launch_as<T, 1, kMulti>(a, s0, s1, sa, nbatch, q, q_trans, r, m, n, ctas, threads, ws,
+                                   stamps, st);
   if (mb <= 64)
-    return launch_as<T, 2, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
+    return launch_as<T, 2, kMulti>(a, s0, s1, sa, nbatch, q, q_trans, r, m, n, ctas, threads, ws,
+                                   stamps, st);
   if (mb <= 128)
-    return launch_as<T, 4, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
-  return launch_as<T, kMaxSlabRows / 32, kMulti>(a, s0, s1, q, q_trans, r, m, n, ctas, threads,
-                                                 ws, stamps, st);
+    return launch_as<T, 4, kMulti>(a, s0, s1, sa, nbatch, q, q_trans, r, m, n, ctas, threads, ws,
+                                   stamps, st);
+  return launch_as<T, kMaxSlabRows / 32, kMulti>(a, s0, s1, sa, nbatch, q, q_trans, r, m, n,
+                                                 ctas, threads, ws, stamps, st);
 }
 
 template <typename T>
-cudaError_t launch(const T* a, long long s0, long long s1, T* q, int q_trans, T* r,
-                   int m, int n, int ctas, int threads, T* ws, long long* stamps,
-                   cudaStream_t st) {
+cudaError_t launch(const T* a, long long s0, long long s1, long long sa, int nbatch, T* q,
+                   int q_trans, T* r, int m, int n, int ctas, int threads, T* ws,
+                   long long* stamps, cudaStream_t st) {
   if (n < 1 || m < n || m > kMaxM || n > kMaxN || ctas < 1 || ctas > kMaxCtas || threads < 32 ||
       threads > (ctas > 1 ? kMaxThreads : kMaxThreadsOneCta) || threads % 32 != 0 ||
-      (ctas > 1 && ws == nullptr))
+      (ctas > 1 && ws == nullptr) || nbatch < 1 || nbatch > 65535 ||
+      (stamps != nullptr && nbatch != 1))
     return cudaErrorInvalidValue;
   const int mb = (m + ctas - 1) / ctas;
   if (mb > kMaxSlabRows || smem_bytes<T>(mb, n) > (size_t)kMaxDynamicSmem)
     return cudaErrorInvalidValue;
   if (ctas > 1)
-    return launch_rows<T, true>(mb, a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, stamps, st);
-  return launch_rows<T, false>(mb, a, s0, s1, q, q_trans, r, m, n, 1, threads, ws, stamps, st);
+    return launch_rows<T, true>(mb, a, s0, s1, sa, nbatch, q, q_trans, r, m, n, ctas, threads,
+                                ws, stamps, st);
+  return launch_rows<T, false>(mb, a, s0, s1, sa, nbatch, q, q_trans, r, m, n, 1, threads, ws,
+                               stamps, st);
 }
 
 }  // namespace
 
-// a: (m, n) with element strides s0, s1.  q: m n elements, (m, n) row-major
-// or, with q_trans, (n, m) row-major.  r: n n elements.  ctas, threads: the
-// launch plan of k3_plan.  ws: 2 (ctas + 1) n + ctas elements when ctas > 1
-// (uninitialised), else unused.  One entry for double, one for float.
-extern "C" int ttipm_panel_qr(const double* a, long long s0, long long s1, double* q,
-                              int q_trans, double* r, int m, int n, int ctas, int threads,
-                              double* ws, void* stream) {
-  return (int)launch(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, nullptr,
+// a: nbatch panels (m, n) with element strides s0, s1, the instances sa
+// elements apart.  q: nbatch times m n elements, each (m, n) row-major or,
+// with q_trans, (n, m) row-major.  r: nbatch times n n elements.  ctas,
+// threads: the launch plan of k3_plan.  ws: nbatch times 2 (ctas + 1) n +
+// ctas elements when ctas > 1 (uninitialised), else unused.  One entry for
+// double, one for float.
+extern "C" int ttipm_panel_qr(const double* a, long long s0, long long s1, long long sa,
+                              int nbatch, double* q, int q_trans, double* r, int m, int n,
+                              int ctas, int threads, double* ws, void* stream) {
+  return (int)launch(a, s0, s1, sa, nbatch, q, q_trans, r, m, n, ctas, threads, ws, nullptr,
                      static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int ttipm_panel_qr_f32(const float* a, long long s0, long long s1, float* q,
-                                  int q_trans, float* r, int m, int n, int ctas, int threads,
-                                  float* ws, void* stream) {
-  return (int)launch(a, s0, s1, q, q_trans, r, m, n, ctas, threads, ws, nullptr,
+extern "C" int ttipm_panel_qr_f32(const float* a, long long s0, long long s1, long long sa,
+                                  int nbatch, float* q, int q_trans, float* r, int m, int n,
+                                  int ctas, int threads, float* ws, void* stream) {
+  return (int)launch(a, s0, s1, sa, nbatch, q, q_trans, r, m, n, ctas, threads, ws, nullptr,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -574,6 +593,6 @@ extern "C" int ttipm_panel_qr_stamps(const double* a, double* q, double* r, int 
                                      int ctas, int threads, double* ws, long long* stamps,
                                      void* stream) {
   if (stamps == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch(a, n, 1, q, 0, r, m, n, ctas, threads, ws, stamps,
+  return (int)launch(a, n, 1, 0, 1, q, 0, r, m, n, ctas, threads, ws, stamps,
                      static_cast<cudaStream_t>(stream));
 }

@@ -30,6 +30,12 @@
 //    blockIdx.z; the table of blocks (pointers, dims, strides) is a kernel
 //    parameter passed by value.  Small blocks take 16-row tiles so that a
 //    group still spreads over the card.
+//  * A batch of B structurally identical groups (the lockstep batched
+//    solve, one group an instance) is the same launch: the table is one
+//    instance's, each operand of a block has a batch stride besides, and
+//    the z axis runs over (block, instance), the instance fastest, so the
+//    output is the contiguous (nblocks, B, M, N).  An instance is computed
+//    by the same code in the same order as a launch of its group alone.
 //  * Arithmetic: plain fma in the operands' type, each contracted index
 //    ascending in one chain from zero.
 //
@@ -46,6 +52,7 @@ namespace {
 
 constexpr int kMaxBlocks = 8;
 constexpr int kBlockWords = 21;  // 64-bit words of one packed block
+constexpr int kBatchWords = 3;   // 64-bit words of one block's batch strides
 constexpr int kThreads = 256;
 constexpr int kTN = 64;  // columns (L | R) per tile
 constexpr int kKS = 32;  // slice of S staged from phi_r per step
@@ -58,11 +65,12 @@ struct Block {
   const T* phir;
   int l, s, r, m, n, S, L, R;
   long long phl0, phl1, phl2, a0, a1, a2, a3, phr0, phr1, phr2;
+  long long bphl, ba, bphr;  // element strides between the instances of a batch
 };
 
 template <typename T>
 struct BlockTable {
-  int nblocks;
+  int nblocks, nbatch;
   Block<T> b[kMaxBlocks];
 };
 
@@ -78,7 +86,11 @@ schur_kernel(const __grid_constant__ BlockTable<T> tab, T* __restrict__ out,
   T* Ws = smem;  // TM x ldw, then Ps: kKS x (kTN + 1)
   T(*Ps)[kTN + 1] = reinterpret_cast<T(*)[kTN + 1]>(smem + TM * ldw);
 
-  const Block<T>& b = tab.b[blockIdx.z];
+  const Block<T>& b = tab.b[blockIdx.z / tab.nbatch];
+  const long long bi = blockIdx.z % tab.nbatch;  // the instance
+  const T* phil = b.phil + bi * b.bphl;
+  const T* amat = b.a + bi * b.ba;
+  const T* phir = b.phir + bi * b.bphr;
   const long long Mw = (long long)b.l * b.m * b.r * b.n;
   const int Nw = b.L * b.R;
   const long long row0 = (long long)blockIdx.y * TM;
@@ -134,8 +146,8 @@ schur_kernel(const __grid_constant__ BlockTable<T> tab, T* __restrict__ out,
             q /= b.r;
             const int mi = (int)(q % b.m);
             const long long li = q / b.m;
-            const T* p = b.phil + li * b.phl0 + ri * b.phl2;
-            const T* ap = b.a + mi * b.a1 + ni * b.a2 + (S0 + Si) * b.a3;
+            const T* p = phil + li * b.phl0 + ri * b.phl2;
+            const T* ap = amat + mi * b.a1 + ni * b.a2 + (S0 + Si) * b.a3;
 #pragma unroll 4
             for (int si = 0; si < b.s; ++si) w = ttipm::madd(p[si * b.phl1], ap[si * b.a0], w);
           }
@@ -149,7 +161,7 @@ schur_kernel(const __grid_constant__ BlockTable<T> tab, T* __restrict__ out,
         for (int e = tid; e < nk * kTN; e += kThreads) {
           const int kk = e / kTN, cc = e % kTN;
           const int gj = ct * kTN + cc;
-          Ps[kk][cc] = gj < Nw ? b.phir[(gj / b.R) * b.phr0 + (S0 + k0 + kk) * b.phr1 +
+          Ps[kk][cc] = gj < Nw ? phir[(gj / b.R) * b.phr0 + (S0 + k0 + kk) * b.phr1 +
                                         (gj % b.R) * b.phr2]
                                : T(0);
         }
@@ -194,17 +206,22 @@ cudaError_t launch(const BlockTable<T>& tab, T* out, long long stride, int sc, i
 
 // `table` holds nblocks packed blocks of kBlockWords 64-bit words each:
 // the three operand addresses, l s r m n S L R, and the element strides of
-// phi_l (3), A (4) and phi_r (3).  `out` is the contiguous (nblocks, M, N)
-// result, in the operands' type (double or float).  tm is the row tile
-// (16, 32 or 64), sc the resident chunk of S, colsplit the number of CTAs
-// that share the column tiles of a row tile.
+// phi_l (3), A (4) and phi_r (3).  `bstrides` holds, for a batch of
+// nbatch instances, kBatchWords words a block: the element strides between
+// the instances of phi_l, A and phi_r (unread when nbatch is 1).  `out` is
+// the contiguous (nblocks, nbatch, M, N) result, in the operands' type
+// (double or float).  tm is the row tile (16, 32 or 64), sc the resident
+// chunk of S, colsplit the number of CTAs that share the column tiles of a
+// row tile.
 template <typename T>
-int schur_assemble(const long long* table, int nblocks, T* out, int tm, int sc, int colsplit,
-                   void* stream) {
-  if (nblocks <= 0 || nblocks > kMaxBlocks || sc <= 0 || colsplit <= 0)
+int schur_assemble(const long long* table, const long long* bstrides, int nblocks, int nbatch,
+                   T* out, int tm, int sc, int colsplit, void* stream) {
+  if (nblocks <= 0 || nblocks > kMaxBlocks || nbatch <= 0 || sc <= 0 || colsplit <= 0 ||
+      (nbatch > 1 && bstrides == nullptr))
     return (int)cudaErrorInvalidValue;
   BlockTable<T> tab;
   tab.nblocks = nblocks;
+  tab.nbatch = nbatch;
   long long rows = 0, M = 0, N = 0;
   for (int i = 0; i < nblocks; ++i) {
     const long long* w = table + (long long)i * kBlockWords;
@@ -217,6 +234,8 @@ int schur_assemble(const long long* table, int nblocks, T* out, int tm, int sc, 
     b.phl0 = w[11], b.phl1 = w[12], b.phl2 = w[13];
     b.a0 = w[14], b.a1 = w[15], b.a2 = w[16], b.a3 = w[17];
     b.phr0 = w[18], b.phr1 = w[19], b.phr2 = w[20];
+    const long long* bw = nbatch > 1 ? bstrides + (long long)i * kBatchWords : nullptr;
+    b.bphl = bw ? bw[0] : 0, b.ba = bw ? bw[1] : 0, b.bphr = bw ? bw[2] : 0;
     const long long Mi = (long long)b.l * b.m * b.L, Ni = (long long)b.r * b.n * b.R;
     if (Mi <= 0 || Ni <= 0 || b.s <= 0 || b.S <= 0) return (int)cudaErrorInvalidValue;
     if (i == 0) M = Mi, N = Ni;
@@ -225,11 +244,12 @@ int schur_assemble(const long long* table, int nblocks, T* out, int tm, int sc, 
     rows = r > rows ? r : rows;
   }
   const long long row_tiles = (rows + tm - 1) / tm;
-  if (row_tiles > 65535 || colsplit > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (row_tiles > 65535 || colsplit > 65535 || (long long)nblocks * nbatch > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   const int ldw = sc | 1;
   const long long smem = ((long long)tm * ldw + (long long)kKS * (kTN + 1)) * sizeof(T);
   if (smem > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)colsplit, (unsigned)row_tiles, (unsigned)nblocks);
+  dim3 grid((unsigned)colsplit, (unsigned)row_tiles, (unsigned)(nblocks * nbatch));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (tm) {
     case 64: return (int)launch<T, 4>(tab, out, M * N, sc, ldw, grid, (int)smem, st);
@@ -241,12 +261,14 @@ int schur_assemble(const long long* table, int nblocks, T* out, int tm, int sc, 
 
 }  // namespace
 
-extern "C" int ttipm_schur_assemble(const long long* table, int nblocks, double* out, int tm,
-                                    int sc, int colsplit, void* stream) {
-  return schur_assemble<double>(table, nblocks, out, tm, sc, colsplit, stream);
+extern "C" int ttipm_schur_assemble(const long long* table, const long long* bstrides,
+                                    int nblocks, int nbatch, double* out, int tm, int sc,
+                                    int colsplit, void* stream) {
+  return schur_assemble<double>(table, bstrides, nblocks, nbatch, out, tm, sc, colsplit, stream);
 }
 
-extern "C" int ttipm_schur_assemble_f32(const long long* table, int nblocks, float* out, int tm,
-                                        int sc, int colsplit, void* stream) {
-  return schur_assemble<float>(table, nblocks, out, tm, sc, colsplit, stream);
+extern "C" int ttipm_schur_assemble_f32(const long long* table, const long long* bstrides,
+                                        int nblocks, int nbatch, float* out, int tm, int sc,
+                                        int colsplit, void* stream) {
+  return schur_assemble<float>(table, bstrides, nblocks, nbatch, out, tm, sc, colsplit, stream);
 }

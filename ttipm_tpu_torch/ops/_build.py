@@ -99,10 +99,10 @@ def load_library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     table = ctypes.c_char_p  # packed words, read on the host
     typed = {  # one entry per element type: name (f64), name + "_f32"
-        "ttipm_schur_assemble": [table, i, p, i, i, i, p],
-        "ttipm_kkt_product": [table, i, table, p, i, i, i, i, p],
-        "ttipm_panel_qr": [p, ll, ll, p, i, p, i, i, i, i, p, p],
-        "ttipm_panel_cholesky": [p, ll, ll, p, i, p, p, p],
+        "ttipm_schur_assemble": [table, table, i, i, p, i, i, i, p],
+        "ttipm_kkt_product": [table, table, i, i, table, p, i, i, i, i, p],
+        "ttipm_panel_qr": [p, ll, ll, ll, i, p, i, p, i, i, i, i, p, p],
+        "ttipm_panel_cholesky": [p, ll, ll, ll, i, p, i, p, p, p],
         "ttipm_panel_cholesky_workspace": [i],
     }
     signatures = {

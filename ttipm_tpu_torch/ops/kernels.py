@@ -17,6 +17,17 @@ K1 and K2 also have grouped entry points over the same kernels:
 ``schur_assemble_group`` (several blocks of equal size, one launch) and
 ``kkt_block_product`` (all terms of a block product, one launch).
 
+Every kernel also takes a batch: ``schur_assemble_batch``,
+``kkt_block_product_batch``, ``panel_qr_batch`` and
+``panel_cholesky_batch`` take operands with a leading batch axis of B
+structurally identical instances (the lockstep batched solve of
+``parallel/fused_mesh.py``) and make one call for all of them.  The batch
+index is a grid axis of the launch; only K4's blocked regime (order above
+512) launches once per instance inside the call, and K3's cluster regime
+runs one cluster an instance.  An instance is computed by the code and in
+the order of a single call on it, so on the card instance i of a batch
+equals the single call on instance i bit for bit.
+
 A wrapper given CPU tensors runs the plain version (einsum or
 ``torch.linalg``) and counts a plain call.  Given CUDA tensors it launches
 its kernel and counts a launch, or raises ``KernelError``: it never falls
@@ -53,6 +64,10 @@ __all__ = [
     "k1_tiles", "k2_tiles", "pack_k1_blocks", "pack_k2_terms", "empty_launch",
     "panel_qr", "panel_qr_plain", "k3_plan",
     "panel_cholesky", "panel_cholesky_plain",
+    "schur_assemble_batch", "schur_assemble_batch_plain",
+    "kkt_block_product_batch", "kkt_block_product_batch_plain",
+    "panel_qr_batch", "panel_qr_batch_plain",
+    "panel_cholesky_batch", "panel_cholesky_batch_plain",
 ]
 
 
@@ -63,9 +78,11 @@ ELEMENT_BYTES = {"f64": 8, "f32": 4}
 
 
 class KernelStats:
-    """Counts of one kernel: device launches (a grouped call is one), how
-    many of them came through the grouped entry point, the launches of each
-    instance (``by_dtype``: "f64", "f32"), and plain calls."""
+    """Counts of one kernel: device launches (a grouped or a batched call is
+    one), how many of them came through the grouped entry point, how many
+    through a batched one and the instances those carried, the launches and
+    the instances of each type (``by_dtype``, ``instances_by_dtype``: "f64",
+    "f32"), and plain calls."""
 
     def __init__(self, name: str):
         self.name = name
@@ -74,14 +91,21 @@ class KernelStats:
     def reset(self) -> None:
         self.launches = 0
         self.grouped = 0
+        self.batched = 0
+        self.instances = 0
         self.plain_calls = 0
         self.by_dtype = dict.fromkeys(DTYPES.values(), 0)
+        self.instances_by_dtype = dict.fromkeys(DTYPES.values(), 0)
 
-    def count(self, tag: str, grouped: bool = False) -> None:
-        """One device launch of the ``tag`` instance."""
+    def count(self, tag: str, grouped: bool = False, batch: int = 0) -> None:
+        """One device launch of the ``tag`` instance; ``batch`` > 0: a
+        batched launch of that many instances."""
         self.launches += 1
         self.grouped += int(grouped)
+        self.batched += int(batch > 0)
+        self.instances += batch
         self.by_dtype[tag] += 1
+        self.instances_by_dtype[tag] += batch
 
 
 STATS = {
@@ -203,19 +227,21 @@ def _dims(name, ops):
 
 
 @functools.lru_cache(maxsize=4096)
-def k1_tiles(dims, esize=8):
+def k1_tiles(dims, esize=8, batch=1):
     """Row tile, resident chunk of S and column split of one K1 launch,
-    from the tuple of the blocks' ``(l, s, r, m, n, S, L, R)`` and the
-    element size in bytes (8 for the f64 instance, 4 for f32): the largest
-    row tile of 64, 32, 16 that still gives the card a CTA per SM, all of
-    S resident where the W slice fits in shared memory beside the staged
-    slice of phi_r, and the column tiles of a row tile shared between CTAs
-    only while the grid is short of the target."""
+    from the tuple of the blocks' ``(l, s, r, m, n, S, L, R)``, the
+    element size in bytes (8 for the f64 instance, 4 for f32) and the
+    instances of a batch: the largest row tile of 64, 32, 16 that still
+    gives the card a CTA per SM, all of S resident where the W slice fits
+    in shared memory beside the staged slice of phi_r, and the column tiles
+    of a row tile shared between CTAs only while the grid is short of the
+    target.  None of the three changes the order of an element's sums."""
     rows = max(l * m * r * n for l, s, r, m, n, S, L, R in dims)
     col_tiles = max(-(-(L * R) // _K1_TN) for l, s, r, m, n, S, L, R in dims)
     s_max = max(d[5] for d in dims)
-    tm = next((t for t in (64, 32) if len(dims) * -(-rows // t) >= _TARGET_CTAS), 16)
-    ctas = len(dims) * -(-rows // tm)
+    g = len(dims) * batch
+    tm = next((t for t in (64, 32) if g * -(-rows // t) >= _TARGET_CTAS), 16)
+    ctas = g * -(-rows // tm)
     colsplit = min(col_tiles, max(1, -(-_TARGET_CTAS // ctas)))
     cap = (SMEM_LIMIT // esize - _K1_KS * (_K1_TN + 1)) // tm  # leading dimension of Ws
     sc = min(s_max, cap if cap % 2 else cap - 1)
@@ -245,21 +271,29 @@ def _k1_check(blocks):
     return dims
 
 
-def _k1_launch(blocks, dims):
-    """Blocks of equal output size through one launch; a (g, M, N) tensor."""
+def _k1_launch(blocks, dims, batch=0):
+    """Blocks of equal output size through one launch; a (g, M, N) tensor,
+    or with ``batch`` instances (operands (B, ...)) a (g, B, M, N) one."""
     l, _, r, m, n, _, L, R = dims[0]
     ref = blocks[0][0]
-    out = torch.empty((len(blocks), l * m * L, r * n * R), dtype=ref.dtype, device=ref.device)
-    words = pack_k1_blocks(blocks, dims)
+    nb = max(batch, 1)
+    out = torch.empty((len(blocks), nb, l * m * L, r * n * R), dtype=ref.dtype,
+                      device=ref.device)
+    one = [tuple(t[0] for t in b) for b in blocks] if batch else blocks
+    words = pack_k1_blocks(one, dims)
     table = struct.pack(f"{len(words)}q", *words)
+    bstrides = None
+    if batch:
+        bw = [t.stride(0) for b in blocks for t in b]
+        bstrides = struct.pack(f"{len(bw)}q", *bw)
     tag = _tag(ref)
-    tm, sc, colsplit = k1_tiles(dims, ELEMENT_BYTES[tag])
+    tm, sc, colsplit = k1_tiles(dims, ELEMENT_BYTES[tag], nb)
     stream, guard = _launch_env(ref)
     with guard:
-        err = _entry("ttipm_schur_assemble", tag)(table, len(blocks), _ptr(out), tm, sc,
-                                                    colsplit, stream)
+        err = _entry("ttipm_schur_assemble", tag)(table, bstrides, len(blocks), nb, _ptr(out),
+                                                    tm, sc, colsplit, stream)
     _check("schur_assemble", err)
-    return out
+    return out if batch else out[:, 0]
 
 
 def schur_assemble_group(blocks):
@@ -315,12 +349,12 @@ def kkt_block_product_plain(terms, nrows):
 
 
 @functools.lru_cache(maxsize=4096)
-def k2_tiles(dims, nrows, esize=8):
+def k2_tiles(dims, nrows, esize=8, batch=1):
     """The launch plan of one K2 launch, from the tuple of the terms'
-    ``(l, s, r, m, n, S, L, R)`` and the element size in bytes (8 for the
-    f64 instance, 4 for f32): ``(lc, rt, threads, smem_bytes, cap1, cap2,
-    cap_phl, cap_x, cap_a, cap_phr)``, the ``Plan`` of
-    ``csrc/kkt_matvec.cu``.
+    ``(l, s, r, m, n, S, L, R)``, the element size in bytes (8 for the
+    f64 instance, 4 for f32) and the instances of a batch (which share the
+    card's CTAs): ``(lc, rt, threads, smem_bytes, cap1, cap2, cap_phl,
+    cap_x, cap_a, cap_phr)``, the ``Plan`` of ``csrc/kkt_matvec.cu``.
 
     A CTA owns ``lc`` values of l and walks over tiles of ``rt`` values of
     R.  It holds, in elements, ``2 lc m L`` (the row's sum and the running
@@ -352,7 +386,7 @@ def k2_tiles(dims, nrows, esize=8):
         rt = -(-r_max // tiles)
     lc = 1
     if rt == r_max:
-        chunks = max(1, min(l, _TARGET_CTAS // nrows))
+        chunks = max(1, min(l, _TARGET_CTAS // (nrows * batch)))
         lc = -(-l // chunks)
         while need(lc, rt)[2] > limit:
             lc -= 1
@@ -398,20 +432,28 @@ def _k2_check(terms, nrows):
     return dims
 
 
-def _k2_launch(terms, nrows, dims):
+def _k2_launch(terms, nrows, dims, batch=0):
+    """The terms through one launch; an (l, nrows, m, L) tensor, or with
+    ``batch`` instances (operands (B, ...)) a (B, l, nrows, m, L) one."""
     l, _, _, m, _, _, L, _ = dims[0]
     x = terms[0][3]
-    out = torch.empty((l, nrows, m, L), dtype=x.dtype, device=x.device)
-    words = pack_k2_terms(terms, dims)
+    nb = max(batch, 1)
+    out = torch.empty((nb, l, nrows, m, L), dtype=x.dtype, device=x.device)
+    one = [(*(t[0] for t in term[:4]), term[4]) for term in terms] if batch else terms
+    words = pack_k2_terms(one, dims)
     table = struct.pack(f"{len(words)}q", *words)
+    bstrides = None
+    if batch:
+        bw = [t.stride(0) for term in terms for t in term[:4]]
+        bstrides = struct.pack(f"{len(bw)}q", *bw)
     tag = _tag(x)
-    plan = struct.pack("10i", *k2_tiles(dims, nrows, ELEMENT_BYTES[tag]))
+    plan = struct.pack("10i", *k2_tiles(dims, nrows, ELEMENT_BYTES[tag], nb))
     stream, guard = _launch_env(x)
     with guard:
-        err = _entry("ttipm_kkt_product", tag)(table, len(terms), plan, _ptr(out), l, m, L,
-                                                 nrows, stream)
+        err = _entry("ttipm_kkt_product", tag)(table, bstrides, len(terms), nb, plan, _ptr(out),
+                                                 l, m, L, nrows, stream)
     _check("kkt_block_matvec", err)
-    return out
+    return out if batch else out[0]
 
 
 def kkt_block_product(terms, nrows):
@@ -513,21 +555,29 @@ def panel_qr(a, transposed=False):
     if not _on_cuda(a):
         stats.plain_calls += 1
         return panel_qr_plain(a, transposed)
-    m, n = a.shape
+    q, r = _k3_launch(a.unsqueeze(0), transposed)
+    stats.count(_tag(a))
+    return q[0], r[0]
+
+
+def _k3_launch(a, transposed):
+    """The panels of ``a`` (B, m, n) through one launch: q (B, m, n) or,
+    with ``transposed``, (B, n, m), and r (B, n, n), each contiguous; the
+    workspace of the cluster regime after them, a slice an instance."""
+    nb, m, n = a.shape
     tag = _tag(a)
     esize = ELEMENT_BYTES[tag]
     ctas, threads, ws_elems, _ = k3_plan(m, n, esize)
-    buf = torch.empty(m * n + n * n + ws_elems, dtype=a.dtype, device=a.device)
-    q = buf.as_strided((n, m), (m, 1)) if transposed else buf.as_strided((m, n), (n, 1))
-    r = buf.as_strided((n, n), (n, 1), m * n)
-    ws = ctypes.c_void_p(buf.data_ptr() + esize * (m * n + n * n) if ws_elems else None)
+    buf = torch.empty(nb * (m * n + n * n + ws_elems), dtype=a.dtype, device=a.device)
+    q = buf[:nb * m * n].view((nb, n, m) if transposed else (nb, m, n))
+    r = buf[nb * m * n:nb * (m * n + n * n)].view(nb, n, n)
+    ws = ctypes.c_void_p(buf.data_ptr() + esize * nb * (m * n + n * n) if ws_elems else None)
     stream, guard = _launch_env(a)
     with guard:
-        err = _entry("ttipm_panel_qr", tag)(_ptr(a), a.stride(0), a.stride(1), _ptr(q),
-                                            int(transposed), _ptr(r), m, n, ctas, threads, ws,
-                                            stream)
+        err = _entry("ttipm_panel_qr", tag)(_ptr(a), a.stride(1), a.stride(2), a.stride(0), nb,
+                                            _ptr(q), int(transposed), _ptr(r), m, n, ctas,
+                                            threads, ws, stream)
     _check("panel_qr", err)
-    stats.count(tag)
     return q, r
 
 
@@ -559,19 +609,143 @@ def panel_cholesky(a):
     if not _on_cuda(a):
         stats.plain_calls += 1
         return panel_cholesky_plain(a)
-    n = a.shape[0]
+    out, info = _k4_launch(a.unsqueeze(0))
+    stats.count(_tag(a))
+    return out[0], info[0]
+
+
+def _k4_launch(a):
+    """The matrices of ``a`` (B, n, n) through one call: L (B, n, n)
+    contiguous and info (B,) int32; the blocked regime's workspace a slice
+    an instance."""
+    nb, n, _ = a.shape
     tag = _tag(a)
-    out = torch.empty((n, n), dtype=a.dtype, device=a.device)
-    info = torch.empty((), dtype=torch.int32, device=a.device)
+    out = torch.empty((nb, n, n), dtype=a.dtype, device=a.device)
+    info = torch.empty((nb,), dtype=torch.int32, device=a.device)
     ws = None
     if n > K4_RESIDENT_MAX_N:
-        ws = torch.empty(_entry("ttipm_panel_cholesky_workspace", tag)(n), dtype=a.dtype,
+        ws = torch.empty(nb * _entry("ttipm_panel_cholesky_workspace", tag)(n), dtype=a.dtype,
                          device=a.device)
     stream, guard = _launch_env(a)
     with guard:
         err = _entry("ttipm_panel_cholesky", tag)(
-            _ptr(a), a.stride(0), a.stride(1), _ptr(out), n, _ptr(info),
-            ctypes.c_void_p(None if ws is None else ws.data_ptr()), stream)
+            _ptr(a), a.stride(1), a.stride(2), a.stride(0), nb, _ptr(out), n,
+            _ptr(info), ctypes.c_void_p(None if ws is None else ws.data_ptr()), stream)
     _check("panel_cholesky", err)
-    stats.count(tag)
     return out, info
+
+
+# ---------------------------------------------------------------------------
+# Batches: B structurally identical instances, one call (the lockstep
+# batched solve).  Every operand carries a leading batch axis of the same
+# length; within an instance the shapes and rules of the single entry.
+# ---------------------------------------------------------------------------
+
+def _batch_len(name, tensors, ndims):
+    """The common batch length of ``tensors``, each with a leading batch
+    axis before its ``ndims`` instance axes."""
+    lens = set()
+    for t, nd in zip(tensors, ndims):
+        if t.dim() != nd + 1:
+            raise KernelError(f"{name}: operands with a leading batch axis expected, got "
+                              f"{[tuple(x.shape) for x in tensors]}")
+        lens.add(t.shape[0])
+    if len(lens) != 1 or 0 in lens:
+        raise KernelError(f"{name}: operands of unequal or empty batches {sorted(lens)}")
+    return lens.pop()
+
+
+def schur_assemble_batch_plain(blocks):
+    out = []
+    for phi_l, A, phi_r in blocks:
+        B, l, _, r = phi_l.shape
+        _, _, m, n, _ = A.shape
+        _, L, _, R = phi_r.shape
+        out.append(torch.einsum("blsr,bsmnS,bLSR->blmLrnR", phi_l, A, phi_r)
+                   .reshape(B, l * m * L, r * n * R))
+    return torch.stack(out)
+
+
+def schur_assemble_batch(blocks):
+    """``schur_assemble_group`` for a batch: ``blocks`` is a list of
+    ``(phi_l, A, phi_r)`` of shapes (B, l, s, r), (B, s, m, n, S),
+    (B, L, S, R); returns the (g, B, M, N) tensor of the g blocks of every
+    instance, from one launch."""
+    stats = STATS["schur_assemble"]
+    blocks = [tuple(b) for b in blocks]
+    tensors = [t for b in blocks for t in b]
+    B = _batch_len("schur_assemble", tensors, [3, 4, 3] * len(blocks))
+    dims = _k1_check([tuple(t[0] for t in b) for b in blocks])
+    if not _on_cuda(*tensors):
+        stats.plain_calls += 1
+        return schur_assemble_batch_plain(blocks)
+    out = _k1_launch(blocks, dims, B)
+    stats.count(_tag(blocks[0][0]), grouped=True, batch=B)
+    return out
+
+
+def kkt_block_product_batch_plain(terms, nrows):
+    rows = [None] * nrows
+    for phi_l, A, phi_r, x, row in terms:
+        y = torch.einsum("blsr,bsmnS,bLSR,brnR->blmL", phi_l, A, phi_r, x)
+        rows[row] = y if rows[row] is None else rows[row] + y
+    ref = next(r for r in rows if r is not None)
+    return torch.stack([torch.zeros_like(ref) if r is None else r for r in rows], dim=2)
+
+
+def kkt_block_product_batch(terms, nrows):
+    """``kkt_block_product`` for a batch: each term is ``(phi_l, A, phi_r,
+    x, row)`` with operands of shapes (B, l, s, r), (B, s, m, n, S),
+    (B, L, S, R), (B, r, n, R); returns (B, l, nrows, m, L) from one
+    launch.  Each instance sums its terms in the single entry's order."""
+    stats = STATS["kkt_block_matvec"]
+    terms = [tuple(t) for t in terms]
+    tensors = [t for term in terms for t in term[:4]]
+    B = _batch_len("kkt_block_product", tensors, [3, 4, 3, 3] * len(terms))
+    dims = _k2_check([(*(t[0] for t in term[:4]), term[4]) for term in terms], nrows)
+    if not _on_cuda(*tensors):
+        stats.plain_calls += 1
+        return kkt_block_product_batch_plain(terms, nrows)
+    out = _k2_launch(terms, nrows, dims, B)
+    stats.count(_tag(terms[0][3]), grouped=True, batch=B)
+    return out
+
+
+def panel_qr_batch_plain(a, transposed=False):
+    q, r = torch.linalg.qr(a, mode="reduced")
+    return (q.mT.contiguous() if transposed else q), r
+
+
+def panel_qr_batch(a, transposed=False):
+    """``panel_qr`` of a batch of panels ``a`` (B, m, n) (any strides):
+    q (B, m, n), or (B, n, m) contiguous with ``transposed``, and r
+    (B, n, n), from one launch (one CTA, or one cluster, an instance)."""
+    stats = STATS["panel_qr"]
+    _batch_len("panel_qr", [a], [2])
+    if not _on_cuda(a):
+        stats.plain_calls += 1
+        return panel_qr_batch_plain(a, transposed)
+    out = _k3_launch(a, transposed)
+    stats.count(_tag(a), batch=a.shape[0])
+    return out
+
+
+def panel_cholesky_batch_plain(a):
+    return torch.linalg.cholesky_ex(a)
+
+
+def panel_cholesky_batch(a):
+    """``panel_cholesky`` of a batch ``a`` (B, n, n) (any strides):
+    ``(L, info)`` with L (B, n, n) and info (B,) as ``cholesky_ex`` gives
+    them.  One launch up to order 512; above it the call launches the
+    blocked factorization once per instance."""
+    stats = STATS["panel_cholesky"]
+    _batch_len("panel_cholesky", [a], [2])
+    if a.shape[1] != a.shape[2]:
+        raise KernelError(f"panel_cholesky: square matrices expected, got {tuple(a.shape)}")
+    if not _on_cuda(a):
+        stats.plain_calls += 1
+        return panel_cholesky_batch_plain(a)
+    out = _k4_launch(a)
+    stats.count(_tag(a), batch=a.shape[0])
+    return out

@@ -16,6 +16,10 @@ give on the CPU reference path:
   the ragged Schur systems, Householder QR and a triangular solve
   (``ttipm_tpu/ops/linalg.py:23-37``).
 
+Every function takes leading batch dimensions as ``torch.linalg`` does (the
+lockstep batched solve of ``parallel/fused_mesh.py`` factors a stack of B
+instances in one call); on a single matrix it computes what it did before.
+
 Float32 operands: the SVD, the QR and the symmetric eigensolver run in
 f64 on the upcast operands and return their factors rounded to f32
 (``config.in_f64``).  The JAX package's host engine calls numpy's f32
@@ -55,9 +59,10 @@ def safe_svd(a: torch.Tensor):
             return torch.linalg.svd(a, full_matrices=False, driver="gesvd")
         import scipy.linalg as sla
 
-        u, s, vt = sla.svd(a.numpy(), full_matrices=False,
-                           lapack_driver="gesvd")
-        return tuple(torch.from_numpy(np.ascontiguousarray(t)) for t in (u, s, vt))
+        mats = a.numpy().reshape(-1, *a.shape[-2:])
+        parts = [sla.svd(m, full_matrices=False, lapack_driver="gesvd") for m in mats]
+        return tuple(torch.from_numpy(np.ascontiguousarray(np.stack(t).reshape(
+            *a.shape[:-2], *t[0].shape))) for t in zip(*parts))
     return u, s, vt
 
 
@@ -115,7 +120,7 @@ def qr_apply(qr, b: torch.Tensor) -> torch.Tensor:
     q, r = qr
     if b.dim() == 1:
         return torch.linalg.solve_triangular(r, (q.T @ b)[:, None], upper=True)[:, 0]
-    return torch.linalg.solve_triangular(r, q.T @ b, upper=True)
+    return torch.linalg.solve_triangular(r, q.mT @ b, upper=True)
 
 
 def qr_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

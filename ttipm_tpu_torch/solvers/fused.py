@@ -15,14 +15,16 @@ never-regress and magnitude-sanity guards.  The port has one engine; its
 device is the device of the tensors.  The guards are evaluated on the
 device, and the host reads the residuals once per sweep.
 
-Local KKT block elimination: dZ is eliminated elementwise through the
-projected identity diagonal, Lz is Cholesky-factored (K4,
-``panel_cholesky``), and the Y Schur system is LU-solved.  With inequality
-constraints (``ineq``) dX is eliminated through L_Z as well and the coupled
-(dY, dT) system is solved by a second Schur step over the T block D (LU, as
-the host engine factors it where the JAX device engine takes a QR).  The
-projected blocks of a local solve come from one K1 launch: four on the
-equality path, six with inequalities.
+The sweep, the local solves and the split steps are those of
+``solvers/fused_batch.py``, run on a batch of one.  Local KKT block
+elimination: dZ is eliminated elementwise through the projected identity
+diagonal, Lz is Cholesky-factored (K4, ``panel_cholesky``), and the Y
+Schur system is LU-solved.  With inequality constraints (``ineq``) dX is
+eliminated through L_Z as well and the coupled (dY, dT) system is solved by
+a second Schur step over the T block D (LU, as the host engine factors it
+where the JAX device engine takes a QR).  The projected blocks of a local
+solve come from one K1 launch: four on the equality path, six with
+inequalities.
 
 Under the float32 profile the local solves are mixed-precision
 (``config.mixed_local``, ``fused_host.py:177-254``): "f64" runs the
@@ -34,16 +36,15 @@ f64 in every mode.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ttipm_tpu_torch import config
-from ttipm_tpu_torch.ops import kernels
-from ttipm_tpu_torch.ops.linalg import chol_solve, lu_factor, lu_solve, qr_econ, svd_econ
+from ttipm_tpu_torch.ops.linalg import qr_econ, svd_econ
 from ttipm_tpu_torch.solvers import fused_algebra as fa
+from ttipm_tpu_torch.solvers import fused_batch as fb
 from ttipm_tpu_torch.solvers.amen import (
     AmenRestartsExhausted,
     AmenToleranceReached,
@@ -56,165 +57,6 @@ __all__ = ["tt_block_amen_fused", "tt_restarted_block_amen_fused",
 TINY = 1e-300
 _KEY_MAP = {"00": (0, 0), "01": (0, 1), "12": (1, 2), "21": (2, 1), "22": (2, 2),
             "31": (3, 1), "33": (3, 3)}
-
-
-# ---------------------------------------------------------------------------
-# Local solve
-# ---------------------------------------------------------------------------
-
-def _cholesky(S):
-    """Lower Cholesky factor; a failed factorization poisons the factor
-    with NaN so that the candidate is rejected and the previous core kept
-    (the host engine raises and keeps ``prev``: ``fused_host.py:89-96``)."""
-    L, info = kernels.panel_cholesky(S)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
-
-
-def _dense_factor(pl, A, pr, inv_I, ineq=False):
-    """The factors of the Schur-elimination local solve, everything that
-    depends only on the operator."""
-    if not ineq:
-        B21, mL_eq, B22, B00 = kernels.schur_assemble_group(
-            [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "00")])
-        L_L_Z = _cholesky(fa.tikhonov(B21))
-        L_X_I_inv = B22 * inv_I.reshape(1, -1)
-        S = chol_solve(L_L_Z, L_X_I_inv)
-        S = mL_eq @ (S @ mL_eq.T)
-        S = fa.tikhonov(S + B00)
-        return L_L_Z, mL_eq, L_X_I_inv, lu_factor(S)
-
-    B21, mL_eq, B22, T_op, B00, B33 = kernels.schur_assemble_group(
-        [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "31", "00", "33")])
-    L_L_Z = _cholesky(fa.tikhonov(B21))
-    Lz_inv_Lx = chol_solve(L_L_Z, B22)
-    Lz_inv_Lx_scaled = Lz_inv_Lx * inv_I.reshape(1, -1)
-    S = B00 + mL_eq @ (Lz_inv_Lx_scaled @ mL_eq.T)
-    D = fa.tikhonov(B33 + T_op @ Lz_inv_Lx)
-    TY = (T_op @ Lz_inv_Lx_scaled) @ mL_eq.T
-    YT = mL_eq @ Lz_inv_Lx
-    d_lu = lu_factor(D)
-    lhs_y = fa.tikhonov(S - YT @ lu_solve(d_lu, TY))
-    return L_L_Z, mL_eq, Lz_inv_Lx_scaled, T_op, TY, YT, d_lu, lu_factor(lhs_y)
-
-
-def _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq=False):
-    """Back substitution: the factors of ``_dense_factor`` applied to one
-    projected right-hand side."""
-    r, _, n, R = rhs.shape
-    m = r * n * R
-    mR_p = rhs[:, 0].reshape(m, 1)
-    mR_d = rhs[:, 1].reshape(m, 1)
-    mR_c = rhs[:, 2].reshape(m, 1)
-    if not ineq:
-        L_L_Z, mL_eq, L_X_I_inv, s_lu = fac
-        b_vec = mR_p - mL_eq @ chol_solve(L_L_Z, mR_c - L_X_I_inv @ mR_d)
-        y3 = lu_solve(s_lu, b_vec).reshape(r, n, R)
-        z = inv_I * (rhs[:, 1] - fa.apply_T(pl["01"], A["01"], pr["01"], y3))
-        x = chol_solve(L_L_Z, mR_c - fa.apply(pl["22"], A["22"], pr["22"], z).reshape(m, 1))
-        return torch.stack([y3, x.reshape(r, n, R), z], dim=1)
-
-    L_L_Z, mL_eq, Lz_inv_Lx_scaled, T_op, TY, YT, d_lu, y_lu = fac
-    mR_t = rhs[:, 3].reshape(m, 1)
-    Lz_inv_Rc = chol_solve(L_L_Z, mR_c)
-    u = mR_p - mL_eq @ (Lz_inv_Rc - Lz_inv_Lx_scaled @ mR_d)
-    v = mR_t - T_op @ (Lz_inv_Rc - Lz_inv_Lx_scaled @ mR_d)
-    y = lu_solve(y_lu, u - YT @ lu_solve(d_lu, v))
-    t3 = lu_solve(d_lu, v - TY @ y).reshape(r, n, R)
-    y3 = y.reshape(r, n, R)
-    z3 = inv_I * (rhs[:, 1] - fa.apply_T(pl["01"], A["01"], pr["01"], y3)) - t3
-    x = chol_solve(L_L_Z, mR_c - fa.apply(pl["22"], A["22"], pr["22"], z3).reshape(m, 1))
-    return torch.stack([y3, x.reshape(r, n, R), z3, t3], dim=1)
-
-
-def _inv_identity(pl, A, pr):
-    """1 / the clamped diagonal of the projected identity block."""
-    return 1.0 / fa.den_clamp(torch.einsum("lsr,smnS,LSR->lmL", pl["12"], A["12"], pr["12"]))
-
-
-def _solve_local(pl, A, pr, bl, b, br, prev, ineq=False):
-    """Local KKT solve with the never-regress guard: the candidate replaces
-    ``prev`` only if it is finite, does not raise the local residual and is
-    not of absurd magnitude.  Returns (sol, rhs, res_old, res_min, dx) with
-    the scalars as 0-d device tensors (no host sync).  f32 operands take
-    the mixed mode of ``config.mixed_local()``: the residuals of the guard
-    in f64, the factorization in f64 ("f64") or in f32 ("refine", then two
-    corrections from f64 residuals; "off")."""
-    mode = config.mixed_local() if prev.dtype == torch.float32 else "off"
-    if mode != "off":
-        pl_h, A_h, pr_h, prev_h, bl_h, b_h, br_h = config.cast_tree(
-            (pl, A, pr, prev, bl, b, br), torch.float64)
-        rhs_h = fa.project_rhs(bl_h, b_h, br_h, ineq)
-        inv_I_h = _inv_identity(pl_h, A_h, pr_h)
-        inv_I, rhs = inv_I_h.to(prev.dtype), rhs_h.to(prev.dtype)
-    else:
-        pl_h, A_h, pr_h, prev_h = pl, A, pr, prev
-        rhs_h = rhs = fa.project_rhs(bl, b, br, ineq)
-        inv_I_h = inv_I = _inv_identity(pl, A, pr)
-    norm_rhs = torch.clamp_min(torch.linalg.norm(rhs_h), 1e-10)
-    res_old = torch.linalg.norm(fa.local_product(pl_h, A_h, pr_h, prev_h, ineq) - rhs_h) / norm_rhs
-    if mode == "f64":
-        fac = _dense_factor(pl_h, A_h, pr_h, inv_I_h, ineq)
-        cand = _dense_apply(fac, pl_h, A_h, pr_h, inv_I_h, rhs_h, ineq).to(prev.dtype)
-    else:
-        fac = _dense_factor(pl, A, pr, inv_I, ineq)
-        cand = _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq)
-    if mode == "refine":
-        for _ in range(2):
-            r_h = rhs_h - fa.local_product(pl_h, A_h, pr_h, cand.double(), ineq)
-            cand = cand + _dense_apply(fac, pl, A, pr, inv_I, r_h.to(prev.dtype), ineq)
-    finite = torch.isfinite(cand).all()
-    # a non-finite candidate is where the host engine's numpy raises
-    cand = torch.where(finite, cand, prev)
-    res_new = torch.linalg.norm(
-        fa.local_product(pl_h, A_h, pr_h, cand.to(rhs_h.dtype), ineq) - rhs_h) / norm_rhs
-    sane = torch.linalg.norm(cand) < 1e8 * (1.0 + torch.linalg.norm(prev))
-    good = finite & torch.isfinite(res_new) & (res_new <= res_old) & sane
-    sol = torch.where(good, cand, prev)
-    res_min = torch.where(good, res_new, res_old)
-    dx = torch.linalg.norm(sol - prev) / torch.clamp_min(torch.linalg.norm(sol), TINY)
-    return sol, rhs, res_old, res_min, dx
-
-
-# ---------------------------------------------------------------------------
-# Sweep driver
-# ---------------------------------------------------------------------------
-
-def _sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int,
-           solve: bool, direction: int, ineq: bool = False):
-    """One full sweep; updates the passed lists in place and returns the
-    maxima of (res_old, dx) over the cores as host floats."""
-    d = len(x_cores)
-    solve_local = functools.partial(_solve_local, ineq=ineq)
-    res_vals = []
-    dx_vals = []
-    if direction > 0:  # backward
-        order = range(d - 1, -1, -1)
-    else:
-        order = range(d)
-    for k in order:
-        A_k = {key: A[key][k] for key in fa.keys(ineq)}
-        b_k = [b[i][k] for i in range(fa.nrows(ineq))]
-        args = (XAX[k], A_k, XAX[k + 1], Xb[k], b_k, Xb[k + 1],
-                ZAX[k], ZAX[k + 1], Zb[k], Zb[k + 1])
-        if direction > 0 and k > 0:
-            (x_cores[k], x_cores[k - 1], z_cores[k], z_cores[k - 1],
-             XAX[k], Xb[k], ZAX[k], Zb[k], r_old, _, dx) = fa.bck_split_step(
-                solve_local, *args, x_cores[k], x_cores[k - 1],
-                z_cores[k], z_cores[k - 1], caps[k - 1], kick, solve, ineq)
-        elif direction < 0 and k < d - 1:
-            (x_cores[k], x_cores[k + 1], z_cores[k], z_cores[k + 1],
-             XAX[k + 1], Xb[k + 1], ZAX[k + 1], Zb[k + 1], r_old, _, dx) = (
-                fa.fwd_split_step(
-                    solve_local, *args, x_cores[k], x_cores[k + 1],
-                    z_cores[k], z_cores[k + 1], caps[k], kick, solve, ineq))
-        else:
-            x_cores[k], z_cores[k], r_old, _, dx = fa.write_step(
-                solve_local, *args, x_cores[k], z_cores[k], solve, ineq)
-        res_vals.append(r_old)
-        dx_vals.append(dx)
-    res, dxm = torch.stack([torch.stack(res_vals).max(),
-                            torch.stack(dx_vals).max()]).tolist()
-    return res, dxm
 
 
 # ---------------------------------------------------------------------------
@@ -264,19 +106,53 @@ def _bucket4(r: int) -> int:
     return ((int(r) + 3) // 4) * 4
 
 
-def prep_operator(block_A, ineq: bool = False) -> Dict[str, List[torch.Tensor]]:
-    """Canonical operator keys; the ranks stay ragged."""
-    return {sk: list(block_A[_KEY_MAP[sk]]) for sk in fa.keys(ineq)}
+def _pad_train(cores, ranks):
+    """Zero-pad a train's bond ranks to ``ranks`` (length d-1); exact."""
+    d = len(cores)
+    out = []
+    for k, c in enumerate(cores):
+        rl = 1 if k == 0 else ranks[k - 1]
+        rr = 1 if k == d - 1 else ranks[k]
+        pad = c.new_zeros((rl,) + tuple(c.shape[1:-1]) + (rr,))
+        pad[:c.shape[0], ..., :c.shape[-1]] = c
+        out.append(pad)
+    return out
 
 
-def prep_rhs(block_b, d: int, ref: torch.Tensor,
-             ineq: bool = False) -> List[List[torch.Tensor]]:
-    """Rows as a dense list; absent rows become rank-1 zero trains."""
+def _uniform_key_rank(cores) -> int:
+    """One bucketed rank for every interior bond of a train."""
+    if len(cores) <= 1:
+        return 1
+    return _bucket4(max(c.shape[-1] for c in cores[:-1]))
+
+
+def prep_operator(block_A, ineq: bool = False, pad: bool = False) -> Dict[str, List[torch.Tensor]]:
+    """Canonical operator keys; the ranks stay ragged.  ``pad``: every key
+    but "12" zero-padded to one bucketed rank on all its bonds
+    (``ttipm_tpu/solvers/fused.py:568-597``), so that structurally
+    identical systems of a batch have equal shapes; "12", the identity
+    block, stays rank 1 (its projected diagonal is inverted elementwise)."""
+    out = {}
+    for sk in fa.keys(ineq):
+        cores = list(block_A[_KEY_MAP[sk]])
+        if pad and sk != "12":
+            cores = _pad_train(cores, [_uniform_key_rank(cores)] * (len(cores) - 1))
+        out[sk] = cores
+    return out
+
+
+def prep_rhs(block_b, d: int, ref: torch.Tensor, ineq: bool = False,
+             pad: bool = False) -> List[List[torch.Tensor]]:
+    """Rows as a dense list; absent rows become rank-1 zero trains.
+    ``pad``: every present row zero-padded to one bucketed rank
+    (``ttipm_tpu/solvers/fused.py:600-618``)."""
     rows = []
     for i in range(fa.nrows(ineq)):
         row = block_b.get_row(i)
         if row is None:
             row = [ref.new_zeros((1, 4, 1)) for _ in range(d)]
+        elif pad:
+            row = _pad_train(list(row), [_uniform_key_rank(row)] * (d - 1))
         rows.append(list(row))
     return rows
 
@@ -398,11 +274,9 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
     block_pos = 0 if direction < 0 else d - 1
     z_cores = _prep_z0(d, bs, kick_rank, block_pos, rng, ref)
 
-    ones3 = ref.new_ones((1, 1, 1))
-    ones2 = ref.new_ones((1, 1))
-    pA0 = {k: ones3 for k in fa.keys(ineq)}
-    pz0 = {k: ones3 for k in fa.zkeys(ineq)}
-    pb0 = [ones2] * bs
+    # the sweep runs on a batch of one
+    A, b, x_cores, z_cores = fb.batch_of_one((A, b, x_cores, z_cores))
+    pA0, pz0, pb0 = fb.boundary_phis(ref, 1, ineq)
     XAX: List = [pA0] + [None] * (d - 1) + [dict(pA0)]
     Xb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
     ZAX: List = [pz0] + [None] * (d - 1) + [dict(pz0)]
@@ -413,8 +287,8 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
     for swp in range(nswp + 1):
         solve = (swp > 0) and not last
         caps = caps_bck if direction > 0 else caps_fwd
-        res_d, dx_d = _sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps,
-                             kick_rank, solve, direction, ineq)
+        res_d, dx_d = (float(v[0]) for v in fb.sweep(
+            A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick_rank, solve, direction, ineq))
         if last:
             break
         local_res, local_dx = (res_d, dx_d) if solve else (np.inf, np.inf)
@@ -425,7 +299,7 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
             print(f"\t[fused R={R}] sweep {swp}: res {local_res:.3e} "
                   f"dx {local_dx:.3e}", flush=True)
         direction *= -1
-    return list(x_cores), final_res
+    return [c[0] for c in x_cores], final_res
 
 
 def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,

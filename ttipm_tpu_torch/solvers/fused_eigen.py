@@ -228,14 +228,15 @@ def _eigen_step_stalled(prev_step, step, prev_res, res, tol):
 # Preparation
 # ---------------------------------------------------------------------------
 
-def _prep_operator(cores: TT) -> TT:
+def _prep_operator(cores: TT, ra: Optional[int] = None) -> TT:
     """The operator in the eigen dtype, its bond ranks zero-padded to one
-    multiple of 4 (exact)."""
+    multiple of 4 (exact), or to ``ra`` where that is larger (a batch's
+    common rank, ``fused_eigen.py:552-580``)."""
     d = len(cores)
     cores = [c.to(config.eigen_dtype()) for c in cores]
     if d == 1:
         return [cores[0]]
-    ra = _bucket4(max(c.shape[-1] for c in cores[:-1]))
+    ra = max(_bucket4(max(c.shape[-1] for c in cores[:-1])), ra or 0)
     out = []
     for k, c in enumerate(cores):
         rl = 1 if k == 0 else ra

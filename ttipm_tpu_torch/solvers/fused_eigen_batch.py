@@ -1,0 +1,263 @@
+"""The step-size eigensolve for a batch of pencils of one structure, in
+lockstep.
+
+The generalised solve of ``solvers/fused_eigen.py`` for a batch, with the
+semantics of the JAX package's whole-eigen device program
+(``ttipm_tpu/solvers/fused_eigen.py:371-437``, ``_gen_eigen_program``)
+that ``ttipm_tpu/parallel/fused_mesh.py`` maps over a batch with
+``jax.vmap``: the sweep-0 orthogonalisation, a first forward solving half
+sweep, then (backward, forward) half-sweep pairs while an instance's alpha
+is finite and positive, its sweep residual is at or above ``tol``, it has
+not stalled and it has pairs left (the forward half only where it is still
+needed after the backward one), and a backward single-core finishing sweep
+kept only where alpha is finite and positive.  Each instance keeps its own
+alpha, residual, stall flag and pair count, as the vmapped ``while_loop``
+gives them; an instance that has stopped rides along frozen by (B,) masks,
+so the shapes stay uniform.  The host reads the instances' loop conditions
+once per pair.  The single solve keeps its own loop: it follows the host
+engine (``fused_eigen_host.py``: the orthogonalisation, then backward and
+forward half sweeps per sweep, a finishing sweep in the direction that
+converged, and its own stall test), a different order of windows from
+this program's, so a batch of one here is not the single solve; the two
+agree to the JAX package's bound for its batch against its single solve
+(2e-6, ``tests/test_torch_parallel.py``).
+
+Every window's two pencil matrices come from one K1 launch for the whole
+batch (``kernels.schur_assemble_batch``) and the Cholesky of the whitened
+shrink pencil from one K4 call (``kernels.panel_cholesky_batch``).  The
+shrink rule is computed for the batch where any instance's shifted pencil
+is indefinite and taken where that instance's is (the device program's
+``lax.cond``, which ``vmap`` turns into a select).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ttipm_tpu_torch.ops import kernels
+from ttipm_tpu_torch.ops.linalg import safe_eigh, safe_eigvalsh
+from ttipm_tpu_torch.solvers.fused_batch import TINY, _col, _norm, phi_bck_A, phi_fwd_A, svd
+
+__all__ = ["gen_eigen_program"]
+
+
+def _finite(t):
+    return torch.isfinite(t).reshape(t.shape[0], -1).all(dim=1)
+
+
+def _merged(A_k, A_k1):
+    B, s, m, n, _ = A_k.shape
+    _, _, p, t, S = A_k1.shape
+    return torch.einsum("zsmnk,zkptS->zsmpntS", A_k, A_k1).reshape(B, s, m * p, n * t, S)
+
+
+def _sym(M):
+    return 0.5 * (M + M.mT)
+
+
+def _eye_like(M):
+    return torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand_as(M)
+
+
+def _smallest_eigpair(M):
+    """Smallest eigenpair of each instance's symmetrised M; an instance
+    that is not finite gets NaN (the single solver's failed eigh)."""
+    ok = _finite(M)
+    ev, U = safe_eigh(torch.where(_col(ok, M), _sym(M), _eye_like(M)))
+    nan = float("nan")
+    return torch.where(ok, ev[:, 0], nan), torch.where(_col(ok, U[:, :, 0]), U[:, :, 0], nan)
+
+
+def _shrink_alpha(MA, MD, alpha, tol):
+    """alpha <- min(alpha, 1 / lambda_max(-Delta, A)) per instance, via the
+    whitened pencil; a failed Cholesky of A gives alpha (1 - tol)."""
+    L, info = kernels.panel_cholesky_batch(_sym(MA) + 1e-12 * _eye_like(MA))
+    ok = info == 0
+    L = torch.where(_col(ok, L), L, _eye_like(L))
+    W = torch.linalg.solve_triangular(L, _sym(MD), upper=False)
+    W = torch.linalg.solve_triangular(L, W.mT, upper=False)
+    ok = ok & _finite(W)
+    lam_max = -safe_eigvalsh(torch.where(_col(ok, W), _sym(W), _eye_like(W)))[:, 0]
+    good = ok & torch.isfinite(lam_max) & (lam_max > 0)
+    shrunk = torch.clamp_min(torch.minimum(alpha, 1.0 / torch.where(good, lam_max, 1.0)), 0.0)
+    return torch.where(good, shrunk, alpha * (1 - tol))
+
+
+def _pencil_solve(MA, MD, prev_vec, alpha, tol):
+    """Smallest eigenpair of MA/alpha + MD, the shrink rule and the previous
+    iterate's residual in the updated pencil, per instance; returns (x,
+    alpha_new, old_res, scale) with scale = ||M||_F."""
+    M = MA / _col(alpha, MA) + MD
+    lam, x = _smallest_eigpair(M)
+    neg = lam < 0
+    alpha_new = alpha
+    if bool(neg.any()):
+        alpha_new = torch.where(neg, _shrink_alpha(MA, MD, alpha, tol), alpha)
+    denom = torch.where(alpha_new > 0, alpha_new, torch.ones_like(alpha_new))
+    Mp = (MA @ prev_vec[:, :, None])[:, :, 0] / denom[:, None] + (MD @ prev_vec[:, :, None])[:, :, 0]
+    lam_prev = (prev_vec * Mp).sum(dim=1)
+    old_res = _norm(Mp - lam_prev[:, None] * prev_vec)
+    return x, alpha_new, old_res, _norm(M)
+
+
+def _unit(x):
+    return x / torch.clamp_min(_norm(x), TINY)[:, None]
+
+
+def _split(mat, r_out: int):
+    u, s, vt = svd(mat)
+    r_out = min(r_out, u.shape[-1])
+    return u[:, :, :r_out], s[:, :r_out, None] * vt[:, :r_out], r_out
+
+
+def _window_step(pAl, A_k, A_k1, pAr, pDl, D_k, D_k1, pDr, sol1, sol2, alpha, tol,
+                 r_out: int, bwd: bool):
+    prev = torch.einsum("zrny,zytR->zrntR", sol1, sol2)
+    B, rl, n1, n2, rr = prev.shape
+    MA, MD = kernels.schur_assemble_batch(
+        [(pAl, _merged(A_k, A_k1), pAr), (pDl, _merged(D_k, D_k1), pDr)]).unbind(0)
+    x, alpha_new, old_res, scale = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol)
+    x = _unit(x)
+    if bwd:
+        u, sv, r = _split(x.reshape(B, rl * n1, n2 * rr).mT, r_out)
+        sol2_new = u.mT.reshape(B, r, n2, rr)
+        sol1_new = sv.mT.reshape(B, rl, n1, r)
+        pA_upd = phi_bck_A(pAr, sol2_new, A_k1, sol2_new)
+        pD_upd = phi_bck_A(pDr, sol2_new, D_k1, sol2_new)
+    else:
+        u, sv, r = _split(x.reshape(B, rl * n1, n2 * rr), r_out)
+        sol1_new = u.reshape(B, rl, n1, r)
+        sol2_new = sv.reshape(B, r, n2, rr)
+        pA_upd = phi_fwd_A(pAl, sol1_new, A_k, sol1_new)
+        pD_upd = phi_fwd_A(pDl, sol1_new, D_k, sol1_new)
+    return sol1_new, sol2_new, alpha_new, old_res, scale, pA_upd, pD_upd
+
+
+def _last_step_bwd(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol, r_out: int,
+                   split: bool):
+    """Single-core refinement of the backward finishing sweep."""
+    B, rl, n, rr = prev.shape
+    MA, MD = kernels.schur_assemble_batch([(pAl, A_k, pAr), (pDl, D_k, pDr)]).unbind(0)
+    x, alpha_new, _, _ = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol)
+    x = _unit(x)
+    if not split:
+        return x.reshape(B, rl, n, rr), neighbor, alpha_new, pAl, pDl
+    u, sv, r = _split(x.reshape(B, rl, n * rr).mT, r_out)
+    core = u.mT.reshape(B, r, n, rr)
+    nb_new = torch.einsum("zrdc,zcR->zrdR", neighbor, sv.mT)
+    return (core, nb_new, alpha_new, phi_bck_A(pAr, core, A_k, core),
+            phi_bck_A(pDr, core, D_k, core))
+
+
+def _orth_sweep(A_p, D_p, xs, XAX, XDX, caps):
+    d = len(xs)
+    for k in range(d - 1, 0, -1):
+        B, rl, n, rr = xs[k].shape
+        u, sv, r = _split(xs[k].reshape(B, rl, n * rr).mT, caps[k - 1])
+        xs[k] = u.mT.reshape(B, r, n, rr)
+        xs[k - 1] = torch.einsum("zrdc,zcR->zrdR", xs[k - 1], sv.mT)
+        XAX[k] = phi_bck_A(XAX[k + 1], xs[k], A_p[k], xs[k])
+        XDX[k] = phi_bck_A(XDX[k + 1], xs[k], D_p[k], xs[k])
+
+
+def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool):
+    """One half sweep of every instance on a copy of the state ``st`` =
+    (xs, XAX, XDX); returns (state, alpha, max window residual, max
+    window scale), the last three (B,)."""
+    xs, XAX, XDX = (list(t) for t in st)
+    d = len(xs)
+    res_vals, scale_vals = [], []
+    for k in (range(d - 1, 0, -1) if bwd else range(d - 1)):
+        i = k - 1 if bwd else k
+        xs[i], xs[i + 1], alpha, res, scl, pA, pD = _window_step(
+            XAX[i], A_p[i], A_p[i + 1], XAX[i + 2], XDX[i], D_p[i], D_p[i + 1], XDX[i + 2],
+            xs[i], xs[i + 1], alpha, tol, r_out=caps[i], bwd=bwd)
+        XAX[i + 1] = pA
+        XDX[i + 1] = pD
+        res_vals.append(res)
+        scale_vals.append(scl)
+    return ((xs, XAX, XDX), alpha, torch.stack(res_vals).amax(dim=0),
+            torch.stack(scale_vals).amax(dim=0))
+
+
+def _finish_sweep(A_p, D_p, st, alpha, tol, caps):
+    xs, XAX, XDX = (list(t) for t in st)
+    d = len(xs)
+    for k in range(d - 1, -1, -1):
+        split = k > 0
+        core, nb_new, alpha, pA, pD = _last_step_bwd(
+            XAX[k], A_p[k], XAX[k + 1], XDX[k], D_p[k], XDX[k + 1],
+            xs[k - 1] if split else xs[k], xs[k], alpha, tol,
+            r_out=caps[k - 1] if split else 1, split=split)
+        xs[k] = core
+        if split:
+            xs[k - 1] = nb_new
+            XAX[k] = pA
+            XDX[k] = pD
+    return (xs, XAX, XDX), alpha
+
+
+def _select(mask, new, old):
+    """Per instance: ``new`` where ``mask``, else ``old`` (nested lists of
+    (B, ...) tensors, or (B,) tensors)."""
+    if isinstance(new, (list, tuple)):
+        return type(new)(_select(mask, n, o) for n, o in zip(new, old))
+    return torch.where(_col(mask, new), new, old)
+
+
+def _ok(alpha):
+    return torch.isfinite(alpha) & (alpha > 0)
+
+
+def _stalled(prev_step, step, prev_res, res, tol):
+    """Device form of the single solver's step-and-residual stall test."""
+    scale = torch.clamp_min(torch.maximum(step.abs(), prev_step.abs()), 1.0)
+    res_stall = (torch.isfinite(prev_res) & torch.isfinite(res) & (res <= 50 * tol)
+                 & (res >= 0.8 * prev_res))
+    return (torch.abs(step - prev_step) <= max(10 * tol, 1e-12) * scale) & res_stall
+
+
+def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
+    """The whole generalised eigensolve of B pencils: ``A_p``, ``D_p`` and
+    ``xs`` are lists of (B, ...) cores (operators padded to one rank, the
+    eigenvector trains at the cap ranks), ``alpha0`` (B,).  Returns (the
+    eigenvector cores, alpha, the last sweep residual, the largest window
+    scale), the last three (B,) on the device."""
+    d = len(xs)
+    B = alpha0.shape[0]
+    ones3 = A_p[0].new_ones((B, 1, 1, 1))
+    xs = list(xs)
+    XAX = [ones3] * (d + 1)
+    XDX = [ones3] * (d + 1)
+    _orth_sweep(A_p, D_p, xs, XAX, XDX, caps)
+    st, alpha, res_f, scl = _half_sweep(A_p, D_p, (xs, XAX, XDX), alpha0, tol, caps, bwd=False)
+    inf = torch.full_like(alpha, float("inf"))
+    sweep_res, prev_step, prev_res = inf, alpha, inf
+    stalled = torch.zeros(B, dtype=torch.bool, device=alpha.device)
+    pairs = 0
+    while pairs < max_pairs:
+        active = _ok(alpha) & (sweep_res >= tol) & ~stalled
+        if not bool(active.any()):
+            break
+        st1, alpha1, res_b, scl_b = _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd=True)
+        run_fwd = _ok(alpha1) & (torch.maximum(res_b, res_f) >= tol)
+        st2, alpha2, res_f2, scl_f = st1, alpha1, res_b, scl_b
+        if bool((run_fwd & active).any()):
+            st_f, alpha_f, res_ff, scl_ff = _half_sweep(A_p, D_p, st1, alpha1, tol, caps,
+                                                        bwd=False)
+            st2 = _select(run_fwd, st_f, st1)
+            alpha2, res_f2, scl_f = (torch.where(run_fwd, a, b) for a, b in
+                                     ((alpha_f, alpha1), (res_ff, res_b), (scl_ff, scl_b)))
+        new_res = torch.maximum(res_b, res_f2)
+        new_stalled = (pairs >= 1) & _stalled(prev_step, alpha2, prev_res, new_res, tol)
+        st = _select(active, st2, st)
+        alpha, res_f, sweep_res, prev_step, prev_res, stalled, scl = (
+            torch.where(active, a, b) for a, b in
+            ((alpha2, alpha), (res_f2, res_f), (new_res, sweep_res), (alpha2, prev_step),
+             (new_res, prev_res), (new_stalled, stalled),
+             (torch.maximum(scl, torch.maximum(scl_b, scl_f)), scl)))
+        pairs += 1
+    st_fin, alpha_fin = _finish_sweep(A_p, D_p, st, alpha, tol, caps)
+    ok = _ok(alpha)
+    xs = _select(ok, st_fin[0], st[0])
+    return xs, torch.where(ok, alpha_fin, alpha), sweep_res, scl

@@ -7,7 +7,8 @@
 change".  Every measurement runs in a process of its own that imports
 ``ttipm_tpu_torch`` from one of the two roots, through the entry points
 both have: ``kernels.kkt_block_matvec``, ``kernels.schur_assemble``,
-``fused_algebra.local_product`` and, where the checkout has it,
+the fused block product (``fused_algebra.local_product``, or
+``fused_batch.local_product`` on a batch of one) and, where the checkout has it,
 ``kernels.schur_assemble_group`` (else four ``kernels.schur_assemble``
 calls), and ``kernels.panel_qr`` on one contiguous panel.
 
@@ -193,6 +194,14 @@ def worker_time(args):
     from ttipm_tpu_torch.ops import kernels as K
     from ttipm_tpu_torch.solvers import fused_algebra as fa
 
+    if hasattr(fa, "local_product"):  # a checkout with the single-instance algebra
+        local_product = fa.local_product
+    else:
+        from ttipm_tpu_torch.solvers import fused_batch as fb
+
+        def local_product(pl, A, pr, x):
+            return fb.local_product(*fb.batch_of_one((pl, A, pr, x)))
+
     dev = torch.device("cuda")
     rng = np.random.RandomState(7)
 
@@ -239,7 +248,7 @@ def worker_time(args):
         cases = {
             "block_matvec": lambda: K.kkt_block_matvec(pl["00"], A["00"], pr["00"], x0),
             "schur_block": lambda: K.schur_assemble(pl["00"], A["00"], pr["00"]),
-            "local_product": lambda: fa.local_product(pl, A, pr, x),
+            "local_product": lambda: local_product(pl, A, pr, x),
             "factor_blocks": factor_blocks,
         }
         for name, fn in cases.items():

@@ -139,23 +139,16 @@ def load_problem(name: str):
     return create_problem
 
 
-def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
-    """One seeded solve and its metrics, written into row ``s_i`` of
-    ``rec``.  Every draw comes from numpy's global RandomState seeded with
-    ``seed``, as in the JAX package; the problem is made in the dtype of
-    the profile (``config.dtype()``).  Returns (feasibility error,
-    slackness)."""
+def seeded_problem(create_problem_fn, dim, rank, seed, device):
+    """The problem of ``seed`` as the runner solves it, drawn from numpy's
+    global RandomState seeded with ``seed`` (as in the JAX package) in the
+    dtype of the profile (``config.dtype()``): ``(lag_maps, obj_tt,
+    L_op_tt, bias_tt, ineq_mask)``, the arguments of ``ipm.tt_ipm``."""
     from ttipm_tpu_torch import config as tt_config
-    from ttipm_tpu_torch.checks import solve_metrics
-    from ttipm_tpu_torch.ipm import IneqStatus, tt_ipm
     from ttipm_tpu_torch.ops.tt import tt_reshape
-    from ttipm_tpu_torch.utils.memtrack import PeakMemoryTracker
 
-    device = torch.device(args.device)
-    tracker = PeakMemoryTracker(device).__enter__() if args.track_mem else None
     np.random.seed(seed)
-    t1 = time.time()
-    problem = create_problem_fn(config["dim"], rank, device=device, dtype=tt_config.dtype())
+    problem = create_problem_fn(dim, rank, device=device, dtype=tt_config.dtype())
     if len(problem) == 5:
         obj_tt, L_op_tt, bias_tt, ineq_mask, lag_maps = problem
     else:
@@ -163,14 +156,12 @@ def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
         ineq_mask = None
         lag_maps = {"y": lag_y}
     lag_maps = {k: tt_reshape(v, (4, 4)) for k, v in lag_maps.items()}
-    obj_tt = tt_reshape(obj_tt, (4,))
-    bias_tt = tt_reshape(bias_tt, (4,))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t2 = time.time()
-    X_tt, Y_tt, T_tt, Z_tt, info = tt_ipm(
-        lag_maps, obj_tt, L_op_tt, bias_tt,
-        ineq_mask=ineq_mask,
+    return lag_maps, tt_reshape(obj_tt, (4,)), L_op_tt, tt_reshape(bias_tt, (4,)), ineq_mask
+
+
+def ipm_kwargs(config) -> dict:
+    """The settings of ``ipm.tt_ipm`` that a config gives."""
+    return dict(
         max_iter=config["max_iter"],
         verbose=config.get("verbose", False),
         gap_tol=float(config["gap_tol"]),
@@ -183,6 +174,28 @@ def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
         lambdaStar=float(config.get("lambdaStar", 1)),
         lambdaStarIneq=float(config.get("lambdaStarIneq", 1)),
     )
+
+
+def run_and_record(seed, s_i, rank, config, args, create_problem_fn, rec):
+    """One seeded solve and its metrics, written into row ``s_i`` of
+    ``rec``.  Every draw comes from numpy's global RandomState seeded with
+    ``seed``, as in the JAX package; the problem is made in the dtype of
+    the profile (``config.dtype()``).  Returns (feasibility error,
+    slackness)."""
+    from ttipm_tpu_torch.checks import solve_metrics
+    from ttipm_tpu_torch.ipm import IneqStatus, tt_ipm
+    from ttipm_tpu_torch.utils.memtrack import PeakMemoryTracker
+
+    device = torch.device(args.device)
+    tracker = PeakMemoryTracker(device).__enter__() if args.track_mem else None
+    t1 = time.time()
+    lag_maps, obj_tt, L_op_tt, bias_tt, ineq_mask = seeded_problem(
+        create_problem_fn, config["dim"], rank, seed, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t2 = time.time()
+    X_tt, Y_tt, T_tt, Z_tt, info = tt_ipm(
+        lag_maps, obj_tt, L_op_tt, bias_tt, ineq_mask=ineq_mask, **ipm_kwargs(config))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t3 = time.time()
