@@ -115,12 +115,36 @@ and prints no result line):
    worker processes on the card: every seed converged, seed 24 in phase 5's
    iterations.
 
+11. mesh: the (seeds x kkt) mesh over ``torch.distributed``
+   (``ttipm_tpu_torch.parallel.mesh``): two ranks sharing cuda:0 over gloo
+   (and, where the machine has more cards, nccl on min(4, count) of them)
+   run the dry run's three parts (``tools/dryrun_mesh.py``) on a kkt-only
+   mesh, then phase 10's five d10 systems through ``tt_newton_step_batch``
+   on a seeds-only mesh (S = ranks) and a kkt-only one (K = ranks).
+   Checked: the seeds-only steps and directions bit-equal to phase 10's
+   ``mesh=None`` step, or the steps within STEP_BOUND and the directions
+   within DIRECTION_BOUND with the first op that computes an instance
+   differently named (``traced_step``); on the kkt-only mesh each rank's
+   partial Schur blocks and their sums over the row within K1's tolerance
+   of the plain versions at the cancelling scale and the predictor
+   residuals within tests/test_parallel.py:101's bound of phase 10's;
+   every kernel launched on every rank, no plain version on a CUDA tensor.
+   Printed per rank: walls beside ``mesh=None``'s, collectives and bytes,
+   launches and instances, peak memory.
+12. baselines: the native dense baselines at the runner's settings on
+   BASELINE_CELLS (splitting, cgal, scgal, manopt on maxcut d8 seed 24;
+   manopt on d10 seed 41): each ends by its own stop test, its objective
+   within 1e-3 of the TT-IPM's final X of phases 5 and 6 on the same
+   instance; SketchyCGAL on d10 timed for BASELINE_PROBES' iterations.
+   Printed: wall, iterations, objective, feasibility, peak memory.
+
 The line before the last is a JSON object with the per-kernel record
 (launches on the d8, d10, corr_clust d6 and graphm paths; the f32
 instances as entries of their own: ``launches`` those of phase 9's solve,
 ``launches_capture`` those of its capture run; ``launches_batch`` and
 ``instances_batch`` those of phase 10's batched step, ``batch`` the timed
-row of the kernel's heaviest batched shape); the last line
+row of the kernel's heaviest batched shape, ``launches_mesh`` phase 11's
+launches on each rank); the last line
 is {"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
 build always) and then prints neither.
 """
@@ -394,7 +418,7 @@ def phase_kernels():
     return summary
 
 
-def solve(dim, seed, device, settings):
+def solve(dim, seed, device, settings, keep=None):
     import torch
 
     from ttipm_tpu_torch.checks import solve_metrics
@@ -417,6 +441,8 @@ def solve(dim, seed, device, settings):
     if len(X) != dim or any(tuple(c.shape[1:3]) != (2, 2) for c in X + Z):
         raise AssertionError(f"d{dim}: unexpected iterate cores")
     slack, primal, dual = solve_metrics(X, Y, Z, obj, L, b)
+    if keep is not None:
+        keep["X"] = X
     return {
         "dim": dim, "seed": seed, "device": device.type, "iters": info["num_iters"],
         "slack": slack, "primal_feas": primal, "dual_feas": dual,
@@ -466,7 +492,8 @@ def phase_slice(dim, seed):
     the scale of their terms, since the solver's operands cancel, see
     ttipm_tpu_torch.checks); the seconds these checks take are reported
     apart from the solve's wall.  Returns (per kernel (launches, plain
-    calls, launches through the grouped entry), the iterations)."""
+    calls, launches through the grouped entry), the iterations, the final
+    X)."""
     import torch
 
     from ttipm_tpu_torch.checks import KERNEL_OF, kernel_errors, shape_key
@@ -500,8 +527,9 @@ def phase_slice(dim, seed):
         setattr(K, name, recorder(name))
     torch.cuda.reset_peak_memory_stats()
     K.reset_counts()
+    kept = {}
     try:
-        res = solve(dim, seed, torch.device("cuda"), settings)
+        res = solve(dim, seed, torch.device("cuda"), settings, keep=kept)
     finally:
         for name, fn in originals.items():
             setattr(K, name, fn)
@@ -531,7 +559,7 @@ def phase_slice(dim, seed):
             raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
         if name in ("schur_assemble", "kkt_block_matvec") and grouped <= 0:
             raise AssertionError(f"{name}: its grouped entry was not launched on the main path")
-    return counts, res["iters"]
+    return counts, res["iters"], kept["X"]
 
 
 def phase_slice_times(label, shapes, first, names):
@@ -830,12 +858,13 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
 def phase_fallback(problem, dim, seed):
     """Phase 6: the fused ladder, the ragged AMEn where the ladder exhausts
     its restarts (at least one solve), the fused eigensolver; timed at the
-    solve's heaviest shapes."""
-    res, counts, record = drive(problem, dim, seed, "fallback", JAX_CPU_D10)
+    solve's heaviest shapes.  Returns (the counts, the final X)."""
+    kept = {}
+    res, counts, record = drive(problem, dim, seed, "fallback", JAX_CPU_D10, keep=kept)
     solve_times("fallback_time", *record)
     if res["solves"]["ragged"] < 1:
         raise AssertionError(f"d{dim} seed {seed}: no Newton solve went through the ragged AMEn")
-    return counts
+    return counts, kept["iterates"][0]
 
 
 def phase_ineq(problem, dim, seed):
@@ -1311,9 +1340,12 @@ def phase_batch(slice_iters=None):
     host syncs and the device busy share (torch.profiler) of the batched
     step, the peak device memory; (4) ``run_batch`` on the five seeds of
     configs/maxcut_8.yaml, five workers on the card: every seed ok and
-    converged, seed 24 in phase 5's iterations.  Returns per kernel the
+    converged, seed 24 in phase 5's iterations.  Returns (per kernel the
     launches and instances of each type ("f64", "f32") in the counted
-    batched step, and the rows of ``phase_batch_kernels``."""
+    batched step and the rows of ``phase_batch_kernels``; phase 11's
+    reference: the systems, the counted step's steps and directions (numpy's
+    global stream seeded with BATCH_STEP's seed before it), the batched
+    step's wall and the predictor residuals)."""
     import warnings
 
     import torch
@@ -1370,6 +1402,7 @@ def phase_batch(slice_iters=None):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
+                np.random.seed(BATCH_STEP["seed"])  # the eigenvector starts (phase 11 redraws)
                 xs, zs, dirs = step(len(seeds))
             finally:
                 torch.cuda.set_sync_debug_mode("default")
@@ -1501,12 +1534,603 @@ def phase_batch(slice_iters=None):
     if got.get(24) != want:
         raise AssertionError(f"run_batch: seed 24 took {got.get(24)} iterations, phase 5 {want}")
     print(json.dumps({"batch_phase_s": time.perf_counter() - t_phase}), flush=True)
+    ref = {"systems": inst, "steps": (xs, zs, dirs), "wall_s": wall,
+           "predictor_rel_res": res_batch}
     return {n: {tag: {"launches_batch": c[0], "instances_batch": c[1]}
                 for tag, c in by_dtype[n].items()} | {"batch": rows.get(n)}
-            for n in counts}
+            for n in counts}, ref
 
 
-PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32", "batch")
+# ---------------------------------------------------------------------------
+# Phase 11: the mesh on the card
+# ---------------------------------------------------------------------------
+
+STEP_BOUND = 2e-14  # phase 10's bound of a batch's steps against a batch of one
+# A last-bit difference in a Newton solve's arithmetic moves its result
+# within the solve's own tolerance (term_tol 1e-6, tt_newton_step_batch's):
+# the directions' bound where the steps are not bit-equal.
+DIRECTION_BOUND = 1e-6
+
+
+def _numpy_tree(tree):
+    import torch
+
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(t) for t in tree]
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else np.asarray(tree)
+
+
+def _tree_diff(a, b):
+    """(bit-equal, largest absolute difference) of two nested lists of arrays."""
+    if isinstance(a, (list, tuple)):
+        parts = [_tree_diff(x, y) for x, y in zip(a, b)]
+        return (len(a) == len(b) and all(p[0] for p in parts),
+                max((p[1] for p in parts), default=0.0))
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False, float("inf")
+    return bool(np.array_equal(a, b)), float(np.abs(a - b).max(initial=0.0))
+
+
+def batch_reference():
+    """Phase 10's reference where phase 10 does not run: the five systems,
+    the mesh=None step with numpy's global stream seeded as phase 10 seeds
+    it, the step's wall and the predictor residuals."""
+    import torch
+
+    from ttipm_tpu_torch.checks import first_newton_system, kkt_residual_norm
+    from ttipm_tpu_torch.parallel.fused_mesh import tt_block_amen_fused_batch, tt_newton_step_batch
+    from ttipm_tpu_torch.solvers import fused as F
+
+    problem, dim = BATCH_CELL
+    cfg = load_config(dim, problem)
+    inst = [first_newton_system(problem, cfg, int(s), torch.device("cuda"))
+            for s in cfg["seeds"]]
+    systems, Xs, Zs = [i[:2] for i in inst], [i[2] for i in inst], [i[3] for i in inst]
+    np.random.seed(BATCH_STEP["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = tt_newton_step_batch(systems, Xs, Zs, **BATCH_STEP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sols, _ = tt_block_amen_fused_batch([s[0] for s in systems], [s[1] for s in systems],
+                                        R=BATCH_STEP["R"], ineq=False, term_tol=1e-6,
+                                        nswp=BATCH_STEP["nswp"], seed=BATCH_STEP["seed"])
+    res = [kkt_residual_norm(F.prep_operator(lhs), F.prep_rhs(rhs, len(x), x[0]), x) / rhs.norm
+           for (lhs, rhs), x in zip(systems, sols)]
+    return {"systems": inst, "steps": steps, "wall_s": wall, "predictor_rel_res": res}
+
+
+_UNINITIALISED = ("aten.empty", "aten.new_empty", "aten.empty_like", "aten.empty_strided")
+
+
+def _checksum(t, axis=None):
+    """Device-side checksums of ``t``'s bits (wrapping int64 sums of its
+    words; no host transfer): of the whole, or of each index along
+    ``axis``."""
+    import torch
+
+    t = t.detach()
+    t = (t.reshape(1, -1) if axis is None else t.movedim(axis, 0).reshape(t.shape[axis], -1))
+    t = t.contiguous()
+    if t.dtype == torch.float64:
+        w = t.view(torch.int64)
+    elif t.dtype == torch.float32:
+        w = t.view(torch.int32).to(torch.int64)
+    else:
+        w = t.to(torch.int64)
+    out = w.sum(dim=1)
+    return out[0] if axis is None else out
+
+
+def _digests(tree, batch):
+    """(shape, {axis: checksums of each index along it} for every axis of
+    size ``batch``, checksum of the whole where there is none) of every
+    CUDA tensor in ``tree``; the checksums stay on the device."""
+    import torch
+
+    out = []
+
+    def walk(t):
+        if isinstance(t, (list, tuple)):
+            for x in t:
+                walk(x)
+        elif isinstance(t, dict):
+            for x in t.values():
+                walk(x)
+        elif torch.is_tensor(t) and t.is_cuda:
+            axes = {ax: _checksum(t, ax) for ax, n in enumerate(t.shape) if n == batch}
+            out.append((tuple(t.shape), axes, None if axes else _checksum(t)))
+
+    walk(tree)
+    return out
+
+
+_WHOLE = -1  # the trace's batch size inside per-instance code: tensors compared whole
+
+
+def _same_instances(da, db, index):
+    """Whether two ``_digests`` lists (checksums read back) agree on every
+    instance of the first: instance j of ``da`` against instance
+    ``index[j]`` of ``db``, per tensor with a batch axis in both, along an
+    axis outside which the shapes agree.  Tensors without one (the batch's
+    decisions, constants) are not compared: a difference that matters
+    reaches a batched tensor.  Returns (the tensor's position, the
+    instance) of the first difference, or None."""
+    if len(da) != len(db):
+        return -1, 0
+    for pos, ((sa, aa, fa), (sb, ab, fb)) in enumerate(zip(da, db)):
+        if index is None:  # per-instance code: every tensor whole
+            if sa != sb or fa != fb:
+                return pos, 0
+            continue
+        if not aa and not ab:
+            continue
+        axes = [ax for ax in set(aa) & set(ab) if len(sa) == len(sb)
+                and all(x == y for i, (x, y) in enumerate(zip(sa, sb)) if i != ax)]
+        if not axes:
+            return pos, 0
+        ax = axes[0]
+        for j, g in enumerate(index):
+            if aa[ax][j] != ab[ax][g]:
+                return pos, j
+    return None
+
+
+_KERNEL_ENTRIES = ("kkt_block_product", "kkt_block_product_batch", "kkt_block_matvec",
+                   "schur_assemble_group", "schur_assemble_batch", "panel_qr", "panel_qr_batch",
+                   "panel_cholesky", "panel_cholesky_batch")
+
+
+def traced_step(m, systems, Xs, Zs):
+    """The batch cell's Newton step on mesh ``m`` (or None) with every
+    aten op and kernel call inside the batched sweeps and eigen programs
+    and the solves' warm-start preparation recorded: (name, batch size,
+    digests of its inputs, of its outputs, the ops that wrote its inputs);
+    batched tensors digested instance by instance, the warm starts' whole
+    (ops that allocate without writing are left out).  The rest of the
+    step (per-instance TT algebra, the mesh's reductions and gathers) is
+    not traced."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.parallel import fused_mesh as FM
+    from ttipm_tpu_torch.solvers import fused_batch as FB
+    from ttipm_tpu_torch.solvers import fused_eigen_batch as FEB
+
+    trace, batch = [], [None]
+
+    producer = {}  # a tensor's (storage, offset, shape) -> the traced op that wrote it
+
+    def key(t):
+        return (t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape))
+
+    def cuda_tensors(tree):
+        return [t for t in torch.utils._pytree.tree_leaves(tree)
+                if torch.is_tensor(t) and t.is_cuda]
+
+    class Tracer(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            if batch[0] is not None and not name.startswith(_UNINITIALISED):
+                made = [producer.get(key(t)) for t in cuda_tensors((args, kwargs))]
+                trace.append((name, batch[0], _digests((args, kwargs), batch[0]),
+                              _digests(out, batch[0]), made))
+                for t in cuda_tensors(out):
+                    producer[key(t)] = len(trace) - 1
+            return out
+
+    def scoped(fn, size=None, record=None):
+        """``fn`` with the batch size set (``size`` given) or the tracing
+        off inside it; ``record`` (a name, or a function of the arguments
+        giving one): trace the call itself as one op."""
+        def wrapped(*a, **kw):
+            saved = batch[0]
+            batch[0] = size(a) if size is not None else None
+            try:
+                out = fn(*a, **kw)
+                if record and saved is not None:  # digested untraced
+                    name = record(a) if callable(record) else record
+                    made = [producer.get(key(t)) for t in cuda_tensors((a, kw))]
+                    trace.append((name, saved, _digests((a, kw), saved), _digests(out, saved),
+                                  made))
+                    for t in cuda_tensors(out):
+                        producer[key(t)] = len(trace) - 1
+            finally:
+                batch[0] = saved
+            return out
+        return wrapped
+
+    patched = [(FB, "sweep", scoped(FB.sweep, size=lambda a: a[2][0].shape[0])),
+               (FM._fused, "_prep_x0", scoped(FM._fused._prep_x0, size=lambda a: _WHOLE)),
+               (FM, "gen_eigen_program", scoped(FM.gen_eigen_program, size=lambda a: a[3].shape[0]))]
+    patched += [(K, n, scoped(getattr(K, n), record=f"kernel:{n}")) for n in _KERNEL_ENTRIES]
+    # the calls taken an instance at a time: one op each, whatever the batch
+    patched += [(FB, "_each", scoped(FB._each, record=lambda a: f"each:{a[0].__name__}"))]
+    patched += [(FEB, n, scoped(getattr(FEB, n), record=f"each:{n}"))
+                for n in ("_norm", "_solve_lower")]
+    if m is not None:  # the mesh's own reductions of the stop decisions
+        patched.append((m, "reduce_values", scoped(m.reduce_values)))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, fn in patched:
+        setattr(obj, name, fn)
+    try:
+        np.random.seed(BATCH_STEP["seed"])
+        with Tracer():
+            FM.tt_newton_step_batch(systems, Xs, Zs, mesh=m, **BATCH_STEP)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        if m is not None:
+            del m.reduce_values
+    # read every checksum back in one transfer
+    sums = [c.reshape(-1) for _, _, ins, outs, _ in trace for d in (ins, outs)
+            for _, axes, full in d for c in list(axes.values()) + ([full] if full is not None else [])]
+    values = iter(torch.cat(sums).tolist() if sums else [])
+
+    def read(d):
+        return [(shape, {ax: [next(values) for _ in range(len(c))] for ax, c in axes.items()},
+                 next(values) if full is not None else None)
+                for shape, axes, full in d]
+
+    return [(name, b, read(ins), read(outs), made) for name, b, ins, outs, made in trace]
+
+
+def first_divergent_op(a, b, row, seeds):
+    """The first op of a seeds mesh's trace ``a`` (``traced_step`` on seeds
+    row ``row`` of ``seeds``) and the mesh=None trace ``b`` at which one of
+    the row's instances differs from the same instance in ``b`` while the
+    op's inputs agree: the op that computes that instance differently at
+    another batch size.  Where inputs differ first, the difference entered
+    from code the trace does not see."""
+    for k, ((name_a, b_a, in_a, out_a, made), (name_b, b_b, in_b, out_b, _)) in enumerate(
+            zip(a, b)):
+        if name_a != name_b:
+            return {"op": k, "parted": [name_a, name_b]}
+        if b_a == _WHOLE:
+            index = None
+        else:
+            padded = list(range(b_b)) + [b_b - 1] * ((-b_b) % seeds)
+            index = padded[row * b_a:(row + 1) * b_a]
+        diff = _same_instances(in_a, in_b, index)
+        if diff is not None:  # name the op that wrote the input, where the trace saw it
+            pos, j = diff
+            src = made[pos] if 0 <= pos < len(made) else None
+            return {"op": k, "name": name_a, "inputs_differ": True,
+                    "instance": index[j] if index else "per-instance code",
+                    "input_shape": in_a[pos][0] if pos >= 0 else None,
+                    "written_by": (src, a[src][0]) if src is not None else "outside the trace"}
+        diff = _same_instances(out_a, out_b, index)
+        if diff is not None:
+            return {"op": k, "name": name_a,
+                    "instance": index[diff[1]] if index else "per-instance code",
+                    "shapes": [[d[0] for d in in_a], [d[0] for d in in_b]]}
+    return {"ops": min(len(a), len(b)), "lengths": [len(a), len(b)], "none_differs": True}
+
+
+def mesh_rank(mesh, payload):
+    """Phase 11 on one rank of a world on the card.  ``mesh`` is the
+    seeds-only mesh (S = ranks, K = 1); the rank also makes the kkt-only
+    mesh (S = 1, K = ranks) of the same world.  (1) The dry run's three
+    parts on the kkt-only mesh; (2) the batch cell's Newton step on the
+    seeds-only mesh, held bit for bit against phase 10's mesh=None step;
+    (3) the same step on the kkt-only mesh, on the first call of each
+    shape this rank's partial Schur blocks (K1 over its slice of the
+    operator bond) against their plain version and the blocks summed over
+    the row against the full K1's, both to K1's tolerance at the
+    cancelling scale, the predictor residuals against phase 10's
+    (tests/test_parallel.py:101's bound).  Returns host data."""
+    import torch
+
+    from ttipm_tpu_torch.checks import batch_errors, kkt_residual_norm, shape_key
+    from ttipm_tpu_torch.interop import block_matrix_to_torch, block_vector_to_torch, tt_to_torch
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.ops.tt import tt_l2_dist, tt_norm
+    from ttipm_tpu_torch.parallel import fused_mesh as FM
+    from ttipm_tpu_torch.parallel.mesh import make_mesh
+    from ttipm_tpu_torch.solvers import fused as F
+    from ttipm_tpu_torch.tools.dryrun_mesh import run_parts
+
+    dev = mesh.device
+    n = mesh.seeds * mesh.kkt
+    kkt_mesh = make_mesh(n, n, device=payload["device"], backend=mesh.backend)
+    out = {"rank": mesh.rank, "device": str(dev), "dryrun": run_parts(kkt_mesh)}
+    systems, Xs, Zs = [], [], []
+    for lhs, rhs, X, Z in payload["systems"]:
+        systems.append((block_matrix_to_torch(*lhs, device=dev), block_vector_to_torch(rhs, device=dev)))
+        Xs.append(tt_to_torch(X, device=dev))
+        Zs.append(tt_to_torch(Z, device=dev))
+
+    def run(m):
+        before = m.stats.as_dict()
+        K.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        np.random.seed(BATCH_STEP["seed"])
+        t0 = time.perf_counter()
+        steps = FM.tt_newton_step_batch(systems, Xs, Zs, mesh=m, **BATCH_STEP)
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t0,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": {k: s.launches for k, s in K.STATS.items()},
+               "instances": {k: s.instances for k, s in K.STATS.items()},
+               "plain_calls": {k: s.plain_calls for k, s in K.STATS.items()},
+               "collectives": {k: v - before[k] for k, v in m.stats.as_dict().items()}}
+        xs, zs, dirs = steps
+        rec["finite_cone_steps"] = bool(
+            np.isfinite(xs).all() and np.isfinite(zs).all() and (xs > 0).all() and (xs <= 1).all()
+            and (zs > 0).all() and (zs <= 1).all()
+            and all(bool(torch.isfinite(c).all()) for d in dirs for t in d for c in t))
+        # against mesh=None: the steps, and each direction train's distance
+        # relative to its norm (invariant under the trains' gauge)
+        want_x, want_z, want_dirs = payload["want"]
+        rec["steps_max_abs_diff"] = float(max(np.abs(xs - want_x).max(),
+                                              np.abs(zs - want_z).max()))
+        rec["dirs_max_rel_dist"] = max(
+            tt_l2_dist(t, tt_to_torch(w, device=dev)) / max(tt_norm(t), 1e-300)
+            for d, wd in zip(dirs, want_dirs) for t, w in zip(d, wd))
+        return _numpy_tree([xs, zs, [list(d) for d in dirs]]), rec
+
+    got, seeds = run(mesh)
+    seeds["bit_equal"], seeds["cores_max_abs_diff"] = _tree_diff(got, payload["want"])
+    if not seeds["bit_equal"]:  # name the op that computes an instance differently
+        trace = traced_step(mesh, systems, Xs, Zs)
+        seeds["divergence"] = first_divergent_op(trace, traced_step(None, systems, Xs, Zs),
+                                                 mesh.coords[0], mesh.seeds)
+    out["seeds_only"] = seeds
+
+    checked = {}
+    full_k1 = kkt_mesh.partial_schur
+
+    def checked_partial(blocks, assemble):
+        def checked_assemble(part):  # this rank's partial blocks, against their plain version
+            out = assemble(part)
+            key = ("partial", shape_key(part))
+            if key not in checked:
+                checked[key] = batch_errors("schur_assemble_batch", (part,), torch.stack(out),
+                                            cancelling=True)
+            return out
+
+        summed = full_k1(blocks, checked_assemble)
+        key = ("summed", shape_key(blocks))
+        if key not in checked:  # the sum over the row, against the full K1's plain version
+            checked[key] = batch_errors("schur_assemble_batch", (blocks,), torch.stack(summed),
+                                        cancelling=True)
+        return summed
+
+    solves = []
+    fused_batch = FM.tt_block_amen_fused_batch
+
+    def kept_solve(*a, **kw):
+        res = fused_batch(*a, **kw)
+        solves.append((a[0], a[1], res[0]))
+        return res
+
+    kkt_mesh.partial_schur = checked_partial
+    FM.tt_block_amen_fused_batch = kept_solve
+    try:
+        got_k, rec_k = run(kkt_mesh)
+    finally:
+        FM.tt_block_amen_fused_batch = fused_batch
+        del kkt_mesh.partial_schur
+    lhs_b, rhs_b, sols = solves[0]  # the predictor solve
+    rec_k["predictor_rel_res"] = [
+        kkt_residual_norm(F.prep_operator(lhs), F.prep_rhs(rhs, len(x), x[0]), x) / rhs.norm
+        for lhs, rhs, x in zip(lhs_b, rhs_b, sols)]
+    rec_k["k1_checks"] = {
+        kind: {"shapes": sum(1 for k in checked if k[0] == kind),
+               "ok": all(e["ok"] for k, e in checked.items() if k[0] == kind),
+               "rel_terms": max((e.get("rel_terms", 0.0) for k, e in checked.items()
+                                 if k[0] == kind), default=0.0)}
+        for kind in ("partial", "summed")}
+    out["kkt_only"] = rec_k
+    return out
+
+
+def phase_mesh(ref):
+    """Phase 11: the (seeds x kkt) mesh on the card.  Two ranks share
+    cuda:0 (gloo); with more than one card also nccl on min(4, count)
+    cards.  Each world runs ``mesh_rank`` on every rank.  Fails unless
+    every rank ran; the seeds-only step equals phase 10's mesh=None step
+    bit for bit (or within STEP_BOUND); the kkt-only mesh's summed Schur
+    blocks are within K1's tolerance at the cancelling scale, its predictor
+    residuals within 10x of phase 10's or 1e-8 (tests/test_parallel.py:101),
+    its steps cone steps; every kernel launched on every rank and no plain
+    version on a CUDA tensor.  Returns per kernel each run's launches per
+    rank."""
+    import torch
+
+    from ttipm_tpu_torch.interop import block_matrix_to_numpy, block_vector_to_numpy, tt_to_numpy
+    from ttipm_tpu_torch.parallel.mesh import spawn_mesh
+
+    t_phase = time.perf_counter()
+    payload = {
+        "systems": [(block_matrix_to_numpy(lhs), block_vector_to_numpy(rhs), tt_to_numpy(X),
+                     tt_to_numpy(Z)) for lhs, rhs, X, Z in ref["systems"]],
+        "want": _numpy_tree([ref["steps"][0], ref["steps"][1],
+                             [list(d) for d in ref["steps"][2]]]),
+    }
+    count = torch.cuda.device_count()
+    worlds = [("gloo", 2, "cuda:0")] + ([("nccl", min(4, count), "cuda")] if count > 1 else [])
+    launches = {}
+    for backend, n, device in worlds:
+        t0 = time.perf_counter()
+        ranks = spawn_mesh(mesh_rank, n, 1, device, backend, args=({**payload, "device": device},),
+                           timeout_s=400)
+        label = f"{backend}_{n}"
+        print(json.dumps({"mesh": {"world": label, "device": device, "ranks": ranks,
+                                   "mesh_none_wall_s": ref["wall_s"],
+                                   "mesh_none_predictor_rel_res": ref["predictor_rel_res"],
+                                   "spawn_and_run_s": time.perf_counter() - t0}}), flush=True)
+        for r in ranks:
+            seeds, kkt = r["seeds_only"], r["kkt_only"]
+            for run, rec in (("seeds_only", seeds), ("kkt_only", kkt)):
+                if not rec["finite_cone_steps"]:
+                    raise AssertionError(f"{label} rank {r['rank']} {run}: steps or directions "
+                                         "not finite cone steps")
+                for name in KERNELS:
+                    if rec["launches"][name] <= 0 or rec["plain_calls"][name] != 0:
+                        raise AssertionError(f"{label} rank {r['rank']} {run}: {name} launched "
+                                             f"{rec['launches'][name]} times, plain "
+                                             f"{rec['plain_calls'][name]}")
+            if not seeds["bit_equal"] and not (seeds["steps_max_abs_diff"] <= STEP_BOUND
+                                               and seeds["dirs_max_rel_dist"] <= DIRECTION_BOUND):
+                raise AssertionError(f"{label} rank {r['rank']}: seeds-only step differs from "
+                                     f"mesh=None beyond {STEP_BOUND} (steps) or "
+                                     f"{DIRECTION_BOUND} (directions): {seeds}")
+            if not all(c["ok"] and c["shapes"] for c in kkt["k1_checks"].values()):
+                raise AssertionError(f"{label} rank {r['rank']}: a partial or summed Schur "
+                                     f"block outside K1's tolerance: {kkt['k1_checks']}")
+            for rk, rn in zip(kkt["predictor_rel_res"], ref["predictor_rel_res"]):
+                if not rk < max(10 * rn, 1e-8):
+                    raise AssertionError(f"{label} rank {r['rank']}: kkt-only predictor residual "
+                                         f"{rk} against mesh=None {rn}")
+        launches[label] = {name: {run: [r[run]["launches"][name] for r in ranks]
+                                  for run in ("seeds_only", "kkt_only")} for name in KERNELS}
+    print(json.dumps({"mesh_phase_s": time.perf_counter() - t_phase}), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the dense baselines on the card
+# ---------------------------------------------------------------------------
+
+# (problem, dim, seed, native solvers): maxcut d8 seed 24 (phase 5's cell)
+# with all four, maxcut d10 seed 41 (phase 6's) with manopt.
+BASELINE_CELLS = (("maxcut", 8, 24, ("splitting", "cgal", "scgal", "manopt")),
+                  ("maxcut", 10, 41, ("manopt",)))
+# (problem, dim, seed, solver, iterations): timed for a fixed number of
+# iterations, not to its stop test.  SketchyCGAL on d10 seed 41 is far from
+# it (on the H100: gap 9.98e4 and ||A(X) - b||^2 396 at iteration 2,000,
+# against 0.1 and 1e-6, at 227 ms an iteration) and would run to the
+# runner's cap of 1000 * 2^10 iterations.
+BASELINE_PROBES = (("maxcut", 10, 41, "scgal", 100),)
+BASELINE_OBJ_TOL = 1e-3  # tests/test_conic.py:131: the splitting solver against the TT-IPM
+
+
+def ipm_dense_objective(X, C):
+    """<C, X> of the TT-IPM's final X in the dense problem's scaling: the
+    IPM solves the sqrt(d)-normalised problem, so its dense iterate is
+    divided by the mean of its diagonal first (tests/test_conic.py:162-163)."""
+    from ttipm_tpu_torch.ops.tt import tt_matrix_to_matrix, tt_reshape
+
+    Xd = tt_matrix_to_matrix(tt_reshape(X, (2, 2)))
+    Xd = Xd / Xd.diagonal().mean()
+    return float((Xd * Xd.new_tensor(C)).sum())
+
+
+def _stopped(solver, sol, dim):
+    """Whether a baseline ended by its own stop test (not its iteration
+    cap): cgal / scgal below 1000 * 2^d - 1 iterations (the runner's cap),
+    the splitting solver below its max_iter (20000; it has no converged
+    flag), manopt on its gradient-norm test."""
+    if solver in ("cgal", "scgal"):
+        return sol["iterations"] < 1000 * 2 ** dim - 1
+    if solver == "splitting":
+        return sol["iterations"] < 20000
+    return sol["stopping_reason"] == "gradient norm below tolerance"
+
+
+def phase_baselines(ipm_X):
+    """Phase 12: the native dense baselines (``utils/baseline_runner.py``
+    with the runner's settings) on the card, on BASELINE_CELLS.  Each must
+    end by its own stop test and reach the TT-IPM's objective on the same
+    instance (phases 5 and 6: ``ipm_X`` {(dim, seed): final X}) within
+    BASELINE_OBJ_TOL relative.  Printed: wall, iterations, objective,
+    feasibility and peak device memory of each."""
+    import torch
+
+    from ttipm_tpu_torch.utils.baseline_runner import build_dense_problem, solve_baseline
+
+    t_phase = time.perf_counter()
+    rows = []
+    for problem, dim, seed, solvers in BASELINE_CELLS:
+        cfg = load_config(dim, problem)
+        np.random.seed(seed)
+        t0 = time.perf_counter()
+        dense = build_dense_problem(problem, dim, 1)
+        build_s = time.perf_counter() - t0
+        obj_ipm = ipm_dense_objective(ipm_X[(dim, seed)], dense["C"])
+        for solver in solvers:
+            np.random.seed(seed)  # the sketch's draws, as the runner seeds them
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sol = solve_baseline(solver, problem, dense, cfg, seed=seed, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            X = sol["x_matrix"].cpu().numpy()
+            eq = dense["conic"].eq_residual(X)
+            row = {"cell": f"{problem} d{dim} seed {seed}", "solver": solver,
+                   "wall_s": wall, "build_s": build_s, "iterations": int(sol["iterations"]),
+                   "objective": sol["objective"], "ttipm_objective": obj_ipm,
+                   "rel_to_ttipm": abs(sol["objective"] - obj_ipm) / abs(obj_ipm),
+                   "feasibility_error": float(eq @ eq), "stopped": _stopped(solver, sol, dim),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            rows.append(row)
+            print(json.dumps({"baseline": row}), flush=True)
+    for problem, dim, seed, solver, iters in BASELINE_PROBES:
+        rows.append(baseline_probe(problem, dim, seed, solver, iters))
+        print(json.dumps({"baseline_probe": rows[-1]}), flush=True)
+    print(json.dumps({"baselines_phase_s": time.perf_counter() - t_phase}), flush=True)
+    bad = [r for r in rows if "probe_iterations" not in r
+           and not (r["stopped"] and r["rel_to_ttipm"] <= BASELINE_OBJ_TOL)]
+    if bad:
+        raise AssertionError(f"baselines not ended by their stop test or off the TT-IPM's "
+                             f"objective by more than {BASELINE_OBJ_TOL}: {bad}")
+    return rows
+
+
+def baseline_probe(problem, dim, seed, solver, iters):
+    """``solver`` (cgal or scgal) at the runner's settings for ``iters``
+    iterations on the card: the wall per iteration, the last gap estimate
+    and ||A(X) - b||^2 of the iterate it returns, its peak memory.  Raises
+    if the iterate is not finite."""
+    import torch
+
+    from ttipm_tpu_torch.models import baselines as BL
+    from ttipm_tpu_torch.utils.baseline_runner import build_dense_problem
+
+    np.random.seed(seed)
+    dense = build_dense_problem(problem, dim, 1)
+    C = dense["C"] * dense["trace_params"][1] / max(np.linalg.norm(dense["C"]), 1e-300)
+    kw = {} if solver == "cgal" else {"R": 2 * int(np.ceil(np.sqrt(2 * (2 ** dim + 1))))}
+    fn = BL.cgal if solver == "cgal" else BL.sketchy_cgal
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    X, gaps, info = fn(-C, dense["constraints"], dense["bias"], dense["trace_params"],
+                       gap_tol=0.1, num_iter=iters + 1, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    X = X.cpu().numpy()
+    if not np.isfinite(X).all():
+        raise AssertionError(f"{solver} d{dim}: a non-finite iterate")
+    eq = dense["conic"].eq_residual(X)
+    return {"cell": f"{problem} d{dim} seed {seed}", "solver": solver,
+            "probe_iterations": info["num_iters"], "wall_s": wall,
+            "ms_per_iteration": 1e3 * wall / info["num_iters"],
+            "last_gap": gaps[-1] if gaps else None, "feasibility_error": float(eq @ eq),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def ipm_reference(cells):
+    """The final X of the TT-IPM on each (dim, seed) of ``cells`` where
+    phases 5 and 6 did not run (configs/maxcut_<dim>.yaml's settings)."""
+    import torch
+
+    out = {}
+    for dim, seed in cells:
+        kept = {}
+        solve(dim, seed, torch.device("cuda"), ipm_settings(load_config(dim)), keep=kept)
+        out[(dim, seed)] = kept["X"]
+    return out
+
+
+PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32", "batch", "mesh",
+          "baselines")
 
 
 def main(argv=None) -> int:
@@ -1527,13 +2151,24 @@ def main(argv=None) -> int:
     summary = phase_kernels() if "kernels" in phases else None
     if "parity" in phases:
         phase_parity()
-    counts, slice_iters = (phase_slice(args.dim, args.seed) if "slice" in phases
-                           else (None, None))
-    counts_fb = phase_fallback(*FALLBACK_CELL) if "fallback" in phases else None
+    ipm_X = {}
+    counts, slice_iters = None, None
+    if "slice" in phases:
+        counts, slice_iters, ipm_X[(args.dim, args.seed)] = phase_slice(args.dim, args.seed)
+    counts_fb = None
+    if "fallback" in phases:
+        counts_fb, ipm_X[FALLBACK_CELL[1:]] = phase_fallback(*FALLBACK_CELL)
     counts_ineq = phase_ineq(*INEQ_CELL) if "ineq" in phases else None
     counts_gm = phase_graphm(*GRAPHM_CELL) if "graphm" in phases else None
     summary_f32 = phase_f32(*F32_CELL) if "f32" in phases else None
-    summary_batch = phase_batch(slice_iters) if "batch" in phases else None
+    summary_batch, batch_ref = phase_batch(slice_iters) if "batch" in phases else (None, None)
+    launches_mesh = None
+    if "mesh" in phases:
+        launches_mesh = phase_mesh(batch_ref if batch_ref is not None else batch_reference())
+    del batch_ref
+    if "baselines" in phases:
+        cells = [(dim, seed) for _, dim, seed, _ in BASELINE_CELLS]
+        phase_baselines({**ipm_reference([c for c in cells if c not in ipm_X]), **ipm_X})
     if set(phases) != set(PHASES):
         return 0
 
@@ -1541,7 +2176,8 @@ def main(argv=None) -> int:
         {"name": n, "dtype": "float64", "route": "cuda", "source": KERNELS[n][0],
          "replaces": KERNELS[n][1], "launches": counts[n][0], "launches_d10": counts_fb[n][0],
          "launches_ineq": counts_ineq[n][0], "launches_graphm": counts_gm[n][0], **summary[n],
-         **summary_batch[n]["f64"], "batch": summary_batch[n]["batch"]}
+         **summary_batch[n]["f64"], "batch": summary_batch[n]["batch"],
+         "launches_mesh": {world: runs[n] for world, runs in launches_mesh.items()}}
         for n in KERNELS
     ] + [
         {"name": f"{n}_f32", "dtype": "float32", "route": "cuda", "source": KERNELS[n][0],

@@ -234,6 +234,44 @@ def test_cuda_grouped_contractions_match_plain(cuda, dtype, R, s):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("kkt", [2, 3])
+def test_cuda_partial_s_schur_assemble(cuda, dtype, kkt):
+    """K1 over a slice of the operator bond s, the kkt mesh's partial
+    blocks (``Mesh.partial_schur``): strided views ``phi_l[:, :, lo:hi]``,
+    ``A[:, lo:hi]`` of a batch of the d10 local factor's blocks (R = 16,
+    operator ranks 4, 1, 5 and 9, B = 3).  Each partial against its plain
+    version, and the sum of the partials against the full K1, to K1's
+    tolerance."""
+    from ttipm_tpu_torch.checks import check_batch
+
+    rng = np.random.RandomState(40 + kkt)
+    B, R = 3, 16
+    blocks = [(_dev(rng, cuda, B, R, s, R, dtype=dtype), _dev(rng, cuda, B, s, 4, 4, S,
+                                                             dtype=dtype),
+               _dev(rng, cuda, B, R, S, R, dtype=dtype))
+              for s, S in ((4, 4), (1, 3), (5, 2), (9, 9))]
+    full = K.schur_assemble_batch(blocks)
+    total = torch.zeros_like(full)
+    for k in range(kkt):
+        part = []
+        for pl, a, pr in blocks:
+            lo, hi = k * a.shape[1] // kkt, (k + 1) * a.shape[1] // kkt
+            part.append((pl[:, :, lo:hi], a[:, lo:hi], pr) if hi > lo else None)
+        live = [p for p in part if p is not None]
+        assert any(not p[0].is_contiguous() for p in live)
+        got = K.schur_assemble_batch(live)
+        check_batch("schur_assemble_batch", (live,), got)
+        it = iter(got)
+        total += torch.stack([next(it) if p is not None else torch.zeros_like(full[0])
+                              for p in part])
+    check_batch("schur_assemble_batch", (blocks,), full)
+    ref = K.schur_assemble_batch_plain(blocks)
+    assert float(torch.linalg.norm(total - full)) <= tolerance("schur_assemble", dtype) * float(
+        torch.linalg.norm(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("shapes", ODD_CONTRACTIONS)
 def test_cuda_grouped_contractions_odd_shapes(cuda, dtype, shapes):
     (l, s, r), (_, m, _, S), (L, _, R) = shapes

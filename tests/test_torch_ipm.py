@@ -24,7 +24,7 @@ from ttipm_tpu_torch.ipm import tt_ipm as ipm_t
 from ttipm_tpu_torch.models.maxcut import create_problem as cp_t
 from ttipm_tpu_torch.ops import kernels as K
 from ttipm_tpu_torch.ops import tt as T
-from ttipm_tpu_torch.utils.runner import run_experiment
+from ttipm_tpu_torch.utils.runner import load_yaml, run_experiment
 
 SETTINGS = dict(max_iter=22, gap_tol=3e-4, op_tol=1e-4, abs_tol=1e-3, warm_up=3,
                 aho_direction=False, mals_restarts=2, max_refinement=5, lambdaStar=1.0)
@@ -63,17 +63,24 @@ def test_maxcut_matches_jax(dim, seed):
     assert slack < 1e-3 and feas < 1e-3 and dfeas < 1e-3
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path, monkeypatch):
     # float32 is ported (tests/test_torch_f32.py); any other dtype is refused
     with pytest.raises(ValueError):
         tconfig.set_dtype(torch.float16)
     assert tconfig.dtype() == torch.float64
     config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "configs", "maxcut_3.yaml")
-    for argv in (["--problem", "maxcut", "--solver", "sdpa"],
-                 ["--problem", "maxcut", "--solver", "cgal"]):
-        with pytest.raises(NotImplementedError):
-            run_experiment(argv=argv + ["--config", config, "--device", "cpu"])
+    # the dense baselines are ported: --solver hands off to the baseline
+    # runner, where sdpa's solve needs the sdpap package (absent: every seed
+    # fails and is counted) and cgal runs
+    monkeypatch.chdir(tmp_path)
+    seeds = len(load_yaml(config)["seeds"])
+    rec = run_experiment(argv=["--problem", "maxcut", "--solver", "sdpa", "--config", config,
+                               "--device", "cpu"])
+    assert rec["num_failed_seeds"] == seeds
+    rec = run_experiment(argv=["--problem", "maxcut", "--solver", "cgal", "--config", config,
+                               "--device", "cpu"])
+    assert rec["num_failed_seeds"] == 0 and np.all(rec["feasibility_errors"] < 1e-3)
 
 
 def test_checkpoint_path_writes_a_file(tmp_path):

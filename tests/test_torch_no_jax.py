@@ -10,19 +10,24 @@ MODULES = [
     "ttipm_tpu_torch.config",
     "ttipm_tpu_torch.interop",
     "ttipm_tpu_torch.ipm",
+    "ttipm_tpu_torch.models.baselines",
+    "ttipm_tpu_torch.models.conic",
     "ttipm_tpu_torch.models.corr_clust",
     "ttipm_tpu_torch.models.graphm",
     "ttipm_tpu_torch.models.max_stable_set",
     "ttipm_tpu_torch.models.maxcut",
+    "ttipm_tpu_torch.models.riemannian",
     "ttipm_tpu_torch.ops._build",
     "ttipm_tpu_torch.ops.kernels",
     "ttipm_tpu_torch.ops.linalg",
     "ttipm_tpu_torch.ops.products",
     "ttipm_tpu_torch.ops.random",
+    "ttipm_tpu_torch.ops.randomized",
     "ttipm_tpu_torch.ops.rounding",
     "ttipm_tpu_torch.ops.tt",
     "ttipm_tpu_torch.parallel.batch",
     "ttipm_tpu_torch.parallel.fused_mesh",
+    "ttipm_tpu_torch.parallel.mesh",
     "ttipm_tpu_torch.solvers.amen",
     "ttipm_tpu_torch.solvers.blocks",
     "ttipm_tpu_torch.solvers.eigen",
@@ -35,8 +40,12 @@ MODULES = [
     "ttipm_tpu_torch.solvers.local_kkt",
     "ttipm_tpu_torch.tools.compare_kernels",
     "ttipm_tpu_torch.tools.compare_solves",
+    "ttipm_tpu_torch.tools.dryrun_mesh",
+    "ttipm_tpu_torch.tools.f32_repairs",
+    "ttipm_tpu_torch.utils.baseline_runner",
     "ttipm_tpu_torch.utils.checkpoint",
     "ttipm_tpu_torch.utils.memtrack",
+    "ttipm_tpu_torch.utils.reporting",
     "ttipm_tpu_torch.utils.runner",
 ]
 

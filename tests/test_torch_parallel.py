@@ -121,7 +121,7 @@ def test_fused_batch_structural_mismatch_raises():
     with pytest.raises(ValueError, match="structurally identical"):
         TM.tt_block_amen_fused_batch([p[0] for p in port], [p[1] for p in port], R=8,
                                      ineq=False, nswp=2)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TM.tt_block_amen_fused_batch([p[0] for p in port], [p[1] for p in port], R=8,
                                      ineq=False, mesh=object())
 

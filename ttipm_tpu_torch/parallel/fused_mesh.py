@@ -1,14 +1,14 @@
-"""Batched seeds on one GPU: the fused AMEn KKT solve, the step-size
-eigensolves and the predictor-corrector Newton step for B structurally
-identical instances in lockstep.
+"""Batched seeds: the fused AMEn KKT solve, the step-size eigensolves and
+the predictor-corrector Newton step for B structurally identical
+instances in lockstep, on one device or over a (seeds x kkt) mesh.
 
 Counterpart of ``ttipm_tpu/parallel/fused_mesh.py``, which stacks the
 instances on a leading axis and runs ``jax.vmap`` of the single-instance
 sweep programs over it, sharded over a device mesh.  The port stacks them
 the same way and runs the batched sweep (``solvers/fused_batch.py``, which
 the single solve runs as a batch of one) and the batched whole-eigen
-program (``solvers/fused_eigen_batch.py``) on one device: one kernel launch of K1,
-K2 and K3 per step for the whole batch, K4 one launch up to order 512
+program (``solvers/fused_eigen_batch.py``): one kernel launch of K1, K2
+and K3 per step for the whole batch, K4 one launch up to order 512
 (``ops/kernels.py``), so the host's cost of a wrapper is paid once per
 batch.  Termination is lockstep: every instance sweeps until the worst one
 converges.
@@ -19,9 +19,32 @@ the random starts are the JAX package's streams: one
 ``np.random.RandomState(seed)`` for all starts of a solve, instance by
 instance (x then z), and numpy's global stream for the eigenvector starts.
 
-``mesh``: the drivers take ``mesh=None`` only; a device mesh over
-``torch.distributed`` is a later slice (``make_mesh`` comes with it).
-``shard_kkt`` is accepted and has no effect without a mesh.
+``mesh`` (a ``parallel.mesh.Mesh``; every rank of its world makes the
+same call):
+
+* seeds: the batch is padded to a multiple of S by repeating its last
+  instance, and each seeds row solves its contiguous shard.  Every rank
+  draws the starts of all instances in order and keeps its own, so an
+  instance's start does not depend on the mesh (a padded instance takes
+  the last instance's start: the global stream advances as without a
+  mesh).  The batch's stop decisions (the sweeps' worst residual and
+  update, the eigen program's loop, forward half sweep and shrink rule)
+  are reduced over the seeds axis, so every instance sweeps as often as
+  it does on one device.  A seeds-only mesh therefore gives the bits of
+  ``mesh=None`` wherever the library calls compute an instance the same
+  way at the shard's batch size.
+* kkt (``shard_kkt`` and K > 1): the local factorizations' Schur blocks
+  and the eigen windows' pencil pairs, K1's sums over the operator bond
+  ``s``, are split over ``s`` across the kkt row and summed by one
+  ``all_reduce`` before the factor (``Mesh.partial_schur``); K2's
+  products, the factors and the splits stay replicated in the row.  The
+  JAX package annotates bond axes with a ``kkt`` sharding and lets XLA
+  choose the partitioning; the port fixes this one.
+* Returns: the same as without a mesh, every instance (padding dropped)
+  on every rank, gathered by a ``broadcast`` from each seeds row's
+  kkt-rank 0.  The host TT algebra of the Newton step between the
+  batched programs (direction extraction, the corrector rhs) runs on
+  every rank for every instance.
 """
 
 from __future__ import annotations
@@ -32,6 +55,7 @@ import numpy as np
 import torch
 
 from ttipm_tpu_torch import config
+from ttipm_tpu_torch.parallel.mesh import Mesh
 from ttipm_tpu_torch.solvers import fused as _fused
 from ttipm_tpu_torch.solvers import fused_algebra as fa
 from ttipm_tpu_torch.solvers import fused_batch as fb
@@ -41,11 +65,18 @@ from ttipm_tpu_torch.solvers.fused_eigen_batch import gen_eigen_program
 __all__ = ["tt_block_amen_fused_batch", "tt_step_sizes_batch", "tt_newton_step_batch"]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet: parallel/mesh.py over torch.distributed is a "
-            "later slice; pass mesh=None (one device, the batch in lockstep)")
+def _shard(nb: int, mesh) -> List[int]:
+    """The instances this rank solves: all of them without a mesh, else its
+    seeds row's shard of the batch padded by repeating the last one."""
+    if mesh is None:
+        return list(range(nb))
+    padded = list(range(nb)) + [nb - 1] * ((-nb) % mesh.seeds)
+    return padded[mesh.seeds_shard(len(padded))]
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: a parallel.mesh.Mesh or None, got {type(mesh).__name__}")
 
 
 def _stack(trains):
@@ -83,7 +114,7 @@ def tt_block_amen_fused_batch(
     padded operator and rhs.  Systems whose padded shapes differ raise
     ``ValueError``.  Returns (per-instance x cores, per-instance final
     local residuals; inf where no solving sweep ended the solve)."""
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     if len(block_As) != len(block_bs) or not block_As:
         raise ValueError(f"{len(block_As)} operators and {len(block_bs)} right-hand sides: "
                          "one of each an instance, at least one instance")
@@ -111,25 +142,29 @@ def tt_block_amen_fused_batch(
         xs.append(_fused._prep_x0(x0_i, d, bs, caps_fwd, direction, rng, ref))
         zs.append(_fused._prep_z0(d, bs, kick_rank, d - 1, rng, ref))
 
-    A = {k: _stack([p[0][k] for p in preps]) for k in fa.keys(ineq)}
-    b = [_stack([p[1][i] for p in preps]) for i in range(bs)]
-    x_cores, z_cores = _stack(xs), _stack(zs)
-    pA0, pz0, pb0 = fb.boundary_phis(ref, nb, ineq)
+    local = _shard(nb, mesh)
+    A = {k: _stack([preps[i][0][k] for i in local]) for k in fa.keys(ineq)}
+    b = [_stack([preps[i][1][r] for i in local]) for r in range(bs)]
+    x_cores, z_cores = _stack([xs[i] for i in local]), _stack([zs[i] for i in local])
+    pA0, pz0, pb0 = fb.boundary_phis(ref, len(local), ineq)
     XAX = [pA0] + [None] * (d - 1) + [dict(pA0)]
     Xb = [pb0] + [None] * (d - 1) + [list(pb0)]
     ZAX = [pz0] + [None] * (d - 1) + [dict(pz0)]
     Zb = [pb0] + [None] * (d - 1) + [list(pb0)]
+    kkt_mesh = mesh if (shard_kkt and mesh is not None and mesh.kkt > 1) else None
 
     last = False
-    final_res = np.full(nb, np.inf)
+    final_res = np.full(len(local), np.inf)
     for swp in range(nswp + 1):
         solve = (swp > 0) and not last
         caps = caps_bck if direction > 0 else caps_fwd
         res, dx = fb.sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick_rank, solve,
-                           direction, ineq)
+                           direction, ineq, mesh=kkt_mesh)
         if last:
             break
         worst_res, worst_dx = (float(res.max()), float(dx.max())) if solve else (np.inf, np.inf)
+        if solve and mesh is not None:
+            worst_res, worst_dx = mesh.reduce_values([worst_res, worst_dx], "max")
         if worst_res < term_tol or worst_dx < eps or swp == nswp - 2:
             last = True
             final_res = res if solve else final_res
@@ -137,7 +172,15 @@ def tt_block_amen_fused_batch(
             print(f"\t[fused-batch R={R}] sweep {swp}: worst res {worst_res:.3e}", flush=True)
         direction *= -1
 
-    return [[c[i] for c in x_cores] for i in range(nb)], final_res
+    if mesh is not None:
+        *x_cores, res_t = mesh.gather_rows(
+            x_cores + [torch.as_tensor(final_res, dtype=torch.float64, device=ref.device)])
+        final_res = res_t[:nb].cpu().numpy()
+    # each instance's cores as fresh allocations: a view into the batch (or
+    # into a mesh's gathered rows) starts at an offset that differs with the
+    # batch's layout, and cuBLAS / cuSOLVER may take another path for
+    # another alignment of the same values
+    return [[c[i].clone() for c in x_cores] for i in range(nb)], final_res
 
 
 def tt_step_sizes_batch(
@@ -156,13 +199,12 @@ def tt_step_sizes_batch(
     normalised eigenvector trains)."""
     from ttipm_tpu_torch.ops.tt import tt_normalise
 
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     if not pencils:
         raise ValueError("no pencils")
     nb = len(pencils)
     d = len(pencils[0][0])
     n = pencils[0][0][0].shape[1]
-    edt = config.eigen_dtype()
 
     def common_ra(trains):
         if d == 1:
@@ -171,15 +213,19 @@ def tt_step_sizes_batch(
 
     ra_A = common_ra([p[0] for p in pencils])
     ra_D = common_ra([p[1] for p in pencils])
-    A_b = _stack([_fe._prep_operator(p[0], ra=ra_A) for p in pencils])
-    D_b = _stack([_fe._prep_operator(p[1], ra=ra_D) for p in pencils])
     caps = _fe._vec_caps(d, R, n)
     ref = pencils[0][0][0]
-    x_b = _stack([_fe._prep_vec(x0s[i] if x0s is not None else None, d, n, caps, np.random, ref)
-                  for i in range(nb)])
-    alpha0 = torch.ones(nb, dtype=edt, device=ref.device)
+    starts = [_fe._prep_vec(x0s[i] if x0s is not None else None, d, n, caps, np.random, ref)
+              for i in range(nb)]
+    local = _shard(nb, mesh)
+    A_b = _stack([_fe._prep_operator(pencils[i][0], ra=ra_A) for i in local])
+    D_b = _stack([_fe._prep_operator(pencils[i][1], ra=ra_D) for i in local])
+    x_b = _stack([starts[i] for i in local])
+    alpha0 = torch.ones(len(local), dtype=config.eigen_dtype(), device=ref.device)
     xs_out, alphas, res, scales = gen_eigen_program(A_b, D_b, x_b, alpha0, tol, caps,
-                                                    max(nswp - 1, 1))
+                                                    max(nswp - 1, 1), mesh=mesh)
+    if mesh is not None:
+        *xs_out, alphas, res, scales = mesh.gather_rows(list(xs_out) + [alphas, res, scales])
     alphas, res, scales = torch.stack([alphas, res, scales]).double().cpu().numpy()
     eps_dt = _fe._eps_floor()
     steps = np.zeros(nb)
@@ -222,7 +268,7 @@ def tt_newton_step_batch(
     from ttipm_tpu_torch.ops.tt import tt_add, tt_identity, tt_inner_prod, tt_reshape, tt_scale
     from ttipm_tpu_torch.solvers.blocks import TTBlockVector, tt_get_block
 
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     nb = len(systems)
     dim = len(X_tts[0])
 
@@ -235,11 +281,11 @@ def tt_newton_step_batch(
     def step_sizes(dirs):
         pencils = ([(X_tts[i], dirs[i][1]) for i in range(nb)]
                    + [(Z_tts[i], dirs[i][2]) for i in range(nb)])
-        steps, _ = tt_step_sizes_batch(pencils, R=R_eig)
+        steps, _ = tt_step_sizes_batch(pencils, mesh=mesh, R=R_eig)
         return steps[:nb], steps[nb:]
 
     sols, _ = tt_block_amen_fused_batch(
-        [s[0] for s in systems], [s[1] for s in systems], R=R, ineq=False,
+        [s[0] for s in systems], [s[1] for s in systems], R=R, ineq=False, mesh=mesh,
         term_tol=term_tol, nswp=nswp, seed=seed)
     dirs = [extract(s) for s in sols]
     x_steps, z_steps = step_sizes(dirs)
@@ -264,7 +310,7 @@ def tt_newton_step_batch(
 
     sols_c, _ = tt_block_amen_fused_batch(
         [s[0] for s in corr_systems], [s[1] for s in corr_systems], R=R, ineq=False,
-        term_tol=term_tol, nswp=nswp, seed=seed, x0s=sols)
+        mesh=mesh, term_tol=term_tol, nswp=nswp, seed=seed, x0s=sols)
     out_dirs = []
     for i in range(nb):
         cY, cX, cZ = extract(sols_c[i])

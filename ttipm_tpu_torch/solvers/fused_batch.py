@@ -60,7 +60,7 @@ def _col(mask, like):
 
 def _norm(t):
     """Frobenius norm of each instance: (B,)."""
-    return torch.linalg.vector_norm(t.reshape(t.shape[0], -1), dim=1)
+    return _each(lambda x: torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1), t)
 
 
 # ---------------------------------------------------------------------------
@@ -83,8 +83,12 @@ def _k2(terms, rows):
     return kernels.kkt_block_product_batch(terms, rows)
 
 
-def _k1(blocks):
-    """K1 for a batch of blocks: a list of (B, M, N) blocks."""
+def _k1(blocks, mesh=None):
+    """K1 for a batch of blocks: a list of (B, M, N) blocks; with a
+    ``mesh`` of kkt > 1, this rank's slice of the operator bond summed
+    over its kkt row (``Mesh.partial_schur``)."""
+    if mesh is not None:
+        return mesh.partial_schur(blocks, _k1)
     if blocks[0][0].shape[0] == 1:
         return [g.unsqueeze(0) for g in
                 kernels.schur_assemble_group([tuple(t[0] for t in b) for b in blocks])]
@@ -176,14 +180,14 @@ def tikhonov(S):
 def column_scales(core):
     """``fused_algebra.column_scales`` per instance of a block core
     (B, r, bs, n, R): (B, 1, bs, 1, 1)."""
-    norms = torch.sqrt(torch.sum(core**2, dim=(1, 3, 4)))
+    norms = torch.sqrt(_each(lambda x: torch.sum(x**2, dim=(1, 3, 4)), core))
     rel = 1e-5 if core.dtype == torch.float32 else 1e-12
     floor = torch.clamp_min(rel * norms.amax(dim=1, keepdim=True), 1e-10)
     return torch.maximum(norms, floor).reshape(core.shape[0], 1, -1, 1, 1)
 
 
 def unit_fro(core):
-    nrm = torch.sqrt(torch.sum(core * core, dim=tuple(range(1, core.dim()))))
+    nrm = torch.sqrt(_each(lambda x: torch.sum(x * x, dim=tuple(range(1, x.dim()))), core))
     return core / _col(torch.clamp_min(nrm, TINY), core)
 
 
@@ -370,32 +374,67 @@ def _cholesky(S):
     return torch.where(_col(info == 0, L), L, torch.full_like(L, float("nan")))
 
 
-def _dense_factor(pl, A, pr, inv_I, ineq=False):
+def _each(fn, *args):
+    """``fn`` on each instance of its (B, ...) arguments as a batch of one
+    (the single solve's call), the results concatenated.  cuBLAS's batched
+    triangular solve, LU and matrix-vector product, and ATen's reductions
+    over an instance's thousands of entries, compute an instance in another
+    order at another batch size (H100), so the batch takes these an
+    instance at a time: an instance then gets the same bits in any batch,
+    a seeds mesh's shard included."""
+    if args[0].shape[0] == 1:
+        return fn(*args)
+    outs = [fn(*(a[i:i + 1] for a in args)) for i in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def _lu(a):
+    return _each(lu_factor, a)
+
+
+def _lu_solve(fac, b):
+    return _each(lambda lu, piv, x: lu_solve((lu, piv), x), *fac, b)
+
+
+def _chol_solve(L, b):
+    return _each(chol_solve, L, b)
+
+
+def _mv(M, v):
+    """M @ v for a (B, m, 1) right-hand side."""
+    return _each(torch.matmul, M, v)
+
+
+def _dense_factor(pl, A, pr, inv_I, ineq=False, mesh=None):
     """The factors of the Schur-elimination local solve, everything that
     depends only on the operator: L_Z by K4, the Y Schur system (and with
-    ``ineq`` the T block D) by LU, the projected blocks from one K1 call."""
+    ``ineq`` the T block D) by LU, the projected blocks from one K1 call
+    (split over the operator bond across ``mesh``'s kkt row, if given)."""
     B = inv_I.shape[0]
     if not ineq:
-        B21, mL_eq, B22, B00 = _k1([(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "00")])
+        B21, mL_eq, B22, B00 = _k1([(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "00")],
+                                   mesh)
         L_L_Z = _cholesky(tikhonov(B21))
         L_X_I_inv = B22 * inv_I.reshape(B, 1, -1)
-        S = chol_solve(L_L_Z, L_X_I_inv)
+        S = _chol_solve(L_L_Z, L_X_I_inv)
         S = mL_eq @ (S @ mL_eq.mT)
         S = tikhonov(S + B00)
-        return L_L_Z, mL_eq, L_X_I_inv, lu_factor(S)
+        return L_L_Z, mL_eq, L_X_I_inv, _lu(S)
 
     B21, mL_eq, B22, T_op, B00, B33 = _k1(
-        [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "31", "00", "33")])
+        [(pl[k], A[k], pr[k]) for k in ("21", "01", "22", "31", "00", "33")], mesh)
     L_L_Z = _cholesky(tikhonov(B21))
-    Lz_inv_Lx = chol_solve(L_L_Z, B22)
+    Lz_inv_Lx = _chol_solve(L_L_Z, B22)
     Lz_inv_Lx_scaled = Lz_inv_Lx * inv_I.reshape(B, 1, -1)
     S = B00 + mL_eq @ (Lz_inv_Lx_scaled @ mL_eq.mT)
     D = tikhonov(B33 + T_op @ Lz_inv_Lx)
     TY = (T_op @ Lz_inv_Lx_scaled) @ mL_eq.mT
     YT = mL_eq @ Lz_inv_Lx
-    d_lu = lu_factor(D)
-    lhs_y = tikhonov(S - YT @ lu_solve(d_lu, TY))
-    return L_L_Z, mL_eq, Lz_inv_Lx_scaled, T_op, TY, YT, d_lu, lu_factor(lhs_y)
+    d_lu = _lu(D)
+    lhs_y = tikhonov(S - YT @ _lu_solve(d_lu, TY))
+    return L_L_Z, mL_eq, Lz_inv_Lx_scaled, T_op, TY, YT, d_lu, _lu(lhs_y)
 
 
 def _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq=False):
@@ -408,22 +447,22 @@ def _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq=False):
     mR_c = rhs[:, :, 2].reshape(B, m, 1)
     if not ineq:
         L_L_Z, mL_eq, L_X_I_inv, s_lu = fac
-        b_vec = mR_p - mL_eq @ chol_solve(L_L_Z, mR_c - L_X_I_inv @ mR_d)
-        y3 = lu_solve(s_lu, b_vec).reshape(B, r, n, R)
+        b_vec = mR_p - _mv(mL_eq, _chol_solve(L_L_Z, mR_c - _mv(L_X_I_inv, mR_d)))
+        y3 = _lu_solve(s_lu, b_vec).reshape(B, r, n, R)
         z = inv_I * (rhs[:, :, 1] - apply_T(pl["01"], A["01"], pr["01"], y3))
-        x = chol_solve(L_L_Z, mR_c - apply(pl["22"], A["22"], pr["22"], z).reshape(B, m, 1))
+        x = _chol_solve(L_L_Z, mR_c - apply(pl["22"], A["22"], pr["22"], z).reshape(B, m, 1))
         return torch.stack([y3, x.reshape(B, r, n, R), z], dim=2)
 
     L_L_Z, mL_eq, Lz_inv_Lx_scaled, T_op, TY, YT, d_lu, y_lu = fac
     mR_t = rhs[:, :, 3].reshape(B, m, 1)
-    Lz_inv_Rc = chol_solve(L_L_Z, mR_c)
-    u = mR_p - mL_eq @ (Lz_inv_Rc - Lz_inv_Lx_scaled @ mR_d)
-    v = mR_t - T_op @ (Lz_inv_Rc - Lz_inv_Lx_scaled @ mR_d)
-    y = lu_solve(y_lu, u - YT @ lu_solve(d_lu, v))
-    t3 = lu_solve(d_lu, v - TY @ y).reshape(B, r, n, R)
+    Lz_inv_Rc = _chol_solve(L_L_Z, mR_c)
+    u = mR_p - _mv(mL_eq, Lz_inv_Rc - _mv(Lz_inv_Lx_scaled, mR_d))
+    v = mR_t - _mv(T_op, Lz_inv_Rc - _mv(Lz_inv_Lx_scaled, mR_d))
+    y = _lu_solve(y_lu, u - _mv(YT, _lu_solve(d_lu, v)))
+    t3 = _lu_solve(d_lu, v - _mv(TY, y)).reshape(B, r, n, R)
     y3 = y.reshape(B, r, n, R)
     z3 = inv_I * (rhs[:, :, 1] - apply_T(pl["01"], A["01"], pr["01"], y3)) - t3
-    x = chol_solve(L_L_Z, mR_c - apply(pl["22"], A["22"], pr["22"], z3).reshape(B, m, 1))
+    x = _chol_solve(L_L_Z, mR_c - apply(pl["22"], A["22"], pr["22"], z3).reshape(B, m, 1))
     return torch.stack([y3, x.reshape(B, r, n, R), z3, t3], dim=2)
 
 
@@ -432,7 +471,7 @@ def _inv_identity(pl, A, pr):
     return 1.0 / den_clamp(torch.einsum("zlsr,zsmnS,zLSR->zlmL", pl["12"], A["12"], pr["12"]))
 
 
-def solve_local(pl, A, pr, bl, b, br, prev, ineq=False):
+def solve_local(pl, A, pr, bl, b, br, prev, ineq=False, mesh=None):
     """Local KKT solve of each instance with the never-regress guard: the
     candidate replaces the instance's ``prev`` only if it is finite, does
     not raise the instance's local residual and is not of absurd magnitude.
@@ -440,7 +479,8 @@ def solve_local(pl, A, pr, bl, b, br, prev, ineq=False):
     (no host sync).  f32 operands take the mixed mode of
     ``config.mixed_local()`` (``fused_host.py:177-254``): the residuals of
     the guard in f64, the factorization in f64 ("f64") or in f32
-    ("refine", then two corrections from f64 residuals; "off")."""
+    ("refine", then two corrections from f64 residuals; "off").  ``mesh``:
+    the K1 blocks of the factorization split over its kkt row."""
     mode = config.mixed_local() if prev.dtype == torch.float32 else "off"
     if mode != "off":
         pl_h, A_h, pr_h, prev_h, bl_h, b_h, br_h = config.cast_tree(
@@ -455,10 +495,10 @@ def solve_local(pl, A, pr, bl, b, br, prev, ineq=False):
     norm_rhs = torch.clamp_min(_norm(rhs_h), 1e-10)
     res_old = _norm(local_product(pl_h, A_h, pr_h, prev_h, ineq) - rhs_h) / norm_rhs
     if mode == "f64":
-        fac = _dense_factor(pl_h, A_h, pr_h, inv_I_h, ineq)
+        fac = _dense_factor(pl_h, A_h, pr_h, inv_I_h, ineq, mesh)
         cand = _dense_apply(fac, pl_h, A_h, pr_h, inv_I_h, rhs_h, ineq).to(prev.dtype)
     else:
-        fac = _dense_factor(pl, A, pr, inv_I, ineq)
+        fac = _dense_factor(pl, A, pr, inv_I, ineq, mesh)
         cand = _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq)
     if mode == "refine":
         for _ in range(2):
@@ -490,12 +530,13 @@ def boundary_phis(ref, nb: int, ineq: bool):
 
 
 def sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int, solve: bool,
-          direction: int, ineq: bool = False):
+          direction: int, ineq: bool = False, mesh=None):
     """One full sweep of every instance; updates the lists in place and
     returns the per-instance maxima of (res_old, dx) over the cores as two
-    numpy arrays, read from the device in one transfer."""
+    numpy arrays, read from the device in one transfer.  ``mesh``: the
+    local factorizations' K1 blocks split over its kkt row."""
     d = len(x_cores)
-    solve_local_b = functools.partial(solve_local, ineq=ineq)
+    solve_local_b = functools.partial(solve_local, ineq=ineq, mesh=mesh)
     res_vals, dx_vals = [], []
     order = range(d - 1, -1, -1) if direction > 0 else range(d)
     for k in order:

@@ -36,9 +36,34 @@ import torch
 
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import safe_eigh, safe_eigvalsh
-from ttipm_tpu_torch.solvers.fused_batch import TINY, _col, _norm, phi_bck_A, phi_fwd_A, svd
+from ttipm_tpu_torch.solvers.fused_batch import TINY, _col, phi_bck_A, phi_fwd_A, svd
 
 __all__ = ["gen_eigen_program"]
+
+
+# A seeds mesh runs this program on its shard of the batch (5 of 10 pencils
+# a rank on two), so an instance must not depend on the batch size.  On the
+# H100 three batched calls compute an instance in another order at another
+# batch size: cuBLAS's batched matrix-vector product, the batched
+# triangular solve and a reduction over long instances (65536 entries, 5
+# against 10).  Those are taken an instance at a time, or as an elementwise
+# product and a short sum.
+
+
+def _norm(t):
+    """Frobenius norm of each instance of ``t`` (B, ...), one reduction an
+    instance."""
+    return torch.stack([torch.linalg.vector_norm(x) for x in t])
+
+
+def _matvec(M, v):
+    """M v for each instance, as a product and a sum over the last axis."""
+    return (M * v[:, None, :]).sum(dim=2)
+
+
+def _solve_lower(L, B):
+    """L^-1 B for each instance, one triangular solve an instance."""
+    return torch.stack([torch.linalg.solve_triangular(l, b, upper=False) for l, b in zip(L, B)])
 
 
 def _finite(t):
@@ -74,8 +99,8 @@ def _shrink_alpha(MA, MD, alpha, tol):
     L, info = kernels.panel_cholesky_batch(_sym(MA) + 1e-12 * _eye_like(MA))
     ok = info == 0
     L = torch.where(_col(ok, L), L, _eye_like(L))
-    W = torch.linalg.solve_triangular(L, _sym(MD), upper=False)
-    W = torch.linalg.solve_triangular(L, W.mT, upper=False)
+    W = _solve_lower(L, _sym(MD))
+    W = _solve_lower(L, W.mT)
     ok = ok & _finite(W)
     lam_max = -safe_eigvalsh(torch.where(_col(ok, W), _sym(W), _eye_like(W)))[:, 0]
     good = ok & torch.isfinite(lam_max) & (lam_max > 0)
@@ -83,7 +108,22 @@ def _shrink_alpha(MA, MD, alpha, tol):
     return torch.where(good, shrunk, alpha * (1 - tol))
 
 
-def _pencil_solve(MA, MD, prev_vec, alpha, tol):
+def _any(mask, mesh):
+    """True where any instance of the batch (over ``mesh``'s seeds axis,
+    if given) has ``mask`` set."""
+    flag = bool(mask.any())
+    return flag if mesh is None else mesh.any(flag)
+
+
+def _pencils(blocks, mesh):
+    """The two pencil matrices of a window from one K1 launch (this rank's
+    slice of the operator bond, summed over ``mesh``'s kkt row)."""
+    def assemble(bl):
+        return list(kernels.schur_assemble_batch(bl).unbind(0))
+    return assemble(blocks) if mesh is None else mesh.partial_schur(blocks, assemble)
+
+
+def _pencil_solve(MA, MD, prev_vec, alpha, tol, mesh=None):
     """Smallest eigenpair of MA/alpha + MD, the shrink rule and the previous
     iterate's residual in the updated pencil, per instance; returns (x,
     alpha_new, old_res, scale) with scale = ||M||_F."""
@@ -91,10 +131,10 @@ def _pencil_solve(MA, MD, prev_vec, alpha, tol):
     lam, x = _smallest_eigpair(M)
     neg = lam < 0
     alpha_new = alpha
-    if bool(neg.any()):
+    if _any(neg, mesh):
         alpha_new = torch.where(neg, _shrink_alpha(MA, MD, alpha, tol), alpha)
     denom = torch.where(alpha_new > 0, alpha_new, torch.ones_like(alpha_new))
-    Mp = (MA @ prev_vec[:, :, None])[:, :, 0] / denom[:, None] + (MD @ prev_vec[:, :, None])[:, :, 0]
+    Mp = _matvec(MA, prev_vec) / denom[:, None] + _matvec(MD, prev_vec)
     lam_prev = (prev_vec * Mp).sum(dim=1)
     old_res = _norm(Mp - lam_prev[:, None] * prev_vec)
     return x, alpha_new, old_res, _norm(M)
@@ -111,12 +151,12 @@ def _split(mat, r_out: int):
 
 
 def _window_step(pAl, A_k, A_k1, pAr, pDl, D_k, D_k1, pDr, sol1, sol2, alpha, tol,
-                 r_out: int, bwd: bool):
+                 r_out: int, bwd: bool, mesh=None):
     prev = torch.einsum("zrny,zytR->zrntR", sol1, sol2)
     B, rl, n1, n2, rr = prev.shape
-    MA, MD = kernels.schur_assemble_batch(
-        [(pAl, _merged(A_k, A_k1), pAr), (pDl, _merged(D_k, D_k1), pDr)]).unbind(0)
-    x, alpha_new, old_res, scale = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol)
+    MA, MD = _pencils([(pAl, _merged(A_k, A_k1), pAr), (pDl, _merged(D_k, D_k1), pDr)], mesh)
+    x, alpha_new, old_res, scale = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol,
+                                                 mesh)
     x = _unit(x)
     if bwd:
         u, sv, r = _split(x.reshape(B, rl * n1, n2 * rr).mT, r_out)
@@ -134,11 +174,11 @@ def _window_step(pAl, A_k, A_k1, pAr, pDl, D_k, D_k1, pDr, sol1, sol2, alpha, to
 
 
 def _last_step_bwd(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol, r_out: int,
-                   split: bool):
+                   split: bool, mesh=None):
     """Single-core refinement of the backward finishing sweep."""
     B, rl, n, rr = prev.shape
-    MA, MD = kernels.schur_assemble_batch([(pAl, A_k, pAr), (pDl, D_k, pDr)]).unbind(0)
-    x, alpha_new, _, _ = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol)
+    MA, MD = _pencils([(pAl, A_k, pAr), (pDl, D_k, pDr)], mesh)
+    x, alpha_new, _, _ = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol, mesh)
     x = _unit(x)
     if not split:
         return x.reshape(B, rl, n, rr), neighbor, alpha_new, pAl, pDl
@@ -160,7 +200,7 @@ def _orth_sweep(A_p, D_p, xs, XAX, XDX, caps):
         XDX[k] = phi_bck_A(XDX[k + 1], xs[k], D_p[k], xs[k])
 
 
-def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool):
+def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool, mesh=None):
     """One half sweep of every instance on a copy of the state ``st`` =
     (xs, XAX, XDX); returns (state, alpha, max window residual, max
     window scale), the last three (B,)."""
@@ -171,7 +211,7 @@ def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool):
         i = k - 1 if bwd else k
         xs[i], xs[i + 1], alpha, res, scl, pA, pD = _window_step(
             XAX[i], A_p[i], A_p[i + 1], XAX[i + 2], XDX[i], D_p[i], D_p[i + 1], XDX[i + 2],
-            xs[i], xs[i + 1], alpha, tol, r_out=caps[i], bwd=bwd)
+            xs[i], xs[i + 1], alpha, tol, r_out=caps[i], bwd=bwd, mesh=mesh)
         XAX[i + 1] = pA
         XDX[i + 1] = pD
         res_vals.append(res)
@@ -180,7 +220,7 @@ def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool):
             torch.stack(scale_vals).amax(dim=0))
 
 
-def _finish_sweep(A_p, D_p, st, alpha, tol, caps):
+def _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh=None):
     xs, XAX, XDX = (list(t) for t in st)
     d = len(xs)
     for k in range(d - 1, -1, -1):
@@ -188,7 +228,7 @@ def _finish_sweep(A_p, D_p, st, alpha, tol, caps):
         core, nb_new, alpha, pA, pD = _last_step_bwd(
             XAX[k], A_p[k], XAX[k + 1], XDX[k], D_p[k], XDX[k + 1],
             xs[k - 1] if split else xs[k], xs[k], alpha, tol,
-            r_out=caps[k - 1] if split else 1, split=split)
+            r_out=caps[k - 1] if split else 1, split=split, mesh=mesh)
         xs[k] = core
         if split:
             xs[k - 1] = nb_new
@@ -217,12 +257,20 @@ def _stalled(prev_step, step, prev_res, res, tol):
     return (torch.abs(step - prev_step) <= max(10 * tol, 1e-12) * scale) & res_stall
 
 
-def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
+def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int, mesh=None):
     """The whole generalised eigensolve of B pencils: ``A_p``, ``D_p`` and
     ``xs`` are lists of (B, ...) cores (operators padded to one rank, the
     eigenvector trains at the cap ranks), ``alpha0`` (B,).  Returns (the
     eigenvector cores, alpha, the last sweep residual, the largest window
-    scale), the last three (B,) on the device."""
+    scale), the last three (B,) on the device.
+
+    ``mesh``: this rank's B pencils are its seeds row's shard of a larger
+    batch.  The batch's decisions (the loop's end, whether a forward half
+    sweep or the shrink rule runs) are then taken over the whole batch by
+    an ``all_reduce`` over the seeds axis, so that every rank runs the
+    program the batch would run on one device; with kkt > 1 every window's
+    pencil pair is K1 over this rank's slice of the operator bond, summed
+    over its kkt row."""
     d = len(xs)
     B = alpha0.shape[0]
     ones3 = A_p[0].new_ones((B, 1, 1, 1))
@@ -230,21 +278,23 @@ def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
     XAX = [ones3] * (d + 1)
     XDX = [ones3] * (d + 1)
     _orth_sweep(A_p, D_p, xs, XAX, XDX, caps)
-    st, alpha, res_f, scl = _half_sweep(A_p, D_p, (xs, XAX, XDX), alpha0, tol, caps, bwd=False)
+    st, alpha, res_f, scl = _half_sweep(A_p, D_p, (xs, XAX, XDX), alpha0, tol, caps, bwd=False,
+                                        mesh=mesh)
     inf = torch.full_like(alpha, float("inf"))
     sweep_res, prev_step, prev_res = inf, alpha, inf
     stalled = torch.zeros(B, dtype=torch.bool, device=alpha.device)
     pairs = 0
     while pairs < max_pairs:
         active = _ok(alpha) & (sweep_res >= tol) & ~stalled
-        if not bool(active.any()):
+        if not _any(active, mesh):
             break
-        st1, alpha1, res_b, scl_b = _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd=True)
+        st1, alpha1, res_b, scl_b = _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd=True,
+                                                mesh=mesh)
         run_fwd = _ok(alpha1) & (torch.maximum(res_b, res_f) >= tol)
         st2, alpha2, res_f2, scl_f = st1, alpha1, res_b, scl_b
-        if bool((run_fwd & active).any()):
+        if _any(run_fwd & active, mesh):
             st_f, alpha_f, res_ff, scl_ff = _half_sweep(A_p, D_p, st1, alpha1, tol, caps,
-                                                        bwd=False)
+                                                        bwd=False, mesh=mesh)
             st2 = _select(run_fwd, st_f, st1)
             alpha2, res_f2, scl_f = (torch.where(run_fwd, a, b) for a, b in
                                      ((alpha_f, alpha1), (res_ff, res_b), (scl_ff, scl_b)))
@@ -257,7 +307,7 @@ def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
              (new_res, prev_res), (new_stalled, stalled),
              (torch.maximum(scl, torch.maximum(scl_b, scl_f)), scl)))
         pairs += 1
-    st_fin, alpha_fin = _finish_sweep(A_p, D_p, st, alpha, tol, caps)
+    st_fin, alpha_fin = _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh)
     ok = _ok(alpha)
     xs = _select(ok, st_fin[0], st[0])
     return xs, torch.where(ok, alpha_fin, alpha), sweep_res, scl

@@ -9,9 +9,11 @@ summary and results JSON (written to ``results/`` under the working
 directory).  ``--device`` (``cuda``, the default, or ``cpu``) takes the
 place of ``--platform``; without a CUDA device the runner raises unless
 ``--device cpu`` is given.  Every ``--problem`` is ported (graphm's
-``dim`` is n: 2n+1 cores, 2n bonds); of the solvers only ``--solver
-ttipm``.  The configs are read by ``load_yaml``, a reader of the YAML
-subset they use, since PyYAML is not everywhere the port runs.
+``dim`` is n: 2n+1 cores, 2n bonds).  ``--solver`` other than ``ttipm``
+hands off to the dense baseline runner (``utils/baseline_runner.py``)
+with the problem, config, rank, ``--track_mem`` and ``--device``.  The
+configs are read by ``load_yaml``, a reader of the YAML subset they use,
+since PyYAML is not everywhere the port runs.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 PROBLEMS = ("maxcut", "corr_clust", "max_stable_set", "graphm")
-SOLVERS = ("ttipm", "scs", "sdpa", "cgal", "scgal", "manopt")
+SOLVERS = ("ttipm", "scs", "sdpa", "splitting", "cgal", "scgal", "manopt")
 
 __all__ = ["load_yaml", "load_problem", "run_and_record", "run_experiment",
            "print_results_summary", "save_results_summary"]
@@ -241,7 +243,8 @@ def _parser(problem_name=None):
     parser.add_argument("--no_resample", action="store_true",
                         help="disable pathological-seed resampling")
     parser.add_argument("--solver", type=str, default="ttipm", choices=SOLVERS,
-                        help="ttipm (the only solver ported)")
+                        help="ttipm (default) runs the TT-IPM; any other value dispatches "
+                             "to the dense baseline runner (utils/baseline_runner.py)")
     return parser
 
 
@@ -270,9 +273,14 @@ def run_experiment(create_problem_fn=None, argv=None, problem_name=None):
     parser = _parser(problem_name)
     args = parser.parse_args(argv)
     if args.solver != "ttipm":
-        raise NotImplementedError(
-            f"--solver {args.solver}: the dense baselines are not ported "
-            "(ROADMAP Queue 1, item 17)")
+        from ttipm_tpu_torch.utils.baseline_runner import run_baseline_experiment
+
+        baseline_argv = ["--problem", args.problem or problem_name, "--solver", args.solver,
+                         "--config", args.config, "--rank", str(args.rank),
+                         "--device", args.device]
+        if args.track_mem:
+            baseline_argv.append("--track_mem")
+        return run_baseline_experiment(baseline_argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (pass --device cpu to run on the CPU)")
     if create_problem_fn is None:
