@@ -137,6 +137,17 @@ and prints no result line):
    within 1e-3 of the TT-IPM's final X of phases 5 and 6 on the same
    instance; SketchyCGAL on d10 timed for BASELINE_PROBES' iterations.
    Printed: wall, iterations, objective, feasibility, peak memory.
+13. tools: the port's drivers (``ttipm_tpu_torch/tools``), each in a
+   subprocess on the card: ``bench`` on TOOLS_BENCH_GRID (every solve
+   converged with every kernel launched and no plain version on a CUDA
+   tensor, the summary line last with converged_all, d8 seed 24 in phase
+   5's iterations); ``long_run`` on maxcut d8 seed 24 killed by SIGKILL once
+   its third checkpoint is on disk and run again (it resumes at iteration
+   3 and converges; iterations and ranks beside phase 5's, and whether the
+   final X is bit-equal to phase 5's), then ``aggregate_grid`` over its
+   output; ``scaling_bench`` at d10, B = 1 and 2 (every kernel launched,
+   the B = 1 step within STEP_BOUND of the same step made in this
+   process).  Printed: each driver's lines and walls.
 
 The line before the last is a JSON object with the per-kernel record
 (launches on the d8, d10, corr_clust d6 and graphm paths; the f32
@@ -1546,10 +1557,7 @@ def phase_batch(slice_iters=None):
 # ---------------------------------------------------------------------------
 
 STEP_BOUND = 2e-14  # phase 10's bound of a batch's steps against a batch of one
-# A last-bit difference in a Newton solve's arithmetic moves its result
-# within the solve's own tolerance (term_tol 1e-6, tt_newton_step_batch's):
-# the directions' bound where the steps are not bit-equal.
-DIRECTION_BOUND = 1e-6
+DIRECTION_BOUND = 2e-14  # the directions' bound where the steps are not bit-equal
 
 
 def _numpy_tree(tree):
@@ -1605,9 +1613,12 @@ _UNINITIALISED = ("aten.empty", "aten.new_empty", "aten.empty_like", "aten.empty
 
 
 def _checksum(t, axis=None):
-    """Device-side checksums of ``t``'s bits (wrapping int64 sums of its
-    words; no host transfer): of the whole, or of each index along
-    ``axis``."""
+    """Device-side checksums of ``t``'s bits (no host transfer): of the
+    whole, or of each index along ``axis``.  Each word is mixed (xor-shift,
+    an odd multiplier) and weighted by an odd number of its position before
+    the wrapping int64 sum, so that neither a permutation of the entries
+    nor an even number of sign flips (2 x 2^63 wraps to 0 in a plain sum of
+    the words: a row or a column of a core negated) leaves it unchanged."""
     import torch
 
     t = t.detach()
@@ -1619,7 +1630,11 @@ def _checksum(t, axis=None):
         w = t.view(torch.int32).to(torch.int64)
     else:
         w = t.to(torch.int64)
-    out = w.sum(dim=1)
+    w = w ^ (w >> 31)
+    w = w * -7046029254386353131  # 0x9E3779B97F4A7C15, wrapping
+    w = w ^ (w >> 29)
+    odd = 2 * torch.arange(w.shape[1], device=w.device, dtype=torch.int64) + 1
+    out = (w * odd).sum(dim=1)
     return out[0] if axis is None else out
 
 
@@ -2006,7 +2021,7 @@ BASELINE_CELLS = (("maxcut", 8, 24, ("splitting", "cgal", "scgal", "manopt")),
 # it (on the H100: gap 9.98e4 and ||A(X) - b||^2 396 at iteration 2,000,
 # against 0.1 and 1e-6, at 227 ms an iteration) and would run to the
 # runner's cap of 1000 * 2^10 iterations.
-BASELINE_PROBES = (("maxcut", 10, 41, "scgal", 100),)
+BASELINE_PROBES = (("maxcut", 10, 41, "scgal", 20),)
 BASELINE_OBJ_TOL = 1e-3  # tests/test_conic.py:131: the splitting solver against the TT-IPM
 
 
@@ -2129,8 +2144,154 @@ def ipm_reference(cells):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the port's drivers on the card
+# ---------------------------------------------------------------------------
+
+TOOLS_BENCH_GRID = "3:1,8:1,10:1"
+LONG_RUN_CELL = ("maxcut", 8, 0)  # seed index 0: seed 24, phase 5's cell
+LONG_RUN_KILL_AFTER = 3
+TOOLS_SLICE_METRIC = "maxcut_d8_seed24_solve_seconds"  # phase 5's cell in the bench
+TOOLS_SCALING = ("10", "1,2")  # dim, batches
+
+
+def _tool(module, *args, env=None, timeout=600):
+    """``python -m ttipm_tpu_torch.tools.<module> args`` from the checkout;
+    (return code, stdout, stderr, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"ttipm_tpu_torch.tools.{module}", *args],
+                          cwd=REPO, env={**os.environ, **(env or {})}, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def _launched_on_card(label, kernels, plain):
+    """Every kernel launched, no plain version run on a CUDA tensor (the
+    counters of phases 5-9, as the drivers report them)."""
+    for name in KERNELS:
+        if kernels[name] <= 0 or plain[name] != 0:
+            raise AssertionError(f"{label}: {name} launched {kernels[name]} times, plain "
+                                 f"version {plain[name]} times")
+
+
+def phase_tools(slice_iters, slice_X, batch_ref):
+    """Phase 13: each driver of ``ttipm_tpu_torch/tools`` in a subprocess on
+    the card.  (1) ``bench`` on TOOLS_BENCH_GRID: every line parsed, every
+    solve converged with all four kernels launched and no plain version on
+    a CUDA tensor, the summary line last with ``converged_all``, d8 seed 24
+    in phase 5's iterations.  (2) ``long_run`` on LONG_RUN_CELL, killed by
+    SIGKILL once the checkpoint of iteration LONG_RUN_KILL_AFTER is on disk
+    and run again: it resumes there and converges; its iterations and final
+    ranks beside phase 5's, and whether its final X (the last checkpoint's)
+    is bit-equal to phase 5's; then ``aggregate_grid`` over its output.
+    (3) ``scaling_bench`` at TOOLS_SCALING: rows for each B, every kernel
+    launched, the B = 1 step within STEP_BOUND of the same step made here.
+    Returns the phase's walls."""
+    import torch
+
+    from ttipm_tpu_torch.ops.tt import tt_ranks
+    from ttipm_tpu_torch.parallel.fused_mesh import tt_newton_step_batch
+    from ttipm_tpu_torch.utils.checkpoint import load_ipm_checkpoint
+
+    t_phase = time.perf_counter()
+    walls = {}
+    rc, out, err, walls["bench_s"] = _tool("bench", env={"BENCH_GRID": TOOLS_BENCH_GRID,
+                                                          "BENCH_PLATFORM": "cuda"})
+    if rc != 0:
+        raise AssertionError(f"tools/bench.py exited {rc}: {err[-3000:]}")
+    lines = out.strip().splitlines()
+    rows = [json.loads(line) for line in lines[1:]]
+    solves, summary = rows[:-1], rows[-1]
+    print(json.dumps({"tools_bench": {"device": lines[0], "solves": solves,
+                                      "summary": summary}}), flush=True)
+    if summary.get("metric") != "maxcut_grid_geomean_seconds" or not summary["converged_all"]:
+        raise AssertionError(f"tools/bench.py: summary {summary}")
+    if len(solves) != len(TOOLS_BENCH_GRID.split(",")):
+        raise AssertionError(f"tools/bench.py: {len(solves)} solve lines")
+    for row in solves:
+        if not row["converged"]:
+            raise AssertionError(f"tools/bench.py: {row['metric']} did not converge")
+        _launched_on_card(f"tools/bench.py {row['metric']}", row["kernels"], row["plain_calls"])
+    d8 = next(r for r in solves if r["metric"] == TOOLS_SLICE_METRIC)
+    want_iters = slice_iters if slice_iters is not None else SLICE_ITERS_D8_SEED24
+    if d8["iters"] != want_iters:
+        raise AssertionError(f"tools/bench.py: d8 seed 24 took {d8['iters']} iterations, "
+                             f"phase 5 {want_iters}")
+
+    problem, dim, index = LONG_RUN_CELL
+    with tempfile.TemporaryDirectory(prefix="ttipm_long_") as out_dir:
+        args = ("--problem", problem, "--dim", str(dim), "--seed-index", str(index),
+                "--out", out_dir)
+        rc, _, err, walls["long_run_killed_s"] = _tool(
+            "long_run", *args, "--kill-after", str(LONG_RUN_KILL_AFTER))
+        work = os.path.join(out_dir, f"{problem}_{dim}_s{index}")
+        if rc != -9:
+            raise AssertionError(f"tools/long_run.py: exit {rc}, not SIGKILL: {err[-3000:]}")
+        at = int(load_ipm_checkpoint(os.path.join(work, "ckpt.npz"), device="cpu")["iteration"])
+        rc, out, err, walls["long_run_resumed_s"] = _tool("long_run", *args)
+        if rc != 0:
+            raise AssertionError(f"tools/long_run.py (resumed) exited {rc}: {err[-3000:]}")
+        with open(os.path.join(work, "result.json")) as fh:
+            result = json.load(fh)
+        ref_X = slice_X if slice_X is not None else ipm_reference([(dim, 24)])[(dim, 24)]
+        X = load_ipm_checkpoint(os.path.join(work, "ckpt.npz"), device=ref_X[0].device)["X"]
+        bit_equal = len(X) == len(ref_X) and all(
+            a.shape == b.shape and torch.equal(a, b.to(a.dtype)) for a, b in zip(X, ref_X))
+        rc_a, summary_md, err_a, walls["aggregate_s"] = _tool("aggregate_grid", out_dir)
+        with open(os.path.join(out_dir, "SUMMARY.json")) as fh:
+            grid_summary = json.load(fh)
+    print(json.dumps({"tools_long_run": {
+        "killed_at_checkpoint": at, "attempts": result["attempts"],
+        "iters": result["num_iters"], "phase5_iters": want_iters,
+        "ranksX": result["ranksX"], "phase5_ranksX": tt_ranks(ref_X),
+        "final_X_bit_equal_to_phase5": bit_equal, "converged": result["converged"],
+        "slackness": result["complementary_slackness"],
+        "primal_feas": result["feasibility_error"], "dual_feas": result["dual_feasibility_error"],
+        "aggregate": grid_summary}}), flush=True)
+    if at != LONG_RUN_KILL_AFTER or [a["from_iteration"] for a in result["attempts"]] != [0, at]:
+        raise AssertionError(f"tools/long_run.py: killed at {at}, attempts {result['attempts']}")
+    if not result["converged"]:
+        raise AssertionError(f"tools/long_run.py: the resumed solve did not converge: {result}")
+    if rc_a != 0 or grid_summary.get(problem, {}).get(str(dim), {}).get("seeds") != 1:
+        raise AssertionError(f"tools/aggregate_grid.py: exit {rc_a}, {grid_summary}: "
+                             f"{err_a[-2000:]}")
+
+    with tempfile.TemporaryDirectory(prefix="ttipm_scaling_") as tmp:
+        path = os.path.join(tmp, "scaling.json")
+        rc, _, err, walls["scaling_s"] = _tool("scaling_bench", "--dim", TOOLS_SCALING[0],
+                                               "--batches", TOOLS_SCALING[1], "--out", path)
+        if rc != 0:
+            raise AssertionError(f"tools/scaling_bench.py exited {rc}: {err[-3000:]}")
+        with open(path) as fh:
+            scaling = json.load(fh)
+    print(json.dumps({"tools_scaling": scaling}), flush=True)
+    if [r["B"] for r in scaling["rows"]] != [int(b) for b in TOOLS_SCALING[1].split(",")]:
+        raise AssertionError(f"tools/scaling_bench.py: rows {scaling['rows']}")
+    for r in scaling["rows"]:
+        _launched_on_card(f"tools/scaling_bench.py B={r['B']}", r["launches"], r["plain_calls"])
+    if batch_ref is not None:
+        lhs, rhs, X0, Z0 = batch_ref["systems"][0]
+    else:
+        from ttipm_tpu_torch.checks import first_newton_system
+
+        cfg = load_config(int(TOOLS_SCALING[0]))
+        lhs, rhs, X0, Z0 = first_newton_system("maxcut", cfg, int(cfg["seeds"][0]),
+                                               torch.device("cuda"))
+    np.random.seed(BATCH_STEP["seed"])
+    xs, zs, _ = tt_newton_step_batch([(lhs, rhs)], [X0], [Z0], **BATCH_STEP)
+    row1 = scaling["rows"][0]
+    diff = max(abs(row1["x_steps"][0] - float(xs[0])), abs(row1["z_steps"][0] - float(zs[0])))
+    walls["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"tools_phase": {"scaling_b1_vs_here_max_abs_diff": diff, **walls}}),
+          flush=True)
+    if not diff <= STEP_BOUND:
+        raise AssertionError(f"tools/scaling_bench.py: B = 1 steps {row1['x_steps'][0]}, "
+                             f"{row1['z_steps'][0]} against {xs[0]}, {zs[0]} here")
+    return walls
+
+
 PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32", "batch", "mesh",
-          "baselines")
+          "baselines", "tools")
 
 
 def main(argv=None) -> int:
@@ -2165,10 +2326,15 @@ def main(argv=None) -> int:
     launches_mesh = None
     if "mesh" in phases:
         launches_mesh = phase_mesh(batch_ref if batch_ref is not None else batch_reference())
+    # phase 13 needs the first system only
+    tools_ref = {"systems": batch_ref["systems"][:1]} if batch_ref is not None else None
     del batch_ref
     if "baselines" in phases:
         cells = [(dim, seed) for _, dim, seed, _ in BASELINE_CELLS]
         phase_baselines({**ipm_reference([c for c in cells if c not in ipm_X]), **ipm_X})
+    if "tools" in phases:
+        phase_tools(slice_iters, ipm_X.get((8, 24)) if (args.dim, args.seed) == (8, 24) else None,
+                    tools_ref)
     if set(phases) != set(PHASES):
         return 0
 

@@ -384,27 +384,37 @@ def test_cuda_panel_qr_odd_shapes(cuda, dtype, mn):
 @pytest.mark.parametrize("scale", [1e-25, 1e-15, 1e15, 1e20])
 @pytest.mark.parametrize("mn", [(40, 10), (300, 20)])
 def test_cuda_panel_qr_column_scales(cuda, dtype, scale, mn):
-    """K3 forms ||x||^2 as an unscaled sum of squares (csrc/panel_qr.cu).
-    With its first column scaled by 1e-15 or 1e15 a panel keeps the
-    contract column by column in both types, and in f64 at every scale
-    here.  In f32 a first column at 1e-25 (squares below the smallest
-    subnormal) is reflected as zero: tau = 0, so R's first row is a's and
-    Q's first column is e_0; one at 1e20 (squares above the largest float)
-    comes out non-finite.  A scaled norm would move these two cases."""
+    """K3 takes a scaled norm where the plain sum of squares underflows or
+    overflows (csrc/panel_qr.cu): with its first column scaled by 1e-25,
+    1e-15, 1e15 or 1e20 a panel keeps the contract column by column in both
+    types, in one CTA and in a cluster: Q R = a and Q^T Q = I."""
     a = _dev(np.random.RandomState(sum(mn)), cuda, *mn, dtype=dtype)
     a[:, 0] *= scale
     q, r = K.panel_qr(a)
     torch.cuda.synchronize()
-    if dtype == torch.float32 and scale == 1e-25:
-        assert torch.equal(r[0], a[0])
-        assert torch.equal(q[:, 0], torch.eye(mn[0], 1, device=cuda, dtype=dtype)[:, 0])
-    elif dtype == torch.float32 and scale == 1e20:
-        assert not (torch.isfinite(q).all() and torch.isfinite(r).all())
-    else:
-        ad, qd, rd = a.double(), q.double(), r.double()
-        tol = tolerance("panel_qr", dtype)
-        assert float(((qd @ rd - ad).norm(dim=0) / ad.norm(dim=0)).max()) <= tol
-        assert float((qd.T @ qd - torch.eye(mn[1], device=cuda, dtype=qd.dtype)).abs().max()) <= tol
+    ad, qd, rd = a.double(), q.double(), r.double()
+    tol = tolerance("panel_qr", dtype)
+    assert float(((qd @ rd - ad).norm(dim=0) / ad.norm(dim=0)).max()) <= tol
+    assert float((qd.T @ qd - torch.eye(mn[1], device=cuda, dtype=qd.dtype)).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("mn", [(40, 10), (300, 20)])
+def test_cuda_panel_qr_zero_below_diagonal(cuda, dtype, mn):
+    """A first column that is exactly zero below the diagonal takes no
+    reflector (tau = 0, as LAPACK decides): R's first row is a's, Q's first
+    column is e_0, and the contract holds."""
+    a = _dev(np.random.RandomState(sum(mn)), cuda, *mn, dtype=dtype)
+    a[1:, 0] = 0.0
+    q, r = K.panel_qr(a)
+    torch.cuda.synchronize()
+    assert torch.equal(r[0], a[0])
+    assert torch.equal(q[:, 0], torch.eye(mn[0], 1, device=cuda, dtype=dtype)[:, 0])
+    ad, qd, rd = a.double(), q.double(), r.double()
+    tol = tolerance("panel_qr", dtype)
+    assert float(((qd @ rd - ad).norm(dim=0) / ad.norm(dim=0)).max()) <= tol
+    assert float((qd.T @ qd - torch.eye(mn[1], device=cuda, dtype=qd.dtype)).abs().max()) <= tol
 
 
 # K3's panels: the smoke test's list; the boundaries of its regimes (1, 2,

@@ -640,9 +640,11 @@ def main(argv):
             print(f"--- {label}", flush=True)
             replay_fused_solve(captured, verbose=True, **kw)
         return
+    verbose = "--verbose" in argv  # each package's per-iteration log
+    argv = [a for a in argv if a != "--verbose"]
     problem, config, dim, seeds = argv[0], argv[1], int(argv[2]), argv[3].split(",")
     for seed in map(int, seeds):
-        outs = _solve_pair(problem, dim, seed, config_settings(config))[:2]
+        outs = _solve_pair(problem, dim, seed, {**config_settings(config), "verbose": verbose})[:2]
         for pkg, (X, _, _, Z, info, cx), tt in zip(("jax", "port"), outs, (J, T)):
             print(f"{problem} d{dim} seed {seed} {pkg}: {info['num_iters']} iterations, "
                   f"slackness {abs(float(tt.tt_inner_prod(X, Z))):.4e}, ranks X "

@@ -38,10 +38,15 @@ MODULES = [
     "ttipm_tpu_torch.solvers.fused_eigen_batch",
     "ttipm_tpu_torch.solvers.lgmres",
     "ttipm_tpu_torch.solvers.local_kkt",
+    "ttipm_tpu_torch.tools.aggregate_grid",
+    "ttipm_tpu_torch.tools.bench",
     "ttipm_tpu_torch.tools.compare_kernels",
     "ttipm_tpu_torch.tools.compare_solves",
     "ttipm_tpu_torch.tools.dryrun_mesh",
     "ttipm_tpu_torch.tools.f32_repairs",
+    "ttipm_tpu_torch.tools.long_run",
+    "ttipm_tpu_torch.tools.scaling_bench",
+    "ttipm_tpu_torch.tools.svd_repeat",
     "ttipm_tpu_torch.utils.baseline_runner",
     "ttipm_tpu_torch.utils.checkpoint",
     "ttipm_tpu_torch.utils.memtrack",

@@ -185,6 +185,27 @@ def test_newton_step_batch_independence():
     assert np.all(zs3 > 0) and np.all(zs3 <= 1.0)
 
 
+def test_batch_drivers_return_fresh_contiguous_instances():
+    """The batched solve's per-instance cores and the batched step sizes'
+    eigenvector trains are fresh contiguous allocations (storage offset 0),
+    whatever the batch's strides.  On the card cuBLAS takes another kernel
+    for a transposed operand or another alignment of the same values, so a
+    view of the batch (transposed strides after a backward sweep, an
+    instance's offset) made the warm starts' retraction of a seeds mesh's
+    shard compute other bits than ``mesh=None``'s (phase 11 of
+    chip_smoke.py; a 4 x 4 ``mm`` in ``_svd_retract``)."""
+    from ttipm_tpu_torch.tools.scaling_bench import make_instances
+
+    systems, Xs, Zs, _ = make_instances(3, 2, torch.device("cpu"))
+    sols, _ = TM.tt_block_amen_fused_batch([s[0] for s in systems], [s[1] for s in systems],
+                                           R=12, ineq=False, seed=1)
+    _, warm = TM.tt_step_sizes_batch([(Xs[i], Zs[i]) for i in range(2)], R=8)
+    for train in sols + warm:
+        for c in train:
+            assert c.is_contiguous() and c.storage_offset() == 0, (tuple(c.stride()),
+                                                                   c.storage_offset())
+
+
 def test_newton_step_batch_full_iteration_matches_jax():
     """A full IPM iteration (tests/test_parallel.py:177-268): the real KKT
     assembly and equilibration of two maxcut d3 instances in each package

@@ -114,3 +114,19 @@ def test_dispatchers(bucket):
     outt = TP.tt_mat_vec_mul(A9t, x9t, 1e-7, 1e-10)
     check(outt, outj, tol=1e-8)
 
+
+
+def test_skew_zero_op():
+    """tests/test_products.py::test_skew_zero_op's case (d = 3, tt_IkronM of a
+    rank-2 matrix) through both packages: the same operator to 1e-12, and
+    S vec(X) = 0.5 (X + X^T) M^T."""
+    rng = np.random.RandomState(5)
+    Mj, Mt = train(rng, 3, 2, (2, 2))
+    Sj = JP.tt_skew_zero_op(J.tt_IkronM(Mj), 1e-12)
+    St = TP.tt_skew_zero_op(T.tt_IkronM(Mt), 1e-12)
+    check(St, Sj, tol=1e-12)
+    Xj, Xt = train(rng, 3, 2, (2, 2))
+    out = T.tt_matrix_to_matrix(T.tt_reshape(
+        TP.tt_mat_vec_exact(St, T.tt_reshape(Xt, (4,))), (2, 2))).numpy()
+    Md, Xd = T.tt_matrix_to_matrix(Mt).numpy(), T.tt_matrix_to_matrix(Xt).numpy()
+    np.testing.assert_allclose(out, 0.5 * (Xd + Xd.T) @ Md.T, atol=1e-8)

@@ -85,6 +85,29 @@ def test_rl_orthogonalise():
                                    atol=1e-12, rtol=0)
 
 
+@pytest.mark.parametrize("d", [3, 4, 5])
+def test_lr_orthogonalise(d):
+    """Equal ranks, cores within 1e-12 of the JAX package's up to the signs
+    of the bond columns, cores 0..d-2 left-orthogonal, the same matrix."""
+    Aj, At = both(noisy_low_rank(np.random.RandomState(d), d, 3, 1e-8))
+    Qt, Qj = TR.tt_lr_orthogonalise(At), JR.tt_lr_orthogonalise(Aj)
+    check(Qt, Qj)
+    sign = torch.ones(1, dtype=torch.float64)
+    for k, (ct, cj) in enumerate(zip(Qt, Qj)):
+        ct = sign.reshape(-1, *([1] * (ct.dim() - 1))) * ct
+        cj = torch.as_tensor(np.asarray(cj))
+        if k < d - 1:
+            mat = ct.reshape(-1, ct.shape[-1])
+            torch.testing.assert_close(mat.T @ mat, torch.eye(mat.shape[1], dtype=mat.dtype),
+                                       atol=1e-12, rtol=0)
+            flat_t, flat_j = mat, cj.reshape(-1, cj.shape[-1])
+            idx = flat_j.abs().argmax(dim=0)
+            cols = torch.arange(flat_j.shape[1])
+            sign = torch.sign(flat_j[idx, cols]) * torch.sign(flat_t[idx, cols])
+            ct = ct * sign
+        torch.testing.assert_close(ct, cj, atol=1e-12, rtol=0)
+
+
 @pytest.mark.parametrize("eps", [1e-15, 1e-6, 1e-3])
 def test_rank_reduce(bucket, eps):
     Aj, At = both(noisy_low_rank(np.random.RandomState(1), 5, 3, 1e-9))

@@ -39,7 +39,7 @@ from ttipm_tpu.utils.runner import run_and_record as run_and_record_j
 from ttipm_tpu.utils.runner import save_results_summary as save_j
 from ttipm_tpu_torch import config as tconfig
 from ttipm_tpu_torch.utils import runner
-from ttipm_tpu_torch.utils.memtrack import PeakMemoryTracker
+from ttipm_tpu_torch.utils.memtrack import PeakMemoryTracker, measure_peak_rss
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
@@ -191,3 +191,15 @@ def test_memtrack_cpu():
         block = np.ones(4_000_000)
         block[::4096] = 2.0
     assert tracker.peak_mb >= 0.0
+
+
+def test_measure_peak_rss_cpu():
+    """ttipm_tpu/utils/memtrack.py:83's contract: (peak MB over the region,
+    fn's result); a fresh 200 MB block shows in the resident peak."""
+    def fn():
+        block = np.ones(25_000_000)
+        return float(block[::4096].sum())
+
+    peak, out = measure_peak_rss(fn)
+    assert out == float(np.ones(25_000_000)[::4096].sum())
+    assert peak >= 150.0

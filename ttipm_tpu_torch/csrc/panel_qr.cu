@@ -20,15 +20,23 @@
 // Two instances, double and float (scalar.cuh), from one template.  The
 // float one is the TPU's production kernel's counterpart (the Pallas
 // dispatcher takes f32 only, ttipm_tpu/ops/kernels.py:226): it keeps the
-// panel, the partial sums and the reflector scalars in float.  Like the
-// f64 instance it forms ||x||^2 as a sum of squares (dlarfg takes a scaled
-// norm), so a column whose entries lie below ~1e-19 in magnitude (whose
-// squares underflow in float) is reflected as if zero: tau = 0 exactly when
-// that sum is exactly 0, which LAPACK's slarfg decides on its scaled norm.
-// The solve's panels are orthonormal columns in [-1, 1] with an enrichment
-// block of unit scale, far inside that range.  The JAX kernel's 1e-30 guard
-// on v^T v is not needed: v^T v = 2 beta (beta - x_j) is zero only with
-// the sum of squares.
+// panel, the partial sums and the reflector scalars in float.
+//
+// The norm.  Both instances form ||x||^2 as a plain sum of squares, which
+// is what every panel of the solve takes (orthonormal columns in [-1, 1]
+// and an enrichment block of unit scale), and check it: where the sum lies
+// below the smallest normal number for a column with rows below the
+// diagonal (squares underflowed: in float, entries below ~1e-19), or where
+// x_j^2 plus the sum is not finite (squares overflowed: in float, entries
+// above ~1e19; or a NaN), the column's largest magnitude s is taken (one
+// more reduction) and the norm is s ||x / s||, as dlarfg's dnrm2 scales it.
+// The check reads numbers every warp (every CTA of a cluster) holds alike,
+// so all take the same branch; panels that pass it keep their bits.  tau =
+// 0 exactly when the column is exactly zero below the diagonal, as LAPACK
+// decides.  Left as it is: a column whose norm lies below 1 / max_finite
+// (its 1 / (x_j - beta) overflows; dlarfg rescales such columns).  The JAX
+// kernel's 1e-30 guard on v^T v is not needed: v^T v = 2 beta (beta - x_j)
+// is zero only with the norm.
 //
 // Bound on the H100: the solve's panels are (4 R', R + kick), 24 x 6 to
 // 40 x 10 at bond rank 8 and at most 144 x 36 at rank 32: a few KB and
@@ -95,7 +103,9 @@
 // measured slower for this pattern in K4).  Every CTA adds the partials in
 // CTA order and computes the same scalars.  Two slots alternate, so a CTA a
 // step ahead never overwrites what another still reads.  This regime is
-// off the solve's path: 2 n exchanges of ~3K cycles each.
+// off the solve's path: 2 n exchanges of ~3K cycles each.  A column whose
+// norm is scaled (above) makes one more: each CTA's largest magnitude and
+// its sum of squares scaled by it, combined in CTA order (dlassq's rule).
 //
 // A batch of B panels of one shape (the lockstep batched solve, one panel
 // an instance, a batch stride apart) is one launch: the grid's y dimension
@@ -126,6 +136,13 @@ constexpr int kScalarRows = 3;  // tau, scale, beta: n elements each after the p
 constexpr int kStamps = 6;      // phase stamps of ttipm_panel_qr_stamps
 constexpr int kMaxSlabRows = 192;  // rows of a CTA: at most 6 a lane, held in registers
 
+// Elements of an instance's workspace in a cluster: two slots of ctas + 1
+// vectors of n (the partials and row j), the pairs of the scaled norm,
+// and ctas step counters (an int each, in an element's room).
+__host__ __device__ __forceinline__ long long ws_elems(int ctas, int n) {
+  return 2LL * (ctas + 1) * n + 2LL * ctas + ctas;
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
@@ -144,6 +161,19 @@ __device__ __forceinline__ void warp_sum2(T& u, T& v) {
   }
 }
 
+// The larger of a and b, NaN where either is.
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (b > a || b != b) ? b : a;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = nan_max(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
 template <typename T>
 struct Reflector {
   T tau, scale, beta;
@@ -159,6 +189,33 @@ __device__ __forceinline__ Reflector<T> make_reflector(T xj, T sigma2) {
     h.beta = xj;
   } else {
     h.beta = -ttipm::copysign_(ttipm::sqrt_rn(xj * xj + sigma2), xj);
+    h.tau = (h.beta - xj) / h.beta;
+    h.scale = T(1) / (xj - h.beta);
+  }
+  return h;
+}
+
+// Whether the plain sum of squares sigma2 of the column below the pivot x_j
+// cannot give the norm: it underflowed (below the smallest normal, with
+// rows below the diagonal) or x_j^2 + sigma2 overflowed (or is NaN).
+template <typename T>
+__device__ __forceinline__ bool needs_scaled_norm(T xj, T sigma2, int j, int m) {
+  return (sigma2 < ttipm::min_normal(xj) && j < m - 1) ||
+         !(xj * xj + sigma2 <= ttipm::max_finite(xj));
+}
+
+// dlarfg from the pivot and ss = sum_i (x_i / s)^2, s >= |x_j| the largest
+// magnitude of the column.
+template <typename T>
+__device__ __forceinline__ Reflector<T> make_reflector_scaled(T xj, T ss, T s) {
+  Reflector<T> h;
+  if (ss == T(0)) {
+    h.tau = T(0);
+    h.scale = T(0);
+    h.beta = xj;
+  } else {
+    const T q = ttipm::div_rn(xj, s);
+    h.beta = -ttipm::copysign_(s * ttipm::sqrt_rn(ttipm::madd(q, q, ss)), xj);
     h.tau = (h.beta - xj) / h.beta;
     h.scale = T(1) / (xj - h.beta);
   }
@@ -283,7 +340,7 @@ panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, long long s
   a += bi * sa;
   q += bi * m * n;
   r += bi * n * n;
-  if (kMulti) ws += bi * (2 * (ctas + 1) * n + ctas);
+  if (kMulti) ws += bi * ws_elems(ctas, n);
   const int ld = mb | 1;
   const int r0 = cta * mb;                  // first row of this CTA's slab
   const int ml = max(0, min(mb, m - r0));   // its rows
@@ -291,10 +348,13 @@ panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, long long s
   T* tau_s = A + ld * n;
   T* scl_s = tau_s + n;
   T* bet_s = scl_s + n;
-  int* flags = kMulti ? reinterpret_cast<int*>(ws + 2 * (ctas + 1) * n) : nullptr;
+  T* pairs = kMulti ? ws + 2 * (ctas + 1) * n : nullptr;  // a CTA's largest magnitude, scaled ssq
+  int* flags = kMulti ? reinterpret_cast<int*>(pairs + 2 * ctas) : nullptr;
   auto stamp = [&](int k) {
     if (stamps != nullptr && tid == 0 && cta == 0) stamps[k] = clock64();
   };
+  // the absolute value, NaN kept
+  auto mag = [](T x) { return x < T(0) ? -x : x; };
   // this lane's kRpl values of a column, zero past the slab
   auto load_rows = [&](const T* col, T (&v)[kRpl]) {
 #pragma unroll
@@ -320,6 +380,7 @@ panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, long long s
   stamp(1);
 
   // ---- forward: reflectors and R ----
+  int sync = 0;  // exchanges made so far: the value of the step counters
   int cur = warp;  // the smallest own column >= j (own: c = warp mod W)
   for (int j = 0; j < n; ++j) {
     const bool owner = cur == j;
@@ -359,17 +420,67 @@ panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, long long s
     }
     if (kMulti) {
       publish_row(rowv, j);
-      exchange(flags, ctas, cta, j + 1);
+      exchange(flags, ctas, cta, ++sync);
+      xj = __ldcg(rowv + j);  // every warp: the scaling decision is the cluster's
+      sig = sum_partials(slot, ctas, n, j);
       if (active) {
-        xj = __ldcg(rowv + j);
-        sig = sum_partials(slot, ctas, n, j);
         load_rows(mine, v);
         ajc = __ldcg(rowv + min(c, n - 1));
         p = sum_partials(slot, ctas, n, min(c, n - 1));
       }
     }
+    // the scaled norm where the sum of squares cannot give it: s, the
+    // column's largest magnitude (x_j's included), and sum (x_i / s)^2
+    const bool scaled = needs_scaled_norm(xj, sig, j, m);
+    T s = T(0), ss = T(0);
+    if (scaled && !kMulti && active) {
+      T mx = T(0);
+#pragma unroll
+      for (int k = 0; k < kRpl; ++k) mx = nan_max(mx, mag(x[k]));
+      s = nan_max(warp_max(mx), mag(xj));
+      if (s != T(0)) {
+#pragma unroll
+        for (int k = 0; k < kRpl; ++k) {
+          const T y = ttipm::div_rn(x[k], s);
+          ss = ttipm::madd(y, y, ss);
+        }
+        ss = warp_sum(ss);
+      }
+    } else if (scaled && kMulti) {
+      if (owner) {  // this CTA's rows: its largest magnitude and sum of squares scaled by it
+        T mx = T(0), sq = T(0);
+#pragma unroll
+        for (int k = 0; k < kRpl; ++k) mx = nan_max(mx, mag(x[k]));
+        mx = warp_max(mx);
+        if (mx != T(0)) {
+#pragma unroll
+          for (int k = 0; k < kRpl; ++k) {
+            const T y = ttipm::div_rn(x[k], mx);
+            sq = ttipm::madd(y, y, sq);
+          }
+          sq = warp_sum(sq);
+        }
+        if (lane == 0) {
+          pairs[2 * cta] = mx;
+          pairs[2 * cta + 1] = sq;
+        }
+      }
+      exchange(flags, ctas, cta, ++sync);
+      if (active) {  // combined in CTA order
+        s = mag(xj);
+        for (int k = 0; k < ctas; ++k) s = nan_max(s, __ldcg(pairs + 2 * k));
+        if (s != T(0)) {
+          for (int k = 0; k < ctas; ++k) {
+            const T mk = __ldcg(pairs + 2 * k);
+            if (mk == T(0)) continue;
+            const T rk = ttipm::div_rn(mk, s);
+            ss = ttipm::madd(__ldcg(pairs + 2 * k + 1) * rk, rk, ss);
+          }
+        }
+      }
+    }
     if (active) {
-      const Reflector<T> h = make_reflector(xj, sig);
+      const Reflector<T> h = scaled ? make_reflector_scaled(xj, ss, s) : make_reflector(xj, sig);
       if (owner && lane == 0) {
         tau_s[j] = h.tau;
         scl_s[j] = h.scale;
@@ -411,7 +522,7 @@ panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, long long s
   // ---- Q in place over the reflectors ----
   int cq = warp;  // the smallest own column > j
   while (cq < n) cq += W;
-  int step = n;  // exchanges made so far (the forward pass made n)
+  int step = n;  // slot turns so far (the forward pass took n)
   for (int j = n - 2; j >= 0; --j) {
     if (cq - W > j) cq -= W;
     const bool active = cq < n;
@@ -461,7 +572,7 @@ panel_qr_kernel(const T* __restrict__ a, long long s0, long long s1, long long s
       }
     }
     if (kMulti && tj != T(0)) {
-      exchange(flags, ctas, cta, step);
+      exchange(flags, ctas, cta, ++sync);
       if (active) {
         for (int c = cq; c < n; c += W) {
           T* col = A + c * ld;
@@ -568,8 +679,9 @@ cudaError_t launch(const T* a, long long s0, long long s1, long long sa, int nba
 // a: nbatch panels (m, n) with element strides s0, s1, the instances sa
 // elements apart.  q: nbatch times m n elements, each (m, n) row-major or,
 // with q_trans, (n, m) row-major.  r: nbatch times n n elements.  ctas,
-// threads: the launch plan of k3_plan.  ws: nbatch times 2 (ctas + 1) n +
-// ctas elements when ctas > 1 (uninitialised), else unused.  One entry for
+// threads: the launch plan of k3_plan.  ws: nbatch times ws_elems(ctas, n)
+// = 2 (ctas + 1) n + 3 ctas elements when ctas > 1 (uninitialised), else
+// unused.  One entry for
 // double, one for float.
 extern "C" int ttipm_panel_qr(const double* a, long long s0, long long s1, long long sa,
                               int nbatch, double* q, int q_trans, double* r, int m, int n,

@@ -9,6 +9,7 @@
 // pivot and reflector arithmetic); fma rounds once.
 #pragma once
 
+#include <cfloat>
 #include <cuda_runtime.h>
 
 namespace ttipm {
@@ -27,5 +28,12 @@ __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, 
 
 __device__ __forceinline__ double copysign_(double a, double b) { return copysign(a, b); }
 __device__ __forceinline__ float copysign_(float a, float b) { return copysignf(a, b); }
+
+// The smallest normal and the largest finite value of the type (the
+// argument only selects the overload).
+__device__ __forceinline__ double min_normal(double) { return DBL_MIN; }
+__device__ __forceinline__ float min_normal(float) { return FLT_MIN; }
+__device__ __forceinline__ double max_finite(double) { return DBL_MAX; }
+__device__ __forceinline__ float max_finite(float) { return FLT_MAX; }
 
 }  // namespace ttipm

@@ -539,7 +539,7 @@ def k3_plan(m, n, esize=8):
                           f"got {(m, n)}")
     ctas = next(c for c in (1, 2, K3_MAX_CTAS) if -(-m // c) <= K3_SLAB_ROWS)
     threads = 32 * min(n, (K3_ONE_CTA_THREADS if ctas == 1 else K3_MAX_THREADS) // 32)
-    ws_elems = 0 if ctas == 1 else 2 * (ctas + 1) * n + ctas
+    ws_elems = 0 if ctas == 1 else 2 * (ctas + 1) * n + 3 * ctas  # csrc/panel_qr.cu::ws_elems
     return ctas, threads, ws_elems, _k3_smem(-(-m // ctas), n, esize)
 
 

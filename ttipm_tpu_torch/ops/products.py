@@ -29,7 +29,7 @@ __all__ = [
     "tt_mat_vec_exact", "tt_mat_mat_exact", "tt_hadamard_exact",
     "tt_fast_matrix_vec_mul", "tt_fast_mat_mat_mul", "tt_fast_hadamard",
     "tt_approx_mat_mat_mul", "tt_approx_mat_vec_mul", "tt_mat_mat_mul",
-    "tt_mat_vec_mul",
+    "tt_mat_vec_mul", "tt_skew_zero_op",
 ]
 
 
@@ -82,6 +82,17 @@ def tt_fast_mat_mat_mul(matrix_tt_1: TT, matrix_tt_2: TT, eps: float = 1e-18) ->
 
 def tt_fast_hadamard(train_tt_1: TT, train_tt_2: TT, eps: float = 1e-18) -> TT:
     return tt_rank_reduce(tt_hadamard_exact(train_tt_1, train_tt_2), eps)
+
+
+def tt_skew_zero_op(op_tt: TT, eps: float) -> TT:
+    """Symmetrise an operator TT in the vec'd index: 0.5*(Op + P Op) with P
+    the (2,2)-transposition permutation."""
+    from ttipm_tpu_torch.ops.tt import tt_add, tt_scale
+
+    ref = op_tt[0]
+    perm = torch.eye(4, dtype=ref.dtype, device=ref.device)[[0, 2, 1, 3]].reshape(1, 4, 4, 1)
+    op_t = tt_fast_mat_mat_mul(op_tt, [perm] * len(op_tt), eps)
+    return tt_rank_reduce(tt_scale(0.5, tt_add(op_tt, op_t)), eps)
 
 
 # ---------------------------------------------------------------------------

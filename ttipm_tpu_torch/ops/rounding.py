@@ -20,10 +20,10 @@ import torch
 
 from ttipm_tpu_torch import config
 from ttipm_tpu_torch.ops.linalg import qr_econ, safe_svd
-from ttipm_tpu_torch.ops.tt import TT, tt_add, tt_ranks
+from ttipm_tpu_torch.ops.tt import TT, tt_add, tt_ranks, tt_swap_all
 
 __all__ = [
-    "prune_singular_vals", "pad_bond_factors", "tt_rl_orthogonalise",
+    "prune_singular_vals", "pad_bond_factors", "tt_rl_orthogonalise", "tt_lr_orthogonalise",
     "tt_rank_reduce", "tt_psd_rank_reduce", "tt_mask_rank_reduce", "tt_rank_retraction", "truncated_svd",
     "add_kick_rank", "add_kick_rank_rev",
 ]
@@ -102,6 +102,12 @@ def tt_rl_orthogonalise(train_tt: TT) -> TT:
             tuple(prev.shape[:-1]) + (k,)
         )
     return out
+
+
+def tt_lr_orthogonalise(train_tt: TT) -> TT:
+    """Left-to-right QR sweep: all cores except the last become
+    left-orthogonal."""
+    return tt_swap_all(tt_rl_orthogonalise(tt_swap_all(train_tt)))
 
 
 def _truncation_sweep(train_tt: TT, eps: float,

@@ -84,6 +84,17 @@ def _stack(trains):
     return [torch.stack(cores) for cores in zip(*trains)]
 
 
+def _instance(cores, i):
+    """Instance ``i``'s cores as fresh contiguous allocations.  A view into
+    the batch (or into a mesh's gathered rows) has the batch's strides and
+    an offset that differ between a batch and a mesh's shard of it, and
+    cuBLAS takes another kernel (another order of the same products) for a
+    transposed operand or another alignment of the same values: the
+    per-instance algebra after the solve (the warm starts' retraction, the
+    directions) would give other bits."""
+    return [c[i].clone(memory_format=torch.contiguous_format) for c in cores]
+
+
 def _shapes(tree):
     if isinstance(tree, dict):
         return {k: _shapes(v) for k, v in tree.items()}
@@ -176,11 +187,7 @@ def tt_block_amen_fused_batch(
         *x_cores, res_t = mesh.gather_rows(
             x_cores + [torch.as_tensor(final_res, dtype=torch.float64, device=ref.device)])
         final_res = res_t[:nb].cpu().numpy()
-    # each instance's cores as fresh allocations: a view into the batch (or
-    # into a mesh's gathered rows) starts at an offset that differs with the
-    # batch's layout, and cuBLAS / cuSOLVER may take another path for
-    # another alignment of the same values
-    return [[c[i].clone() for c in x_cores] for i in range(nb)], final_res
+    return [_instance(x_cores, i) for i in range(nb)], final_res
 
 
 def tt_step_sizes_batch(
@@ -238,7 +245,7 @@ def tt_step_sizes_batch(
         if res[i] > tol_i and np.isfinite(res[i]) and res[i] > 0:
             step *= tol_i / res[i]
         steps[i] = step
-        warm.append(tt_normalise([c[i] for c in xs_out]))
+        warm.append(tt_normalise(_instance(xs_out, i)))
     return steps, warm
 
 

@@ -11,9 +11,13 @@ peak reached before the region can hide the region's own.
 
 from __future__ import annotations
 
+from typing import Callable, Tuple, TypeVar
+
 import torch
 
-__all__ = ["PeakMemoryTracker", "proc_status_bytes"]
+__all__ = ["PeakMemoryTracker", "measure_peak_rss", "proc_status_bytes"]
+
+T = TypeVar("T")
 
 
 def proc_status_bytes(field: str) -> int:
@@ -56,3 +60,12 @@ class PeakMemoryTracker:
     @property
     def peak_mb(self) -> float:
         return self.peak_bytes / 1e6
+
+
+def measure_peak_rss(fn: Callable[[], T], device="cpu") -> Tuple[float, T]:
+    """Run ``fn`` under ``PeakMemoryTracker(device)``; returns (peak MB,
+    result): the device's peak allocation on CUDA, the resident peak over
+    the region on the CPU."""
+    with PeakMemoryTracker(device) as tracker:
+        result = fn()
+    return tracker.peak_mb, result
