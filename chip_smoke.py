@@ -6,14 +6,20 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: compiles the four CUDA kernels from ttipm_tpu_torch/csrc (one
-   nvcc per source, all started together).
+2. build: compiles the six CUDA kernels from ttipm_tpu_torch/csrc (one
+   nvcc per source, all started together): K1-K4, the ports of the four
+   Pallas kernels, and J1 / J2, the Jacobi SVD and eigh cores, which
+   replace no Pallas kernel but the JAX package's jnp Jacobi programs
+   (ttipm_tpu/ops/jacobi.py:121, :370) under every dense SVD and eigh of
+   the port on the card.
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the fused solve's shapes (bond rank R in {8, 16, 32}, operator ranks
    in {1, 4, 9}, the panels of K3_PANELS, which span K3's regimes up to
    its envelope 512 x 128, one of them also as a transposed view and with
    the transposed output, SPD matrices of the orders in K4_ORDERS, which
-   span both regimes of K4, and one indefinite one),
+   span both regimes of K4, and one indefinite one, J1 on the r2^T of the
+   d8 and d10 solves' SVDs (JACOBI_SVD_ORDERS) and J2 on pencils of the
+   eigen windows' orders (JACOBI_EIGH_ORDERS)),
    with median times of kernel, plain version and the one library call
    that computes the same function, taken in turns (plain, library,
    kernel, kernel, library, plain), beside the roofline bound of the call.
@@ -33,7 +39,9 @@ and prints no result line):
    included); every kernel and its plain version are then timed on the
    first operands of each of their shapes, and the totals weighted by the
    solve's call counts are printed (slice_k12_times, slice_k3_times,
-   slice_k4_times).
+   slice_k4_times, slice_jacobi_times); the factorizations that the
+   Jacobi pipelines' shape rules sent to torch.linalg are counted and
+   printed (``outside``), in every phase that drives a solve.
 6. fallback: MaxCut d10 (seed 41, configs/maxcut_10.yaml settings, quiet)
    on the GPU through the runner's run_and_record: the fused ladder, the
    ragged AMEn where the ladder exhausts its restarts, the fused
@@ -155,7 +163,8 @@ instances as entries of their own: ``launches`` those of phase 9's solve,
 ``launches_capture`` those of its capture run; ``launches_batch`` and
 ``instances_batch`` those of phase 10's batched step, ``batch`` the timed
 row of the kernel's heaviest batched shape, ``launches_mesh`` phase 11's
-launches on each rank); the last line
+launches on each rank); J1 and J2 have no float32 instance (f32 factorizations are upcast);
+the last line
 is {"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
 build always) and then prints neither.
 """
@@ -180,7 +189,14 @@ KERNELS = {
     "kkt_block_matvec": ("ttipm_tpu_torch/csrc/kkt_matvec.cu", "ttipm_tpu/ops/kernels.py:82"),
     "panel_qr": ("ttipm_tpu_torch/csrc/panel_qr.cu", "ttipm_tpu/ops/kernels.py:210"),
     "panel_cholesky": ("ttipm_tpu_torch/csrc/panel_cholesky.cu", "ttipm_tpu/ops/kernels.py:313"),
+    # no Pallas kernel: the jnp Jacobi programs the JAX package runs on its accelerator
+    "jacobi_svd": ("ttipm_tpu_torch/csrc/jacobi_svd.cu", "ttipm_tpu/ops/jacobi.py:121"),
+    "jacobi_eigh": ("ttipm_tpu_torch/csrc/jacobi_eigh.cu", "ttipm_tpu/ops/jacobi.py:370"),
 }
+# The kernels with a float32 instance (the Jacobi cores take f64 only).
+F32_KERNELS = ("schur_assemble", "kkt_block_matvec", "panel_qr", "panel_cholesky")
+# The entry point each kernel's phase-3 row is timed through.
+MAIN_ENTRY = {"jacobi_svd": "jacobi_orthogonalise", "jacobi_eigh": "jacobi_eigh_core"}
 
 
 # Peak rates of the roofline bounds (NVIDIA H100 SXM data sheet): device
@@ -200,6 +216,15 @@ K4_ORDERS = (16, 64, 144, 256, 400, 512, 513, 1024, 4096, 5184)
 # of bond ranks 36, 32, 16 and 8, and the d8 solve's smallest and largest
 # (the last is the one the kernels line reports).
 K3_PANELS = ((512, 128), (512, 32), (144, 36), (128, 34), (64, 18), (32, 10), (24, 6), (40, 10))
+
+# Orders at which J1 is timed against torch.linalg.svd (the r2^T of the
+# solves' SVDs: 8 x 4, 64 x 6, 32 x 16, 192 x 42 of maxcut d8, 80 x 60 of
+# d10, J1's bound 118; the kernels line reports the last) and J2 against
+# torch.linalg.eigh (the eigen windows' orders 4, 16, 64, 128 and 256;
+# the kernels line reports 256, the d8 solve's largest).  Batches: phase
+# 10; J2's cluster bounds (96, 136, 192, 272): tests/test_torch_cuda.py.
+JACOBI_SVD_ORDERS = (4, 6, 16, 118, 42, 60)
+JACOBI_EIGH_ORDERS = (4, 16, 64, 128, 256)
 
 
 def config_path(dim: int, problem: str = "maxcut") -> str:
@@ -276,6 +301,16 @@ def _turns_ms(fns, runs=10, warmup=3):
     return [float(np.median(ts)) for ts in times]
 
 
+def _plain_first_ms(name, fns, runs=10, warmup=3):
+    """``_turns_ms`` of ``fns`` (the plain version first), except that the
+    plain Jacobi (a Python loop over the steps: seconds a call at order
+    256) is timed by one call, after the others' turns."""
+    if name not in MAIN_ENTRY.values():
+        return _turns_ms(fns, runs, warmup)
+    rest = _turns_ms(fns[1:], runs, warmup)
+    return [_times_ms(fns[0], runs=1, warmup=0)[0]] + rest
+
+
 def _tensors(arg):
     import torch
 
@@ -325,6 +360,18 @@ def bound_ms(name, args):
         n = args[0].shape[0]
         bytes_out = esize * n * n + 4
         flops = n**3 // 3
+    elif name in MAIN_ENTRY.values():
+        # the sweeps this run's data needs (csrc/jacobi_svd.cu, jacobi_eigh.cu: "Bound")
+        from ttipm_tpu_torch.ops import kernels as K
+
+        B, n, _ = args[0].shape
+        sweeps = int(K.jacobi_sweeps(name, args[0]).sum())
+        if name == "jacobi_orthogonalise":
+            bytes_out = esize * B * (2 * n * n + n)
+            flops = sweeps * (9 * n * n * (n - 1) + n**3)
+        else:
+            bytes_out = esize * B * (n * n + n)
+            flops = sweeps * (9 * n * n * (n - 1) + 3 * n * n)
     else:
         raise KeyError(name)
     by_bytes = 1e3 * (bytes_in + bytes_out) / HBM_BYTES_PER_S
@@ -344,6 +391,8 @@ def library_calls():
         "schur_assemble": lambda pl, A, pr: torch.einsum("lsr,smnS,LSR->lmLrnR", pl, A, pr),
         "panel_qr": lambda a: torch.linalg.qr(a, mode="reduced"),
         "panel_cholesky": torch.linalg.cholesky_ex,
+        "jacobi_orthogonalise": lambda w: torch.linalg.svd(w),
+        "jacobi_eigh_core": torch.linalg.eigh,
     }
 
 
@@ -397,10 +446,10 @@ def phase_kernels():
         fns = [lambda: plain(*args), lambda: fn(*args, **kw)]
         if lib is not None:
             fns.insert(1, lambda: lib(*args))
-        ms = _turns_ms(fns)
+        ms = _plain_first_ms(name, fns)
         row = {"ms": ms[-1], "plain_ms": ms[0], "library_ms": ms[1] if lib else None}
         row["bound_ms"], row["bound_by"] = bound_ms(name, args)
-        if name in KERNELS:
+        if name in KERNELS or name in MAIN_ENTRY.values():
             s.update(row)
         print(json.dumps({"kernel": name, "shape": shape_key(args), **kw, **errs, **row,
                           "ratio": row["ms"] / row["plain_ms"]}), flush=True)
@@ -426,7 +475,33 @@ def phase_kernels():
     if errs["info"] == 0:
         raise AssertionError(f"panel_cholesky: indefinite n={n} reported as SPD")
     print(json.dumps({"kernel": "panel_cholesky", "indefinite_n": n, **errs}), flush=True)
+    for n in JACOBI_SVD_ORDERS:  # one instance, as the single solve's calls
+        run("jacobi_orthogonalise", jacobi_operand("jacobi_orthogonalise", 1, n, rng, dev))
+    for n in JACOBI_EIGH_ORDERS:
+        run("jacobi_eigh_core", jacobi_operand("jacobi_eigh_core", 1, n, rng, dev))
     return summary
+
+
+def jacobi_operand(entry, B, n, rng, dev):
+    """B operands of order n as the pipelines hand them to J1 (the r2^T of a
+    tall matrix with singular values from 1 down to 1e-12, r^T = q2 r2) or J2 (a
+    symmetric pencil scaled to max |a| = 1 with a cluster of small
+    eigenvalues)."""
+    import torch
+
+    out = []
+    for _ in range(B):
+        q, _ = np.linalg.qr(rng.randn(2 * n, n))
+        p, _ = np.linalg.qr(rng.randn(n, n))
+        if entry == "jacobi_orthogonalise":
+            a = (q * np.logspace(0, -12, n)) @ p.T
+            x = np.linalg.qr(np.linalg.qr(a / np.abs(a).max())[1].T)[1].T
+        else:
+            spec = np.r_[np.linspace(-1, 4, n - n // 4), 1e-6 * rng.randn(n // 4)]
+            x = (p * spec) @ p.T
+            x = 0.5 * (x + x.T) / np.abs(x).max()
+        out.append(x)
+    return torch.as_tensor(np.stack(out), device=dev).contiguous()
 
 
 def solve(dim, seed, device, settings, keep=None):
@@ -545,6 +620,7 @@ def phase_slice(dim, seed):
         for name, fn in originals.items():
             setattr(K, name, fn)
     counts = {name: (s.launches, s.plain_calls, s.grouped) for name, s in K.STATS.items()}
+    res["outside"] = {name: s.outside for name, s in K.STATS.items()}
     res["check_s"] = check_s[0]
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     res["counts"] = {n: {"launches": c[0], "plain_calls": c[1], "grouped": c[2]}
@@ -559,6 +635,7 @@ def phase_slice(dim, seed):
                        "schur_assemble"))
     phase_slice_times("slice_k3_times", shapes, first, ("panel_qr",))
     phase_slice_times("slice_k4_times", shapes, first, ("panel_cholesky",))
+    phase_slice_jacobi_times(shapes, first)
     abs_tol = settings["abs_tol"]
     if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
             and res["dual_feas"] < abs_tol):
@@ -575,7 +652,7 @@ def phase_slice(dim, seed):
 
 def phase_slice_times(label, shapes, first, names):
     """The entry points ``names`` and their plain versions (einsum,
-    linalg.qr, cholesky_ex) timed on the first operands of each of their shapes in the
+    linalg.qr, cholesky_ex, the plain Jacobi) timed on the first operands of each of their shapes in the
     solve; the totals weight each shape by its call count (the time the
     solve would spend in single calls of either)."""
     from ttipm_tpu_torch.checks import PLAIN
@@ -598,6 +675,31 @@ def phase_slice_times(label, shapes, first, names):
                         "ratio": total / plain_total if plain_total else None,
                         "heaviest_shapes": rows[:4]}
     print(json.dumps({label: report}), flush=True)
+
+
+def phase_slice_jacobi_times(shapes, first):
+    """J1 and J2 and the library call on the same operand (torch.linalg.svd,
+    eigh: cuSOLVER) timed on the first operands of each of their shapes in
+    the solve, weighted by the solve's calls (the plain versions are timed
+    in phase 3: a Python loop over the steps, seconds a call)."""
+    from ttipm_tpu_torch.ops import kernels as K
+
+    library = library_calls()
+    report = {}
+    for name in ("jacobi_orthogonalise", "jacobi_eigh_core"):
+        fn, lib = getattr(K, name), library[name]
+        rows, total, lib_total = [], 0.0, 0.0
+        for key, (args, kw) in first[name].items():
+            lib_ms, ms = _turns_ms([lambda: lib(*args), lambda: fn(*args, **kw)], runs=3, warmup=1)
+            count = shapes[name][key]
+            rows.append({"shape": key, "count": count, "ms": ms, "library_ms": lib_ms})
+            total += count * ms
+            lib_total += count * lib_ms
+        rows.sort(key=lambda r: -r["count"] * r["ms"])
+        report[name] = {"distinct_shapes": len(rows), "calls": sum(r["count"] for r in rows),
+                        "weighted_ms": total, "library_weighted_ms": lib_total,
+                        "heaviest_shapes": rows[:4]}
+    print(json.dumps({"slice_jacobi_times": report}), flush=True)
 
 
 # The fallback cell (maxcut d10 seed 41) and the JAX package's run of it on
@@ -644,6 +746,8 @@ def random_operands(name, spec, rng, dev):
     if name == "panel_cholesky":
         n = args[0].shape[0]
         args = (args[0] @ args[0].T + n * torch.eye(n, dtype=args[0].dtype, device=dev),)
+    if name == "jacobi_eigh_core":
+        args = (0.5 * (args[0] + args[0].mT),)
     if name in ("schur_assemble_group", "kkt_block_product"):
         args = (list(args[0]),) + tuple(args[1:])
     return args
@@ -813,6 +917,7 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
             setattr(ipm, name, fn)
     counts = {name: (s.launches, s.plain_calls, s.grouped, dict(s.by_dtype))
               for name, s in K.STATS.items()}
+    outside = {name: s.outside for name, s in K.STATS.items()}
     syncs = Counter(os.path.relpath(w.filename, REPO) for w in caught
                     if "synchroniz" in str(w.message))
     solve_syncs = {f: c for f, c in syncs.items()
@@ -843,6 +948,7 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
         "max_memory_allocated": int(rec["memory"][0] * 1e6),
         "counts": {n: {"launches": c[0], "plain_calls": c[1], "grouped": c[2],
                        "by_dtype": c[3]} for n, c in counts.items()},
+        "outside": outside,
         "entry_calls": {n: sum(c for (_, nm, _), c in calls.items() if nm == n)
                         for n in KERNEL_OF},
         "k2_products_by_terms_rows": {f"{t}x{r}": c for (t, r), c in sorted(products.items())},
@@ -1009,7 +1115,7 @@ def time_spec(name, spec, rng, dev):
     fns = [lambda: plain(*a), lambda: fn(*a, **kw)]
     if lib is not None:
         fns.insert(1, lambda: lib(*a))
-    ms = _turns_ms(fns, runs=3, warmup=1)
+    ms = _plain_first_ms(name, fns, runs=3, warmup=1)
     b, by = bound_ms(name, a)
     return {"kernel": name, "shape": shape_key(a), "dtype": str(_tensors(a)[0].dtype)[6:],
             "kw": kw or None, "ms": ms[-1], "plain_ms": ms[0],
@@ -1108,16 +1214,16 @@ def phase_f32(problem, dim, seed):
         tconfig.set_dtype(torch.float64)
         tconfig.set_eigen_dtype("f64")
         tconfig.set_mixed_local("f64")
-    launches = {n: counts[n][3]["f32"] for n in KERNELS}  # the solve's, counted from 0
-    launches_capture = {n: capture[n]["f32"] for n in KERNELS}
+    launches = {n: counts[n][3]["f32"] for n in F32_KERNELS}  # the solve's, counted from 0
+    launches_capture = {n: capture[n]["f32"] for n in F32_KERNELS}
     print(json.dumps({"f32_launches": {"solve": {n: counts[n][3] for n in KERNELS},
                                        "capture": capture}}), flush=True)
-    missing = [n for n in KERNELS if launches[n] + launches_capture[n] <= 0]
+    missing = [n for n in F32_KERNELS if launches[n] + launches_capture[n] <= 0]
     if missing:
         raise AssertionError(f"f32: the f32 instances of {missing} never launched")
     summary = {}
     rng = np.random.RandomState(8)
-    for n in KERNELS:
+    for n in F32_KERNELS:
         mine = [r for r in rows if KERNEL_OF[r["kernel"]] == n]
         f32 = [r for r in mine if r["dtype"] == "float32"]
         if not f32:  # launched in f32 only by the capture run: its heaviest shape in f32
@@ -1218,7 +1324,8 @@ def phase_batch_kernels():
     returns per kernel the row of its heaviest batched shape."""
     import torch
 
-    from ttipm_tpu_torch.checks import SINGLE_OF, batch_instance, check_batch, shape_key
+    from ttipm_tpu_torch.checks import (SINGLE_OF, batch_instance, check_batch, check_kernel,
+                                        shape_key)
     from ttipm_tpu_torch.ops import kernels as K
 
     dev = torch.device("cuda")
@@ -1269,13 +1376,37 @@ def phase_batch_kernels():
                 if kernel not in rows or row["bound_ms"] > rows[kernel]["bound_ms"]:
                     rows[kernel] = row
             print(json.dumps({"batch_kernel": label, **row}), flush=True)
+    # J1 and J2 take a batch always: the split factorizations of the five
+    # instances (80 x 60 at d10: r2^T of order 60) and the eigen windows of
+    # the ten pencils (order 256), against a batch of one on each instance
+    library = library_calls()
+    for entry, B, n in (("jacobi_orthogonalise", 5, 60), ("jacobi_eigh_core", 10, 256)):
+        x = jacobi_operand(entry, B, n, rng, dev)
+        fn, plain = getattr(K, entry), getattr(K, entry + "_plain")
+        out = fn(x)
+        errs = check_kernel(entry, (x,), out)
+        singles = [x[i:i + 1] for i in range(B)]
+        for i, xi in enumerate(singles):
+            if not _same_bits([o[i:i + 1] for o in out], fn(xi)):
+                raise AssertionError(f"{entry}: instance {i} of a batch of {B} differs from a "
+                                     "batch of one")
+        ms = _plain_first_ms(entry, [lambda: plain(x), lambda: library[entry](x),
+                                     lambda: [fn(xi) for xi in singles], lambda: fn(x)],
+                             runs=5, warmup=2)
+        b, by = bound_ms(entry, (x,))
+        row = {"entry": entry, "dtype": "float64", "B": B, "shape": shape_key((x,)), **errs,
+               "ms": ms[-1], "singles_ms": ms[-2], "plain_ms": ms[0], "library_ms": ms[1],
+               "bound_ms": b, "bound_by": by}
+        rows[KERNEL_NAME[entry]] = row
+        print(json.dumps({"batch_kernel": entry, **row}), flush=True)
     return rows
 
 
 # The kernel (key of kernels.STATS) of each batched entry.
 KERNEL_NAME = {"kkt_block_product_batch": "kkt_block_matvec",
                "schur_assemble_batch": "schur_assemble",
-               "panel_qr_batch": "panel_qr", "panel_cholesky_batch": "panel_cholesky"}
+               "panel_qr_batch": "panel_qr", "panel_cholesky_batch": "panel_cholesky",
+               "jacobi_orthogonalise": "jacobi_svd", "jacobi_eigh_core": "jacobi_eigh"}
 
 
 def _batch_args(args, index):
@@ -1361,8 +1492,8 @@ def phase_batch(slice_iters=None):
 
     import torch
 
-    from ttipm_tpu_torch.checks import (batch_errors, first_newton_system, kkt_residual_norm,
-                                        shape_key)
+    from ttipm_tpu_torch.checks import (batch_errors, first_newton_system, kernel_errors,
+                                        kkt_residual_norm, shape_key)
     from ttipm_tpu_torch.ops import kernels as K
     from ttipm_tpu_torch.parallel.batch import run_batch
     from ttipm_tpu_torch.parallel.fused_mesh import (tt_block_amen_fused_batch,
@@ -1399,7 +1530,9 @@ def phase_batch(slice_iters=None):
             out = fn(*a, **kw)
             key = (name, shape_key(a), str(kw))
             if key not in checked[KERNEL_NAME[name]]:
-                checked[KERNEL_NAME[name]][key] = batch_errors(name, a, out, kw, cancelling=True)
+                checked[KERNEL_NAME[name]][key] = (
+                    kernel_errors(name, a, out) if name in MAIN_ENTRY.values()
+                    else batch_errors(name, a, out, kw, cancelling=True))
             return out
         return wrapped
 
@@ -1423,6 +1556,7 @@ def phase_batch(slice_iters=None):
     peak = torch.cuda.max_memory_allocated()
     counts = {n: (s.launches, s.instances, s.batched, s.plain_calls)
               for n, s in K.STATS.items()}
+    outside = {n: s.outside for n, s in K.STATS.items()}
     by_dtype = {n: {tag: (s.by_dtype[tag], s.instances_by_dtype[tag]) for tag in s.by_dtype}
                 for n, s in K.STATS.items()}
     syncs = Counter(os.path.relpath(w.filename, REPO) for w in caught
@@ -1512,6 +1646,7 @@ def phase_batch(slice_iters=None):
         "max_memory_allocated": peak,
         "counts": {n: {"launches": c[0], "instances": c[1], "batched": c[2], "plain_calls": c[3]}
                    for n, c in counts.items()},
+        "outside": outside,
         "parts_s": parts,
     }
     print(json.dumps({"batch": res}), flush=True)
@@ -2177,7 +2312,7 @@ def _launched_on_card(label, kernels, plain):
 def phase_tools(slice_iters, slice_X, batch_ref):
     """Phase 13: each driver of ``ttipm_tpu_torch/tools`` in a subprocess on
     the card.  (1) ``bench`` on TOOLS_BENCH_GRID: every line parsed, every
-    solve converged with all four kernels launched and no plain version on
+    solve converged with every kernel launched and no plain version on
     a CUDA tensor, the summary line last with ``converged_all``, d8 seed 24
     in phase 5's iterations.  (2) ``long_run`` on LONG_RUN_CELL, killed by
     SIGKILL once the checkpoint of iteration LONG_RUN_KILL_AFTER is on disk
@@ -2348,7 +2483,7 @@ def main(argv=None) -> int:
     ] + [
         {"name": f"{n}_f32", "dtype": "float32", "route": "cuda", "source": KERNELS[n][0],
          "replaces": KERNELS[n][1], **summary_f32[n], **summary_batch[n]["f32"]}
-        for n in KERNELS
+        for n in F32_KERNELS
     ]
     import torch
 

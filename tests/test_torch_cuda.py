@@ -55,6 +55,9 @@ def cuda():
 # Every kernel case runs on both instances: float64 and float32.
 DTYPES = [torch.float64, torch.float32]
 DTYPE_IDS = ["f64", "f32"]
+# The kernels with both instances (J1 and J2 take float64: f32 factorizations
+# are upcast before them).
+TYPED_KERNELS = ("schur_assemble", "kkt_block_matvec", "panel_qr", "panel_cholesky")
 
 
 def _dev(rng, dev, *shape, dtype=torch.float64):
@@ -154,7 +157,8 @@ def test_cuda_wrappers_launch_the_instance_of_the_operands_type(cuda):
                 K.panel_cholesky(_spd(40, cuda, dtype=dtype))[0]]
         torch.cuda.synchronize()
         assert all(o.dtype == dtype for o in outs)
-        for st in K.STATS.values():
+        for name in TYPED_KERNELS:  # the Jacobi cores take f64 only (their own test)
+            st = K.STATS[name]
             assert st.by_dtype == {t: int(t == tag) for t in DTYPE_IDS}, (st.name, st.by_dtype)
     a64, a32 = _dev(rng, cuda, 4, 2, 4), _dev(rng, cuda, 4, 2, 4, dtype=torch.float32)
     A64, x64 = _dev(rng, cuda, 2, 4, 4, 2), _dev(rng, cuda, 4, 4, 4)
@@ -520,6 +524,7 @@ def test_cuda_backward_split_takes_q_transposed_without_a_copy(cuda):
     view of the kernel's q^T.  Against a K3 that hands back q for the caller
     to transpose, the step runs fewer device kernels and gives the same
     core."""
+    from ttipm_tpu_torch.ops import jacobi
     from ttipm_tpu_torch.solvers import fused_batch as fb
     from ttipm_tpu_torch.solvers.fused_batch import batch_of_one as b1
 
@@ -555,7 +560,10 @@ def test_cuda_backward_split_takes_q_transposed_without_a_copy(cuda):
         return 0.5 * x + 0.1 * torch.roll(x, 1, dims=3), z, z, z
 
     def step():
-        return fb.bck_split_step(solve_local, *ops, 8, 2, True)
+        # the split's SVD through cuSOLVER: the Jacobi SVD launches K3 too,
+        # and the K3 launches counted here are the site's alone
+        with jacobi.forced(False):
+            return fb.bck_split_step(solve_local, *ops, 8, 2, True)
 
     new_names = _device_kernel_names(step)
     core = step()[0]
@@ -797,8 +805,10 @@ def test_cuda_f32_solve_matches_cpu(cuda):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1
     assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-3)
     assert all(s.plain_calls == 0 for s in K.STATS.values())
-    assert all(s.by_dtype["f32"] > 0 for s in K.STATS.values()), \
+    assert all(K.STATS[n].by_dtype["f32"] > 0 for n in TYPED_KERNELS), \
         {n: s.by_dtype for n, s in K.STATS.items()}
+    # the f32 profile's factorizations run in f64 on upcast operands
+    assert K.STATS["jacobi_svd"].by_dtype["f64"] > 0 and K.STATS["jacobi_eigh"].by_dtype["f64"] > 0
 
 
 @pytest.mark.cuda
@@ -1312,3 +1322,159 @@ def test_cuda_fused_batch_matches_cpu(cuda):
     for sg, sc in zip(steps_g, steps_c):
         assert np.all(np.abs(sg - sc) < 1e-5 * np.maximum(1.0, np.abs(sc))), (steps_g, steps_c)
     assert all(batched > 0 and plain == 0 for batched, plain in counts.values()), counts
+
+
+# ---------------------------------------------------------------------------
+# J1 / J2: the Jacobi cores of the SVD and eigh on the card, and the
+# pipelines around them (ttipm_tpu_torch/ops/jacobi.py)
+# ---------------------------------------------------------------------------
+
+def _jacobi_gallery(n, rng):
+    """Square operands of order n in the spirit of tests/test_jacobi.py's
+    gallery: well conditioned, exact zero columns, columns scaled by 1e-15,
+    a duplicated column, condition 1e14."""
+    q1, _ = np.linalg.qr(rng.randn(n, n))
+    q2, _ = np.linalg.qr(rng.randn(n, n))
+    A = (q1 * np.logspace(0, -6, n)) @ q2.T
+    Z = A.copy(); Z[:, (3 * n) // 4:] = 0.0
+    T = A.copy(); T[:, (3 * n) // 4:] *= 1e-15
+    D = A.copy(); D[:, -1] = D[:, 0]
+    return {"well_cond": A, "zero_cols": Z, "tiny_cols": T, "dup_col": D,
+            "cond_1e14": (q1 * np.logspace(0, -14, n)) @ q2.T, "random": rng.randn(n, n)}
+
+
+def _sym_gallery(n, rng):
+    q, _ = np.linalg.qr(rng.randn(n, n))
+    half = n // 2
+    specs = {"spread": np.linspace(-3, 5, n), "zero": np.zeros(n),
+             "psd_tiny": np.r_[np.zeros(half), np.logspace(-14, 0, n - half)],
+             "clustered": 1.0 + 1e-12 * rng.randn(n), "random": rng.randn(n)}
+    out = {}
+    for name, spec in specs.items():
+        a = (q * spec) @ q.T
+        out[name] = 0.5 * (a + a.T)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 6, 8, 42, 60, 118])
+def test_cuda_jacobi_orthogonalise_matches_plain(cuda, n):
+    """J1 at the census's orders (the tall pipeline's r2^T: 4 from 8 x 4, 6
+    from 64 x 6, 42 from 192 x 42, 60 from 80 x 60) and its bound 118, on
+    the gallery, one batch of all cases plus a NaN instance."""
+    rng = np.random.RandomState(n)
+    # the pipeline's operand: r2^T, r^T = q2 r2, r of the QR of the scaled matrix
+    cases = [np.linalg.qr(np.linalg.qr(c / max(np.abs(c).max(), 1e-300))[1].T)[1].T
+             for c in _jacobi_gallery(n, rng).values()]
+    w = torch.as_tensor(np.stack(cases + [cases[0]]), device=cuda).contiguous()
+    w[-1, 0, 0] = float("nan")
+    out = K.jacobi_orthogonalise(w)
+    errs = check_kernel("jacobi_orthogonalise", (w,), out)
+    assert errs["nonfinite"] == 1 and all(bool(torch.isnan(t[-1]).all()) for t in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 16, 64, 96, 98, 128, 136, 138, 192, 194, 256, 272])
+def test_cuda_jacobi_eigh_core_matches_plain(cuda, n):
+    """J2 at the eigen windows' orders (4, 16, 64, 128, 256) and at each
+    side of every cluster size's bound (1 CTA to 96, 2 to 136, 4 to 192, 8
+    to 272), on the symmetric gallery plus a NaN instance."""
+    rng = np.random.RandomState(n)
+    cases = list(_sym_gallery(n, rng).values())
+    a = torch.as_tensor(np.stack(cases + [cases[0]]), device=cuda)
+    a[-1, 1, 0] = a[-1, 0, 1] = float("nan")
+    out = K.jacobi_eigh_core(a)
+    errs = check_kernel("jacobi_eigh_core", (a,), out)
+    assert errs["nonfinite"] == 1 and all(bool(torch.isnan(t[-1]).all()) for t in out)
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_instances_keep_their_bits_in_any_batch(cuda):
+    """An instance of J1, J2 and of the whole SVD / eigh pipelines gets the
+    same bits in a batch of five as alone (the pipelines' matrix products
+    are cuBLAS's batched GEMM at every batch size)."""
+    from ttipm_tpu_torch.ops import linalg
+
+    rng = np.random.RandomState(9)
+    w = _dev(rng, cuda, 5, 42, 42)
+    s = _dev(rng, cuda, 5, 128, 128)
+    s = s + s.mT
+    tall = _dev(rng, cuda, 5, 80, 60)
+    wide = _dev(rng, cuda, 5, 16, 64)
+    calls = [K.jacobi_orthogonalise, K.jacobi_eigh_core, linalg.safe_svd, linalg.safe_svd,
+             linalg.safe_eigh]
+    for fn, x in zip(calls, (w, s, tall, wide, s)):
+        batch = fn(x)
+        for i in range(5):
+            single = fn(x[i:i + 1])
+            assert all(_same_bits(b[i:i + 1], t) for b, t in zip(batch, single)), (fn, i)
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_refuses_what_it_does_not_take(cuda):
+    rng = np.random.RandomState(3)
+    with pytest.raises(K.KernelError):
+        K.jacobi_orthogonalise(_dev(rng, cuda, 2, 8, 8, dtype=torch.float32))
+    with pytest.raises(K.KernelError):
+        K.jacobi_eigh_core(_dev(rng, cuda, 2, 8, 8, dtype=torch.float32))
+    with pytest.raises(K.KernelError):
+        K.jacobi_orthogonalise(_dev(rng, cuda, 2, 7, 7))
+    with pytest.raises(K.KernelError):
+        K.jacobi_orthogonalise(_dev(rng, cuda, 1, K.J1_MAX_N + 2, K.J1_MAX_N + 2))
+    with pytest.raises(K.KernelError):
+        K.jacobi_eigh_core(_dev(rng, cuda, 1, K.J2_MAX_N + 2, K.J2_MAX_N + 2))
+    with pytest.raises(K.KernelError):
+        K.jacobi_eigh_core(_dev(rng, cuda, 6, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 4), (64, 6), (80, 60), (192, 42), (8, 16), (15, 22),
+                                   (600, 20), (9, 1), (1, 9), (300, 130)])
+def test_cuda_jacobi_svd_pipeline(cuda, shape):
+    """The SVD on a CUDA tensor goes through J1 (and K3 where the QR lies in
+    its envelope): u @ diag(s) @ vt == a, u orthonormal, s against
+    LAPACK's; launches counted, no plain call; (600, 20)'s QR and (300,
+    130)'s whole SVD go to torch.linalg by the shape rule, counted."""
+    from ttipm_tpu_torch.ops import jacobi, linalg
+
+    m, n = shape
+    a = _dev(np.random.RandomState(m + n), cuda, m, n)
+    K.reset_counts()
+    u, s, vt = linalg.safe_svd(a)
+    k = min(m, n)
+    inside = k + k % 2 <= K.J1_MAX_N
+    assert K.STATS["jacobi_svd"].launches == int(inside)
+    assert K.STATS["jacobi_svd"].outside == int(not inside)
+    assert all(st.plain_calls == 0 for st in K.STATS.values())
+    assert K.STATS["panel_qr"].outside == int(max(m, n) > 512 and inside)
+    assert float(torch.linalg.norm((u * s) @ vt - a) / torch.linalg.norm(a)) < 1e-13
+    assert float((u.T @ u - torch.eye(k, dtype=u.dtype, device=cuda)).abs().max()) < 1e-13
+    s_ref = np.linalg.svd(a.cpu().numpy(), compute_uv=False)
+    assert np.max(np.abs(s.cpu().numpy() - s_ref)) <= 1e-12 * s_ref[0]
+    with jacobi.forced(False):
+        K.reset_counts()
+        linalg.safe_svd(a)
+        assert K.STATS["jacobi_svd"].launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 7, 16, 64, 128, 255, 256])
+def test_cuda_jacobi_eigh_pipeline(cuda, n):
+    """eigh and eigvalsh on a CUDA tensor go through J2 (odd orders padded):
+    V diag(w) V^T == A, V orthonormal, w against LAPACK's."""
+    from ttipm_tpu_torch.ops import linalg
+
+    a = _sym_gallery(n, np.random.RandomState(n))["spread"]
+    at = torch.as_tensor(a, device=cuda)
+    K.reset_counts()
+    w, v = linalg.safe_eigh(at)
+    w2 = linalg.safe_eigvalsh(at)
+    assert K.STATS["jacobi_eigh"].launches == 2 and K.STATS["jacobi_eigh"].plain_calls == 0
+    assert _same_bits(w, w2)
+    eye = torch.eye(n, dtype=at.dtype, device=cuda)
+    grow = max(1.0, n / 64)  # as tests/test_torch_jacobi.py: ~sweeps n rotations a column
+    assert float(torch.linalg.norm(v @ torch.diag(w) @ v.T - at) / torch.linalg.norm(at)) < \
+        1e-13 * grow
+    assert float((v.T @ v - eye).abs().max()) < 1e-13 * grow
+    w_ref = np.linalg.eigvalsh(a)
+    assert np.max(np.abs(w.cpu().numpy() - w_ref)) <= 1e-12 * np.abs(w_ref).max()

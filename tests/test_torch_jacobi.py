@@ -1,0 +1,277 @@
+"""The port's Jacobi SVD and eigh (ttipm_tpu_torch/ops/jacobi.py) against the
+JAX package's (ttipm_tpu/ops/jacobi.py, forced on the CPU as
+tests/test_jacobi.py forces it), on the CPU, where the port runs the
+plain versions of its kernels J1 and J2.
+
+Inputs are made with numpy from a seed and handed to both.  Tolerances:
+singular values and eigenvalues within 1e-12 of the JAX package's,
+relative to the largest; reconstruction and orthonormality within 1e-13
+(max-abs, relative to max |a|), and for eigh above order 64 within n / 64
+times that: the eigenvectors are a product of about sweeps x n rotations
+each, whose rounding grows with the order past 1e-13 at 256; singular
+vectors and eigenvectors within
+1e-10 of the JAX package's up to sign where the gap to the neighbouring
+values exceeds 1e-8 relative to the largest, and where that gap leaves
+room for two backward-stable factorizations to agree there (their vectors
+differ by about their backward errors over the gap, a few 1e-15 of the
+largest value over 1e-5).  The dispatch: CPU tensors keep
+``torch.linalg``'s bits unless ``forced(True)``.  The slice: maxcut d3
+seed 319 through the port with every SVD and eigh on the plain Jacobi
+against the JAX package's solve.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ttipm_tpu.ops import jacobi as jj
+from ttipm_tpu_torch.ops import jacobi as tj
+from ttipm_tpu_torch.ops import kernels as K
+from ttipm_tpu_torch.ops import linalg
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The plain Jacobi is thousands of tiny torch ops: on one thread a
+    worker does not spin against its neighbours in a parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def jax_jacobi():
+    jj.force_jacobi(True)
+    yield
+    jj.force_jacobi(None)
+
+
+def _gallery():
+    """tests/test_jacobi.py's gallery."""
+    rng = np.random.RandomState(0)
+    n = 24
+    q1, _ = np.linalg.qr(rng.randn(n, n))
+    q2, _ = np.linalg.qr(rng.randn(n, n))
+    A = (q1 * np.logspace(0, -6, n)) @ q2.T
+    Z = A.copy(); Z[:, 20:] = 0.0
+    T = A.copy(); T[:, 20:] *= 1e-15
+    D = A.copy(); D[:, -1] = D[:, 0]
+    return {
+        "well_cond": A, "zero_cols": Z, "tiny_cols": T, "dup_col": D,
+        "cond_1e14": (q1 * np.logspace(0, -14, n)) @ q2.T,
+        "scaled_1e18": A * 1e18, "scaled_1e-18": A * 1e-18, "zero": np.zeros((n, n)),
+        "tall": rng.randn(53, 17),
+        "tall_zero_cols": np.hstack([rng.randn(40, 9), np.zeros((40, 4))]),
+        "wide": rng.randn(17, 53), "wide_odd": rng.randn(15, 22),
+        "one_col": rng.randn(9, 1), "one_row": rng.randn(1, 9),
+    }
+
+
+def _census():
+    """Shapes of the maxcut d8 and d10 solves' SVDs."""
+    rng = np.random.RandomState(1)
+    out = {}
+    for m, n in [(8, 4), (64, 6), (80, 60), (192, 42), (8, 16)]:
+        # a TT split's spread: decaying singular values
+        k = min(m, n)
+        u, _ = np.linalg.qr(rng.randn(m, k))
+        v, _ = np.linalg.qr(rng.randn(n, k))
+        out[f"{m}x{n}"] = (u * np.logspace(0, -10, k)) @ v.T
+    return out
+
+
+SVD_CASES = {**_gallery(), **_census()}
+
+
+def _port_svd(a):
+    with tj.forced(True):
+        return [t.numpy() for t in linalg.safe_svd(torch.as_tensor(a))]
+
+
+def _signs_match(x, y, keep):
+    """max |x_j - sign_j y_j| over the columns in ``keep``."""
+    if not keep.any():
+        return 0.0
+    x, y = x[:, keep], y[:, keep]
+    sign = np.where(np.sum(x * y, axis=0) < 0, -1.0, 1.0)
+    return float(np.max(np.abs(x - y * sign)))
+
+
+def _separated(vals, rel_gap):
+    """Values whose distance to both neighbours exceeds rel_gap * max."""
+    vals = np.asarray(vals)
+    scale = max(np.abs(vals).max(), 1e-300)
+    d = np.abs(np.diff(vals)) / scale
+    left = np.r_[np.inf, d]
+    right = np.r_[d, np.inf]
+    return (left > rel_gap) & (right > rel_gap)
+
+
+@pytest.mark.parametrize("name", list(SVD_CASES))
+def test_jacobi_svd_matches_jax(name, jax_jacobi):
+    a = SVD_CASES[name]
+    uj, sj, vtj = (np.asarray(x) for x in jj.safe_svd(a))
+    u, s, vt = _port_svd(a)
+    amax = max(np.abs(a).max(), 1e-300)
+    k = min(a.shape)
+    assert u.shape == (a.shape[0], k) and s.shape == (k,) and vt.shape == (k, a.shape[1])
+    assert np.max(np.abs(s - sj)) <= 1e-12 * max(sj.max(), 1e-300)
+    assert np.max(np.abs((u * s) @ vt - a)) <= 1e-13 * amax
+    assert np.max(np.abs(u.T @ u - np.eye(k))) <= 1e-13
+    assert np.all(np.diff(s) <= 0)
+    keep = _separated(s, 1e-5)
+    assert _signs_match(u, uj, keep) <= 1e-10
+    assert _signs_match(vt.T, vtj.T, keep) <= 1e-10
+    # vt rows at s == 0 are zero, as the JAX package's
+    assert np.all(vt[s == 0] == 0)
+
+
+@pytest.mark.parametrize("n", [2, 7, 24])
+def test_jacobi_eigh_gallery_matches_jax(n, jax_jacobi):
+    """tests/test_jacobi.py's eigh gallery (odd orders padded)."""
+    rng = np.random.RandomState(1)
+    q, _ = np.linalg.qr(rng.randn(n, n))
+    for spec in [np.linspace(-3, 5, n), np.zeros(n),
+                 np.r_[np.zeros(n // 2), np.logspace(-14, 0, n - n // 2)]]:
+        a = (q * spec) @ q.T
+        _eigh_matches(0.5 * (a + a.T))
+
+
+def _eigh_matches(a):
+    wj, vj = (np.asarray(x) for x in jj.safe_eigh(a))
+    with tj.forced(True):
+        w, v = (t.numpy() for t in linalg.safe_eigh(torch.as_tensor(a)))
+        w2 = linalg.safe_eigvalsh(torch.as_tensor(a)).numpy()
+    n = a.shape[0]
+    scale = max(np.abs(wj).max(), 1e-300)
+    assert np.array_equal(w, w2)
+    assert np.max(np.abs(w - wj)) <= 1e-12 * scale
+    grow = max(1.0, n / 64)  # V is a product of ~sweeps n rotations a column
+    assert np.max(np.abs(v @ np.diag(w) @ v.T - a)) <= 1e-13 * grow * max(np.abs(a).max(), 1e-300)
+    assert np.max(np.abs(v.T @ v - np.eye(n))) <= 1e-13 * grow
+    keep = _separated(w, 1e-5)
+    assert _signs_match(v, vj, keep) <= 1e-10
+
+
+@pytest.mark.parametrize("n", [4, 16, 64, 128, 256])
+def test_jacobi_eigh_census_orders_match_jax(n, jax_jacobi):
+    """The eigen windows' orders (maxcut d8 and d10): an indefinite pencil
+    of spread eigenvalues."""
+    rng = np.random.RandomState(n)
+    q, _ = np.linalg.qr(rng.randn(n, n))
+    a = (q * np.r_[np.linspace(-1, 4, n - n // 4), 1e-6 * rng.randn(n // 4)]) @ q.T
+    _eigh_matches(0.5 * (a + a.T))
+
+
+def test_jacobi_batch_with_a_nonfinite_instance():
+    """One NaN instance of a batch comes out NaN, the others bit-equal to
+    the batch without it; the same for eigh."""
+    rng = np.random.RandomState(4)
+    a = torch.as_tensor(rng.randn(3, 12, 7))
+    bad = a.clone()
+    bad[1, 3, 2] = float("nan")
+    s = a @ a.mT
+    s_bad = s.clone()
+    s_bad[1, 0, 1] = s_bad[1, 1, 0] = float("inf")
+    with tj.forced(True):
+        for fn, good, broken in ((linalg.safe_svd, a, bad), (linalg.safe_eigh, s, s_bad)):
+            ref, out = fn(good), fn(broken)
+            for r, o in zip(ref, out):
+                assert bool(torch.isnan(o[1]).all())
+                assert torch.equal(o[[0, 2]], r[[0, 2]])
+
+
+def test_cpu_keeps_lapack_bits_unless_forced():
+    rng = np.random.RandomState(5)
+    a = torch.as_tensor(rng.randn(20, 9))
+    s = a.T @ a
+    K.reset_counts()
+    for got, want in ((linalg.safe_svd(a), torch.linalg.svd(a, full_matrices=False)),
+                      (linalg.svd_econ(a), torch.linalg.svd(a, full_matrices=False)),
+                      (linalg.safe_eigh(s), torch.linalg.eigh(s)),
+                      ((linalg.safe_eigvalsh(s),), (torch.linalg.eigvalsh(s),))):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert K.STATS["jacobi_svd"].plain_calls == K.STATS["jacobi_eigh"].plain_calls == 0
+    with tj.forced(True):
+        linalg.safe_svd(a)
+        linalg.svd_econ(a)
+        linalg.fast_split_svd(a)
+        linalg.safe_eigh(s)
+        linalg.safe_eigvalsh(s)
+    assert K.STATS["jacobi_svd"].plain_calls == 3 and K.STATS["jacobi_eigh"].plain_calls == 2
+    assert K.STATS["jacobi_svd"].launches == K.STATS["jacobi_eigh"].launches == 0
+    # float32 operands are upcast and factored by the f64 Jacobi
+    with tj.forced(True):
+        u, sv, vt = linalg.safe_svd(a.float())
+    assert u.dtype == torch.float32 and K.STATS["jacobi_svd"].plain_calls == 4
+
+
+def test_shape_rules_send_large_factorizations_to_linalg():
+    """By shape alone: an SVD whose even-padded small side exceeds
+    J1_MAX_N, an eigh above J2_MAX_N, and a tall pipeline's QR outside
+    K3's envelope go to torch.linalg, counted."""
+    rng = np.random.RandomState(6)
+    K.reset_counts()
+    with tj.forced(True):
+        big = torch.as_tensor(rng.randn(130, 120))
+        assert torch.equal(linalg.safe_svd(big)[1], torch.linalg.svd(big, full_matrices=False)[1])
+        tall = torch.as_tensor(rng.randn(600, 6))
+        u, s, vt = linalg.safe_svd(tall)
+        sym = torch.as_tensor(rng.randn(K.J2_MAX_N + 1, K.J2_MAX_N + 1))
+        linalg.safe_eigh(sym + sym.T)
+    assert K.STATS["jacobi_svd"].outside == 1 and K.STATS["jacobi_svd"].plain_calls == 1
+    assert K.STATS["panel_qr"].outside == 1
+    assert K.STATS["jacobi_eigh"].outside == 1
+    assert float(torch.abs((u * s) @ vt - tall).max()) < 1e-13 * float(tall.abs().max())
+
+
+def test_round_robin_closed_form():
+    """The kernels' closed form of the schedule (csrc/jacobi.cuh) is the
+    JAX package's _round_robin."""
+    for n in (2, 4, 10, 64):
+        ii, jj_ = jj._round_robin(n)
+        assert (np.asarray(tj.round_robin(n)[0]) == ii).all()
+        assert (np.asarray(tj.round_robin(n)[1]) == jj_).all()
+        for k in range(n - 1):
+            pos = [0] + [1 + (p - 1 - k) % (n - 1) for p in range(1, n)]
+            assert pos[: n // 2] == list(ii[k]) and pos[::-1][: n // 2] == list(jj_[k])
+
+
+def test_jacobi_slice_matches_jax():
+    """maxcut d3 seed 319 through the port on the CPU with every SVD and
+    eigh on the plain Jacobi (as the card runs them) against the JAX
+    package's d3 solve (tests/test_torch_ipm.py's settings): the same
+    iterations and final ranks, <C, X> within 1e-6 relative."""
+    from tests.test_torch_ipm import SETTINGS
+    from ttipm_tpu.ipm import tt_ipm as ipm_j
+    from ttipm_tpu.models.maxcut import create_problem as cp_j
+    from ttipm_tpu.ops import tt as J
+    from ttipm_tpu_torch import config as tconfig
+    from ttipm_tpu_torch.checks import solve_metrics
+    from ttipm_tpu_torch.ipm import tt_ipm as ipm_t
+    from ttipm_tpu_torch.models.maxcut import create_problem as cp_t
+    from ttipm_tpu_torch.ops import tt as T
+
+    np.random.seed(319)
+    obj_j, L_j, b_j, lag_j = cp_j(3, 1)
+    X_j, _, _, _, info_j = ipm_j({"y": J.tt_reshape(lag_j, (4, 4))}, obj_j, L_j, b_j,
+                                 **SETTINGS)
+    tconfig.set_rank_bucket(1)
+    try:
+        np.random.seed(319)
+        obj_t, L_t, b_t, lag_t = cp_t(3, 1, device="cpu")
+        K.reset_counts()
+        with tj.forced(True):
+            X_t, Y_t, _, Z_t, info_t = ipm_t({"y": T.tt_reshape(lag_t, (4, 4))}, obj_t, L_t,
+                                             b_t, **SETTINGS)
+    finally:
+        tconfig.set_rank_bucket(4)
+    assert K.STATS["jacobi_svd"].plain_calls > 0 and K.STATS["jacobi_eigh"].plain_calls > 0
+    assert info_t["num_iters"] == info_j["num_iters"]
+    assert info_t["ranksX"] == info_j["ranksX"] and info_t["ranksZ"] == info_j["ranksZ"]
+    cx_j = J.tt_inner_prod(J.tt_reshape(obj_j, (2, 2)), X_j)
+    cx_t = T.tt_inner_prod(T.tt_reshape(obj_t, (2, 2)), X_t)
+    assert cx_t == pytest.approx(cx_j, rel=1e-6)
+    slack, feas, dfeas = solve_metrics(X_t, Y_t, Z_t, obj_t, L_t, b_t)
+    assert slack < 1e-3 and feas < 1e-3 and dfeas < 1e-3

@@ -151,6 +151,8 @@ def test_wrappers_count_plain_calls_on_cpu():
     K.schur_assemble(t(2, 1, 3), t(1, 4, 4, 1), t(2, 1, 3))
     K.panel_qr(t(8, 3))
     K.panel_cholesky(torch.eye(5, dtype=torch.float64))
+    K.jacobi_orthogonalise(t(2, 6, 6))
+    K.jacobi_eigh_core(torch.eye(4, dtype=torch.float64).expand(2, 4, 4))
     for name, stats in K.STATS.items():
         assert (stats.launches, stats.plain_calls) == (0, 1), name
 
@@ -173,7 +175,13 @@ def _check_cases(rng):
         "schur_assemble": (t(3, 2, 5), t(2, 16, 16, 3), t(6, 3, 4)),
         "panel_qr": (t(24, 6),),
         "panel_cholesky": (B @ B.T + 24 * torch.eye(24, dtype=torch.float64),),
+        "jacobi_orthogonalise": (t(2, 12, 12),),
+        "jacobi_eigh_core": ((B @ B.T)[None, :12, :12].contiguous(),),
     }
+
+
+# The entry point through which each kernel's check is exercised.
+_ENTRY = {"jacobi_svd": "jacobi_orthogonalise", "jacobi_eigh": "jacobi_eigh_core"}
 
 
 @pytest.mark.parametrize("name", sorted(K.STATS))
@@ -181,6 +189,7 @@ def test_check_kernel_accepts_plain_and_rejects_perturbed(name):
     """The shared acceptance check (chip_smoke.py and the CUDA tests) passes
     the wrapper's own output and refuses one perturbed past its tolerance,
     without moving the wrapper's counters."""
+    name = _ENTRY.get(name, name)
     args = _check_cases(np.random.RandomState(5))[name]
     out = getattr(K, name)(*args)
     K.reset_counts()
@@ -190,6 +199,10 @@ def test_check_kernel_accepts_plain_and_rejects_perturbed(name):
     if name == "panel_qr":
         bad = (out[0], out[1] + 1e-9 * torch.tril(torch.ones_like(out[1])))
     elif name == "panel_cholesky":
+        bad = (out[0] * (1 + 1e-9), out[1])
+    elif name == "jacobi_orthogonalise":
+        bad = (out[0], out[1] * (1 + 1e-9), out[2])
+    elif name == "jacobi_eigh_core":
         bad = (out[0] * (1 + 1e-9), out[1])
     else:
         bad = out * (1 + 1e-9)

@@ -18,6 +18,7 @@ MODULES = [
     "ttipm_tpu_torch.models.maxcut",
     "ttipm_tpu_torch.models.riemannian",
     "ttipm_tpu_torch.ops._build",
+    "ttipm_tpu_torch.ops.jacobi",
     "ttipm_tpu_torch.ops.kernels",
     "ttipm_tpu_torch.ops.linalg",
     "ttipm_tpu_torch.ops.products",
@@ -44,9 +45,11 @@ MODULES = [
     "ttipm_tpu_torch.tools.compare_solves",
     "ttipm_tpu_torch.tools.dryrun_mesh",
     "ttipm_tpu_torch.tools.f32_repairs",
+    "ttipm_tpu_torch.tools.jacobi_census",
     "ttipm_tpu_torch.tools.long_run",
     "ttipm_tpu_torch.tools.scaling_bench",
     "ttipm_tpu_torch.tools.svd_repeat",
+    "ttipm_tpu_torch.tools.sync_count",
     "ttipm_tpu_torch.utils.baseline_runner",
     "ttipm_tpu_torch.utils.checkpoint",
     "ttipm_tpu_torch.utils.memtrack",

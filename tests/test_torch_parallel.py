@@ -296,7 +296,10 @@ def test_plain_batched_kernels_match_per_instance():
     G = K.schur_assemble_batch(blocks)
     q, r = K.panel_qr_batch(panels, transposed=True)
     L, info = K.panel_cholesky_batch(spd)
-    assert [K.STATS[n].plain_calls for n in K.STATS] == [1, 1, 1, 1]
+    sym = spd[:, :8, :8]
+    wr, v, norms2 = K.jacobi_orthogonalise(panels[:, :10, :].contiguous())
+    ev, ew = K.jacobi_eigh_core(sym)
+    assert [K.STATS[n].plain_calls for n in K.STATS] == [1, 1, 1, 1, 1, 1]
     assert sum(s.launches for s in K.STATS.values()) == 0
     for i in range(B):
         one = lambda group: [tuple(v[i] if torch.is_tensor(v) else v for v in g) for g in group]
@@ -304,6 +307,9 @@ def test_plain_batched_kernels_match_per_instance():
         check_kernel("schur_assemble_group", (one(blocks),), list(G[:, i]))
         check_kernel("panel_qr", (panels[i],), (q[i].T, r[i]))
         check_kernel("panel_cholesky", (spd[i],), (L[i], info[i]))
+        check_kernel("jacobi_orthogonalise", (panels[i:i + 1, :10],),
+                     (wr[i:i + 1], v[i:i + 1], norms2[i:i + 1]))
+        check_kernel("jacobi_eigh_core", (sym[i:i + 1],), (ev[i:i + 1], ew[i:i + 1]))
     assert info.tolist() == [0, 5, 0]
     with pytest.raises(K.KernelError, match="batch"):
         K.panel_qr_batch(panels[0])

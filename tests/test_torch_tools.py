@@ -13,6 +13,10 @@ the repository's drivers of the JAX package where one computes the same.
   ``scripts/aggregate_grid.py`` on the same synthetic grid.
 * ``tools/scaling_bench.py`` at d3, B = 1, 2: the rows' structure, and the
   B = 1 step bit-equal to a single ``tt_newton_step_batch`` of instance 0.
+* ``tools/jacobi_census.py`` at d3 on the plain Jacobi: the solve
+  converges in the JAX package's 7 iterations (tests/test_torch_ipm.py),
+  every factorization is recorded with its sweeps, none fails; the
+  cuSOLVER route (LAPACK here) records none.
 """
 
 import json
@@ -144,3 +148,23 @@ def test_scaling_bench_rows_at_d3(tmp_path):
     xs, zs, _ = tt_newton_step_batch(systems, Xs, Zs, **settings)
     assert rec["rows"][0]["x_steps"] == [float(xs[0])]
     assert rec["rows"][0]["z_steps"] == [float(zs[0])]
+
+
+def test_jacobi_census_at_d3(tmp_path):
+    from ttipm_tpu_torch.tools.jacobi_census import census
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the plain Jacobi's tiny ops (tests/test_torch_jacobi.py)
+    try:
+        rec = census(3, 319, torch.device("cpu"), out_dir=str(tmp_path))
+        lapack = census(3, 319, torch.device("cpu"), route="cusolver", out_dir=str(tmp_path))
+    finally:
+        torch.set_num_threads(threads)
+    assert rec["iters"] == lapack["iters"] == 7 and rec["slackness"] < 1e-3
+    for core in ("svd", "eigh"):
+        c = rec[core]
+        assert c["instances"] > 0 and c["nan_finite_operand"] == 0, c
+        assert sum(n for _, n in c["sweeps"]) == c["instances"]
+        assert max(s for s, _ in c["sweeps"]) < 26
+    assert "svd" not in lapack and "eigh" not in lapack
+    assert not os.listdir(tmp_path)

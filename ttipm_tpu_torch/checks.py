@@ -18,7 +18,20 @@ where it is outside these tolerances (float64 operands; float32 below):
   rank-deficient panel, so the factors themselves are compared with the
   plain ones only for the record);
 - ``panel_cholesky`` (K4): the same ``info`` as ``torch.linalg.cholesky_ex``
-  and, on success, ||L L^T - A|| / ||A|| <= 1e-13.
+  and, on success, ||L L^T - A|| / ||A|| <= 1e-13;
+- ``jacobi_orthogonalise`` (J1) and ``jacobi_eigh_core`` (J2), per
+  instance of their batch: NaN exactly in the instances where the plain
+  version has NaN; elsewhere, 1e-12 for ||W V_out - W_out|| / ||W||, for
+  ||V^T V - I||_max, for the singular values (the square roots of the
+  sorted column norms) or eigenvalues against the plain version's relative
+  to the largest, and for J1's column cosines max |<wi, wj>| /
+  max(|wi| |wj|, 1e-16 max_k |x_k|^2, 1e-30) (the measure of its rotation
+  threshold, whose floor leaves columns at the rounding level of the
+  operand x alone; the threshold is tol_for(n) <= 1.1e-13), and
+  ||V diag(w) V^T - A|| / ||A|| for J2.  Jacobi's rotations
+  are not unique (a rotation skipped near the threshold in one order and
+  taken in the other), so the factors are compared with the plain ones
+  only through these invariants; ``max_abs_err`` is that of the values.
 
 These are a few hundred ulps of f64 at the solver's sizes; the kernels sum
 in another order than cuBLAS / cuSOLVER.
@@ -53,6 +66,7 @@ import torch
 
 from ttipm_tpu_torch.config import cast_tree, first_dtype, tree_map
 from ttipm_tpu_torch.ops import kernels as K
+from ttipm_tpu_torch.ops.jacobi import SVD_FLOOR
 from ttipm_tpu_torch.ops import tt as tto
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
 from ttipm_tpu_torch.ops.rounding import tt_rank_reduce, tt_rl_orthogonalise
@@ -64,7 +78,8 @@ __all__ = ["TOLERANCE", "TOLERANCE_F32", "PLAIN", "KERNEL_OF", "SINGLE_OF", "tol
 
 TOLERANCE = {"schur_assemble": 1e-12, "kkt_block_matvec": 1e-12,
              "schur_assemble_group": 1e-12, "kkt_block_product": 1e-12,
-             "panel_qr": 1e-13, "panel_cholesky": 1e-13}
+             "panel_qr": 1e-13, "panel_cholesky": 1e-13,
+             "jacobi_orthogonalise": 1e-12, "jacobi_eigh_core": 1e-12}
 TOLERANCE_F32 = {"schur_assemble": 2e-5, "kkt_block_matvec": 2e-5,
                  "schur_assemble_group": 2e-5, "kkt_block_product": 2e-5,
                  "panel_qr": 1e-5, "panel_cholesky": 1e-5}
@@ -79,12 +94,15 @@ PLAIN = {"schur_assemble": K.schur_assemble_plain,
          "schur_assemble_group": lambda blocks: torch.stack(K.schur_assemble_group_plain(blocks)),
          "kkt_block_product": K.kkt_block_product_plain,
          "panel_qr": K.panel_qr_plain,
-         "panel_cholesky": K.panel_cholesky_plain}
+         "panel_cholesky": K.panel_cholesky_plain,
+         "jacobi_orthogonalise": K.jacobi_orthogonalise_plain,
+         "jacobi_eigh_core": K.jacobi_eigh_core_plain}
 
 # The kernel of each entry point (the key of ``kernels.STATS``).
 KERNEL_OF = {"schur_assemble": "schur_assemble", "schur_assemble_group": "schur_assemble",
              "kkt_block_matvec": "kkt_block_matvec", "kkt_block_product": "kkt_block_matvec",
-             "panel_qr": "panel_qr", "panel_cholesky": "panel_cholesky"}
+             "panel_qr": "panel_qr", "panel_cholesky": "panel_cholesky",
+             "jacobi_orthogonalise": "jacobi_svd", "jacobi_eigh_core": "jacobi_eigh"}
 
 # The single entry whose contract an instance of each batched entry keeps.
 SINGLE_OF = {"schur_assemble_batch": "schur_assemble_group",
@@ -169,10 +187,53 @@ def kernel_errors(name: str, args, out, cancelling: bool = False) -> dict:
             sym = torch.tril(a) + torch.tril(a, -1).T
             errs["fact"] = _rel(L @ L.T - sym, sym)
             ok = errs["fact"] <= tol
+    elif name in ("jacobi_orthogonalise", "jacobi_eigh_core"):
+        errs = _jacobi_errors(name, args[0], out, want)
+        ok = errs.pop("same_nan") and all(errs[k] <= tol for k in errs if k != "nonfinite")
     else:
         raise KeyError(name)
     errs["ok"] = bool(ok)
     return errs
+
+
+def _jacobi_errors(name, x, out, want):
+    """The invariants of a J1 / J2 output against its plain version, the
+    worst over the finite instances (see the module docstring)."""
+    bad = ~torch.isfinite(out[0]).reshape(out[0].shape[0], -1).all(dim=1)
+    bad_want = ~torch.isfinite(want[0]).reshape(want[0].shape[0], -1).all(dim=1)
+    errs = {"same_nan": bool((bad == bad_want).all())}
+    if bool(bad_want.any()):
+        errs["nonfinite"] = int(bad_want.sum())
+    good = ~(bad | bad_want)
+    x, out, want = x[good], [t[good] for t in out], [t[good] for t in want]
+    if name == "jacobi_orthogonalise":
+        (w_rot, v, norms2), (_, _, norms2_0) = out[:3], want[:3]
+        vals = torch.sqrt(torch.sort(norms2, dim=1).values)
+        vals0 = torch.sqrt(torch.sort(norms2_0, dim=1).values)
+        fact = _rel_each(x @ v - w_rot, x)
+        g = w_rot.mT @ w_rot
+        d = torch.diagonal(g, dim1=1, dim2=2)
+        floor = SVD_FLOOR * (x * x).sum(1).amax(dim=1)[:, None, None]
+        scale = torch.maximum(torch.sqrt(torch.abs(d[:, :, None] * d[:, None, :])), floor)
+        cos = torch.abs(g - torch.diag_embed(d)) / torch.clamp_min(scale, 1e-30)
+        errs["cosine"] = _max_abs(cos)
+    else:
+        (vals, v), (vals0, _) = out[:2], want[:2]
+        fact = _rel_each(v @ torch.diag_embed(vals) @ v.mT - x, x)
+    eye = torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+    scale = torch.clamp_min(vals0.abs().amax(dim=1, keepdim=True), 1e-300)
+    errs.update({"max_abs_err": _max_abs(vals - vals0), "values": _max_abs((vals - vals0) / scale),
+                 "fact": fact, "orth": _max_abs(v.mT @ v - eye)})
+    return errs
+
+
+def _rel_each(diff, ref) -> float:
+    """max over instances of ||diff_i|| / ||ref_i|| (0 for an empty batch)."""
+    if diff.shape[0] == 0:
+        return 0.0
+    num = torch.linalg.norm(diff.reshape(diff.shape[0], -1), dim=1)
+    den = torch.linalg.norm(ref.reshape(ref.shape[0], -1), dim=1)
+    return float(torch.where(den > 0, num / den, torch.where(num > 0, float("inf"), 0.0)).max())
 
 
 def shape_key(arg) -> str:

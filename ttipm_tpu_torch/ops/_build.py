@@ -4,7 +4,8 @@
 per source, all started together) and links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``.  Each kernel is a
 template on its element type with a C entry point per instance: the f64 one
-under the kernel's name, the f32 one with the suffix ``_f32``.  The library goes
+under the kernel's name, the f32 one with the suffix ``_f32`` (the two
+Jacobi kernels have the f64 one only).  The library goes
 to ``build/ttipm_kernels/`` at the repository root, named by a hash of the
 sources and flags, so a rebuild happens only when a source changes.  The
 build runs at the first kernel launch, never at import.  Every failure to
@@ -26,8 +27,9 @@ __all__ = ["KernelError", "load_library", "build_library", "error_string", "BUIL
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ttipm_kernels")
-SOURCES = ("schur_assemble.cu", "kkt_matvec.cu", "panel_qr.cu", "panel_cholesky.cu")
-HEADERS = ("scalar.cuh",)
+SOURCES = ("schur_assemble.cu", "kkt_matvec.cu", "panel_qr.cu", "panel_cholesky.cu",
+           "jacobi_svd.cu", "jacobi_eigh.cu")
+HEADERS = ("scalar.cuh", "jacobi.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
@@ -96,7 +98,7 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
     except OSError as e:
         raise KernelError(f"cannot load {path}: {e}") from e
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     table = ctypes.c_char_p  # packed words, read on the host
     typed = {  # one entry per element type: name (f64), name + "_f32"
         "ttipm_schur_assemble": [table, table, i, i, p, i, i, i, p],
@@ -109,6 +111,8 @@ def load_library() -> ctypes.CDLL:
         **typed, **{name + "_f32": args for name, args in typed.items()},
         "ttipm_empty_launch": [p],
         "ttipm_panel_qr_stamps": [p, p, p, i, i, i, i, p, p, p],
+        "ttipm_jacobi_svd": [p, i, i, f, f, p, p, p, p, i, p],      # float64 only
+        "ttipm_jacobi_eigh": [p, i, i, f, f, p, p, p, i, i, p],
         "ttipm_error_string": [i],
     }
     restypes = {"ttipm_error_string": ctypes.c_char_p, "ttipm_panel_cholesky_workspace": ll,

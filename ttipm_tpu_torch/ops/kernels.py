@@ -13,6 +13,23 @@ wrapper                       replaces                               CUDA source
 ``panel_cholesky`` (K4)       ``panel_cholesky`` / L_Z factor        ``csrc/panel_cholesky.cu``
 ============================  =====================================  ===========================
 
+and two kernels that replace no Pallas kernel but the JAX package's jnp
+Jacobi programs (``ttipm_tpu/ops/jacobi.py``), the cores of the port's SVD
+and ``eigh`` on the card (the pipelines around them: ``ops/jacobi.py``):
+
+==================================  =================================  ===========================
+wrapper                             replaces (jnp, not Pallas)         CUDA source
+==================================  =================================  ===========================
+``jacobi_orthogonalise`` (J1)       ``_jacobi_orthogonalise`` ``:121`` ``csrc/jacobi_svd.cu``
+``jacobi_eigh_core`` (J2)           ``_jacobi_eigh_core`` ``:370``     ``csrc/jacobi_eigh.cu``
+==================================  =================================  ===========================
+
+J1 and J2 take float64 only (f32 factorizations are upcast before them)
+and a leading batch axis always; their counters are ``STATS["jacobi_svd"]``
+and ``STATS["jacobi_eigh"]``, whose ``outside`` counts the factorizations
+that the pipelines' shape rules sent to ``torch.linalg`` (K3's counts the
+pipelines' QRs outside its envelope).
+
 K1 and K2 also have grouped entry points over the same kernels:
 ``schur_assemble_group`` (several blocks of equal size, one launch) and
 ``kkt_block_product`` (all terms of a block product, one launch).
@@ -68,6 +85,8 @@ __all__ = [
     "kkt_block_product_batch", "kkt_block_product_batch_plain",
     "panel_qr_batch", "panel_qr_batch_plain",
     "panel_cholesky_batch", "panel_cholesky_batch_plain",
+    "jacobi_orthogonalise", "jacobi_orthogonalise_plain", "j1_plan", "J1_MAX_N",
+    "jacobi_eigh_core", "jacobi_eigh_core_plain", "j2_plan", "J2_MAX_N", "jacobi_sweeps",
 ]
 
 
@@ -82,7 +101,8 @@ class KernelStats:
     one), how many of them came through the grouped entry point, how many
     through a batched one and the instances those carried, the launches and
     the instances of each type (``by_dtype``, ``instances_by_dtype``: "f64",
-    "f32"), and plain calls."""
+    "f32"), plain calls, and the calls a shape rule sent to ``torch.linalg``
+    instead (``outside``: the Jacobi pipelines' envelope)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -94,6 +114,7 @@ class KernelStats:
         self.batched = 0
         self.instances = 0
         self.plain_calls = 0
+        self.outside = 0
         self.by_dtype = dict.fromkeys(DTYPES.values(), 0)
         self.instances_by_dtype = dict.fromkeys(DTYPES.values(), 0)
 
@@ -110,7 +131,8 @@ class KernelStats:
 
 STATS = {
     name: KernelStats(name)
-    for name in ("schur_assemble", "kkt_block_matvec", "panel_qr", "panel_cholesky")
+    for name in ("schur_assemble", "kkt_block_matvec", "panel_qr", "panel_cholesky",
+                 "jacobi_svd", "jacobi_eigh")
 }
 
 
@@ -153,6 +175,10 @@ def _entry(name: str, tag: str):
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _opt_ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 _NO_GUARD = contextlib.nullcontext()
@@ -749,3 +775,163 @@ def panel_cholesky_batch(a):
     out = _k4_launch(a)
     stats.count(_tag(a), batch=a.shape[0])
     return out
+
+
+# ---------------------------------------------------------------------------
+# J1 / J2: the Jacobi cores of the SVD and of eigh (float64, batched)
+# ---------------------------------------------------------------------------
+
+# Largest even order of each kernel (kMaxN in csrc/jacobi_svd.cu and
+# csrc/jacobi_eigh.cu): J1 holds W and V of an instance in one CTA's shared
+# memory, J2 spreads A (twice) and V over a cluster of at most 8 CTAs.
+J1_MAX_N = 118
+J2_MAX_N = 272
+_J2_CTAS = (1, 2, 4, 8)
+
+
+def _j1_smem(n):
+    """csrc/jacobi_svd.cu::smem_bytes: W and V column-major with an odd
+    leading dimension, the column norms, 64 words of reduction scratch."""
+    return 8 * (2 * n * (n | 1) + n + 64)
+
+
+def _j2_smem(n, ctas):
+    """csrc/jacobi_eigh.cu::smem_bytes: a CTA's ceil(n / ctas) columns of A
+    twice (the step reads one copy and writes the other) and its rows of V,
+    each with an odd leading dimension; the step's rotations,
+    reduction scratch, each owned column's partner address; the step's
+    pairs, each owned column's pair and the sweep's two flags."""
+    nc = -(-n // ctas)
+    h = n // 2
+    return 8 * (3 * nc * (n | 1) + 2 * h + 48 + nc) + 4 * (2 * h + nc + 2)
+
+
+def _jacobi_order(name, x, limit):
+    if x.dim() != 3 or x.shape[1] != x.shape[2] or x.shape[1] % 2 or x.shape[0] == 0:
+        raise KernelError(f"{name}: a batch of square matrices of even order expected, got "
+                          f"{tuple(x.shape)}")
+    if x.dtype != torch.float64:
+        raise KernelError(f"{name}: the Jacobi kernels take float64, got {x.dtype}")
+    n = x.shape[1]
+    if not 2 <= n <= limit:
+        raise KernelError(f"{name}: orders 2 to {limit}, got {n}")
+    return n
+
+
+@functools.lru_cache(maxsize=512)
+def j1_plan(n):
+    """(threads, smem_bytes) of J1 at even order n <= J1_MAX_N: a warp per
+    pair of a step, at most 32."""
+    if n % 2 or not 2 <= n <= J1_MAX_N:
+        raise KernelError(f"jacobi_orthogonalise: even orders 2 to {J1_MAX_N}, got {n}")
+    return 32 * min(32, n // 2), _j1_smem(n)
+
+
+@functools.lru_cache(maxsize=512)
+def j2_plan(n):
+    """(ctas, threads, smem_bytes) of J2 at even order n <= J2_MAX_N: the
+    fewest CTAs of a cluster (1, 2, 4, 8) whose shares fit in shared memory,
+    and a thread per (pair, column) of a CTA's update, at most 1024."""
+    if n % 2 or not 2 <= n <= J2_MAX_N:
+        raise KernelError(f"jacobi_eigh_core: even orders 2 to {J2_MAX_N}, got {n}")
+    ctas = next(c for c in _J2_CTAS if _j2_smem(n, c) <= SMEM_LIMIT)
+    work = (n // 2) * -(-n // ctas)
+    return ctas, min(1024, 32 * -(-work // 32)), _j2_smem(n, ctas)
+
+
+def jacobi_orthogonalise_plain(w, sweeps=False):
+    from ttipm_tpu_torch.ops import jacobi
+    return jacobi.orthogonalise_plain(w, sweeps)
+
+
+def jacobi_eigh_core_plain(a, sweeps=False):
+    from ttipm_tpu_torch.ops import jacobi
+    return jacobi.eigh_core_plain(a, sweeps)
+
+
+def _j1_launch(w, count=None):
+    """J1 on ``w`` (B, n, n) f64 on the card: (w @ v, v, norms2); each
+    instance's sweeps into ``count`` (B,) int32 when given."""
+    from ttipm_tpu_torch.ops import jacobi
+
+    B, n, _ = w.shape
+    threads, _ = j1_plan(n)
+    w = w.contiguous()
+    out = torch.empty((2 * B * n * n + B * n,), dtype=w.dtype, device=w.device)
+    w_rot, v = out[:B * n * n].view(B, n, n), out[B * n * n:2 * B * n * n].view(B, n, n)
+    norms2 = out[2 * B * n * n:].view(B, n)
+    stream, guard = _launch_env(w)
+    with guard:
+        err = _lib().ttipm_jacobi_svd(_ptr(w), B, n, jacobi.tol_for(n), jacobi.SVD_FLOOR,
+                                      _ptr(w_rot), _ptr(v), _ptr(norms2), _opt_ptr(count),
+                                      threads, stream)
+    _check("jacobi_orthogonalise", err)
+    return w_rot, v, norms2
+
+
+def _j2_launch(a, count=None):
+    """J2 on ``a`` (B, n, n) f64 on the card: (w ascending, v); each
+    instance's sweeps into ``count`` (B,) int32 when given."""
+    from ttipm_tpu_torch.ops import jacobi
+
+    B, n, _ = a.shape
+    ctas, threads, _ = j2_plan(n)
+    a = a.contiguous()
+    out = torch.empty((B * n * n + B * n,), dtype=a.dtype, device=a.device)
+    v, w = out[:B * n * n].view(B, n, n), out[B * n * n:].view(B, n)
+    stream, guard = _launch_env(a)
+    with guard:
+        err = _lib().ttipm_jacobi_eigh(_ptr(a), B, n, jacobi.tol_for(n), jacobi.EIGH_FLOOR,
+                                       _ptr(w), _ptr(v), _opt_ptr(count), ctas, threads, stream)
+    _check("jacobi_eigh_core", err)
+    return jacobi.sort_eigenpairs(w, v)
+
+
+def jacobi_orthogonalise(w):
+    """J1: one-sided Jacobi of each instance of ``w`` (B, n, n), n even, at
+    most J1_MAX_N, float64: ``(w @ v, v, norms2)`` with v exactly
+    orthonormal, the columns of w @ v orthogonal to the round-robin stop
+    test and norms2 their squared norms; an instance that is not finite or
+    does not converge in 26 sweeps comes out NaN.  One launch, a CTA an
+    instance (``_jacobi_orthogonalise``, ttipm_tpu/ops/jacobi.py:121)."""
+    stats = STATS["jacobi_svd"]
+    _jacobi_order("jacobi_orthogonalise", w, J1_MAX_N)
+    if not _on_cuda(w):
+        stats.plain_calls += 1
+        return jacobi_orthogonalise_plain(w)
+    out = _j1_launch(w)
+    stats.count("f64", batch=w.shape[0])
+    return out
+
+
+def jacobi_eigh_core(a):
+    """J2: cyclic two-sided Jacobi of each symmetric instance of ``a``
+    (B, n, n), n even, at most J2_MAX_N, float64: ``(w, v)``, eigenvalues
+    ascending (ties in index order) and a = v diag(w) v^T; an instance
+    that is not finite or does not converge in 26 sweeps comes out NaN.
+    One launch, a cluster of CTAs an instance (``_jacobi_eigh_core``,
+    ttipm_tpu/ops/jacobi.py:370); the sort is a torch op on the kernel's
+    diagonal."""
+    stats = STATS["jacobi_eigh"]
+    _jacobi_order("jacobi_eigh_core", a, J2_MAX_N)
+    if not _on_cuda(a):
+        stats.plain_calls += 1
+        return jacobi_eigh_core_plain(a)
+    out = _j2_launch(a)
+    stats.count("f64", batch=a.shape[0])
+    return out
+
+
+def jacobi_sweeps(entry, x):
+    """The sweeps each instance of ``x`` takes in ``entry``
+    ("jacobi_orthogonalise" or "jacobi_eigh_core"), as a (B,) int32
+    tensor, from a launch that moves no counter (or the plain version on
+    CPU tensors): what a roofline bound of the call counts."""
+    _jacobi_order(entry, x, J1_MAX_N if entry == "jacobi_orthogonalise" else J2_MAX_N)
+    plain, launch = ((jacobi_orthogonalise_plain, _j1_launch)
+                     if entry == "jacobi_orthogonalise" else (jacobi_eigh_core_plain, _j2_launch))
+    if not _on_cuda(x):
+        return plain(x, True)[-1]
+    count = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
+    launch(x, count)
+    return count

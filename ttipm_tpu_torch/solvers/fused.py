@@ -216,7 +216,10 @@ def _prep_x0(x0, d, bs, caps, direction, rng, ref):
         if all(bool(torch.isfinite(c).all()) for c in x0):
             try:  # in f64, as the JAX package's (ttipm_tpu/solvers/fused.py:523,633)
                 hi = config.cast_tree(list(x0), torch.float64)
-                return [c.to(ref.dtype) for c in _svd_retract(hi, caps)]
+                out = [c.to(ref.dtype) for c in _svd_retract(hi, caps)]
+                # LAPACK raises where it fails; the card's Jacobi SVD gives NaN
+                if all(bool(torch.isfinite(c).all()) for c in out):
+                    return out
             except torch.linalg.LinAlgError:
                 pass  # pathological warm start -> fresh Gaussian below
     if direction > 0:

@@ -1,0 +1,150 @@
+"""The Jacobi factorizations of a MaxCut solve: calls, sweeps, failures.
+
+Solves maxcut at each ``--cells`` dim:seed and records every call of the
+Jacobi cores J1 (``kernels.jacobi_orthogonalise``) and J2
+(``kernels.jacobi_eigh_core``): the instances, the sweeps each needed (a
+histogram), the instances that came out NaN, and those of them whose
+operand was finite (a non-converged factorization: the operand is saved
+to ``--out`` as ``nan_<core>_<dim>_<seed>.pt``, at most six a core, for a
+replay of the plain version on the CPU).  ``--route cusolver`` runs the
+solve with ``jacobi.forced(False)`` (torch.linalg on the card) for its
+iterations and wall; ``--eigh-floor`` / ``--svd-floor`` override
+``jacobi.EIGH_FLOOR`` / ``SVD_FLOOR`` for the run; ``--profile f32`` runs
+chip_smoke.py's phase 9 settings (the f32 profile, rank bucket 4).  One
+JSON line a solve: iterations, slackness, wall (synchronised; the
+recording reads each call's sweeps back, so the wall is not the solve's
+own), and the two cores' records.  The problem is built on the default
+route before the solve (so ``--route cusolver`` records that build's
+factorizations).  The first line names the device.
+
+    python -m ttipm_tpu_torch.tools.jacobi_census --cells 10:41,8:24
+    python -m ttipm_tpu_torch.tools.jacobi_census --cells 3:319 --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from collections import Counter
+
+import torch
+
+from ttipm_tpu_torch.tools.bench import _load_config, device_line
+
+F32_SETTINGS = {"max_iter": 22, "gap_tol": 3e-4, "op_tol": 1e-4, "abs_tol": 1e-3,
+                "warm_up": 3, "mals_restarts": 2, "max_refinement": 5, "lambdaStar": 1.0}
+
+
+class _Recorder:
+    """Wraps ``kernels.jacobi_orthogonalise`` / ``jacobi_eigh_core`` for a
+    solve: each call is made again through ``kernels.jacobi_sweeps`` (no
+    counter moves) for its sweeps."""
+
+    def __init__(self, out_dir, tag):
+        self.out_dir, self.tag, self.cores = out_dir, tag, {}
+
+    def wrap(self, kernels, entry, core):
+        fn = getattr(kernels, entry)
+
+        def wrapped(x):
+            out = fn(x)
+            sweeps = kernels.jacobi_sweeps(entry, x).tolist()
+            rec = self.cores.setdefault(core, {"instances": 0, "nan": 0, "nan_finite_operand": 0,
+                                               "sweeps": Counter(), "saved": []})
+            nan = torch.isnan(out[0].reshape(out[0].shape[0], -1)).any(1).tolist()
+            finite = torch.isfinite(x.reshape(x.shape[0], -1)).all(1).tolist()
+            rec["instances"] += len(sweeps)
+            rec["sweeps"].update(sweeps)
+            for i, (bad, ok) in enumerate(zip(nan, finite)):
+                rec["nan"] += int(bad)
+                if bad and ok:
+                    rec["nan_finite_operand"] += 1
+                    if len(rec["saved"]) < 6:
+                        rec["saved"].append(x[i].detach().cpu())
+            return out
+        return wrapped
+
+    def report(self):
+        out = {}
+        for core, rec in self.cores.items():
+            if rec["saved"]:
+                os.makedirs(self.out_dir, exist_ok=True)
+                torch.save(rec["saved"], os.path.join(self.out_dir, f"nan_{core}_{self.tag}.pt"))
+            out[core] = {"instances": rec["instances"], "nan": rec["nan"],
+                         "nan_finite_operand": rec["nan_finite_operand"],
+                         "sweeps": sorted(rec["sweeps"].items())}
+        return out
+
+
+def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, svd_floor=None,
+           out_dir="results/jacobi_census"):
+    from ttipm_tpu_torch import config
+    from ttipm_tpu_torch.ipm import tt_ipm
+    from ttipm_tpu_torch.models.maxcut import create_problem
+    from ttipm_tpu_torch.ops import jacobi
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.ops.tt import tt_inner_prod
+    from ttipm_tpu_torch.utils.runner import ipm_kwargs, seeded_problem
+
+    cfg = _load_config(dim)
+    rec = _Recorder(out_dir, f"{dim}_{seed}")
+    saved = {"entries": (K.jacobi_orthogonalise, K.jacobi_eigh_core),
+             "floors": (jacobi.EIGH_FLOOR, jacobi.SVD_FLOOR), "bucket": config.rank_bucket()}
+    K.jacobi_orthogonalise = rec.wrap(K, "jacobi_orthogonalise", "svd")
+    K.jacobi_eigh_core = rec.wrap(K, "jacobi_eigh_core", "eigh")
+    jacobi.EIGH_FLOOR = saved["floors"][0] if eigh_floor is None else eigh_floor
+    jacobi.SVD_FLOOR = saved["floors"][1] if svd_floor is None else svd_floor
+    if profile == "f32":
+        config.set_dtype(torch.float32)
+        config.set_eigen_dtype("native")
+        config.set_mixed_local("f64")
+        config.set_rank_bucket(4)
+        cfg.update(F32_SETTINGS)
+    try:
+        lag, obj, L, b, _ = seeded_problem(create_problem, dim, 1, seed, device)
+        t0 = time.perf_counter()
+        with jacobi.forced(False if route == "cusolver" else True if device.type == "cpu"
+                           else None):
+            X, _, _, Z, info = tt_ipm(lag, obj, L, b, **{**ipm_kwargs(cfg), "verbose": False})
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        K.jacobi_orthogonalise, K.jacobi_eigh_core = saved["entries"]
+        jacobi.EIGH_FLOOR, jacobi.SVD_FLOOR = saved["floors"]
+        config.set_dtype(torch.float64)
+        config.set_eigen_dtype("f64")
+        config.set_mixed_local("f64")
+        config.set_rank_bucket(saved["bucket"])
+    return {"dim": dim, "seed": seed, "route": route, "profile": profile,
+            "eigh_floor": jacobi.EIGH_FLOOR if eigh_floor is None else eigh_floor,
+            "svd_floor": jacobi.SVD_FLOOR if svd_floor is None else svd_floor,
+            "wall_s": wall, "iters": int(info["num_iters"]),
+            "slackness": abs(float(tt_inner_prod(X, Z))), **rec.report()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cells", default="10:41,8:24", help="dim:seed,...")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--route", default="jacobi", choices=("jacobi", "cusolver"))
+    ap.add_argument("--profile", default="f64", choices=("f64", "f32"))
+    ap.add_argument("--eigh-floor", type=float, default=None)
+    ap.add_argument("--svd-floor", type=float, default=None)
+    ap.add_argument("--out", default="results/jacobi_census")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("jacobi_census: no CUDA device (--device cpu runs the plain versions)")
+    print(device_line(device), flush=True)
+    for cell in args.cells.split(","):
+        dim, seed = (int(x) for x in cell.split(":"))
+        print(json.dumps(census(dim, seed, device, args.route, args.profile, args.eigh_floor,
+                                args.svd_floor, args.out)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
