@@ -19,7 +19,9 @@ and prints no result line):
    the transposed output, SPD matrices of the orders in K4_ORDERS, which
    span both regimes of K4, and one indefinite one, J1 on the r2^T of the
    d8 and d10 solves' SVDs (JACOBI_SVD_ORDERS) and J2 on pencils of the
-   eigen windows' orders (JACOBI_EIGH_ORDERS)),
+   eigen windows' orders (JACOBI_EIGH_ORDERS: both of J2's regimes, the
+   element rule below kernels.J2_BLOCK_FROM and the block algorithm from
+   there), and J2 without eigenvectors at each order),
    with median times of kernel, plain version and the one library call
    that computes the same function, taken in turns (plain, library,
    kernel, kernel, library, plain), beside the roofline bound of the call.
@@ -221,8 +223,9 @@ K3_PANELS = ((512, 128), (512, 32), (144, 36), (128, 34), (64, 18), (32, 10), (2
 # solves' SVDs: 8 x 4, 64 x 6, 32 x 16, 192 x 42 of maxcut d8, 80 x 60 of
 # d10, J1's bound 118; the kernels line reports the last) and J2 against
 # torch.linalg.eigh (the eigen windows' orders 4, 16, 64, 128 and 256;
-# the kernels line reports 256, the d8 solve's largest).  Batches: phase
-# 10; J2's cluster bounds (96, 136, 192, 272): tests/test_torch_cuda.py.
+# the kernels line reports 256, the d8 solve's largest; 4 and 16 run the
+# element regime, 64-256 the block regime).  Batches: phase 10; J2's regime
+# and cluster bounds: tests/test_torch_cuda.py.
 JACOBI_SVD_ORDERS = (4, 6, 16, 118, 42, 60)
 JACOBI_EIGH_ORDERS = (4, 16, 64, 128, 256)
 
@@ -361,15 +364,19 @@ def bound_ms(name, args):
         bytes_out = esize * n * n + 4
         flops = n**3 // 3
     elif name in MAIN_ENTRY.values():
-        # the sweeps this run's data needs (csrc/jacobi_svd.cu, jacobi_eigh.cu: "Bound")
+        # the sweeps this run's data needs (csrc/jacobi_svd.cu, jacobi_eigh.cu:
+        # "Bound"); J2 in both regimes by the element schedule's work for the
+        # sweeps the plain element rule needs on the operand
+        from ttipm_tpu_torch.ops import jacobi
         from ttipm_tpu_torch.ops import kernels as K
 
         B, n, _ = args[0].shape
-        sweeps = int(K.jacobi_sweeps(name, args[0]).sum())
         if name == "jacobi_orthogonalise":
+            sweeps = int(K.jacobi_sweeps(name, args[0]).sum())
             bytes_out = esize * B * (2 * n * n + n)
             flops = sweeps * (9 * n * n * (n - 1) + n**3)
         else:
+            sweeps = int(jacobi.eigh_core_plain(args[0], sweeps=True)[-1].sum())
             bytes_out = esize * B * (n * n + n)
             flops = sweeps * (9 * n * n * (n - 1) + 3 * n * n)
     else:
@@ -478,7 +485,14 @@ def phase_kernels():
     for n in JACOBI_SVD_ORDERS:  # one instance, as the single solve's calls
         run("jacobi_orthogonalise", jacobi_operand("jacobi_orthogonalise", 1, n, rng, dev))
     for n in JACOBI_EIGH_ORDERS:
-        run("jacobi_eigh_core", jacobi_operand("jacobi_eigh_core", 1, n, rng, dev))
+        x = jacobi_operand("jacobi_eigh_core", 1, n, rng, dev)
+        run("jacobi_eigh_core", x)
+        out = K.jacobi_eigh_core(x, vectors=False)  # eigvalsh: the values alone, the same bits
+        errs = check_kernel("jacobi_eigh_core", (x,), out)
+        if not torch.equal(out[0], K.jacobi_eigh_core(x)[0]):
+            raise AssertionError(f"jacobi_eigh_core n={n}: the values alone differ from eigh's")
+        print(json.dumps({"kernel": "jacobi_eigh_core", "shape": shape_key((x,)),
+                          "vectors": False, "plan": list(K.j2_plan(n)), **errs}), flush=True)
     return summary
 
 
@@ -679,26 +693,47 @@ def phase_slice_times(label, shapes, first, names):
 
 def phase_slice_jacobi_times(shapes, first):
     """J1 and J2 and the library call on the same operand (torch.linalg.svd,
-    eigh: cuSOLVER) timed on the first operands of each of their shapes in
-    the solve, weighted by the solve's calls (the plain versions are timed
-    in phase 3: a Python loop over the steps, seconds a call)."""
+    eigh or eigvalsh: cuSOLVER) timed on the first operands of each of their
+    shapes in the solve, weighted by the solve's calls (the plain versions
+    are timed in phase 3: a Python loop over the steps, seconds a call).
+    J2's rows also time its element regime on the same operand where the
+    order takes the block regime (``element_ms``: the kernel J2 was before
+    the block regime), and name the regime (``plan``)."""
+    import torch
+
     from ttipm_tpu_torch.ops import kernels as K
 
     library = library_calls()
     report = {}
     for name in ("jacobi_orthogonalise", "jacobi_eigh_core"):
-        fn, lib = getattr(K, name), library[name]
-        rows, total, lib_total = [], 0.0, 0.0
+        fn = getattr(K, name)
+        rows, total, lib_total, element_total = [], 0.0, 0.0, 0.0
         for key, (args, kw) in first[name].items():
-            lib_ms, ms = _turns_ms([lambda: lib(*args), lambda: fn(*args, **kw)], runs=3, warmup=1)
+            lib = library[name]
+            if kw.get("vectors") is False:
+                lib = torch.linalg.eigvalsh
+            fns = [lambda: lib(*args), lambda: fn(*args, **kw)]
+            plan = K.j2_plan(args[0].shape[-1]) if name == "jacobi_eigh_core" else None
+            if plan is not None and plan[0]:
+                element = K.j2_plan(args[0].shape[-1], element=True)
+                fns.insert(1, lambda: K._j2_launch(args[0], vectors=kw.get("vectors", True),
+                                                   plan=element))
+            ms = _turns_ms(fns, runs=3, warmup=1)
             count = shapes[name][key]
-            rows.append({"shape": key, "count": count, "ms": ms, "library_ms": lib_ms})
-            total += count * ms
-            lib_total += count * lib_ms
+            row = {"shape": key, "count": count, "ms": ms[-1], "library_ms": ms[0]}
+            if plan is not None:
+                row["plan"] = list(plan)
+                row["element_ms"] = ms[1] if plan[0] else ms[-1]
+                element_total += count * row["element_ms"]
+            rows.append(row)
+            total += count * ms[-1]
+            lib_total += count * ms[0]
         rows.sort(key=lambda r: -r["count"] * r["ms"])
         report[name] = {"distinct_shapes": len(rows), "calls": sum(r["count"] for r in rows),
                         "weighted_ms": total, "library_weighted_ms": lib_total,
-                        "heaviest_shapes": rows[:4]}
+                        "heaviest_shapes": rows[:6]}
+        if name == "jacobi_eigh_core":
+            report[name]["element_weighted_ms"] = element_total
     print(json.dumps({"slice_jacobi_times": report}), flush=True)
 
 

@@ -33,6 +33,7 @@ CPU, every kernel call of the card's solve held against its plain version.
 
 import functools
 import os
+from contextlib import contextmanager
 import subprocess
 import sys
 import time
@@ -1373,26 +1374,114 @@ def test_cuda_jacobi_orthogonalise_matches_plain(cuda, n):
     assert errs["nonfinite"] == 1 and all(bool(torch.isnan(t[-1]).all()) for t in out)
 
 
+# J2's block regime is held from the order from which it was measured
+# faster than the element kernel (PERF.md), beside the regime each order
+# takes under the shipped crossover (kernels.J2_BLOCK_FROM).
+J2_BLOCK_TESTED_FROM = 24
+
+
+@contextmanager
+def _j2_block_from(n):
+    """J2's regimes with the block regime from order n."""
+    saved = K.J2_BLOCK_FROM
+    K.J2_BLOCK_FROM = n
+    K.j2_plan.cache_clear()
+    try:
+        yield
+    finally:
+        K.J2_BLOCK_FROM = saved
+        K.j2_plan.cache_clear()
+
+
+def _j2_crossovers(n):
+    """The shipped crossover, and J2_BLOCK_TESTED_FROM where that moves
+    order n into the block regime."""
+    return [K.J2_BLOCK_FROM] + ([J2_BLOCK_TESTED_FROM]
+                                if J2_BLOCK_TESTED_FROM <= n < K.J2_BLOCK_FROM else [])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 4, 16, 64, 96, 98, 128, 136, 138, 192, 194, 256, 272])
+@pytest.mark.parametrize("n", [2, 4, 16, 22, 24, 32, 34, 64, 66, 96, 98, 128, 130, 136, 160, 162,
+                               192, 194, 224, 226, 256, 258, 272])
 def test_cuda_jacobi_eigh_core_matches_plain(cuda, n):
-    """J2 at the eigen windows' orders (4, 16, 64, 128, 256) and at each
-    side of every cluster size's bound (1 CTA to 96, 2 to 136, 4 to 192, 8
-    to 272), on the symmetric gallery plus a NaN instance."""
+    """J2 against the plain version of its regime at the eigen windows'
+    orders (4, 16, 64, 128, 256), at each side of the regime boundary of
+    J2_BLOCK_TESTED_FROM (the element rule to 22, blocks of 16 from 24) and
+    of every cluster size of the block regime (1 CTA to 32, 2 to 64, 3 to
+    96, ... 8 to 256, 9 from 258, a non-portable cluster), at ragged last
+    blocks (24, 34, 66, 98, 130, 136, 162, 194, 226, 258) and empty ones
+    (34, 66, ..., 272), on the symmetric gallery plus a NaN instance; and
+    without eigenvectors (eigvalsh), whose values keep the bits of the call
+    with them.  Each order also in the regime the shipped crossover gives
+    it."""
     rng = np.random.RandomState(n)
     cases = list(_sym_gallery(n, rng).values())
     a = torch.as_tensor(np.stack(cases + [cases[0]]), device=cuda)
     a[-1, 1, 0] = a[-1, 0, 1] = float("nan")
-    out = K.jacobi_eigh_core(a)
-    errs = check_kernel("jacobi_eigh_core", (a,), out)
-    assert errs["nonfinite"] == 1 and all(bool(torch.isnan(t[-1]).all()) for t in out)
+    for start in _j2_crossovers(n):
+        with _j2_block_from(start):
+            out = K.jacobi_eigh_core(a)
+            errs = check_kernel("jacobi_eigh_core", (a,), out)
+            assert errs["nonfinite"] == 1 and all(bool(torch.isnan(t[-1]).all()) for t in out)
+            values = K.jacobi_eigh_core(a, vectors=False)
+            assert values[1] is None
+            check_kernel("jacobi_eigh_core", (a,), values)
+            assert _same_bits(values[0], out[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 256])
+def test_cuda_jacobi_eigh_element_regime_at_block_orders(cuda, n):
+    """The element regime forced at the block regime's orders (the timings'
+    'element_ms', the kernel J2 was) against the element plain version."""
+    from ttipm_tpu_torch.checks import kernel_errors
+    from ttipm_tpu_torch.ops import jacobi
+
+    rng = np.random.RandomState(n + 1)
+    a = torch.as_tensor(np.stack(list(_sym_gallery(n, rng).values())[:3]), device=cuda)
+    out = K._j2_launch(a, plan=K.j2_plan(n, element=True))
+    errs = kernel_errors("jacobi_eigh_core", (a,), out)
+    want = jacobi.eigh_core_plain(a)
+    assert float((out[0] - want[0]).abs().max()) <= tolerance("jacobi_eigh_core", a.dtype) * \
+        float(want[0].abs().max())
+    assert errs["fact"] <= 1e-12 and errs["orth"] <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64, 128, 272])
+def test_cuda_jacobi_eigh_stamps(cuda, n):
+    """The clock stamps of J2 (kernels.jacobi_eigh_stamps) in the regime of
+    the order: positive cycles in the parts every run has, and counts that
+    agree with the sweeps (kernels.jacobi_sweeps) and the schedule (n - 1
+    steps a sweep; nb - 1 outer steps of 2 * 16 - 1 inner steps, but for
+    the inner sweeps skipped as quiet, all of the last outer sweep's
+    among them)."""
+    from chip_smoke import jacobi_operand
+
+    x = jacobi_operand("jacobi_eigh_core", 1, n, np.random.RandomState(n), cuda)
+    st = K.jacobi_eigh_stamps(x)
+    sweeps = int(K.jacobi_sweeps("jacobi_eigh_core", x)[0])
+    assert st["sweeps"] == sweeps and st["setup"] > 0 and st["store"] > 0
+    if K.j2_plan(n)[0]:
+        nb = -(-n // K.J2_BLOCK)
+        nb += nb % 2
+        assert st["outer_steps"] == sweeps * (nb - 1)
+        assert st["inner_steps"] == (st["outer_steps"] - st["quiet_inner_sweeps"]) * \
+            (2 * K.J2_BLOCK - 1)
+        assert st["quiet_inner_sweeps"] >= nb - 1  # the last outer sweep's (CTA 0's slot)
+        assert 0 < st["inner_steps_rotating"] <= st["inner_steps"]
+        assert st["inner_rotations"] > 0 and st["column_dmma"] > 0 and st["barrier_2"] > 0
+    else:
+        assert st["steps"] == sweeps * (n - 1) and st["rotations"] > 0 and st["update"] > 0
 
 
 @pytest.mark.cuda
 def test_cuda_jacobi_instances_keep_their_bits_in_any_batch(cuda):
     """An instance of J1, J2 and of the whole SVD / eigh pipelines gets the
     same bits in a batch of five as alone (the pipelines' matrix products
-    are cuBLAS's batched GEMM at every batch size)."""
+    are cuBLAS's batched GEMM at every batch size); J2 at 128 in the
+    regime of the order and in the block regime, and at 272 (a cluster of
+    nine), with and without eigenvectors."""
     from ttipm_tpu_torch.ops import linalg
 
     rng = np.random.RandomState(9)
@@ -1401,13 +1490,18 @@ def test_cuda_jacobi_instances_keep_their_bits_in_any_batch(cuda):
     s = s + s.mT
     tall = _dev(rng, cuda, 5, 80, 60)
     wide = _dev(rng, cuda, 5, 16, 64)
+    big = _dev(rng, cuda, 5, 272, 272)
+    big = big + big.mT
     calls = [K.jacobi_orthogonalise, K.jacobi_eigh_core, linalg.safe_svd, linalg.safe_svd,
-             linalg.safe_eigh]
-    for fn, x in zip(calls, (w, s, tall, wide, s)):
-        batch = fn(x)
-        for i in range(5):
-            single = fn(x[i:i + 1])
-            assert all(_same_bits(b[i:i + 1], t) for b, t in zip(batch, single)), (fn, i)
+             linalg.safe_eigh, K.jacobi_eigh_core,
+             lambda x: K.jacobi_eigh_core(x, vectors=False)[:1]]
+    for start in _j2_crossovers(128):
+        with _j2_block_from(start):
+            for fn, x in zip(calls, (w, s, tall, wide, s, big, big)):
+                batch = fn(x)
+                for i in range(5):
+                    single = fn(x[i:i + 1])
+                    assert all(_same_bits(b[i:i + 1], t) for b, t in zip(batch, single)), (fn, i)
 
 
 @pytest.mark.cuda

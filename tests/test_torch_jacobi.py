@@ -20,6 +20,8 @@ seed 319 through the port with every SVD and eigh on the plain Jacobi
 against the JAX package's solve.
 """
 
+from contextlib import contextmanager
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,35 @@ from ttipm_tpu.ops import jacobi as jj
 from ttipm_tpu_torch.ops import jacobi as tj
 from ttipm_tpu_torch.ops import kernels as K
 from ttipm_tpu_torch.ops import linalg
+
+
+# J2's block regime is held from the order from which it was measured
+# faster than the element kernel on the card (PERF.md), beside the regime
+# each order takes under the crossover the port ships
+# (kernels.J2_BLOCK_FROM).
+BLOCK_TESTED_FROM = 24
+
+
+@contextmanager
+def _block_from(n):
+    """J2's regimes with the block regime from order n."""
+    saved = K.J2_BLOCK_FROM
+    K.J2_BLOCK_FROM = n
+    K.j2_plan.cache_clear()
+    try:
+        yield
+    finally:
+        K.J2_BLOCK_FROM = saved
+        K.j2_plan.cache_clear()
+
+
+def _crossovers(n):
+    """The crossovers under which order n takes each regime it is tested
+    in: the shipped one, and BLOCK_TESTED_FROM where that moves n into the
+    block regime."""
+    n += n % 2
+    return [K.J2_BLOCK_FROM] + ([BLOCK_TESTED_FROM]
+                                if BLOCK_TESTED_FROM <= n < K.J2_BLOCK_FROM else [])
 
 
 @pytest.fixture(autouse=True)
@@ -127,9 +158,16 @@ def test_jacobi_svd_matches_jax(name, jax_jacobi):
     assert np.all(vt[s == 0] == 0)
 
 
-@pytest.mark.parametrize("n", [2, 7, 24])
+@pytest.mark.parametrize("n", [2, 7, 24, 64, 96, 194, 256, 272])
 def test_jacobi_eigh_gallery_matches_jax(n, jax_jacobi):
-    """tests/test_jacobi.py's eigh gallery (odd orders padded)."""
+    """tests/test_jacobi.py's eigh gallery (odd orders padded); in the
+    regime of the order and from BLOCK_TESTED_FROM on also through J2's
+    block regime (eigh_block_plain), with a ragged last block at 194 and
+    an empty one at 272.  (At 128 and
+    136 the JAX package's own eigenvectors of the psd_tiny spectrum differ
+    from LAPACK's by 6.8e-9 and 5.7e-11 where the gap exceeds 1e-5, past
+    the 1e-10 this comparison holds; both of the port's rules agree with
+    LAPACK's there to 2e-12: the census test takes those orders.)"""
     rng = np.random.RandomState(1)
     q, _ = np.linalg.qr(rng.randn(n, n))
     for spec in [np.linspace(-3, 5, n), np.zeros(n),
@@ -140,6 +178,12 @@ def test_jacobi_eigh_gallery_matches_jax(n, jax_jacobi):
 
 def _eigh_matches(a):
     wj, vj = (np.asarray(x) for x in jj.safe_eigh(a))
+    for start in _crossovers(a.shape[0]):
+        with _block_from(start):
+            _eigh_matches_in_regime(a, wj, vj)
+
+
+def _eigh_matches_in_regime(a, wj, vj):
     with tj.forced(True):
         w, v = (t.numpy() for t in linalg.safe_eigh(torch.as_tensor(a)))
         w2 = linalg.safe_eigvalsh(torch.as_tensor(a)).numpy()
@@ -154,14 +198,85 @@ def _eigh_matches(a):
     assert _signs_match(v, vj, keep) <= 1e-10
 
 
-@pytest.mark.parametrize("n", [4, 16, 64, 128, 256])
+@pytest.mark.parametrize("n", [4, 16, 64, 96, 128, 136, 194, 256, 272])
 def test_jacobi_eigh_census_orders_match_jax(n, jax_jacobi):
     """The eigen windows' orders (maxcut d8 and d10): an indefinite pencil
-    of spread eigenvalues."""
+    of spread eigenvalues; the block regime's orders (ragged and empty last
+    blocks) beside them; each order in its regime and from
+    BLOCK_TESTED_FROM on also in the block regime."""
     rng = np.random.RandomState(n)
     q, _ = np.linalg.qr(rng.randn(n, n))
     a = (q * np.r_[np.linspace(-1, 4, n - n // 4), 1e-6 * rng.randn(n // 4)]) @ q.T
     _eigh_matches(0.5 * (a + a.T))
+
+
+@pytest.mark.parametrize("n", [66, 98])
+def test_jacobi_eigh_block_stop_rule_and_cap(n):
+    """J2's block regime (eigh_block_plain): an instance stops after the
+    first outer sweep without a rotation (its matrix then unchanged, the
+    sweeps counted) and an instance still rotating at the cap comes out NaN,
+    every factor, the others of the batch untouched; the regime's sweeps
+    are outer sweeps (kernels.jacobi_sweeps)."""
+    rng = np.random.RandomState(n)
+    q, _ = np.linalg.qr(rng.randn(n, n))
+    a = torch.as_tensor(np.stack([(q * np.linspace(-1, 4, n)) @ q.T, np.diag(np.arange(n) + 1.0)]))
+    a = 0.5 * (a + a.mT)
+    w, v, sweeps = tj.eigh_block_plain(a, sweeps=True)
+    assert sweeps[1] == 1 and torch.equal(w[1], torch.arange(n, dtype=a.dtype) + 1.0)
+    assert torch.equal(v[1], torch.eye(n, dtype=a.dtype))
+    assert 1 < int(sweeps[0]) < tj.MAX_SWEEPS
+    with _block_from(BLOCK_TESTED_FROM):
+        assert K.j2_plan(n)[0] == K.J2_BLOCK
+        assert torch.equal(K.jacobi_sweeps("jacobi_eigh_core", a), sweeps)
+    saved = tj.MAX_SWEEPS
+    tj.MAX_SWEEPS = int(sweeps[0]) - 1
+    try:
+        w2, v2, sweeps2 = tj.eigh_block_plain(a, sweeps=True)
+    finally:
+        tj.MAX_SWEEPS = saved
+    assert bool(torch.isnan(w2[0]).all()) and bool(torch.isnan(v2[0]).all())
+    assert torch.equal(w2[1], w[1]) and torch.equal(v2[1], v[1])
+    assert sweeps2.tolist() == [int(sweeps[0]) - 1, 1]
+
+
+@pytest.mark.parametrize("n", [7, 66, 97, 194])
+def test_jacobi_eigvalsh_values_alone_keep_eighs_bits(n):
+    """safe_eigvalsh through J2 without eigenvectors gives safe_eigh's
+    eigenvalues bit for bit, in both regimes (each order in its own and
+    from BLOCK_TESTED_FROM on in the block regime) and at odd orders (the
+    padded pair found without V: its exact zero, last among the zeros),
+    also with exact zero eigenvalues beside the padded one."""
+    rng = np.random.RandomState(n)
+    q, _ = np.linalg.qr(rng.randn(n, n))
+    spec = np.r_[np.zeros(n // 3), np.linspace(-2, 3, n - n // 3)]
+    a = torch.as_tensor(0.5 * ((q * spec) @ q.T + ((q * spec) @ q.T).T))
+    z = torch.zeros((n, n), dtype=a.dtype)
+    z[: n // 2, : n // 2] = a[: n // 2, : n // 2]
+    for start in _crossovers(n):
+        with _block_from(start), tj.forced(True):
+            for x in (a, z):
+                w, _ = linalg.safe_eigh(x)
+                assert torch.equal(linalg.safe_eigvalsh(x), w)
+
+
+def test_j2_plan_fits_every_order():
+    """Every even order of J2's envelope has a regime whose shared memory
+    fits a CTA (232,448 bytes): the element rule below J2_BLOCK_FROM, the
+    block regime (a cluster of ceil(n / 16 / 2) CTAs, at most 9) from
+    there; the element regime, asked for, at every order, and an error
+    past the envelope."""
+    for n in range(2, K.J2_MAX_N + 1, 2):
+        block, ctas, threads, smem = K.j2_plan(n)
+        assert smem <= K.SMEM_LIMIT and threads % 32 == 0 and threads <= 1024
+        if n < K.J2_BLOCK_FROM:
+            assert block == 0 and ctas in (1, 2, 4, 8)
+        else:
+            nb = -(-n // K.J2_BLOCK)
+            assert block == K.J2_BLOCK and ctas == (nb + nb % 2) // 2 <= 9
+        element = K.j2_plan(n, element=True)
+        assert element[0] == 0 and element[3] <= K.SMEM_LIMIT
+    with pytest.raises(K.KernelError):
+        K.j2_plan(K.J2_MAX_N + 2)
 
 
 def test_jacobi_batch_with_a_nonfinite_instance():

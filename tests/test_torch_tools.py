@@ -15,8 +15,9 @@ the repository's drivers of the JAX package where one computes the same.
   B = 1 step bit-equal to a single ``tt_newton_step_batch`` of instance 0.
 * ``tools/jacobi_census.py`` at d3 on the plain Jacobi: the solve
   converges in the JAX package's 7 iterations (tests/test_torch_ipm.py),
-  every factorization is recorded with its sweeps, none fails; the
-  cuSOLVER route (LAPACK here) records none.
+  every factorization is recorded with its sweeps, none fails, every
+  eigh holds LAPACK's eigenvalues (``--check``); the cuSOLVER route
+  (LAPACK here) records none.
 """
 
 import json
@@ -156,7 +157,7 @@ def test_jacobi_census_at_d3(tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # the plain Jacobi's tiny ops (tests/test_torch_jacobi.py)
     try:
-        rec = census(3, 319, torch.device("cpu"), out_dir=str(tmp_path))
+        rec = census(3, 319, torch.device("cpu"), out_dir=str(tmp_path), check=True)
         lapack = census(3, 319, torch.device("cpu"), route="cusolver", out_dir=str(tmp_path))
     finally:
         torch.set_num_threads(threads)
@@ -166,5 +167,7 @@ def test_jacobi_census_at_d3(tmp_path):
         assert c["instances"] > 0 and c["nan_finite_operand"] == 0, c
         assert sum(n for _, n in c["sweeps"]) == c["instances"]
         assert max(s for s, _ in c["sweeps"]) < 26
+    for order in rec["eigh"]["by_order"].values():  # --check: every call held to LAPACK's
+        assert order["check"]["values"] <= 1e-12 and order["check"]["orth"] <= 1e-13, order
     assert "svd" not in lapack and "eigh" not in lapack
     assert not os.listdir(tmp_path)

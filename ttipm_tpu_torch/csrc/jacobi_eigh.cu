@@ -1,5 +1,7 @@
 // J2: cyclic two-sided Jacobi eigendecomposition of a symmetric f64 matrix
-// (the core of the port's eigh and eigvalsh on the card).
+// (the core of the port's eigh and eigvalsh on the card), in two regimes
+// chosen by the order: element rotations below ops/kernels.py's
+// J2_BLOCK_FROM, a two-level (block) Jacobi from there to kMaxN.
 //
 // Replaces no Pallas kernel.  It is the counterpart of the jnp program
 // ttipm_tpu/ops/jacobi.py::_jacobi_eigh_core (:370), which the JAX package
@@ -7,63 +9,96 @@
 // trace (jacobi_eigh, :431).  It was added because the eigen windows' and
 // the step-size pencils' eigh and eigvalsh on the card were cuSOLVER
 // calls with a host check of their info (1,586 in a maxcut d10 solve, at
-// orders up to 256: tools/jacobi_census.py); this kernel decides convergence on the device and
-// never synchronises with the host.  The scaling, the odd-order padding,
-// the sort and the removal of the padded pair are torch code around it
-// (ttipm_tpu_torch/ops/jacobi.py::jacobi_eigh).
+// orders up to 256: tools/jacobi_census.py); this kernel decides
+// convergence on the device and never synchronises with the host.  The
+// scaling, the odd-order padding, the sort and the removal of the padded
+// pair are torch code around it (ttipm_tpu_torch/ops/jacobi.py::jacobi_eigh).
 //
 // Contract: a, nbatch contiguous symmetric (n, n) f64 matrices, n even,
 // 2 <= n <= kMaxN.  Out: w, the diagonal of the rotated matrix (the
-// eigenvalues, unsorted), and V (exactly orthonormal, a = V diag(w) V^T),
-// contiguous.  Same schedule, rotation rule, tolerance and stop test as
-// the plain version (ops/jacobi.py::eigh_core_plain): step k rotates the
-// n / 2 disjoint pairs (i, j) of the round-robin schedule, first the
-// columns (A G), then the rows (G^T (A G)), then the columns of V.  With
-// b_ij = (a_ij + a_ji) / 2 and s_ij = max(sqrt(|a_ii a_jj|), s0, 1e-30),
-// s0 = floor_rel max |a| of the input, a pair is rotated where |b_ij| >
-// tol s_ij, by t = sign(tau) / (|tau| + sqrt(1 + tau^2)), tau = (a_jj -
-// a_ii) / (2 b_ij); the sweeps stop after one without a rotation, or
-// after 26; an instance that still rotated in its 26th sweep, or met a
-// non-finite number, comes out NaN.  (The JAX program measures a_ij
-// against sqrt(|a_ii a_jj| + 1e-30) and tests the matrix after each
-// sweep: see eigh_core_plain.)
+// eigenvalues, unsorted), and, unless v is null (eigvalsh: A's rotations
+// never read V, so w keeps its bits), V (exactly orthonormal, a = V diag(w)
+// V^T), contiguous.  The rotation rule, tolerance and stop test are the
+// plain versions' (ops/jacobi.py::eigh_core_plain, eigh_block_plain): with
+// b_ij = (a_ij + a_ji) / 2 and s_ij = max(sqrt(|a_ii a_jj|), s0, 1e-30), s0
+// = floor_rel max |a| of the input, a pair is rotated where |b_ij| > tol
+// s_ij, by t = sign(tau) / (|tau| + sqrt(1 + tau^2)), tau = (a_jj - a_ii) /
+// (2 b_ij), first the columns, then the rows, then V; the sweeps stop
+// after one without a rotation, or after 26; an instance that still
+// rotated in its 26th sweep, or met a non-finite number, comes out NaN.
+// (The JAX program measures a_ij against sqrt(|a_ii a_jj| + 1e-30) and
+// tests the matrix after each sweep: see eigh_core_plain.)  An instance's
+// result does not depend on the batch: the batch is the grid's y axis, a
+// cluster an instance, and the stop is decided from flags every CTA of the
+// cluster holds alike.
 //
-// Design.  A and V of order 256 take 1 MB in f64: no CTA holds them.  An
-// instance is a cluster of 1, 2, 4 or 8 CTAs (the fewest whose shares fit,
-// ops/kernels.py::j2_plan) that split the n indices into blocks of nc =
-// ceil(n / ctas).  CTA r holds columns r nc .. r nc + nc - 1 of A twice
-// (the step reads one copy, writes the other) and the same rows of V, each
-// with an odd leading dimension in its shared memory: 3 nc (n + 1) 8
-// bytes, 198 KB at n = 256 on 8 CTAs, 229 KB at n = 272 (kMaxN).  A step:
-//  1. every CTA computes the rotations of all n / 2 pairs itself, from
-//     a_ii, a_jj and a_ij read through distributed shared memory, so that
-//     all hold the same bits and no rotation is broadcast; the same
-//     threads note each owned column's pair and its partner's address;
-//  2. the owner of column c writes column c of G^T A G into its other
-//     copy: with the partner column c' of c's pair (local or remote), row
-//     r of the new column is the row rotation of pair (r, r') applied to
-//     the column rotation of (c, c') at rows r and r', which is the JAX
-//     program's order of operations element by element; the same item
-//     rotates the columns r, r' of row c of V in place (V G mixes columns
-//     only, so rows are independent).  A thread walks its items with a
-//     fixed stride (no division in the step);
-//  3. one cluster barrier (a CTA barrier on a cluster of one): no CTA
-//     reads a copy before it is complete or writes one that another still
-//     reads.
-// Every CTA notes whether a pair of the sweep rotated (or met a
-// non-finite number) from the decisions it computed itself, alike in all:
-// no exchange decides the stop.  s0 is the one cluster-wide reduction
-// (each CTA's maximum into CTA 0, combined in rank order by all).  An instance's result does not depend on the batch: the
-// batch is the grid's y axis, a cluster an instance.
+// Element regime (jacobi_eigh_kernel).  A step rotates the n / 2 disjoint
+// pairs of the round-robin schedule.  A and V of order 256 take 1 MB: a
+// cluster of 1, 2, 4 or 8 CTAs (ops/kernels.py::j2_plan) splits the
+// indices into blocks of nc = ceil(n / ctas); CTA r holds its columns of A
+// twice (a step reads one copy, writes the other) and the same rows of V.
+// Every CTA computes all n / 2 rotations itself from a_ii, a_jj and a_ij
+// read through distributed shared memory; the owner of column c writes
+// column c of G^T A G from c and its partner column (local or remote) and
+// rotates row c of V; one cluster barrier ends the step.  What bounds it
+// (clock stamps, PERF.md): n - 1 dependent steps a sweep, each a round of
+// remote loads, a chain of three square roots and three divisions, 32 n^2
+// bytes of shared-memory traffic over the cluster and a cluster barrier.
+// The steps grow as n and a step's bytes as n^2, so at 128-256 it loses
+// 1.7-3.5x to cuSOLVER's syevd.
 //
-// Bound on the H100: a step does 12 flops for each (column, row pair) of
-// A (6 n^2) and 6 for each (row, pair) of V (3 n^2), n - 1 steps a sweep:
-// about 9 n^2 (n - 1) flops a sweep,
-// which chip_smoke.py's bound_ms counts for the sweeps this run's data
-// needed (the kernel reports them); n^2 8 bytes in, n^2 + n out.  At n =
-// 256 and 8 sweeps that is 1.2 GFLOP, 18 us at the card's 67 TFLOP/s f64.
-// What bounds the kernel is latency: n - 1 dependent steps a sweep, each a round of remote loads,
-// a square root and two divisions, the updates and a cluster barrier.
+// Block regime (jacobi_eigh_block_kernel, kB = 16).  The n indices are cut
+// into nb = ceil(n / kB) blocks of kB (the last ragged, and an empty one where
+// nb is odd, so that nb is even); the outer sweep runs the round robin of
+// order nb over the blocks, nb - 1 outer steps of nb / 2 slots, a slot a
+// pair of blocks (P, Q), a CTA a slot.  CTA s holds the block columns at
+// positions s (half 0) and nb - 1 - s (half 1) of the schedule: all rows,
+// 2 kB columns, twice (the row update writes the other copy).  An outer
+// step:
+//  1. the inner problem: the CTA copies the 2 kB x 2 kB diagonal tile
+//     A[P u Q, P u Q] and runs one cyclic sweep of the element rule on it
+//     (round robin of order 2 kB; the empty and ragged indices are zeros,
+//     which never rotate), accumulating the slot's orthogonal U; kB threads
+//     compute a step's rotations (t from d = a_jj - a_ii and e = 2 b_ij with
+//     one root and one reciprocal, refined approximations, beside the
+//     threshold test) and post them in shared memory, every thread then
+//     rotates one 2 x 2 block of the tile and of U: two CTA barriers an
+//     inner step, one in a step without a rotation, and none in a sweep
+//     whose tile has no pair to rotate (all pairs are tested at once
+//     first); U's columns are then scaled to unit length (a rotation with
+//     t^2 below half an ulp keeps c = 1 and lengthens its columns, and an
+//     index is rotated twice as often as in the element rule);
+//  2. U and the slot's flags (rotated, non-finite) go to every CTA of the
+//     cluster by distributed-shared-memory stores;
+//  3. the columns: A[:, P u Q] <- A[:, P u Q] U in place, and V[:, P u Q]
+//     <- V[:, P u Q] U in device memory (V stays in L2: 0.5 MB at 256), on
+//     the f64 tensor cores (mma.sync m16n8k4), skipped where U = I;
+//  4. cluster barrier;
+//  5. the rows and the ring shift: every CTA applies each slot's U^T to
+//     that slot's rows of its own columns (DMMA, a copy where U = I) and
+//     stores the result where the round robin moves the block column next:
+//     its own other copy or a neighbour's, by distributed-shared-memory
+//     stores;
+//  6. cluster barrier.
+// No step loads through distributed shared memory.  Two cluster barriers
+// an outer step: about (nb - 1) 2 a sweep instead of n - 1, and the
+// element step's n^2 shared-memory traffic becomes 2 kB n an outer step.
+// The outer sweeps stop after one in which no inner sweep rotated: every
+// pair of indices has then met in some slot on the matrix as it is.
+// After a whole sweep the blocks are back where they started.  The
+// scale s0 is the one cluster-wide reduction (each CTA's maximum stored
+// into every CTA, combined in rank order).  Order 256 takes 8 CTAs, 272
+// nine (a non-portable cluster).
+//
+// Bound on the H100 (chip_smoke.py's bound_ms, for both regimes the
+// element schedule's work): a step does 12 flops for each (column, row
+// pair) of A (6 n^2) and 6 for each (row, pair) of V (3 n^2), n - 1 steps a
+// sweep: about 9 n^2 (n - 1) flops a sweep, for the sweeps the plain
+// element version needs on the operand; n^2 8 bytes in, n^2 + n out.  At n
+// = 256 and 8 sweeps that is 1.2 GFLOP, 18 us at the card's 67 TFLOP/s
+// f64.  What bounds the block regime is latency too, but of the inner
+// steps: about 2 n of them a sweep, each a chain of square roots and
+// divisions and two CTA barriers, in all slots at once.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -77,14 +112,62 @@ using namespace ttipm::jacobi;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 272;
-constexpr int kMaxCtas = 8;
+constexpr int kMaxCtas = 8;        // the element regime's largest cluster
+constexpr int kMaxBlockCtas = 16;  // the block regime's (non-portable above 8)
 constexpr int kMaxThreads = 1024;
 constexpr int kScratch = 48;  // 32 warp maxima, then kMaxCtas CTA maxima (in CTA 0)
+constexpr int kStamps = 16;
+
+// The block regime's block width, and its threads: one 2 x 2 block of the
+// inner tile each.
+constexpr int kB = 16;
+constexpr int kBlockThreads = kB * kB;
+
+// Leading dimension of the block regime's columns: conflict-free tensor
+// core fragments (lanes t = 0..3 of a column 4 banks of 8 bytes apart).
+__host__ __device__ inline int block_ld(int n) { return (n + 15) / 16 * 16 + 4; }
 
 size_t smem_bytes(int n, int ctas) {
   const size_t nc = (n + ctas - 1) / ctas, h = n / 2;
   return sizeof(double) * (3 * nc * (n | 1) + 2 * h + kScratch + nc) +
          sizeof(int) * (2 * h + nc + 2);
+}
+
+// The block regime's shared memory (ops/kernels.py::_j2_block_smem): the
+// two copies of the slot's columns (each also room for the inner sweep's
+// two tiles: the copies trade places every outer step), every slot's U, the inner step's rotations (two parities), the
+// cluster's maxima; the slots' flags and the inner steps' votes.
+size_t block_smem_bytes(int n, int ctas) {
+  const size_t m = 2 * kB, panel = m * block_ld(n), tiles = 2 * m * (m + 1);
+  return sizeof(double) * (2 * (panel > tiles ? panel : tiles) + ctas * m * (m + 4) + 4 * kB +
+                           kMaxBlockCtas) +
+         sizeof(int) * (kMaxBlockCtas + 2);
+}
+
+// Clock stamps of CTA 0's thread 0 (ttipm_jacobi_eigh_stamps): lap(k) adds
+// the cycles since the previous lap to part k, count(k) adds to entry k,
+// by atomics whose result nobody waits for.
+struct Stamps {
+  unsigned long long* out;
+  long long last;
+  __device__ Stamps(long long* p, bool on)
+      : out(on ? reinterpret_cast<unsigned long long*>(p) : nullptr), last(0) {
+    if (out != nullptr) last = clock64();
+  }
+  __device__ __forceinline__ void lap(int k) {
+    if (out == nullptr) return;
+    const long long now = clock64();
+    atomicAdd(out + k, (unsigned long long)(now - last));
+    last = now;
+  }
+  __device__ __forceinline__ void count(int k, int v = 1) {
+    if (out != nullptr) atomicAdd(out + k, (unsigned long long)v);
+  }
+};
+
+// Makes the stamp that follows wait for x (a load's or a chain's result).
+__device__ __forceinline__ void wait_for(double x) {
+  if (__double_as_longlong(x) == 0x7ff4dead0000beefLL) asm volatile("" ::: "memory");
 }
 
 __device__ __forceinline__ double warp_max(double v) {
@@ -122,15 +205,86 @@ __device__ double cluster_max(cg::cluster_group& cluster, double v, double* red,
   return m;
 }
 
+// The threshold test and the rotation of a pair (a_ii, a_jj, b_ij): both
+// regimes and the plain versions (ops/jacobi.py::eigh_rotations).
+__device__ __forceinline__ void pair_rotation(double aii, double ajj, double bij, double tol,
+                                              double s0, bool& rotate, bool& finite, double& cs,
+                                              double& sn) {
+  const double scale = fmax(__dsqrt_rn(fabs(aii * ajj)), s0);
+  rotate = fabs(bij) > tol * scale;
+  finite = isfinite(aii + ajj + bij);
+  rotation(rotate, __ddiv_rn(ajj - aii, 2.0 * (rotate ? bij : 1.0)), cs, sn);
+}
+
+// 1 / x and 1 / sqrt(x) for a positive normal x: the tensor-free
+// approximations of the special function unit refined by two Newton steps
+// each (to within an ulp or two: the correctly rounded divisions and roots
+// of `rotation` cost a chain of five long sequences an inner step).
+__device__ __forceinline__ double rcp_fast(double x) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  double e = fma(-x, y, 1.0);
+  y = fma(y, e, y);
+  e = fma(-x, y, 1.0);
+  return fma(y, e, y);
+}
+__device__ __forceinline__ double rsqrt_fast(double x) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  double e = fma(-x * y, y, 1.0);
+  y = fma(0.5 * y, e, y);
+  e = fma(-x * y, y, 1.0);
+  return fma(0.5 * y, e, y);
+}
+
+// The rotation of `rotation` for tau = d / e (e != 0), to within an ulp or
+// two of its correctly rounded values: t = sign(tau) |e| / (|d| + sqrt(d^2 +
+// e^2)), c = 1 / sqrt(1 + t^2), s = c t, where d and e are of a size whose
+// squares neither overflow nor underflow (the block regime's operands, which
+// the pipeline scales to max |a| = 1); the correctly rounded rule elsewhere.
+// With d = e = 0 it gives the identity; outside that range with `rotate`
+// false, the identity too (the result is not used).
+__device__ __forceinline__ void rotation_fast(bool rotate, double d, double e, double& cs,
+                                              double& sn) {
+  const double ad = fabs(d), ae = fabs(e), m = fmax(ad, ae);
+  if (!(m > 1e-140 && m < 1e140)) {
+    if (rotate)
+      rotation(true, __ddiv_rn(d, e), cs, sn);
+    else
+      cs = 1.0, sn = 0.0;
+    return;
+  }
+  const double r2 = fma(d, d, e * e);
+  double t = ae * rcp_fast(ad + r2 * rsqrt_fast(r2));
+  if (d != 0.0 && (d < 0.0) != (e < 0.0)) t = -t;  // tau < 0
+  const double c = rsqrt_fast(fma(t, t, 1.0));
+  cs = c;
+  sn = c * t;
+}
+
+// The block regime's threshold test: |b_ij| > tol max(sqrt(|a_ii a_jj|),
+// s0), the root as x / sqrt(x) to an ulp or two (NaN at x = 0, which fmax
+// replaces by s0, as it would 0).
+__device__ __forceinline__ bool pair_rotates(double aii, double ajj, double bij, double tol,
+                                             double s0) {
+  const double x = fabs(aii * ajj);
+  return fabs(bij) > tol * fmax(x * rsqrt_fast(x), s0);
+}
+
+// ---------------------------------------------------------------------------
+// The element regime
+// ---------------------------------------------------------------------------
+
 __global__ void __launch_bounds__(kMaxThreads, 1)
 jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, double floor_rel,
                    double* __restrict__ w_out, double* __restrict__ v_out,
-                   int* __restrict__ sweeps_out) {
+                   int* __restrict__ sweeps_out, long long* __restrict__ stamps) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int h = n / 2, ld = n | 1, nc = (n + ctas - 1) / ctas;
   const int c0 = rank * nc;
   const int own = max(0, min(n, c0 + nc) - c0);
+  const bool vectors = v_out != nullptr;
   extern __shared__ double smem[];
   double* copy0 = smem;
   double* copy1 = copy0 + nc * ld;
@@ -144,6 +298,7 @@ jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, do
   int* pinfo = jp + h;  // of owned column lc: 2 p + (it is the j of pair p)
   int* flags = pinfo + nc;  // this sweep: a rotation, a non-finite number
   const int tid = threadIdx.x, nthreads = blockDim.x;
+  Stamps st(stamps, stamps != nullptr && tid == 0 && rank == 0 && blockIdx.y == 0);
   // a thread's first item (owned column, row pair) of a step and its stride
   const int lc0 = tid / h, q0 = tid - lc0 * h, dl = nthreads / h, dq = nthreads - dl * h;
   const long long nn = (long long)n * n;
@@ -155,11 +310,14 @@ jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, do
     copy0[lc * ld + r] = x;
     amax = max_nan(amax, fabs(x));
   }
-  for (int e = tid; e < own * n; e += nthreads) {
-    const int lr = e / n, c = e - lr * n;
-    V[lr * ld + c] = c0 + lr == c ? 1.0 : 0.0;
+  if (vectors) {
+    for (int e = tid; e < own * n; e += nthreads) {
+      const int lr = e / n, c = e - lr * n;
+      V[lr * ld + c] = c0 + lr == c ? 1.0 : 0.0;
+    }
   }
   const double s0 = fmax(floor_rel * cluster_max(cluster, amax, red, ctas, rank), kTiny);
+  st.lap(0);
   double* cur = copy0;
   double* nxt = copy1;
   int sweeps = 0;
@@ -185,13 +343,24 @@ jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, do
           pinfo[j - c0] = 2 * p + 1;
         }
         const double aii = ci[i], ajj = cj[j], bij = 0.5 * (cj[i] + ci[j]);
-        const double scale = fmax(__dsqrt_rn(fabs(aii * ajj)), s0);
-        const bool rotate = fabs(bij) > tol * scale;
+        if (st.out != nullptr) {
+          wait_for(bij + aii + ajj);
+          st.lap(1);
+        }
+        bool rotate, finite;
+        double c, s;
+        pair_rotation(aii, ajj, bij, tol, s0, rotate, finite, c, s);
         if (rotate) flags[0] = 1;
-        if (!isfinite(aii + ajj + bij)) flags[1] = 1;
-        rotation(rotate, __ddiv_rn(ajj - aii, 2.0 * (rotate ? bij : 1.0)), cs[p], sn[p]);
+        if (!finite) flags[1] = 1;
+        cs[p] = c;
+        sn[p] = s;
+        if (st.out != nullptr) {
+          wait_for(c + s);
+          st.lap(2);
+        }
       }
       __syncthreads();
+      st.lap(3);
       // 2. item (owned column lc, row pair q): column lc of G^T A G at rows
       //    q into the other copy, and row lc of V G at the columns of pair q
       int lc = lc0, q = q0;
@@ -210,10 +379,12 @@ jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, do
         double* out = nxt + lc * ld;
         out[ri] = cq * ti - sq * tj;
         out[rj] = sq * ti + cq * tj;
-        double* vr = V + lc * ld;
-        const double vi = vr[ri], vj = vr[rj];
-        vr[ri] = cq * vi - sq * vj;
-        vr[rj] = sq * vi + cq * vj;
+        if (vectors) {
+          double* vr = V + lc * ld;
+          const double vi = vr[ri], vj = vr[rj];
+          vr[ri] = cq * vi - sq * vj;
+          vr[rj] = sq * vi + cq * vj;
+        }
         q += dq;
         lc += dl;
         if (q >= h) {
@@ -221,12 +392,15 @@ jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, do
           ++lc;
         }
       }
+      st.lap(4);
       // 3. no CTA reads a copy before it is complete or writes one that
       //    another still reads
       if (ctas == 1)
         __syncthreads();
       else
         cluster.sync();
+      st.lap(5);
+      st.count(7);
       double* t = cur;
       cur = nxt;
       nxt = t;
@@ -242,48 +416,466 @@ jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, do
   const double nan = __longlong_as_double(0x7ff8000000000000LL);
   for (int lc = tid; lc < own; lc += nthreads)
     w_out[blockIdx.y * (long long)n + c0 + lc] = bad ? nan : cur[lc * ld + c0 + lc];
-  double* vo = v_out + blockIdx.y * nn + (long long)c0 * n;
-  for (int e = tid; e < own * n; e += nthreads) {
-    const int lr = e / n, c = e - lr * n;
-    vo[e] = bad ? nan : V[lr * ld + c];
+  if (vectors) {
+    double* vo = v_out + blockIdx.y * nn + (long long)c0 * n;
+    for (int e = tid; e < own * n; e += nthreads) {
+      const int lr = e / n, c = e - lr * n;
+      vo[e] = bad ? nan : V[lr * ld + c];
+    }
   }
   if (rank == 0 && tid == 0 && sweeps_out != nullptr) sweeps_out[blockIdx.y] = sweeps;
+  st.lap(6);
+  st.count(8, sweeps);
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// The block regime
+// ---------------------------------------------------------------------------
 
-// a: nbatch contiguous symmetric (n, n) f64 matrices; w: nbatch n outputs,
-// v: nbatch (n, n) outputs, contiguous; sweeps: null, or nbatch ints that
-// receive each instance's sweeps.  tol: the plain version's
-// tol_for(n).  ctas, threads: ops/kernels.py::j2_plan.  One cluster of
-// ctas CTAs an instance; the dynamic shared memory limit is raised once
-// per device.
-extern "C" int ttipm_jacobi_eigh(const double* a, int nbatch, int n, double tol, double floor_rel,
-                                 double* w,
-                                 double* v, int* sweeps, int ctas, int threads,
-                                 void* stream) {
-  if (n < 2 || n > kMaxN || n % 2 != 0 || nbatch < 1 || nbatch > 65535 ||
-      (ctas != 1 && ctas != 2 && ctas != 4 && ctas != kMaxCtas) || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 || !(tol > 0.0) || !(floor_rel >= 0.0))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n, ctas);
-  if (smem > (size_t)kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
-  static unsigned raised = 0;  // one bit per device
+// D (16x8) += A (16x4) * B (4x8) on the f64 tensor cores (csrc/panel_cholesky.cu):
+// lane (g, t) = (lane / 4, lane % 4) holds A[g][t], A[g + 8][t], B[t][g] and
+// D[g][2t..2t+1], D[g + 8][2t..2t+1].
+__device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The position the round robin of order np moves position p to (position
+// 0 stays, np - 1 goes to 1, the others one up), and the slot and half
+// that hold a position.
+__device__ __forceinline__ int next_position(int np, int p) {
+  return p == 0 ? 0 : (p == np - 1 ? 1 : p + 1);
+}
+__device__ __forceinline__ int slot_of(int np, int p) { return p < np / 2 ? p : np - 1 - p; }
+__device__ __forceinline__ int half_of(int np, int p) { return p < np / 2 ? 0 : 1; }
+
+__global__ void __launch_bounds__(kBlockThreads, 1)
+jacobi_eigh_block_kernel(const double* __restrict__ a, int n, double tol, double floor_rel,
+                         double* __restrict__ w_out, double* __restrict__ v_out,
+                         int* __restrict__ sweeps_out, long long* __restrict__ stamps) {
+  constexpr int kM = 2 * kB;      // order of a slot's tile
+  constexpr int kH = kB;          // pairs of an inner step
+  constexpr int kLdS = kM + 1;    // the tile's leading dimension
+  constexpr int kLdU = kM + 4;    // U's: conflict-free tensor core fragments
+  constexpr int kItems = kH * kH / kBlockThreads;  // 2 x 2 blocks of a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = (int)gridDim.x;
+  const int rank = (int)cluster.block_rank();  // the slot
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int g = lane >> 2, t = lane & 3;  // the tensor core fragment coordinates
+  const int nb = (n + kB - 1) / kB, np = 2 * ctas;
+  const int ld = block_ld(n);
+  const int strips = (n + 15) / 16;  // row strips of 16 of the column products
+  const bool vectors = v_out != nullptr;
+  extern __shared__ __align__(16) double block_smem[];
+  // virtual column h kB + j (block of half h, its column j) at acur + col ld
+  const int panel = kM * ld, tiles = 2 * kM * kLdS, copy = panel > tiles ? panel : tiles;
+  double* acur = block_smem;
+  double* anxt = acur + copy;
+  double* utab = anxt + copy;  // slot s's U at utab + s kM kLdU
+  double* rcs = utab + ctas * kM * kLdU;  // parity r: cs at rcs + 2 kB r, sn kB further
+  double* red = rcs + 4 * kB;             // kMaxBlockCtas: each CTA's max |a|
+  int* flags = reinterpret_cast<int*>(red + kMaxBlockCtas);  // slot s: 1 rotated, 2 non-finite
+  int* vote = flags + kMaxBlockCtas;      // an inner step's rotation, two parities
+  double* umine = utab + rank * kM * kLdU;
+  Stamps st(stamps, stamps != nullptr && tid == 0 && rank == 0 && blockIdx.y == 0);
+  const long long nn = (long long)n * n;
+  const double* ab = a + blockIdx.y * nn;
+  double* vb = vectors ? v_out + blockIdx.y * nn : nullptr;
+  auto width = [&](int blk) { return blk < nb ? min(kB, n - blk * kB) : 0; };
+
+  // The columns of the blocks at positions rank and np - 1 - rank of step
+  // 0 (where every sweep ends), all rows, zeros past the order; V = I on
+  // them; this CTA's max |a|.
+  {
+    const int P = schedule_index(np, 0, rank), Q = schedule_index(np, 0, np - 1 - rank);
+    double amax = 0.0;
+    for (int e = tid; e < ld * kM; e += nthreads) {
+      const int r = e / kM, vc = e - r * kM;
+      const int blk = vc < kB ? P : Q, j = vc < kB ? vc : vc - kB;
+      const bool real = r < n && j < width(blk);
+      const double x = real ? ab[(long long)r * n + blk * kB + j] : 0.0;
+      acur[vc * ld + r] = x;
+      amax = max_nan(amax, fabs(x));
+    }
+    if (vectors) {
+      for (int e = tid; e < n * kM; e += nthreads) {
+        const int r = e / kM, vc = e - r * kM;
+        const int blk = vc < kB ? P : Q, j = vc < kB ? vc : vc - kB;
+        if (j < width(blk)) {
+          const int c = blk * kB + j;
+          __stcg(vb + (long long)r * n + c, r == c ? 1.0 : 0.0);
+        }
+      }
+    }
+    amax = warp_max(amax);
+    if (lane == 0) anxt[warp] = amax;
+    __syncthreads();
+    if (tid == 0) {
+      double m = anxt[0];
+      for (int w = 1; w < nwarps; ++w) m = max_nan(m, anxt[w]);
+      for (int r = 0; r < ctas; ++r) cluster.map_shared_rank(red, r)[rank] = m;
+    }
+    cluster.sync();
+  }
+  double amax_all = red[0];
+  for (int r = 1; r < ctas; ++r) amax_all = max_nan(amax_all, red[r]);
+  const double s0 = fmax(floor_rel * amax_all, kTiny);
+  st.lap(0);
+
+  int sweeps = 0;
+  bool failed = true;
+  while (sweeps < kMaxSweeps) {
+    bool sweep_rotated = false, sweep_bad = false;
+    for (int k = 0; k < np - 1; ++k) {
+      const int P = schedule_index(np, k, rank), Q = schedule_index(np, k, np - 1 - rank);
+      const int wP = width(P), wQ = width(Q);
+      // the global row of virtual index v of slot (P, Q), -1 where empty
+      auto vrow = [&](int v, int bp, int bq, int wp, int wq) {
+        return v < kB ? (v < wp ? bp * kB + v : -1) : (v - kB < wq ? bq * kB + v - kB : -1);
+      };
+
+      // 1. the inner problem: one sweep of the element rule on the tile
+      double* scur = anxt;
+      double* snxt = anxt + kM * kLdS;
+      for (int e = tid; e < kM * kM; e += nthreads) {
+        const int vi = e / kM, vj = e - vi * kM;
+        const int ri = vrow(vi, P, Q, wP, wQ), rj = vrow(vj, P, Q, wP, wQ);
+        scur[vi * kLdS + vj] = ri >= 0 && rj >= 0 ? acur[vj * ld + ri] : 0.0;
+        umine[vi * kLdU + vj] = vi == vj ? 1.0 : 0.0;
+      }
+      __syncthreads();
+      st.lap(2);
+      bool rotated = false, bad = false;
+      // the thread's pairs' indices at step 0, moved along with the steps
+      // (an index x > 0 goes to x - 1, 1 to kM - 1)
+      int idx[kItems][4];
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int item = tid + it * kBlockThreads, p = item / kH, q = item - p * kH;
+        idx[it][0] = schedule_index(kM, 0, p);
+        idx[it][1] = schedule_index(kM, 0, kM - 1 - p);
+        idx[it][2] = schedule_index(kM, 0, q);
+        idx[it][3] = schedule_index(kM, 0, kM - 1 - q);
+      }
+      int ri = schedule_index(kM, 0, tid), rj = schedule_index(kM, 0, kM - 1 - tid);
+      // a quiet tile: every pair's test at once on the tile as it is; where
+      // none would rotate, no step changes the tile, so the sweep is that
+      // test (its non-finite numbers included) and is skipped
+      {
+        bool any = false;
+        for (int e = tid; e < kM * kM; e += nthreads) {
+          const int i = e / kM, j = e - i * kM;
+          if (i >= j) continue;
+          const double aii = scur[i * kLdS + i], ajj = scur[j * kLdS + j];
+          const double bij = 0.5 * (scur[i * kLdS + j] + scur[j * kLdS + i]);
+          any |= pair_rotates(aii, ajj, bij, tol, s0);
+          bad |= !isfinite(aii + ajj + bij);
+        }
+        if (!__syncthreads_or(any)) {
+          bad = __syncthreads_or(bad);
+          st.count(15);
+          st.lap(1);
+          goto inner_done;
+        }
+      }
+      for (int k2 = 0; k2 < kM - 1; ++k2) {
+        const int par = k2 & 1;
+        double* rc = rcs + 2 * kB * par;
+        double* rs = rc + kB;
+        if (tid < kH) {
+          double c = 1.0, s = 0.0;
+          const double aii = scur[ri * kLdS + ri], ajj = scur[rj * kLdS + rj];
+          const double bij = 0.5 * (scur[ri * kLdS + rj] + scur[rj * kLdS + ri]);
+          // the rotation is computed alongside the test, whose result then
+          // selects it: the two chains overlap
+          const bool rotate = pair_rotates(aii, ajj, bij, tol, s0);
+          rotation_fast(rotate, ajj - aii, 2.0 * bij, c, s);
+          if (!rotate) c = 1.0, s = 0.0;
+          rotated |= rotate;
+          bad |= !isfinite(aii + ajj + bij);
+          rc[tid] = c;
+          rs[tid] = s;
+          const unsigned any = __any_sync((1u << kH) - 1u, rotate);
+          if (tid == 0) vote[par] = any ? 1 : 0;
+          if (st.out != nullptr) {
+            wait_for(c + s);
+            st.lap(1);
+          }
+        }
+        ri = ri == 0 ? 0 : (ri == 1 ? kM - 1 : ri - 1);
+        rj = rj == 0 ? 0 : (rj == 1 ? kM - 1 : rj - 1);
+        __syncthreads();
+        st.lap(3);
+        if (vote[par] != 0) {
+          st.count(13);
+#pragma unroll
+          for (int it = 0; it < kItems; ++it) {
+            const int item = tid + it * kBlockThreads;
+            const int p = item / kH, q = item - p * kH;
+            const int ip = idx[it][0], jp = idx[it][1], iq = idx[it][2], jq = idx[it][3];
+            const double cp = rc[p], sp = rs[p], cq = rc[q], sq = rs[q];
+            const double x = scur[ip * kLdS + iq], y = scur[ip * kLdS + jq];
+            const double z = scur[jp * kLdS + iq], u = scur[jp * kLdS + jq];
+            double* u0 = umine + ip * kLdU;
+            double* u1 = umine + jp * kLdU;
+            const double a0 = u0[iq], b0 = u0[jq], a1 = u1[iq], b1 = u1[jq];
+            // the columns (iq, jq), then the rows (ip, jp): G_p^T S G_q
+            const double ti = cq * x - sq * y, tj = sq * x + cq * y;
+            const double ui = cq * z - sq * u, uj = sq * z + cq * u;
+            snxt[ip * kLdS + iq] = cp * ti - sp * ui;
+            snxt[jp * kLdS + iq] = sp * ti + cp * ui;
+            snxt[ip * kLdS + jq] = cp * tj - sp * uj;
+            snxt[jp * kLdS + jq] = sp * tj + cp * uj;
+            // U <- U G_q on rows ip and jp
+            u0[iq] = cq * a0 - sq * b0;
+            u0[jq] = sq * a0 + cq * b0;
+            u1[iq] = cq * a1 - sq * b1;
+            u1[jq] = sq * a1 + cq * b1;
+          }
+          st.lap(2);
+          __syncthreads();
+          st.lap(3);
+          double* tmp = scur;
+          scur = snxt;
+          snxt = tmp;
+        }
+#pragma unroll
+        for (int it = 0; it < kItems; ++it) {
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            const int x = idx[it][z];
+            idx[it][z] = x == 0 ? 0 : (x == 1 ? kM - 1 : x - 1);
+          }
+        }
+      }
+      rotated = __syncthreads_or(rotated);
+      bad = __syncthreads_or(bad);
+      st.count(12, kM - 1);
+      st.lap(3);
+    inner_done:
+      // unit columns of U (a rotation whose t^2 is below half an ulp of 1
+      // keeps c = 1 and lengthens its columns by t^2; the inner sweeps
+      // rotate an index twice as often as the element rule, and V <- V U
+      // would add the lengths up): kM / 8 lanes a column, then a division
+      if (rotated) {
+        constexpr int kPer = 8;  // rows a thread sums
+        double* norms = rcs;     // kM of them (the rotations are done with)
+        for (int col = tid / (kM / kPer); col < kM; col += nthreads / (kM / kPer)) {
+          const int r0 = (tid % (kM / kPer)) * kPer;
+          double ss = 0.0;
+#pragma unroll
+          for (int r = 0; r < kPer; ++r) ss = fma(umine[(r0 + r) * kLdU + col], umine[(r0 + r) * kLdU + col], ss);
+#pragma unroll
+          for (int off = 1; off < kM / kPer; off <<= 1) ss += __shfl_xor_sync(kFull, ss, off);
+          if (r0 == 0) norms[col] = __dsqrt_rn(ss);
+        }
+        __syncthreads();
+        for (int e = tid; e < kM * kM; e += nthreads) {
+          const int r = e / kM, col = e - r * kM;
+          umine[r * kLdU + col] = __ddiv_rn(umine[r * kLdU + col], norms[col]);
+        }
+        __syncthreads();
+      }
+      st.lap(2);
+
+      // 2. U and the flags to every CTA (stores only)
+      if (tid == 0) {
+        const int f = (rotated ? 1 : 0) | (bad ? 2 : 0);
+        for (int r = 0; r < ctas; ++r) cluster.map_shared_rank(flags, r)[rank] = f;
+      }
+      if (rotated) {
+        constexpr int kPairs = kM * kLdU / 2;
+        const double2* src = reinterpret_cast<const double2*>(umine);
+        for (int d = 1; d < ctas; ++d) {
+          const int r = rank + d < ctas ? rank + d : rank + d - ctas;
+          double2* dst = reinterpret_cast<double2*>(cluster.map_shared_rank(umine, r));
+          for (int e = tid; e < kPairs; e += nthreads) dst[e] = src[e];
+        }
+      }
+      st.lap(4);
+
+      // 3. the columns: A[:, P u Q] U in place, V[:, P u Q] U in device
+      //    memory; a warp owns a strip of 16 rows (it reads the whole strip
+      //    before it writes)
+      if (rotated) {
+        for (int sidx = warp; sidx < strips; sidx += nwarps) {
+          const int m0 = sidx * 16, r0 = m0 + g, r1 = m0 + g + 8;
+          double acc[kM / 8][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < kM / 4; ++kk) {
+            const int vc = 4 * kk + t;
+            const bool real = vrow(vc, P, Q, wP, wQ) >= 0;
+            const double a0 = real && r0 < n ? acur[vc * ld + r0] : 0.0;
+            const double a1 = real && r1 < n ? acur[vc * ld + r1] : 0.0;
+#pragma unroll
+            for (int nt = 0; nt < kM / 8; ++nt) dmma(acc[nt], a0, a1, umine[vc * kLdU + 8 * nt + g]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < kM / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int vc = 8 * nt + 2 * t + e;
+              if (vrow(vc, P, Q, wP, wQ) < 0) continue;
+              if (r0 < n) acur[vc * ld + r0] = acc[nt][e];
+              if (r1 < n) acur[vc * ld + r1] = acc[nt][2 + e];
+            }
+          }
+        }
+        st.lap(5);
+        if (vectors) {
+          for (int sidx = warp; sidx < strips; sidx += nwarps) {
+            const int m0 = sidx * 16, r0 = m0 + g, r1 = m0 + g + 8;
+            double acc[kM / 8][4] = {};
+#pragma unroll
+            for (int kk = 0; kk < kM / 4; ++kk) {
+              const int vc = 4 * kk + t, c = vrow(vc, P, Q, wP, wQ);
+              const double a0 = c >= 0 && r0 < n ? __ldcg(vb + (long long)r0 * n + c) : 0.0;
+              const double a1 = c >= 0 && r1 < n ? __ldcg(vb + (long long)r1 * n + c) : 0.0;
+#pragma unroll
+              for (int nt = 0; nt < kM / 8; ++nt)
+                dmma(acc[nt], a0, a1, umine[vc * kLdU + 8 * nt + g]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < kM / 8; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = vrow(8 * nt + 2 * t + e, P, Q, wP, wQ);
+                if (c < 0) continue;
+                if (r0 < n) __stcg(vb + (long long)r0 * n + c, acc[nt][e]);
+                if (r1 < n) __stcg(vb + (long long)r1 * n + c, acc[nt][2 + e]);
+              }
+            }
+          }
+        }
+        st.lap(6);
+      }
+
+      // 4. every slot's U and flags are in every CTA; the columns are done
+      cluster.sync();
+      st.lap(7);
+      unsigned identity = 0;  // bit s: slot s did not rotate
+      for (int s = 0; s < ctas; ++s) {
+        const int f = flags[s];
+        sweep_rotated |= (f & 1) != 0;
+        sweep_bad |= (f & 2) != 0;
+        if (!(f & 1)) identity |= 1u << s;
+      }
+
+      // 5. the rows and the shift: item (half h, tile of 8 columns ct, slot
+      //    s) applies slot s's U^T to its rows of the tile's columns and
+      //    stores them where the round robin moves the half's block column
+      constexpr int kTiles = kB / 8;
+      for (int item = warp; item < 2 * kTiles * ctas; item += nwarps) {
+        const int s = item % ctas, ct = (item / ctas) % kTiles, h = item / (ctas * kTiles);
+        const int wh = h == 0 ? wP : wQ;
+        const int col = ct * 8 + g;  // the lane's column in the half (B fragment)
+        if (ct * 8 >= wh) continue;
+        const int pos = h == 0 ? rank : np - 1 - rank, npos = next_position(np, pos);
+        const int dslot = slot_of(np, npos), dh = half_of(np, npos);
+        double* dst = dslot == rank ? anxt : cluster.map_shared_rank(anxt, dslot);
+        double* dcol = dst + (dh * kB + ct * 8) * ld;
+        const double* scol = acur + (h * kB + ct * 8) * ld;
+        const int Ps = schedule_index(np, k, s), Qs = schedule_index(np, k, np - 1 - s);
+        const int wPs = width(Ps), wQs = width(Qs);
+        if (identity >> s & 1) {
+          for (int e = lane; e < kM * 8; e += 32) {
+            const int v = e >> 3, c = e & 7, r = vrow(v, Ps, Qs, wPs, wQs);
+            if (r >= 0 && ct * 8 + c < wh) dcol[c * ld + r] = scol[c * ld + r];
+          }
+          continue;
+        }
+        const double* us = utab + s * kM * kLdU;
+        double acc[kM / 16][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kM / 4; ++kk) {
+          const int vr = 4 * kk + t, r = vrow(vr, Ps, Qs, wPs, wQs);
+          const double b = r >= 0 && col < wh ? scol[g * ld + r] : 0.0;
+#pragma unroll
+          for (int mt = 0; mt < kM / 16; ++mt)
+            dmma(acc[mt], us[vr * kLdU + 16 * mt + g], us[vr * kLdU + 16 * mt + g + 8], b);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kM / 16; ++mt) {
+          const int r0 = vrow(16 * mt + g, Ps, Qs, wPs, wQs);
+          const int r1 = vrow(16 * mt + g + 8, Ps, Qs, wPs, wQs);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 2 * t + e;
+            if (ct * 8 + c >= wh) continue;
+            if (r0 >= 0) dcol[c * ld + r0] = acc[mt][e];
+            if (r1 >= 0) dcol[c * ld + r1] = acc[mt][2 + e];
+          }
+        }
+      }
+      st.lap(8);
+      // 6. the next step's columns are complete everywhere
+      cluster.sync();
+      st.lap(9);
+      st.count(11);
+      double* tmp = acur;
+      acur = anxt;
+      anxt = tmp;
+    }
+    ++sweeps;
+    failed = sweep_rotated || sweep_bad;
+    if (!failed || sweep_bad) break;
+  }
+
+  // w (the diagonal) and, for an instance that failed, NaN in w and in
+  // this CTA's columns of V; the blocks are where step 0 put them
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  const int P = schedule_index(np, 0, rank), Q = schedule_index(np, 0, np - 1 - rank);
+  const int wP = width(P), wQ = width(Q);
+  for (int vc = tid; vc < kM; vc += nthreads) {
+    const int blk = vc < kB ? P : Q, j = vc < kB ? vc : vc - kB;
+    if (j >= (vc < kB ? wP : wQ)) continue;
+    const int c = blk * kB + j;
+    w_out[blockIdx.y * (long long)n + c] = failed ? nan : acur[vc * ld + c];
+  }
+  if (failed && vectors) {
+    for (int e = tid; e < n * kM; e += nthreads) {
+      const int r = e / kM, vc = e - r * kM;
+      const int blk = vc < kB ? P : Q, j = vc < kB ? vc : vc - kB;
+      if (j < (vc < kB ? wP : wQ)) __stcg(vb + (long long)r * n + blk * kB + j, nan);
+    }
+  }
+  if (rank == 0 && tid == 0 && sweeps_out != nullptr) sweeps_out[blockIdx.y] = sweeps;
+  st.lap(10);
+  st.count(14, sweeps);
+}
+
+// Raises the kernel's dynamic shared memory limit (and, for a cluster
+// above 8 CTAs, allows it) once per device.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, unsigned& done, bool nonportable) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (!(raised & bit)) {
-    err = cudaFuncSetAttribute(jacobi_eigh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxDynamicSmem);
-    if (err != cudaSuccess) return (int)err;
-    raised |= bit;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxDynamicSmem);
+  if (err != cudaSuccess) return err;
+  if (nonportable) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
   }
+  done |= bit;
+  return cudaSuccess;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int ctas, int nbatch, int threads, size_t smem,
+                           cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas, nbatch);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = ctas;
@@ -291,8 +883,69 @@ extern "C" int ttipm_jacobi_eigh(const double* a, int nbatch, int n, double tol,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_kernel, a, n, ctas, tol, floor_rel, w, v,
-                           sweeps);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+int launch(const double* a, int nbatch, int n, double tol, double floor_rel, double* w, double* v,
+           int* sweeps, int block, int ctas, int threads, long long* stamps, void* stream) {
+  if (n < 2 || n > kMaxN || n % 2 != 0 || nbatch < 1 || nbatch > 65535 || !(tol > 0.0) ||
+      !(floor_rel >= 0.0))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (block == 0) {
+    if ((ctas != 1 && ctas != 2 && ctas != 4 && ctas != kMaxCtas) || threads < 32 ||
+        threads > kMaxThreads || threads % 32 != 0)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(n, ctas);
+    if (smem > (size_t)kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+    static unsigned done = 0;
+    if ((err = prepare(jacobi_eigh_kernel, done, false)) != cudaSuccess) return (int)err;
+    return (int)launch_cluster(jacobi_eigh_kernel, ctas, nbatch, threads, smem, st, a, n, ctas,
+                               tol, floor_rel, w, v, sweeps, stamps);
+  }
+  const int nb = (n + kB - 1) / kB;
+  if (block != kB || ctas != (nb + nb % 2) / 2 || ctas > kMaxBlockCtas || threads != kBlockThreads)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = block_smem_bytes(n, ctas);
+  if (smem > (size_t)kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+  static unsigned done = 0;
+  if ((err = prepare(jacobi_eigh_block_kernel, done, true)) != cudaSuccess) return (int)err;
+  return (int)launch_cluster(jacobi_eigh_block_kernel, ctas, nbatch, threads, smem, st, a, n, tol,
+                             floor_rel, w, v, sweeps, stamps);
+}
+
+}  // namespace
+
+// a: nbatch contiguous symmetric (n, n) f64 matrices; w: nbatch n outputs;
+// v: nbatch (n, n) outputs, contiguous, or null (the eigenvalues alone);
+// sweeps: null, or nbatch ints that receive each instance's sweeps (outer
+// sweeps in the block regime).  tol: the plain version's tol_for(n).
+// block, ctas, threads: ops/kernels.py::j2_plan (block 0: the element
+// regime; 16: the block regime).  One cluster of ctas
+// CTAs an instance.
+extern "C" int ttipm_jacobi_eigh(const double* a, int nbatch, int n, double tol, double floor_rel,
+                                 double* w, double* v, int* sweeps, int block, int ctas,
+                                 int threads, void* stream) {
+  return launch(a, nbatch, n, tol, floor_rel, w, v, sweeps, block, ctas, threads, nullptr,
+                stream);
+}
+
+// The same factorization of one instance with CTA 0's clock stamps in
+// stamps (kStamps int64 zeros): the cycles of each part of the run summed
+// over it, then counts (ops/kernels.py::J2_STAMP_PARTS).  Element regime:
+// setup, the remote loads of a step's rotation inputs, the rotations, the
+// wait for the other threads' rotations, the update, the cluster barrier,
+// the store; steps, sweeps.  Block regime: setup, the inner steps'
+// rotations, their updates (and tile loads), their barriers, the U push,
+// the column product of A, of V, barrier 1, the row product and shift,
+// barrier 2, the store; outer steps, inner steps, inner steps that
+// rotated, sweeps, inner sweeps skipped as quiet (their steps not counted).
+extern "C" int ttipm_jacobi_eigh_stamps(const double* a, int n, double tol, double floor_rel,
+                                        double* w, double* v, int block, int ctas, int threads,
+                                        long long* stamps, void* stream) {
+  if (stamps == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(a, 1, n, tol, floor_rel, w, v, nullptr, block, ctas, threads, stamps, stream);
 }

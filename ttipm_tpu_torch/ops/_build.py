@@ -112,7 +112,8 @@ def load_library() -> ctypes.CDLL:
         "ttipm_empty_launch": [p],
         "ttipm_panel_qr_stamps": [p, p, p, i, i, i, i, p, p, p],
         "ttipm_jacobi_svd": [p, i, i, f, f, p, p, p, p, i, p],      # float64 only
-        "ttipm_jacobi_eigh": [p, i, i, f, f, p, p, p, i, i, p],
+        "ttipm_jacobi_eigh": [p, i, i, f, f, p, p, p, i, i, i, p],
+        "ttipm_jacobi_eigh_stamps": [p, i, f, f, p, p, i, i, i, p, p],
         "ttipm_error_string": [i],
     }
     restypes = {"ttipm_error_string": ctypes.c_char_p, "ttipm_panel_cholesky_workspace": ll,

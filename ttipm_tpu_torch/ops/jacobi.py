@@ -26,8 +26,12 @@ instance; short reductions taken an instance at a time on the card).
 
 The plain versions run the JAX package's schedule (``_round_robin``), its
 rotation rules (``_svd_rotations`` and the eigh rule of
-``_jacobi_eigh_core``), its tolerance (``_tol_for``) and its stop test,
-with these deliberate deviations (ROADMAP "Deliberate deviations"):
+``_jacobi_eigh_core``), its tolerance (``_tol_for``) and its stop test.
+J2 has two regimes by order (``kernels.j2_plan``), each with its plain
+version: the element rule (``eigh_core_plain``) and, from
+``kernels.J2_BLOCK_FROM`` on, a two-level (block) Jacobi whose inner sweeps
+apply the same rule to pairs of blocks of 16 indices (``eigh_block_plain``).
+The deliberate deviations (ROADMAP "Deliberate deviations"):
 
 * a rotation whose tau is exactly 0 turns by 45 degrees (t = 1, Golub and
   Van Loan's ``symSchur2``), where ``jnp.sign(0) = 0`` leaves the pair
@@ -39,6 +43,9 @@ with these deliberate deviations (ROADMAP "Deliberate deviations"):
   the matrix after each sweep: with the JAX rules a null space, columns
   of rounding noise or a pair at the threshold kept sweeps going to the
   cap in the maxcut d10 solve, which here means NaN;
+* J2's block regime rotates a pair within a block once an outer step,
+  and normalises the columns of each pair of blocks' U before the outer
+  products (``eigh_block_plain``); eigvalsh skips V;
 * the f32 pre-rotation of the tall pipeline (``:172-181``, ``:190``) and
   ``jacobi_svd_fast`` (``:234-256``) exist because the TPU emulates f64;
   the port rotates r2^T, r2 from a second QR of r^T, instead of r
@@ -64,8 +71,8 @@ import torch
 from ttipm_tpu_torch.ops import kernels
 
 __all__ = ["TINY", "MAX_SWEEPS", "tol_for", "round_robin", "svd_rotations", "eigh_rotations",
-           "orthogonalise_plain", "eigh_core_plain", "sort_eigenpairs", "jacobi_svd",
-           "jacobi_eigh", "force_jacobi", "forced", "use_jacobi"]
+           "orthogonalise_plain", "eigh_core_plain", "eigh_block_plain", "sort_eigenpairs",
+           "jacobi_svd", "jacobi_eigh", "force_jacobi", "forced", "use_jacobi"]
 
 # The JAX package's guard for its f64 emulation (``ttipm_tpu/ops/jacobi.py:46``),
 # kept: it sets the zero-column and zero-diagonal limits of the stop tests.
@@ -146,24 +153,26 @@ def _masked(rotate, tau):
 
 def _rotate_columns(x, i, j, cs, sn):
     """x with columns i, j (index tensors of one step) replaced by
-    cs x_i - sn x_j and sn x_i + cs x_j; cs, sn (B, h)."""
-    xi, xj = x[:, :, i], x[:, :, j]
-    cs, sn = cs[:, None, :], sn[:, None, :]
+    cs x_i - sn x_j and sn x_i + cs x_j; cs, sn (..., h), x (..., rows,
+    columns)."""
+    xi, xj = x[..., i], x[..., j]
+    cs, sn = cs[..., None, :], sn[..., None, :]
     out = x.clone()
-    out[:, :, i] = cs * xi - sn * xj
-    out[:, :, j] = sn * xi + cs * xj
+    out[..., i] = cs * xi - sn * xj
+    out[..., j] = sn * xi + cs * xj
     return out
 
 
 def _sweeps(state, one_step, n):
-    """Sweeps of ``one_step`` over the round-robin steps on every instance
-    not yet converged, at most MAX_SWEEPS: an instance has converged after a
-    sweep in which no pair was rotated (every pair below its threshold,
-    judged on the numbers the rotations read; the matrix is then unchanged).
-    ``one_step`` returns the new state, which instances rotated a pair and
-    which met a non-finite number.  Returns the state, whether each instance
-    failed (a non-finite number in its last sweep, or rotations still in its
-    MAX_SWEEPS-th) and its sweeps."""
+    """Sweeps of ``one_step`` over the steps of the round robin of order n
+    on every instance not yet converged, at most MAX_SWEEPS: an instance
+    has converged after a sweep in which no pair was rotated (every pair
+    below its threshold, judged on the numbers the rotations read; the
+    matrix is then unchanged).  ``one_step(state, ii, jj)`` takes step k's
+    pairs (ii[k], jj[k]) and returns the new state, which instances rotated
+    a pair and which met a non-finite number.  Returns the state, whether
+    each instance failed (a non-finite number in its last sweep, or
+    rotations still in its MAX_SWEEPS-th) and its sweeps."""
     B = state[0].shape[0]
     dev = state[0].device
     ii, jj = _schedule(n, dev)
@@ -270,6 +279,91 @@ def eigh_core_plain(a, sweeps=False):
     return (*out, count) if sweeps else out
 
 
+def eigh_block_plain(a, sweeps=False):
+    """Plain version of J2's block regime (``csrc/jacobi_eigh.cu``, the
+    orders ``kernels.j2_plan`` gives it): two-level cyclic Jacobi of each
+    symmetric instance of ``a`` (B, n, n), n even, with blocks of
+    ``kernels.J2_BLOCK`` (16) indices.  Returns what ``eigh_core_plain``
+    returns.
+
+    The n indices are cut into nb = ceil(n / block) blocks, the last one
+    ragged, and nb is rounded up to even with an empty block (here: the
+    matrix padded with zero rows and columns, which never rotate).  An
+    outer sweep runs the round robin of order nb over the blocks; its step
+    pairs them into nb / 2 slots (P, Q).  Each slot's 2 block x 2 block
+    diagonal tile A[P u Q, P u Q] gets one cyclic sweep of the element rule
+    (the round robin of order 2 block, ``eigh_rotations`` with tol_for(n)
+    and the floor EIGH_FLOOR max |a|), whose rotations multiply into an
+    orthogonal U of the slot; then A <- W^T A W and V <- V W, W the block
+    diagonal of the slots' U (the kernel's products on the tensor cores).
+    The outer sweeps stop after one in which no inner sweep rotated, at
+    most MAX_SWEEPS (see ``_sweeps``); an instance that still rotated in the
+    last, or met a non-finite number, comes out NaN.  The stop test is the
+    element one: after a sweep without a rotation every pair of indices has
+    met, in some slot, on the matrix as it now is."""
+    B, n, _ = a.shape
+    block = kernels.J2_BLOCK
+    nb = -(-n // block)
+    nb += nb % 2
+    m, npad, slots = 2 * block, nb * block, nb // 2
+    dev = a.device
+    tol = tol_for(n)
+    floor = EIGH_FLOOR * a.abs().amax(dim=(1, 2))[:, None, None]
+    x0 = torch.zeros((B, npad, npad), dtype=a.dtype, device=dev)
+    x0[:, :n, :n] = a
+    v0 = torch.eye(npad, dtype=a.dtype, device=dev).expand(B, npad, npad)
+    eye_m = torch.eye(m, dtype=a.dtype, device=dev)
+    ii, jj = _schedule(m, dev)
+    offsets = torch.arange(block, device=dev)
+
+    def inner_sweep(s):
+        """One sweep of the element rule on each tile of s (B, slots, m, m):
+        the product U of its rotations, whether a pair rotated and whether
+        one met a non-finite number, per slot.  A step's rotations (the
+        pairs cover the tile) as one orthogonal G: S <- G^T S G, U <- U G."""
+        u = eye_m.expand_as(s)
+        rotated = torch.zeros(s.shape[:2], dtype=torch.bool, device=dev)
+        bad = torch.zeros_like(rotated)
+        for k in range(m - 1):
+            i, j = ii[k], jj[k]
+            aii, ajj, bij = s[..., i, i], s[..., j, j], 0.5 * (s[..., i, j] + s[..., j, i])
+            cs, sn, rotate = eigh_rotations(aii, ajj, bij, tol, floor)
+            rotated = rotated | rotate.any(-1)
+            bad = bad | ~torch.isfinite(aii + ajj + bij).all(-1)
+            g = torch.zeros_like(s)
+            g[..., i, i] = cs
+            g[..., j, j] = cs
+            g[..., i, j] = sn
+            g[..., j, i] = -sn
+            s = g.mT @ (s @ g)
+            u = u @ g
+        # a rotation whose t^2 is below half an ulp of 1 keeps c = 1 and so
+        # lengthens its columns by t^2: the inner sweeps rotate an index
+        # some 2n times a sweep, twice the element rule's, and V <- V U
+        # would add those lengths up; unit columns leave rounding alone
+        return u / torch.linalg.vector_norm(u, dim=-2, keepdim=True), rotated, bad
+
+    def one_step(state, bi, bj):
+        x, v = state
+        # the indices of slot s in order: block bi[s], then block bj[s]
+        perm = ((torch.stack([bi, bj], 1) * block)[:, :, None] + offsets).reshape(-1)
+        xp = x[:, perm][:, :, perm].reshape(B, slots, m, slots, m)
+        u, rotated, bad = inner_sweep(torch.diagonal(xp, dim1=1, dim2=3).permute(0, 3, 1, 2))
+        xp = torch.einsum("bsitk,btkl->bsitl", xp, u)  # the columns: A W
+        xp = torch.einsum("bski,bsktl->bsitl", u, xp)  # the rows: W^T (A W)
+        x = x.clone()
+        x[:, perm[:, None], perm] = xp.reshape(B, npad, npad)
+        v = v.clone()
+        v[:, :, perm] = torch.einsum("bnsk,bskl->bnsl",
+                                     v[:, :, perm].reshape(B, npad, slots, m), u).reshape(B, npad, npad)
+        return (x, v), rotated.any(1), bad.any(1)
+
+    (x, v), failed, count = _sweeps((x0, v0), one_step, nb)
+    w = torch.diagonal(x, dim1=1, dim2=2)[:, :n]
+    out = sort_eigenpairs(*_nan_where(failed, w, v[:, :n, :n]))
+    return (*out, count) if sweeps else out
+
+
 def sort_eigenpairs(w, v):
     """Eigenvalues ascending and their vectors, ties in index order."""
     order = torch.argsort(w, dim=-1, stable=True)
@@ -370,31 +464,40 @@ def jacobi_svd(a):
     return u.reshape(*lead, m, k), s.reshape(*lead, k), vt.reshape(*lead, k, n)
 
 
-def jacobi_eigh(a):
+def jacobi_eigh(a, vectors=True):
     """Eigenvalues ascending and eigenvectors of each symmetric instance of
-    ``a`` (..., n, n) (``jacobi_eigh``, ``:431-452``).  An odd order is
-    padded with a decoupled zero row and column, and the eigenpair whose
-    vector is e_n is dropped.  Outside J2's envelope ``torch.linalg.eigh``
-    (counted)."""
+    ``a`` (..., n, n) (``jacobi_eigh``, ``:431-452``); with ``vectors``
+    false the eigenvalues alone (J2 without V: the same bits).  An odd
+    order is padded with a decoupled zero row and column, and the
+    eigenpair whose vector is e_n is dropped: that index never rotates, so
+    its value is an exact zero, and the stable sort puts it after every
+    other zero, where the values-only call finds it.  Outside J2's envelope
+    ``torch.linalg.eigh`` (counted)."""
     lead, n = a.shape[:-2], a.shape[-1]
     if n == 0 or n + n % 2 > kernels.J2_MAX_N:
         kernels.STATS["jacobi_eigh"].outside += 1
-        return torch.linalg.eigh(a)
+        return torch.linalg.eigh(a) if vectors else (torch.linalg.eigh(a)[0], None)
     x = _batched(a)
     scale = _scale(x)
     an = x / scale[:, None, None]
     if n % 2:
         an = torch.nn.functional.pad(an, (0, 1, 0, 1))
-        w, v = kernels.jacobi_eigh_core(an)
-        pad_col = torch.argmax(torch.abs(v[:, n, :]), dim=-1, keepdim=True)
-        keep = torch.arange(n, device=a.device)[None, :]
+        w, v = kernels.jacobi_eigh_core(an, vectors=vectors)
+        index = torch.arange(n + 1, device=a.device)
+        if vectors:
+            pad_col = torch.argmax(torch.abs(v[:, n, :]), dim=-1, keepdim=True)
+        else:  # the last zero; index n of a NaN instance
+            last_zero = torch.where(w == 0, index, -1).amax(dim=1, keepdim=True)
+            pad_col = torch.where(last_zero >= 0, last_zero, n)
+        keep = index[None, :n]
         keep = keep + (keep >= pad_col).to(keep.dtype)
         w = torch.gather(w, 1, keep)
-        v = torch.gather(v[:, :n], 2, keep[:, None, :].expand(x.shape[0], n, n))
+        if vectors:
+            v = torch.gather(v[:, :n], 2, keep[:, None, :].expand(x.shape[0], n, n))
     else:
-        w, v = kernels.jacobi_eigh_core(an)
+        w, v = kernels.jacobi_eigh_core(an, vectors=vectors)
     w = w * scale[:, None]
-    return w.reshape(*lead, n), v.reshape(*lead, n, n)
+    return w.reshape(*lead, n), (v.reshape(*lead, n, n) if vectors else None)
 
 
 # ---------------------------------------------------------------------------

@@ -86,7 +86,8 @@ __all__ = [
     "panel_qr_batch", "panel_qr_batch_plain",
     "panel_cholesky_batch", "panel_cholesky_batch_plain",
     "jacobi_orthogonalise", "jacobi_orthogonalise_plain", "j1_plan", "J1_MAX_N",
-    "jacobi_eigh_core", "jacobi_eigh_core_plain", "j2_plan", "J2_MAX_N", "jacobi_sweeps",
+    "jacobi_eigh_core", "jacobi_eigh_core_plain", "j2_plan", "J2_MAX_N", "J2_BLOCK",
+    "J2_BLOCK_FROM", "jacobi_sweeps", "jacobi_eigh_stamps", "J2_STAMPS",
 ]
 
 
@@ -783,10 +784,25 @@ def panel_cholesky_batch(a):
 
 # Largest even order of each kernel (kMaxN in csrc/jacobi_svd.cu and
 # csrc/jacobi_eigh.cu): J1 holds W and V of an instance in one CTA's shared
-# memory, J2 spreads A (twice) and V over a cluster of at most 8 CTAs.
+# memory; J2 spreads A over a cluster of CTAs (element regime: A twice and
+# V over at most 8; block regime: a slot's block columns of A twice a CTA,
+# V in device memory).
 J1_MAX_N = 118
 J2_MAX_N = 272
 _J2_CTAS = (1, 2, 4, 8)
+# J2's regimes, by order (csrc/jacobi_eigh.cu): the element kernel up to
+# J2_BLOCK_FROM - 2, the two-level (block) kernel with blocks of J2_BLOCK
+# indices from J2_BLOCK_FROM on.  The crossover was measured on the card
+# (PERF.md): the block kernel is the faster from order 24, but with it at
+# 24-64 the maxcut d9 seed 9313 solve stops unconverged (its J2 outputs
+# all hold their invariants; the solve turns on their last bits), and
+# from 66 on every seed of tools/bench.py's default grid converges.  The
+# block kernel's threads (kBlockThreads: one 2 x 2 block of the inner
+# tile each) and its largest cluster (non-portable above 8 CTAs).
+J2_BLOCK = 16
+J2_BLOCK_FROM = 66
+_J2_BLOCK_THREADS = 256
+_J2_BLOCK_MAX_CTAS = 16
 
 
 def _j1_smem(n):
@@ -804,6 +820,18 @@ def _j2_smem(n, ctas):
     nc = -(-n // ctas)
     h = n // 2
     return 8 * (3 * nc * (n | 1) + 2 * h + 48 + nc) + 4 * (2 * h + nc + 2)
+
+
+def _j2_block_smem(n, ctas):
+    """csrc/jacobi_eigh.cu::block_smem_bytes: the slot's 2 block columns of
+    A twice (leading dimension n rounded up to 16, plus 4), each copy at
+    least the inner sweep's two tiles (the copies trade places); every
+    slot's U (leading dimension 2 block + 4); the inner step's rotations
+    (two parities); the cluster's maxima and flags."""
+    m = 2 * J2_BLOCK
+    copy = max(m * (-(-n // 16) * 16 + 4), 2 * m * (m + 1))
+    return 8 * (2 * copy + ctas * m * (m + 4) + 4 * J2_BLOCK + _J2_BLOCK_MAX_CTAS) + \
+        4 * (_J2_BLOCK_MAX_CTAS + 2)
 
 
 def _jacobi_order(name, x, limit):
@@ -827,16 +855,27 @@ def j1_plan(n):
     return 32 * min(32, n // 2), _j1_smem(n)
 
 
-@functools.lru_cache(maxsize=512)
-def j2_plan(n):
-    """(ctas, threads, smem_bytes) of J2 at even order n <= J2_MAX_N: the
-    fewest CTAs of a cluster (1, 2, 4, 8) whose shares fit in shared memory,
-    and a thread per (pair, column) of a CTA's update, at most 1024."""
+@functools.lru_cache(maxsize=1024)
+def j2_plan(n, element=False):
+    """(block, ctas, threads, smem_bytes) of J2 at even order n <= J2_MAX_N
+    in the regime of the order (J2_BLOCK_FROM), or in the element regime
+    with ``element`` (measurements).  Element regime (block 0): the fewest
+    CTAs of a cluster (1, 2, 4, 8) whose shares fit in shared memory and a
+    thread per (pair, column) of a CTA's update, at most 1024.  Block
+    regime (block J2_BLOCK): ceil(n / J2_BLOCK) blocks rounded up to even,
+    a CTA a slot (a pair of blocks), ``_J2_BLOCK_THREADS`` threads."""
     if n % 2 or not 2 <= n <= J2_MAX_N:
         raise KernelError(f"jacobi_eigh_core: even orders 2 to {J2_MAX_N}, got {n}")
-    ctas = next(c for c in _J2_CTAS if _j2_smem(n, c) <= SMEM_LIMIT)
-    work = (n // 2) * -(-n // ctas)
-    return ctas, min(1024, 32 * -(-work // 32)), _j2_smem(n, ctas)
+    if element or n < J2_BLOCK_FROM:
+        ctas = next(c for c in _J2_CTAS if _j2_smem(n, c) <= SMEM_LIMIT)
+        work = (n // 2) * -(-n // ctas)
+        return 0, ctas, min(1024, 32 * -(-work // 32)), _j2_smem(n, ctas)
+    blocks = -(-n // J2_BLOCK)
+    ctas = (blocks + blocks % 2) // 2
+    smem = _j2_block_smem(n, ctas)
+    if ctas > _J2_BLOCK_MAX_CTAS or smem > SMEM_LIMIT:
+        raise KernelError(f"jacobi_eigh_core: order {n} does not fit blocks of {J2_BLOCK}")
+    return J2_BLOCK, ctas, _J2_BLOCK_THREADS, smem
 
 
 def jacobi_orthogonalise_plain(w, sweeps=False):
@@ -844,9 +883,15 @@ def jacobi_orthogonalise_plain(w, sweeps=False):
     return jacobi.orthogonalise_plain(w, sweeps)
 
 
-def jacobi_eigh_core_plain(a, sweeps=False):
+def jacobi_eigh_core_plain(a, sweeps=False, vectors=True):
+    """The plain version of the regime J2 takes at ``a``'s order: the
+    element rule (``jacobi.eigh_core_plain``) or the block algorithm
+    (``jacobi.eigh_block_plain``); v None without ``vectors``."""
     from ttipm_tpu_torch.ops import jacobi
-    return jacobi.eigh_core_plain(a, sweeps)
+
+    block = j2_plan(a.shape[-1])[0]
+    out = jacobi.eigh_block_plain(a, sweeps) if block else jacobi.eigh_core_plain(a, sweeps)
+    return out if vectors else (out[0], None, *out[2:])
 
 
 def _j1_launch(w, count=None):
@@ -869,22 +914,61 @@ def _j1_launch(w, count=None):
     return w_rot, v, norms2
 
 
-def _j2_launch(a, count=None):
-    """J2 on ``a`` (B, n, n) f64 on the card: (w ascending, v); each
-    instance's sweeps into ``count`` (B,) int32 when given."""
+def _j2_launch(a, count=None, vectors=True, plan=None, stamps=None):
+    """J2 on ``a`` (B, n, n) f64 on the card: (w ascending, v), v None
+    without ``vectors`` (the kernel skips V); each instance's sweeps into
+    ``count`` (B,) int32 when given.  ``plan``: a ``j2_plan`` other than
+    the order's (measurements); ``stamps``: J2_STAMPS int64 zeros on the
+    card that receive the clock stamps of a batch of one."""
     from ttipm_tpu_torch.ops import jacobi
 
     B, n, _ = a.shape
-    ctas, threads, _ = j2_plan(n)
+    block, ctas, threads, _ = plan or j2_plan(n)
     a = a.contiguous()
-    out = torch.empty((B * n * n + B * n,), dtype=a.dtype, device=a.device)
-    v, w = out[:B * n * n].view(B, n, n), out[B * n * n:].view(B, n)
+    nv = B * n * n if vectors else 0
+    out = torch.empty((nv + B * n,), dtype=a.dtype, device=a.device)
+    w = out[nv:].view(B, n)
+    v = out[:nv].view(B, n, n) if vectors else None
     stream, guard = _launch_env(a)
     with guard:
-        err = _lib().ttipm_jacobi_eigh(_ptr(a), B, n, jacobi.tol_for(n), jacobi.EIGH_FLOOR,
-                                       _ptr(w), _ptr(v), _opt_ptr(count), ctas, threads, stream)
+        if stamps is None:
+            err = _lib().ttipm_jacobi_eigh(_ptr(a), B, n, jacobi.tol_for(n), jacobi.EIGH_FLOOR,
+                                           _ptr(w), _opt_ptr(v), _opt_ptr(count), block, ctas,
+                                           threads, stream)
+        elif B != 1:
+            raise KernelError("jacobi_eigh_core: clock stamps of a batch of one")
+        else:
+            err = _lib().ttipm_jacobi_eigh_stamps(_ptr(a), n, jacobi.tol_for(n),
+                                                  jacobi.EIGH_FLOOR, _ptr(w), _opt_ptr(v), block,
+                                                  ctas, threads, _ptr(stamps), stream)
     _check("jacobi_eigh_core", err)
+    if not vectors:
+        return torch.sort(w, dim=-1, stable=True).values, None
     return jacobi.sort_eigenpairs(w, v)
+
+
+# The clock stamps of ttipm_jacobi_eigh_stamps (csrc/jacobi_eigh.cu): the
+# cycles of CTA 0's thread 0 summed by part over the factorization, then
+# counts; the names by regime (0: element, 1: block).
+J2_STAMPS = 16
+J2_STAMP_PARTS = {
+    0: ("setup", "remote_loads", "rotations", "rotations_wait", "update", "barrier", "store",
+        "steps", "sweeps"),
+    1: ("setup", "inner_rotations", "inner_update", "inner_barriers", "u_push", "column_dmma",
+        "v_dmma", "barrier_1", "row_dmma_shift", "barrier_2", "store", "outer_steps",
+        "inner_steps", "inner_steps_rotating", "sweeps", "quiet_inner_sweeps"),
+}
+
+
+def jacobi_eigh_stamps(a, plan=None):
+    """J2's clock stamps on one instance ``a`` (1, n, n) on the card, as
+    {part: cycles} (``J2_STAMP_PARTS`` of the regime; the last entries are
+    counts), from a launch that moves no counter."""
+    plan = plan or j2_plan(a.shape[-1])
+    stamps = torch.zeros(J2_STAMPS, dtype=torch.int64, device=a.device)
+    _j2_launch(a, plan=plan, stamps=stamps)
+    names = J2_STAMP_PARTS[int(plan[0] > 0)]
+    return dict(zip(names, stamps[:len(names)].tolist()))
 
 
 def jacobi_orthogonalise(w):
@@ -904,34 +988,40 @@ def jacobi_orthogonalise(w):
     return out
 
 
-def jacobi_eigh_core(a):
+def jacobi_eigh_core(a, vectors=True):
     """J2: cyclic two-sided Jacobi of each symmetric instance of ``a``
     (B, n, n), n even, at most J2_MAX_N, float64: ``(w, v)``, eigenvalues
     ascending (ties in index order) and a = v diag(w) v^T; an instance
     that is not finite or does not converge in 26 sweeps comes out NaN.
-    One launch, a cluster of CTAs an instance (``_jacobi_eigh_core``,
-    ttipm_tpu/ops/jacobi.py:370); the sort is a torch op on the kernel's
-    diagonal."""
+    Without ``vectors`` ``(w, None)``: the kernel skips V, and w keeps its
+    bits (A's rotations never read V).  One launch, a cluster of CTAs an
+    instance (``_jacobi_eigh_core``, ttipm_tpu/ops/jacobi.py:370), in the
+    regime of the order (``j2_plan``: element rotations below
+    J2_BLOCK_FROM, the two-level block algorithm from there); the sort is a
+    torch op on the kernel's diagonal."""
     stats = STATS["jacobi_eigh"]
     _jacobi_order("jacobi_eigh_core", a, J2_MAX_N)
     if not _on_cuda(a):
         stats.plain_calls += 1
-        return jacobi_eigh_core_plain(a)
-    out = _j2_launch(a)
+        return jacobi_eigh_core_plain(a, vectors=vectors)
+    out = _j2_launch(a, vectors=vectors)
     stats.count("f64", batch=a.shape[0])
     return out
 
 
 def jacobi_sweeps(entry, x):
     """The sweeps each instance of ``x`` takes in ``entry``
-    ("jacobi_orthogonalise" or "jacobi_eigh_core"), as a (B,) int32
-    tensor, from a launch that moves no counter (or the plain version on
-    CPU tensors): what a roofline bound of the call counts."""
+    ("jacobi_orthogonalise" or "jacobi_eigh_core"; J2's block regime
+    counts outer sweeps), as a (B,) int32 tensor, from a launch that moves
+    no counter (or the plain version on CPU tensors)."""
     _jacobi_order(entry, x, J1_MAX_N if entry == "jacobi_orthogonalise" else J2_MAX_N)
-    plain, launch = ((jacobi_orthogonalise_plain, _j1_launch)
-                     if entry == "jacobi_orthogonalise" else (jacobi_eigh_core_plain, _j2_launch))
     if not _on_cuda(x):
+        plain = (jacobi_orthogonalise_plain if entry == "jacobi_orthogonalise"
+                 else jacobi_eigh_core_plain)
         return plain(x, True)[-1]
     count = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
-    launch(x, count)
+    if entry == "jacobi_orthogonalise":
+        _j1_launch(x, count)
+    else:
+        _j2_launch(x, count, vectors=False)
     return count

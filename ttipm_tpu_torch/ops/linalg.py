@@ -103,9 +103,10 @@ def safe_eigh(a: torch.Tensor):
 
 @in_f64
 def safe_eigvalsh(a: torch.Tensor) -> torch.Tensor:
-    """Eigenvalues of a symmetric matrix, ascending."""
+    """Eigenvalues of a symmetric matrix, ascending (on the Jacobi route
+    J2 without its eigenvectors: the bits of ``safe_eigh``'s)."""
     if jacobi.use_jacobi(a):
-        return jacobi.jacobi_eigh(a)[0]
+        return jacobi.jacobi_eigh(a, vectors=False)[0]
     return torch.linalg.eigvalsh(a)
 
 

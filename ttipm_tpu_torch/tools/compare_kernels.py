@@ -1,6 +1,6 @@
-"""K1, K2 and K3 of two checkouts of the port on one card, in turns.
+"""K1, K2, K3 and J2 of two checkouts of the port on one card, in turns.
 
-    python ttipm_tpu_torch/tools/compare_kernels.py --parent DIR [--dim 8 --seed 24]
+    python ttipm_tpu_torch/tools/compare_kernels.py --parent DIR [--dim 8 --seed 24] [--j2-only]
 
 ``DIR`` holds another checkout of the repository (for example an unpacked
 ``git archive`` of the parent commit); the script's own checkout is "the
@@ -28,6 +28,22 @@ calls), and ``kernels.panel_qr`` on one contiguous panel.
    kernel's own clock stamps (cycles of its load, forward chain, R store,
    Q chain and store); then the wall and the iteration count of the
    MaxCut solve.
+3. J2 (``kernels.jacobi_eigh_core``) on the solve's own operands: the
+   change records the first J2_RECORD calls of every order, both
+   checkouts factor them (bits and eigenvalue differences reported, not
+   required equal: the regimes round differently), and every time worker
+   times, at each order, the checkout's J2 on the first operand beside
+   ``torch.linalg.eigh`` (cuSOLVER) on it, and at order 256 a batch of the
+   first ten; with the invariants (||V diag(w) V^T - A|| / ||A||,
+   ||V^T V - I||_max, the eigenvalues against LAPACK's on the CPU) and the
+   sweeps; where the checkout has ``kernels.j2_plan``'s regimes, the
+   element rule and the order's own regime (blocks of 16 from
+   ``J2_BLOCK_FROM``) the same way with their clock stamps
+   (``kernels.jacobi_eigh_stamps``: cycles of CTA 0's thread 0 by part);
+   ``--j2-orders`` adds synthetic operands at other orders (chip_smoke.py's
+   ``jacobi_operand``: a pencil with a cluster of eigenvalues near 0, the
+   solve's orders lie between) for the regimes' crossover.  ``--j2-only``
+   runs step 3 alone (and the solve's wall).
 
 Prints one JSON line per step.  Needs one CUDA device.
 """
@@ -49,6 +65,9 @@ import numpy as np
 K3_SHAPES = ((24, 6), (40, 10), (64, 18), (128, 34), (512, 128))
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# J2 operands recorded of each order (the batch row stacks ten of order 256).
+J2_RECORD = 10
+J2_BATCH = (10, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -79,16 +98,18 @@ def worker_record(args):
         return a
 
     names = ("kkt_block_product", "kkt_block_matvec", "schur_assemble_group", "schur_assemble",
-             "panel_qr")
-    seen, calls = set(), []
+             "panel_qr", "jacobi_eigh_core")
+    if args.j2_only:
+        names = ("jacobi_eigh_core",)
+    seen, calls = {}, []
     originals = {n: getattr(K, n) for n in names}
 
     def recorder(name):
         def wrapped(*a, **kw):
             out = originals[name](*a, **kw)
             key = (name, shape_key(a), str(kw))
-            if key not in seen:
-                seen.add(key)
+            seen[key] = seen.get(key, 0) + 1
+            if seen[key] <= (J2_RECORD if name == "jacobi_eigh_core" else 1):
                 calls.append((name, cpu(a), kw, cpu(out)))
             return out
         return wrapped
@@ -112,7 +133,10 @@ def worker_replay(args):
     for name, a, kw, want in calls:
         def cu(t):
             return t.to(dev)
-        if name == "panel_qr":  # the parent's entry takes the panel alone
+        if name == "jacobi_eigh_core":  # the eigenvalues (the parent's entry takes no flag)
+            got = K.jacobi_eigh_core(cu(a[0]))[0]
+            want = want[0]
+        elif name == "panel_qr":  # the parent's entry takes the panel alone
             q, r = K.panel_qr(cu(a[0]))
             got = torch.cat([q.T.reshape(-1) if kw.get("transposed") else q.reshape(-1),
                              r.reshape(-1)])
@@ -188,6 +212,68 @@ def _k3_stamps(K, a):
     return dict(zip(("load", "forward", "r_store", "q_chain", "store"), map(float, med)))
 
 
+def _j2_invariants(x, w, v):
+    """||V diag(w) V^T - A|| / ||A||, ||V^T V - I||_max and the eigenvalues
+    against LAPACK's (CPU, f64) relative to the largest, the worst
+    instance."""
+    import torch
+
+    xc, wc, vc = x.cpu(), w.cpu(), v.cpu()
+    ref = torch.linalg.eigvalsh(xc)
+    eye = torch.eye(x.shape[-1], dtype=x.dtype)
+    fact = torch.linalg.norm(vc @ torch.diag_embed(wc) @ vc.mT - xc, dim=(1, 2)) / \
+        torch.linalg.norm(xc, dim=(1, 2))
+    return {"fact": float(fact.max()), "orth": float((vc.mT @ vc - eye).abs().max()),
+            "values": float(((wc - ref).abs() / ref.abs().amax(1, keepdim=True)).max())}
+
+
+def j2_rows(K, calls, single_ms, orders=()):
+    """Step 3's rows of one checkout: per recorded order, J2 as the
+    checkout runs it and every regime of its plan, beside cuSOLVER; then
+    the same on a synthetic operand of each of ``orders``."""
+    import torch
+
+    sys.path.append(HERE)
+    from chip_smoke import jacobi_operand
+
+    dev = torch.device("cuda")
+    by_order = {}
+    for name, a, kw, _ in calls:
+        if name == "jacobi_eigh_core":
+            by_order.setdefault(a[0].shape[-1], []).append(a[0].to(dev))
+    todo = [(n, ops, "single") for n, ops in sorted(by_order.items())]
+    todo += [(n, [jacobi_operand("jacobi_eigh_core", 1, n, np.random.RandomState(n), dev)],
+              "synthetic") for n in orders]
+    rows = []
+    for n, ops, kind in todo:
+        cases = [(kind, ops[0])]
+        if n == J2_BATCH[1] and len(ops) >= J2_BATCH[0]:
+            cases.append(("batch", torch.cat(ops[:J2_BATCH[0]])))
+        for label, x in cases:
+            row = {"order": n, "case": label, "B": x.shape[0],
+                   "library_ms": single_ms(lambda: torch.linalg.eigh(x), runs=10),
+                   "ms": single_ms(lambda: K.jacobi_eigh_core(x), runs=10)}
+            w, v = K.jacobi_eigh_core(x)
+            row.update(_j2_invariants(x, w, v))
+            row["sweeps"] = K.jacobi_sweeps("jacobi_eigh_core", x).tolist()
+            if hasattr(K, "jacobi_eigh_stamps"):
+                plans = {0: K.j2_plan(n, element=True), K.j2_plan(n)[0]: K.j2_plan(n)}
+                row["default_plan"] = list(K.j2_plan(n))
+                row["regimes"] = {}
+                for blk, plan in plans.items():
+                    r = {"ms": single_ms(lambda: K._j2_launch(x, plan=plan), runs=10)}
+                    w, v = K._j2_launch(x, plan=plan)
+                    r.update(_j2_invariants(x, w, v))
+                    count = torch.empty((x.shape[0],), dtype=torch.int32, device=dev)
+                    K._j2_launch(x, count, vectors=False, plan=plan)
+                    r["sweeps"] = count.tolist()
+                    if x.shape[0] == 1:
+                        r["stamps"] = K.jacobi_eigh_stamps(x, plan)
+                    row["regimes"][blk] = r
+            rows.append(row)
+    return rows
+
+
 def worker_time(args):
     import torch
 
@@ -231,6 +317,14 @@ def worker_time(args):
         return 1e3 * (time.perf_counter() - t0) / n
 
     rows = []
+    if args.file:
+        calls = torch.load(args.file, weights_only=False)
+        orders = [int(n) for n in args.j2_orders.split(",")] if args.j2_orders else []
+        j2 = j2_rows(K, calls, single_ms, orders)
+    if args.j2_only:
+        res = _solve(args.dim, args.seed)
+        print(json.dumps({"j2": j2, "solve": {k: res[k] for k in ("iters", "slack", "wall_s")}}))
+        return
     for R, s in ((8, 4), (32, 9)):
         keys = ("00", "01", "12", "21", "22")
         pl = {k: t(R, s, R) for k in keys}
@@ -274,8 +368,8 @@ def worker_time(args):
                     "stamps": _k3_stamps(K, a)})
         rows.append(row)
     res = _solve(args.dim, args.seed)
-    print(json.dumps({"times": rows, "solve": {k: res[k] for k in
-                                               ("iters", "slack", "wall_s")}}))
+    print(json.dumps({"times": rows, "j2": j2 if args.file else None,
+                      "solve": {k: res[k] for k in ("iters", "slack", "wall_s")}}))
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +381,10 @@ def run_worker(root, mode, args, file=None):
            "--dim", str(args.dim), "--seed", str(args.seed)]
     if file:
         cmd += ["--file", file]
+    if args.j2_only:
+        cmd += ["--j2-only"]
+    if args.j2_orders:
+        cmd += ["--j2-orders", args.j2_orders]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"worker {mode} in {root} failed:\n{proc.stderr[-4000:]}")
@@ -301,6 +399,9 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", choices=("record", "replay", "time"))
     ap.add_argument("--root")
     ap.add_argument("--file")
+    ap.add_argument("--j2-only", action="store_true", help="J2 alone (step 3)")
+    ap.add_argument("--j2-orders", default="",
+                    help="comma-separated orders of synthetic J2 operands (step 3)")
     args = ap.parse_args(argv)
     if args.worker:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -321,9 +422,9 @@ def main(argv=None) -> int:
         file = os.path.join(tmp, "calls.pt")
         print(json.dumps({"change": run_worker(HERE, "record", args, file)}), flush=True)
         print(json.dumps({"parent": run_worker(parent, "replay", args, file)}), flush=True)
-    for who, root in (("parent", parent), ("change", HERE), ("change", HERE),
-                      ("parent", parent)):
-        print(json.dumps({who: run_worker(root, "time", args)}), flush=True)
+        for who, root in (("parent", parent), ("change", HERE), ("change", HERE),
+                          ("parent", parent)):
+            print(json.dumps({who: run_worker(root, "time", args, file)}), flush=True)
     return 0
 
 
