@@ -18,7 +18,10 @@ and prints no result line):
    its envelope 512 x 128, one of them also as a transposed view and with
    the transposed output, SPD matrices of the orders in K4_ORDERS, which
    span both regimes of K4, and one indefinite one, J1 on the r2^T of the
-   d8 and d10 solves' SVDs (JACOBI_SVD_ORDERS) and J2 on pencils of the
+   d8 and d10 solves' SVDs and at its regimes' bounds (JACOBI_SVD_ORDERS:
+   the element rule below kernels.J1_BLOCK_FROM, the block algorithm from
+   there, and at the block orders to 118 also the element regime forced,
+   timed in turns beside it) and J2 on pencils of the
    eigen windows' orders (JACOBI_EIGH_ORDERS: both of J2's regimes, the
    element rule below kernels.J2_BLOCK_FROM and the block algorithm from
    there), and J2 without eigenvectors at each order),
@@ -168,12 +171,14 @@ row of the kernel's heaviest batched shape, ``launches_mesh`` phase 11's
 launches on each rank); J1 and J2 have no float32 instance (f32 factorizations are upcast);
 the last line
 is {"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
-build always) and then prints neither.
+build always) and then prints neither; nor does ``--j1-from N``, which
+moves J1's regime crossover (kernels.J1_BLOCK_FROM) for the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -199,6 +204,22 @@ KERNELS = {
 F32_KERNELS = ("schur_assemble", "kkt_block_matvec", "panel_qr", "panel_cholesky")
 # The entry point each kernel's phase-3 row is timed through.
 MAIN_ENTRY = {"jacobi_svd": "jacobi_orthogonalise", "jacobi_eigh": "jacobi_eigh_core"}
+# The Jacobi kernels' launches by regime in phase 5's solve (the kernels line).
+SLICE_REGIME_LAUNCHES = {}
+
+
+def jacobi_regimes(name):
+    """The orders each regime of a Jacobi kernel takes (kernels.j1_plan,
+    j2_plan) and its launches in phase 5's solve; {} for the others."""
+    from ttipm_tpu_torch.ops import kernels as K
+
+    if name not in MAIN_ENTRY:
+        return {}
+    first, last, element_max = ((K.J1_BLOCK_FROM, K.J1_MAX_N, K.J1_ELEMENT_MAX_N)
+                                if name == "jacobi_svd" else (K.J2_BLOCK_FROM, K.J2_MAX_N, K.J2_MAX_N))
+    first = min(first, element_max + 2)
+    return {"regimes": {"element": [2, first - 2], "block": [first, last]},
+            "launches_by_regime": SLICE_REGIME_LAUNCHES.get(name)}
 
 
 # Peak rates of the roofline bounds (NVIDIA H100 SXM data sheet): device
@@ -221,12 +242,14 @@ K3_PANELS = ((512, 128), (512, 32), (144, 36), (128, 34), (64, 18), (32, 10), (2
 
 # Orders at which J1 is timed against torch.linalg.svd (the r2^T of the
 # solves' SVDs: 8 x 4, 64 x 6, 32 x 16, 192 x 42 of maxcut d8, 80 x 60 of
-# d10, J1's bound 118; the kernels line reports the last) and J2 against
+# d10; the element regime's bound 118 and J1's 128; the kernels line
+# reports the last; at the block regime's orders also the element regime
+# forced, to 118) and J2 against
 # torch.linalg.eigh (the eigen windows' orders 4, 16, 64, 128 and 256;
 # the kernels line reports 256, the d8 solve's largest; 4 and 16 run the
 # element regime, 64-256 the block regime).  Batches: phase 10; J2's regime
 # and cluster bounds: tests/test_torch_cuda.py.
-JACOBI_SVD_ORDERS = (4, 6, 16, 118, 42, 60)
+JACOBI_SVD_ORDERS = (4, 6, 16, 118, 128, 42, 60)
 JACOBI_EIGH_ORDERS = (4, 16, 64, 128, 256)
 
 
@@ -365,14 +388,13 @@ def bound_ms(name, args):
         flops = n**3 // 3
     elif name in MAIN_ENTRY.values():
         # the sweeps this run's data needs (csrc/jacobi_svd.cu, jacobi_eigh.cu:
-        # "Bound"); J2 in both regimes by the element schedule's work for the
-        # sweeps the plain element rule needs on the operand
+        # "Bound"); both regimes of each by the element schedule's work for
+        # the sweeps the plain element rule needs on the operand
         from ttipm_tpu_torch.ops import jacobi
-        from ttipm_tpu_torch.ops import kernels as K
 
         B, n, _ = args[0].shape
         if name == "jacobi_orthogonalise":
-            sweeps = int(K.jacobi_sweeps(name, args[0]).sum())
+            sweeps = int(jacobi.orthogonalise_plain(args[0], sweeps=True)[-1].sum())
             bytes_out = esize * B * (2 * n * n + n)
             flops = sweeps * (9 * n * n * (n - 1) + n**3)
         else:
@@ -483,7 +505,9 @@ def phase_kernels():
         raise AssertionError(f"panel_cholesky: indefinite n={n} reported as SPD")
     print(json.dumps({"kernel": "panel_cholesky", "indefinite_n": n, **errs}), flush=True)
     for n in JACOBI_SVD_ORDERS:  # one instance, as the single solve's calls
-        run("jacobi_orthogonalise", jacobi_operand("jacobi_orthogonalise", 1, n, rng, dev))
+        x = jacobi_operand("jacobi_orthogonalise", 1, n, rng, dev)
+        run("jacobi_orthogonalise", x)
+        j1_regimes("phase 3", x)
     for n in JACOBI_EIGH_ORDERS:
         x = jacobi_operand("jacobi_eigh_core", 1, n, rng, dev)
         run("jacobi_eigh_core", x)
@@ -494,6 +518,32 @@ def phase_kernels():
         print(json.dumps({"kernel": "jacobi_eigh_core", "shape": shape_key((x,)),
                           "vectors": False, "plan": list(K.j2_plan(n)), **errs}), flush=True)
     return summary
+
+
+def j1_regimes(label, x, runs=10):
+    """J1 at the block regime's orders (to the element regime's bound):
+    the element regime forced on the same operand, held to the plain
+    version's invariants and timed in turns with the order's own regime and
+    torch.linalg.svd; printed as one line (nothing at the element regime's
+    orders).  Returns the element regime's ms, or None."""
+    import torch
+
+    from ttipm_tpu_torch.checks import check_kernel, shape_key
+    from ttipm_tpu_torch.ops import kernels as K
+
+    n = x.shape[-1]
+    plan = K.j1_plan(n)
+    if not plan[0] or n > K.J1_ELEMENT_MAX_N:
+        return None
+    element = K.j1_plan(n, element=True)
+    errs = check_kernel("jacobi_orthogonalise", (x,), K._j1_launch(x, plan=element))
+    lib, element_ms, ms = _turns_ms([lambda: torch.linalg.svd(x),
+                                     lambda: K._j1_launch(x, plan=element),
+                                     lambda: K._j1_launch(x)], runs=runs, warmup=2)
+    print(json.dumps({"j1_regimes": label, "shape": shape_key((x,)), "plan": list(plan),
+                      "ms": ms, "element_ms": element_ms, "library_ms": lib,
+                      "element_errors": errs}), flush=True)
+    return element_ms
 
 
 def jacobi_operand(entry, B, n, rng, dev):
@@ -635,6 +685,8 @@ def phase_slice(dim, seed):
             setattr(K, name, fn)
     counts = {name: (s.launches, s.plain_calls, s.grouped) for name, s in K.STATS.items()}
     res["outside"] = {name: s.outside for name, s in K.STATS.items()}
+    SLICE_REGIME_LAUNCHES.update({name: dict(K.STATS[name].by_regime) for name in MAIN_ENTRY})
+    res["launches_by_regime"] = SLICE_REGIME_LAUNCHES
     res["check_s"] = check_s[0]
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     res["counts"] = {n: {"launches": c[0], "plain_calls": c[1], "grouped": c[2]}
@@ -696,9 +748,11 @@ def phase_slice_jacobi_times(shapes, first):
     eigh or eigvalsh: cuSOLVER) timed on the first operands of each of their
     shapes in the solve, weighted by the solve's calls (the plain versions
     are timed in phase 3: a Python loop over the steps, seconds a call).
-    J2's rows also time its element regime on the same operand where the
-    order takes the block regime (``element_ms``: the kernel J2 was before
-    the block regime), and name the regime (``plan``)."""
+    J1's and J2's rows also time the element regime on the same operand
+    where the order takes the block regime (``element_ms``: the kernel each
+    was before its block regime), and name the regime (``plan``); J1's are
+    also given by order (``by_order``: calls, ms, library ms and regime of
+    every order the solve factored)."""
     import torch
 
     from ttipm_tpu_torch.ops import kernels as K
@@ -713,27 +767,40 @@ def phase_slice_jacobi_times(shapes, first):
             if kw.get("vectors") is False:
                 lib = torch.linalg.eigvalsh
             fns = [lambda: lib(*args), lambda: fn(*args, **kw)]
-            plan = K.j2_plan(args[0].shape[-1]) if name == "jacobi_eigh_core" else None
-            if plan is not None and plan[0]:
-                element = K.j2_plan(args[0].shape[-1], element=True)
-                fns.insert(1, lambda: K._j2_launch(args[0], vectors=kw.get("vectors", True),
-                                                   plan=element))
+            n = args[0].shape[-1]
+            if name == "jacobi_eigh_core":
+                plan = K.j2_plan(n)
+                element = K.j2_plan(n, element=True)
+                launch = functools.partial(K._j2_launch, vectors=kw.get("vectors", True))
+            else:
+                plan = K.j1_plan(n)
+                element = K.j1_plan(n, element=True) if n <= K.J1_ELEMENT_MAX_N else None
+                launch = K._j1_launch
+            if plan[0] and element is not None:
+                fns.insert(1, lambda: launch(args[0], plan=element))
             ms = _turns_ms(fns, runs=3, warmup=1)
             count = shapes[name][key]
-            row = {"shape": key, "count": count, "ms": ms[-1], "library_ms": ms[0]}
-            if plan is not None:
-                row["plan"] = list(plan)
-                row["element_ms"] = ms[1] if plan[0] else ms[-1]
-                element_total += count * row["element_ms"]
+            row = {"shape": key, "count": count, "ms": ms[-1], "library_ms": ms[0],
+                   "plan": list(plan), "element_ms": ms[1] if len(ms) == 3 else
+                   (ms[-1] if not plan[0] else None)}
+            element_total += count * (row["element_ms"] or 0.0)
             rows.append(row)
             total += count * ms[-1]
             lib_total += count * ms[0]
         rows.sort(key=lambda r: -r["count"] * r["ms"])
         report[name] = {"distinct_shapes": len(rows), "calls": sum(r["count"] for r in rows),
                         "weighted_ms": total, "library_weighted_ms": lib_total,
-                        "heaviest_shapes": rows[:6]}
-        if name == "jacobi_eigh_core":
-            report[name]["element_weighted_ms"] = element_total
+                        "element_weighted_ms": element_total, "heaviest_shapes": rows[:6]}
+        if name == "jacobi_orthogonalise":
+            by_order = {}
+            for r in rows:
+                order = by_order.setdefault(int(r["shape"].split(",")[-1].strip(" ]")),
+                                            {"calls": 0, "ms": 0.0, "library_ms": 0.0})
+                order["calls"] += r["count"]
+                order["ms"] += r["count"] * r["ms"]
+                order["library_ms"] += r["count"] * r["library_ms"]
+                order["regime"] = "block" if r["plan"][0] else "element"
+            report[name]["by_order"] = dict(sorted(by_order.items()))
     print(json.dumps({"slice_jacobi_times": report}), flush=True)
 
 
@@ -1434,6 +1501,8 @@ def phase_batch_kernels():
                "bound_ms": b, "bound_by": by}
         rows[KERNEL_NAME[entry]] = row
         print(json.dumps({"batch_kernel": entry, **row}), flush=True)
+        if entry == "jacobi_orthogonalise":
+            j1_regimes("phase 10", x, runs=5)
     return rows
 
 
@@ -2471,11 +2540,19 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES) + " (device and "
                          "build always run); the result lines are printed only for all")
+    ap.add_argument("--j1-from", type=int, default=None,
+                    help="J1's regime crossover for the run (kernels.J1_BLOCK_FROM); the "
+                         "result lines are printed only without it")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
         ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     sys.path.insert(0, REPO)
+    if args.j1_from is not None:
+        from ttipm_tpu_torch.ops import kernels as K
+
+        K.J1_BLOCK_FROM = args.j1_from
+        K.j1_plan.cache_clear()
 
     name = phase_device()
     phase_build()
@@ -2505,7 +2582,7 @@ def main(argv=None) -> int:
     if "tools" in phases:
         phase_tools(slice_iters, ipm_X.get((8, 24)) if (args.dim, args.seed) == (8, 24) else None,
                     tools_ref)
-    if set(phases) != set(PHASES):
+    if set(phases) != set(PHASES) or args.j1_from is not None:
         return 0
 
     record = [
@@ -2513,7 +2590,8 @@ def main(argv=None) -> int:
          "replaces": KERNELS[n][1], "launches": counts[n][0], "launches_d10": counts_fb[n][0],
          "launches_ineq": counts_ineq[n][0], "launches_graphm": counts_gm[n][0], **summary[n],
          **summary_batch[n]["f64"], "batch": summary_batch[n]["batch"],
-         "launches_mesh": {world: runs[n] for world, runs in launches_mesh.items()}}
+         "launches_mesh": {world: runs[n] for world, runs in launches_mesh.items()},
+         **jacobi_regimes(n)}
         for n in KERNELS
     ] + [
         {"name": f"{n}_f32", "dtype": "float32", "route": "cuda", "source": KERNELS[n][0],

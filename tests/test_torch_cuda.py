@@ -1357,27 +1357,65 @@ def _sym_gallery(n, rng):
     return out
 
 
+# J1's and J2's block regimes are held from the order from which J2's was
+# measured faster than its element kernel (PERF.md), beside the regime
+# each order takes under the shipped crossovers (kernels.J1_BLOCK_FROM,
+# kernels.J2_BLOCK_FROM).
+J2_BLOCK_TESTED_FROM = 24
+
+
+@contextmanager
+def _j1_block_from(n):
+    """J1's regimes with the block regime from order n."""
+    saved = K.J1_BLOCK_FROM
+    K.J1_BLOCK_FROM = n
+    K.j1_plan.cache_clear()
+    try:
+        yield
+    finally:
+        K.J1_BLOCK_FROM = saved
+        K.j1_plan.cache_clear()
+
+
+def _j1_crossovers(n):
+    """The shipped crossover, and J2_BLOCK_TESTED_FROM where that moves
+    order n into J1's block regime."""
+    return [K.J1_BLOCK_FROM] + ([J2_BLOCK_TESTED_FROM]
+                                if J2_BLOCK_TESTED_FROM <= n < K.J1_BLOCK_FROM else [])
+
+
+# J1's cluster sizes change at 32 / 34, 64 / 66 and 96 / 98 (blocks of 16);
+# 118 is the element regime's bound, 128 J1's.
+J1_BOUNDARIES = (16, 24, 32, 34, 64, 66, 96, 98, 120, 128)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 4, 6, 8, 42, 60, 118])
+@pytest.mark.parametrize("n", sorted({2, 4, 6, 8, 42, 60, 118, *range(24, 129, 2)}))
 def test_cuda_jacobi_orthogonalise_matches_plain(cuda, n):
     """J1 at the census's orders (the tall pipeline's r2^T: 4 from 8 x 4, 6
-    from 64 x 6, 42 from 192 x 42, 60 from 80 x 60) and its bound 118, on
-    the gallery, one batch of all cases plus a NaN instance."""
+    from 64 x 6, 42 from 192 x 42, 60 from 80 x 60), the element regime's
+    bound 118 and every even order of the block regime from 24 to J1's
+    bound 128 (the cluster sizes' boundaries, ragged last blocks, empty
+    ones), on the gallery, one batch of all cases plus a NaN instance, in
+    the regime the shipped crossover gives each order and from 24 also in
+    the block regime; at the cluster boundaries and 118 also in the element
+    regime forced (to 118), each against the plain version of the order's
+    regime (through its invariants)."""
     rng = np.random.RandomState(n)
     # the pipeline's operand: r2^T, r^T = q2 r2, r of the QR of the scaled matrix
     cases = [np.linalg.qr(np.linalg.qr(c / max(np.abs(c).max(), 1e-300))[1].T)[1].T
              for c in _jacobi_gallery(n, rng).values()]
     w = torch.as_tensor(np.stack(cases + [cases[0]]), device=cuda).contiguous()
     w[-1, 0, 0] = float("nan")
-    out = K.jacobi_orthogonalise(w)
-    errs = check_kernel("jacobi_orthogonalise", (w,), out)
-    assert errs["nonfinite"] == 1 and all(bool(torch.isnan(t[-1]).all()) for t in out)
-
-
-# J2's block regime is held from the order from which it was measured
-# faster than the element kernel (PERF.md), beside the regime each order
-# takes under the shipped crossover (kernels.J2_BLOCK_FROM).
-J2_BLOCK_TESTED_FROM = 24
+    for start in _j1_crossovers(n):
+        with _j1_block_from(start):
+            out = K.jacobi_orthogonalise(w)
+            errs = check_kernel("jacobi_orthogonalise", (w,), out)
+            assert errs["nonfinite"] == 1 and all(bool(torch.isnan(t[-1]).all()) for t in out)
+    if (n in J1_BOUNDARIES or n == 118) and n <= K.J1_ELEMENT_MAX_N:
+        out = K._j1_launch(w, plan=K.j1_plan(n, element=True))
+        errs = check_kernel("jacobi_orthogonalise", (w,), out)
+        assert errs["nonfinite"] == 1
 
 
 @contextmanager
@@ -1448,31 +1486,50 @@ def test_cuda_jacobi_eigh_element_regime_at_block_orders(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 64, 128, 272])
-def test_cuda_jacobi_eigh_stamps(cuda, n):
-    """The clock stamps of J2 (kernels.jacobi_eigh_stamps) in the regime of
-    the order: positive cycles in the parts every run has, and counts that
-    agree with the sweeps (kernels.jacobi_sweeps) and the schedule (n - 1
-    steps a sweep; nb - 1 outer steps of 2 * 16 - 1 inner steps, but for
-    the inner sweeps skipped as quiet, all of the last outer sweep's
-    among them)."""
+@pytest.mark.parametrize("core,n", [pytest.param("j2", n, id=str(n)) for n in (16, 64, 128, 272)] +
+                         [pytest.param("j1", n, id=f"svd-{n}") for n in (16, 60, 118, 128)])
+def test_cuda_jacobi_eigh_stamps(cuda, core, n):
+    """The clock stamps of J2 (kernels.jacobi_eigh_stamps) and of J1
+    (kernels.jacobi_svd_stamps) in the regime of the order, and J1's in
+    both of its regimes where the element one takes the order: positive
+    cycles in the parts every run has, and counts that agree with the
+    sweeps (kernels.jacobi_sweeps) and the schedule (n - 1 steps a sweep;
+    nb - 1 outer steps of 2 * 16 - 1 inner steps, but for the inner sweeps
+    skipped as quiet, all of the last outer sweep's among them)."""
     from chip_smoke import jacobi_operand
 
-    x = jacobi_operand("jacobi_eigh_core", 1, n, np.random.RandomState(n), cuda)
-    st = K.jacobi_eigh_stamps(x)
-    sweeps = int(K.jacobi_sweeps("jacobi_eigh_core", x)[0])
-    assert st["sweeps"] == sweeps and st["setup"] > 0 and st["store"] > 0
-    if K.j2_plan(n)[0]:
-        nb = -(-n // K.J2_BLOCK)
-        nb += nb % 2
-        assert st["outer_steps"] == sweeps * (nb - 1)
-        assert st["inner_steps"] == (st["outer_steps"] - st["quiet_inner_sweeps"]) * \
-            (2 * K.J2_BLOCK - 1)
-        assert st["quiet_inner_sweeps"] >= nb - 1  # the last outer sweep's (CTA 0's slot)
-        assert 0 < st["inner_steps_rotating"] <= st["inner_steps"]
-        assert st["inner_rotations"] > 0 and st["column_dmma"] > 0 and st["barrier_2"] > 0
+    entry = "jacobi_eigh_core" if core == "j2" else "jacobi_orthogonalise"
+    x = jacobi_operand(entry, 1, n, np.random.RandomState(n), cuda)
+    if core == "j2":
+        runs = [(K.jacobi_eigh_stamps(x), K.j2_plan(n), K.jacobi_sweeps(entry, x))]
     else:
-        assert st["steps"] == sweeps * (n - 1) and st["rotations"] > 0 and st["update"] > 0
+        plans = [K.j1_plan(n)] + ([K.j1_plan(n, element=True), K.j1_plan(n, block=True)]
+                                  if n <= K.J1_ELEMENT_MAX_N else [])
+        runs = []
+        for plan in plans:
+            count = torch.empty((1,), dtype=torch.int32, device=cuda)
+            K._j1_launch(x, count, plan=plan)
+            runs.append((K.jacobi_svd_stamps(x, plan), plan, count))
+    for st, plan, sweeps in runs:
+        sweeps = int(sweeps[0])
+        assert st["sweeps"] == sweeps and st["setup"] > 0 and st["store"] > 0
+        if plan[0]:
+            nb = -(-n // plan[0])
+            nb += nb % 2
+            assert st["outer_steps"] == sweeps * (nb - 1)
+            assert st["inner_steps"] == (st["outer_steps"] - st["quiet_inner_sweeps"]) * \
+                (2 * plan[0] - 1)
+            assert st["quiet_inner_sweeps"] >= nb - 1  # the last outer sweep's (CTA 0's slot)
+            assert 0 < st["inner_steps_rotating"] <= st["inner_steps"]
+            assert st["inner_rotations"] > 0
+            if core == "j2":
+                assert st["column_dmma"] > 0 and st["barrier_2"] > 0
+            else:
+                assert st["gram"] > 0 and st["products"] > 0 and st["barrier"] > 0
+        elif core == "j2":
+            assert st["steps"] == sweeps * (n - 1) and st["rotations"] > 0 and st["update"] > 0
+        else:
+            assert st["steps"] == sweeps * (n - 1) and st["reductions"] > 0 and st["rotation"] > 0
 
 
 @pytest.mark.cuda
@@ -1481,7 +1538,9 @@ def test_cuda_jacobi_instances_keep_their_bits_in_any_batch(cuda):
     same bits in a batch of five as alone (the pipelines' matrix products
     are cuBLAS's batched GEMM at every batch size); J2 at 128 in the
     regime of the order and in the block regime, and at 272 (a cluster of
-    nine), with and without eigenvectors."""
+    nine), with and without eigenvectors; J1 at 42 in the regime of the
+    order and in the block regime, at 128 (a cluster of four) and an SVD of
+    a 160 x 100 operand in the block regime."""
     from ttipm_tpu_torch.ops import linalg
 
     rng = np.random.RandomState(9)
@@ -1492,16 +1551,21 @@ def test_cuda_jacobi_instances_keep_their_bits_in_any_batch(cuda):
     wide = _dev(rng, cuda, 5, 16, 64)
     big = _dev(rng, cuda, 5, 272, 272)
     big = big + big.mT
+    w128 = _dev(rng, cuda, 5, 128, 128)
+    tall100 = _dev(rng, cuda, 5, 160, 100)
     calls = [K.jacobi_orthogonalise, K.jacobi_eigh_core, linalg.safe_svd, linalg.safe_svd,
              linalg.safe_eigh, K.jacobi_eigh_core,
-             lambda x: K.jacobi_eigh_core(x, vectors=False)[:1]]
-    for start in _j2_crossovers(128):
-        with _j2_block_from(start):
-            for fn, x in zip(calls, (w, s, tall, wide, s, big, big)):
-                batch = fn(x)
-                for i in range(5):
-                    single = fn(x[i:i + 1])
-                    assert all(_same_bits(b[i:i + 1], t) for b, t in zip(batch, single)), (fn, i)
+             lambda x: K.jacobi_eigh_core(x, vectors=False)[:1], K.jacobi_orthogonalise,
+             linalg.safe_svd]
+    for start_j1 in _j1_crossovers(42):
+        for start in _j2_crossovers(128):
+            with _j2_block_from(start), _j1_block_from(start_j1):
+                for fn, x in zip(calls, (w, s, tall, wide, s, big, big, w128, tall100)):
+                    batch = fn(x)
+                    for i in range(5):
+                        single = fn(x[i:i + 1])
+                        assert all(_same_bits(b[i:i + 1], t) for b, t in zip(batch, single)), \
+                            (fn, i)
 
 
 @pytest.mark.cuda

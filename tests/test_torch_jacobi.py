@@ -17,7 +17,10 @@ differ by about their backward errors over the gap, a few 1e-15 of the
 largest value over 1e-5).  The dispatch: CPU tensors keep
 ``torch.linalg``'s bits unless ``forced(True)``.  The slice: maxcut d3
 seed 319 through the port with every SVD and eigh on the plain Jacobi
-against the JAX package's solve.
+against the JAX package's solve.  J1 and J2 are each held in the regime the
+shipped crossover gives an order and, from the order from which the block
+regime is tested (24), also in the block regime (orthogonalise_block_plain,
+eigh_block_plain).
 """
 
 from contextlib import contextmanager
@@ -32,33 +35,34 @@ from ttipm_tpu_torch.ops import kernels as K
 from ttipm_tpu_torch.ops import linalg
 
 
-# J2's block regime is held from the order from which it was measured
-# faster than the element kernel on the card (PERF.md), beside the regime
-# each order takes under the crossover the port ships
-# (kernels.J2_BLOCK_FROM).
+# The block regimes (J1 and J2) are held from the order from which J2's was
+# measured faster than its element kernel on the card (PERF.md), beside the
+# regime each order takes under the crossovers the port ships
+# (kernels.J1_BLOCK_FROM, kernels.J2_BLOCK_FROM).
 BLOCK_TESTED_FROM = 24
 
 
 @contextmanager
-def _block_from(n):
-    """J2's regimes with the block regime from order n."""
-    saved = K.J2_BLOCK_FROM
-    K.J2_BLOCK_FROM = n
-    K.j2_plan.cache_clear()
+def _block_from(n, core="j2"):
+    """J2's (or J1's) regimes with the block regime from order n."""
+    name, plan = {"j2": ("J2_BLOCK_FROM", K.j2_plan), "j1": ("J1_BLOCK_FROM", K.j1_plan)}[core]
+    saved = getattr(K, name)
+    setattr(K, name, n)
+    plan.cache_clear()
     try:
         yield
     finally:
-        K.J2_BLOCK_FROM = saved
-        K.j2_plan.cache_clear()
+        setattr(K, name, saved)
+        plan.cache_clear()
 
 
-def _crossovers(n):
+def _crossovers(n, core="j2"):
     """The crossovers under which order n takes each regime it is tested
     in: the shipped one, and BLOCK_TESTED_FROM where that moves n into the
     block regime."""
     n += n % 2
-    return [K.J2_BLOCK_FROM] + ([BLOCK_TESTED_FROM]
-                                if BLOCK_TESTED_FROM <= n < K.J2_BLOCK_FROM else [])
+    shipped = K.J2_BLOCK_FROM if core == "j2" else K.J1_BLOCK_FROM
+    return [shipped] + ([BLOCK_TESTED_FROM] if BLOCK_TESTED_FROM <= n < shipped else [])
 
 
 @pytest.fixture(autouse=True)
@@ -100,10 +104,13 @@ def _gallery():
 
 
 def _census():
-    """Shapes of the maxcut d8 and d10 solves' SVDs."""
+    """Shapes of the maxcut d8 and d10 solves' SVDs, and J1's block regime's
+    small sides (24, 34 and 66 wide, 60 from d10's 80 x 60, a ragged last
+    block at 34, 66, 118 and 120, an empty one at 34 and 66, J1's bound 128)."""
     rng = np.random.RandomState(1)
     out = {}
-    for m, n in [(8, 4), (64, 6), (80, 60), (192, 42), (8, 16)]:
+    for m, n in [(8, 4), (64, 6), (80, 60), (192, 42), (8, 16), (48, 24), (34, 50), (66, 90),
+                 (160, 118), (150, 120), (160, 128)]:
         # a TT split's spread: decaying singular values
         k = min(m, n)
         u, _ = np.linalg.qr(rng.randn(m, k))
@@ -115,8 +122,9 @@ def _census():
 SVD_CASES = {**_gallery(), **_census()}
 
 
-def _port_svd(a):
-    with tj.forced(True):
+def _port_svd(a, start):
+    """The port's safe_svd with J1's block regime from order ``start``."""
+    with tj.forced(True), _block_from(start, "j1"):
         return [t.numpy() for t in linalg.safe_svd(torch.as_tensor(a))]
 
 
@@ -141,9 +149,16 @@ def _separated(vals, rel_gap):
 
 @pytest.mark.parametrize("name", list(SVD_CASES))
 def test_jacobi_svd_matches_jax(name, jax_jacobi):
+    """Each case in J1's regime of its order and, from BLOCK_TESTED_FROM on,
+    also in the block regime."""
     a = SVD_CASES[name]
     uj, sj, vtj = (np.asarray(x) for x in jj.safe_svd(a))
-    u, s, vt = _port_svd(a)
+    for start in _crossovers(min(a.shape), "j1"):
+        _svd_matches(a, _port_svd(a, start), uj, sj, vtj)
+
+
+def _svd_matches(a, port, uj, sj, vtj):
+    u, s, vt = port
     amax = max(np.abs(a).max(), 1e-300)
     k = min(a.shape)
     assert u.shape == (a.shape[0], k) and s.shape == (k,) and vt.shape == (k, a.shape[1])
@@ -210,33 +225,48 @@ def test_jacobi_eigh_census_orders_match_jax(n, jax_jacobi):
     _eigh_matches(0.5 * (a + a.T))
 
 
-@pytest.mark.parametrize("n", [66, 98])
-def test_jacobi_eigh_block_stop_rule_and_cap(n):
-    """J2's block regime (eigh_block_plain): an instance stops after the
-    first outer sweep without a rotation (its matrix then unchanged, the
-    sweeps counted) and an instance still rotating at the cap comes out NaN,
-    every factor, the others of the batch untouched; the regime's sweeps
-    are outer sweeps (kernels.jacobi_sweeps)."""
+@pytest.mark.parametrize("core,n", [pytest.param("j2", 66, id="66"), pytest.param("j2", 98, id="98"),
+                                    pytest.param("j1", 66, id="svd-66"),
+                                    pytest.param("j1", 128, id="svd-128")])
+def test_jacobi_eigh_block_stop_rule_and_cap(core, n):
+    """The block regimes (eigh_block_plain, orthogonalise_block_plain): an
+    instance stops after the first outer sweep without a rotation (its
+    matrix then unchanged, the sweeps counted) and an instance still
+    rotating at the cap comes out NaN, every factor, the others of the
+    batch untouched; the regimes' sweeps are outer sweeps
+    (kernels.jacobi_sweeps).  J1's quiet instance: orthogonal columns."""
     rng = np.random.RandomState(n)
     q, _ = np.linalg.qr(rng.randn(n, n))
-    a = torch.as_tensor(np.stack([(q * np.linspace(-1, 4, n)) @ q.T, np.diag(np.arange(n) + 1.0)]))
-    a = 0.5 * (a + a.mT)
-    w, v, sweeps = tj.eigh_block_plain(a, sweeps=True)
-    assert sweeps[1] == 1 and torch.equal(w[1], torch.arange(n, dtype=a.dtype) + 1.0)
-    assert torch.equal(v[1], torch.eye(n, dtype=a.dtype))
+    if core == "j2":
+        a = torch.as_tensor(np.stack([(q * np.linspace(-1, 4, n)) @ q.T,
+                                      np.diag(np.arange(n) + 1.0)]))
+        a = 0.5 * (a + a.mT)
+        plain, entry, plan = tj.eigh_block_plain, "jacobi_eigh_core", K.j2_plan
+    else:
+        a = torch.as_tensor(np.stack([(q * np.logspace(0, -8, n)) @ np.linalg.qr(rng.randn(n, n))[0],
+                                      q * (np.arange(n) + 1.0)]))
+        plain, entry, plan = tj.orthogonalise_block_plain, "jacobi_orthogonalise", K.j1_plan
+    out = plain(a, sweeps=True)
+    sweeps = out[-1]
+    assert sweeps[1] == 1
+    if core == "j2":
+        assert torch.equal(out[0][1], torch.arange(n, dtype=a.dtype) + 1.0)
+        assert torch.equal(out[1][1], torch.eye(n, dtype=a.dtype))
+    else:
+        assert torch.equal(out[0][1], a[1]) and torch.equal(out[1][1], torch.eye(n, dtype=a.dtype))
     assert 1 < int(sweeps[0]) < tj.MAX_SWEEPS
-    with _block_from(BLOCK_TESTED_FROM):
-        assert K.j2_plan(n)[0] == K.J2_BLOCK
-        assert torch.equal(K.jacobi_sweeps("jacobi_eigh_core", a), sweeps)
+    with _block_from(BLOCK_TESTED_FROM, core):
+        assert plan(n)[0] == 16
+        assert torch.equal(K.jacobi_sweeps(entry, a), sweeps)
     saved = tj.MAX_SWEEPS
     tj.MAX_SWEEPS = int(sweeps[0]) - 1
     try:
-        w2, v2, sweeps2 = tj.eigh_block_plain(a, sweeps=True)
+        out2 = plain(a, sweeps=True)
     finally:
         tj.MAX_SWEEPS = saved
-    assert bool(torch.isnan(w2[0]).all()) and bool(torch.isnan(v2[0]).all())
-    assert torch.equal(w2[1], w[1]) and torch.equal(v2[1], v[1])
-    assert sweeps2.tolist() == [int(sweeps[0]) - 1, 1]
+    assert all(bool(torch.isnan(t[0]).all()) for t in out2[:-1])
+    assert all(torch.equal(t2[1], t[1]) for t2, t in zip(out2[:-1], out[:-1]))
+    assert out2[-1].tolist() == [int(sweeps[0]) - 1, 1]
 
 
 @pytest.mark.parametrize("n", [7, 66, 97, 194])
@@ -277,11 +307,34 @@ def test_j2_plan_fits_every_order():
         assert element[0] == 0 and element[3] <= K.SMEM_LIMIT
     with pytest.raises(K.KernelError):
         K.j2_plan(K.J2_MAX_N + 2)
+    # J1: the element regime (one CTA) below J1_BLOCK_FROM and to 118, the
+    # block regime (a cluster of ceil(n / 16 / 2) CTAs, at most 4) from
+    # there and at 120-128 whatever the crossover, and asked for at every
+    # order
+    for n in range(2, K.J1_MAX_N + 1, 2):
+        block, ctas, threads, smem = K.j1_plan(n)
+        assert smem <= K.SMEM_LIMIT and threads % 32 == 0 and threads <= 1024
+        if n < K.J1_BLOCK_FROM and n <= K.J1_ELEMENT_MAX_N:
+            assert block == 0 and ctas == 1 and threads == 32 * min(32, n // 2)
+        else:
+            assert block == K.J1_BLOCK
+        nb = -(-n // K.J1_BLOCK)
+        blk, ctas, threads, smem = K.j1_plan(n, block=True)
+        assert blk == K.J1_BLOCK and ctas == (nb + nb % 2) // 2 <= 4
+        assert threads == K.J1_BLOCK ** 2 and smem <= K.SMEM_LIMIT
+        if n <= K.J1_ELEMENT_MAX_N:
+            assert K.j1_plan(n, element=True)[0] == 0
+        else:
+            with pytest.raises(K.KernelError):
+                K.j1_plan(n, element=True)
+    with pytest.raises(K.KernelError):
+        K.j1_plan(K.J1_MAX_N + 2)
 
 
 def test_jacobi_batch_with_a_nonfinite_instance():
     """One NaN instance of a batch comes out NaN, the others bit-equal to
-    the batch without it; the same for eigh."""
+    the batch without it; the same for eigh, and for J1's block regime (an
+    SVD whose small side is 34)."""
     rng = np.random.RandomState(4)
     a = torch.as_tensor(rng.randn(3, 12, 7))
     bad = a.clone()
@@ -289,8 +342,12 @@ def test_jacobi_batch_with_a_nonfinite_instance():
     s = a @ a.mT
     s_bad = s.clone()
     s_bad[1, 0, 1] = s_bad[1, 1, 0] = float("inf")
-    with tj.forced(True):
-        for fn, good, broken in ((linalg.safe_svd, a, bad), (linalg.safe_eigh, s, s_bad)):
+    t = torch.as_tensor(rng.randn(3, 40, 34))
+    t_bad = t.clone()
+    t_bad[1, 5, 30] = float("nan")
+    with tj.forced(True), _block_from(BLOCK_TESTED_FROM, "j1"):
+        for fn, good, broken in ((linalg.safe_svd, a, bad), (linalg.safe_eigh, s, s_bad),
+                                 (linalg.safe_svd, t, t_bad)):
             ref, out = fn(good), fn(broken)
             for r, o in zip(ref, out):
                 assert bool(torch.isnan(o[1]).all())
@@ -324,12 +381,12 @@ def test_cpu_keeps_lapack_bits_unless_forced():
 
 def test_shape_rules_send_large_factorizations_to_linalg():
     """By shape alone: an SVD whose even-padded small side exceeds
-    J1_MAX_N, an eigh above J2_MAX_N, and a tall pipeline's QR outside
+    J1_MAX_N (130), an eigh above J2_MAX_N, and a tall pipeline's QR outside
     K3's envelope go to torch.linalg, counted."""
     rng = np.random.RandomState(6)
     K.reset_counts()
     with tj.forced(True):
-        big = torch.as_tensor(rng.randn(130, 120))
+        big = torch.as_tensor(rng.randn(140, K.J1_MAX_N + 2))
         assert torch.equal(linalg.safe_svd(big)[1], torch.linalg.svd(big, full_matrices=False)[1])
         tall = torch.as_tensor(rng.randn(600, 6))
         u, s, vt = linalg.safe_svd(tall)

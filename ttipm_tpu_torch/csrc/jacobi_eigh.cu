@@ -56,18 +56,10 @@
 // 2 kB columns, twice (the row update writes the other copy).  An outer
 // step:
 //  1. the inner problem: the CTA copies the 2 kB x 2 kB diagonal tile
-//     A[P u Q, P u Q] and runs one cyclic sweep of the element rule on it
-//     (round robin of order 2 kB; the empty and ragged indices are zeros,
-//     which never rotate), accumulating the slot's orthogonal U; kB threads
-//     compute a step's rotations (t from d = a_jj - a_ii and e = 2 b_ij with
-//     one root and one reciprocal, refined approximations, beside the
-//     threshold test) and post them in shared memory, every thread then
-//     rotates one 2 x 2 block of the tile and of U: two CTA barriers an
-//     inner step, one in a step without a rotation, and none in a sweep
-//     whose tile has no pair to rotate (all pairs are tested at once
-//     first); U's columns are then scaled to unit length (a rotation with
-//     t^2 below half an ulp keeps c = 1 and lengthens its columns, and an
-//     index is rotated twice as often as in the element rule);
+//     A[P u Q, P u Q] and runs one cyclic sweep of the element rule on it,
+//     accumulating the slot's orthogonal U (jacobi.cuh::inner_sweep, which
+//     J1's block regime shares: refined rotations, two CTA barriers an
+//     inner step, quiet tiles skipped, U's columns scaled to unit length);
 //  2. U and the slot's flags (rotated, non-finite) go to every CTA of the
 //     cluster by distributed-shared-memory stores;
 //  3. the columns: A[:, P u Q] <- A[:, P u Q] U in place, and V[:, P u Q]
@@ -110,7 +102,6 @@ namespace {
 
 using namespace ttipm::jacobi;
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 272;
 constexpr int kMaxCtas = 8;        // the element regime's largest cluster
 constexpr int kMaxBlockCtas = 16;  // the block regime's (non-portable above 8)
@@ -142,38 +133,6 @@ size_t block_smem_bytes(int n, int ctas) {
   return sizeof(double) * (2 * (panel > tiles ? panel : tiles) + ctas * m * (m + 4) + 4 * kB +
                            kMaxBlockCtas) +
          sizeof(int) * (kMaxBlockCtas + 2);
-}
-
-// Clock stamps of CTA 0's thread 0 (ttipm_jacobi_eigh_stamps): lap(k) adds
-// the cycles since the previous lap to part k, count(k) adds to entry k,
-// by atomics whose result nobody waits for.
-struct Stamps {
-  unsigned long long* out;
-  long long last;
-  __device__ Stamps(long long* p, bool on)
-      : out(on ? reinterpret_cast<unsigned long long*>(p) : nullptr), last(0) {
-    if (out != nullptr) last = clock64();
-  }
-  __device__ __forceinline__ void lap(int k) {
-    if (out == nullptr) return;
-    const long long now = clock64();
-    atomicAdd(out + k, (unsigned long long)(now - last));
-    last = now;
-  }
-  __device__ __forceinline__ void count(int k, int v = 1) {
-    if (out != nullptr) atomicAdd(out + k, (unsigned long long)v);
-  }
-};
-
-// Makes the stamp that follows wait for x (a load's or a chain's result).
-__device__ __forceinline__ void wait_for(double x) {
-  if (__double_as_longlong(x) == 0x7ff4dead0000beefLL) asm volatile("" ::: "memory");
-}
-
-__device__ __forceinline__ double warp_max(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(kFull, v, off));
-  return v;
 }
 
 // Column `col` of the copy at local address `copy`, in the CTA that owns it.
@@ -214,61 +173,6 @@ __device__ __forceinline__ void pair_rotation(double aii, double ajj, double bij
   rotate = fabs(bij) > tol * scale;
   finite = isfinite(aii + ajj + bij);
   rotation(rotate, __ddiv_rn(ajj - aii, 2.0 * (rotate ? bij : 1.0)), cs, sn);
-}
-
-// 1 / x and 1 / sqrt(x) for a positive normal x: the tensor-free
-// approximations of the special function unit refined by two Newton steps
-// each (to within an ulp or two: the correctly rounded divisions and roots
-// of `rotation` cost a chain of five long sequences an inner step).
-__device__ __forceinline__ double rcp_fast(double x) {
-  double y;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
-  double e = fma(-x, y, 1.0);
-  y = fma(y, e, y);
-  e = fma(-x, y, 1.0);
-  return fma(y, e, y);
-}
-__device__ __forceinline__ double rsqrt_fast(double x) {
-  double y;
-  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
-  double e = fma(-x * y, y, 1.0);
-  y = fma(0.5 * y, e, y);
-  e = fma(-x * y, y, 1.0);
-  return fma(0.5 * y, e, y);
-}
-
-// The rotation of `rotation` for tau = d / e (e != 0), to within an ulp or
-// two of its correctly rounded values: t = sign(tau) |e| / (|d| + sqrt(d^2 +
-// e^2)), c = 1 / sqrt(1 + t^2), s = c t, where d and e are of a size whose
-// squares neither overflow nor underflow (the block regime's operands, which
-// the pipeline scales to max |a| = 1); the correctly rounded rule elsewhere.
-// With d = e = 0 it gives the identity; outside that range with `rotate`
-// false, the identity too (the result is not used).
-__device__ __forceinline__ void rotation_fast(bool rotate, double d, double e, double& cs,
-                                              double& sn) {
-  const double ad = fabs(d), ae = fabs(e), m = fmax(ad, ae);
-  if (!(m > 1e-140 && m < 1e140)) {
-    if (rotate)
-      rotation(true, __ddiv_rn(d, e), cs, sn);
-    else
-      cs = 1.0, sn = 0.0;
-    return;
-  }
-  const double r2 = fma(d, d, e * e);
-  double t = ae * rcp_fast(ad + r2 * rsqrt_fast(r2));
-  if (d != 0.0 && (d < 0.0) != (e < 0.0)) t = -t;  // tau < 0
-  const double c = rsqrt_fast(fma(t, t, 1.0));
-  cs = c;
-  sn = c * t;
-}
-
-// The block regime's threshold test: |b_ij| > tol max(sqrt(|a_ii a_jj|),
-// s0), the root as x / sqrt(x) to an ulp or two (NaN at x = 0, which fmax
-// replaces by s0, as it would 0).
-__device__ __forceinline__ bool pair_rotates(double aii, double ajj, double bij, double tol,
-                                             double s0) {
-  const double x = fabs(aii * ajj);
-  return fabs(bij) > tol * fmax(x * rsqrt_fast(x), s0);
 }
 
 // ---------------------------------------------------------------------------
@@ -432,34 +336,13 @@ jacobi_eigh_kernel(const double* __restrict__ a, int n, int ctas, double tol, do
 // The block regime
 // ---------------------------------------------------------------------------
 
-// D (16x8) += A (16x4) * B (4x8) on the f64 tensor cores (csrc/panel_cholesky.cu):
-// lane (g, t) = (lane / 4, lane % 4) holds A[g][t], A[g + 8][t], B[t][g] and
-// D[g][2t..2t+1], D[g + 8][2t..2t+1].
-__device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1, double b) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
-      "{%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
-// The position the round robin of order np moves position p to (position
-// 0 stays, np - 1 goes to 1, the others one up), and the slot and half
-// that hold a position.
-__device__ __forceinline__ int next_position(int np, int p) {
-  return p == 0 ? 0 : (p == np - 1 ? 1 : p + 1);
-}
-__device__ __forceinline__ int slot_of(int np, int p) { return p < np / 2 ? p : np - 1 - p; }
-__device__ __forceinline__ int half_of(int np, int p) { return p < np / 2 ? 0 : 1; }
-
 __global__ void __launch_bounds__(kBlockThreads, 1)
 jacobi_eigh_block_kernel(const double* __restrict__ a, int n, double tol, double floor_rel,
                          double* __restrict__ w_out, double* __restrict__ v_out,
                          int* __restrict__ sweeps_out, long long* __restrict__ stamps) {
   constexpr int kM = 2 * kB;      // order of a slot's tile
-  constexpr int kH = kB;          // pairs of an inner step
   constexpr int kLdS = kM + 1;    // the tile's leading dimension
   constexpr int kLdU = kM + 4;    // U's: conflict-free tensor core fragments
-  constexpr int kItems = kH * kH / kBlockThreads;  // 2 x 2 blocks of a thread
   cg::cluster_group cluster = cg::this_cluster();
   const int ctas = (int)gridDim.x;
   const int rank = (int)cluster.block_rank();  // the slot
@@ -549,138 +432,10 @@ jacobi_eigh_block_kernel(const double* __restrict__ a, int n, double tol, double
       }
       __syncthreads();
       st.lap(2);
-      bool rotated = false, bad = false;
-      // the thread's pairs' indices at step 0, moved along with the steps
-      // (an index x > 0 goes to x - 1, 1 to kM - 1)
-      int idx[kItems][4];
-#pragma unroll
-      for (int it = 0; it < kItems; ++it) {
-        const int item = tid + it * kBlockThreads, p = item / kH, q = item - p * kH;
-        idx[it][0] = schedule_index(kM, 0, p);
-        idx[it][1] = schedule_index(kM, 0, kM - 1 - p);
-        idx[it][2] = schedule_index(kM, 0, q);
-        idx[it][3] = schedule_index(kM, 0, kM - 1 - q);
-      }
-      int ri = schedule_index(kM, 0, tid), rj = schedule_index(kM, 0, kM - 1 - tid);
-      // a quiet tile: every pair's test at once on the tile as it is; where
-      // none would rotate, no step changes the tile, so the sweep is that
-      // test (its non-finite numbers included) and is skipped
-      {
-        bool any = false;
-        for (int e = tid; e < kM * kM; e += nthreads) {
-          const int i = e / kM, j = e - i * kM;
-          if (i >= j) continue;
-          const double aii = scur[i * kLdS + i], ajj = scur[j * kLdS + j];
-          const double bij = 0.5 * (scur[i * kLdS + j] + scur[j * kLdS + i]);
-          any |= pair_rotates(aii, ajj, bij, tol, s0);
-          bad |= !isfinite(aii + ajj + bij);
-        }
-        if (!__syncthreads_or(any)) {
-          bad = __syncthreads_or(bad);
-          st.count(15);
-          st.lap(1);
-          goto inner_done;
-        }
-      }
-      for (int k2 = 0; k2 < kM - 1; ++k2) {
-        const int par = k2 & 1;
-        double* rc = rcs + 2 * kB * par;
-        double* rs = rc + kB;
-        if (tid < kH) {
-          double c = 1.0, s = 0.0;
-          const double aii = scur[ri * kLdS + ri], ajj = scur[rj * kLdS + rj];
-          const double bij = 0.5 * (scur[ri * kLdS + rj] + scur[rj * kLdS + ri]);
-          // the rotation is computed alongside the test, whose result then
-          // selects it: the two chains overlap
-          const bool rotate = pair_rotates(aii, ajj, bij, tol, s0);
-          rotation_fast(rotate, ajj - aii, 2.0 * bij, c, s);
-          if (!rotate) c = 1.0, s = 0.0;
-          rotated |= rotate;
-          bad |= !isfinite(aii + ajj + bij);
-          rc[tid] = c;
-          rs[tid] = s;
-          const unsigned any = __any_sync((1u << kH) - 1u, rotate);
-          if (tid == 0) vote[par] = any ? 1 : 0;
-          if (st.out != nullptr) {
-            wait_for(c + s);
-            st.lap(1);
-          }
-        }
-        ri = ri == 0 ? 0 : (ri == 1 ? kM - 1 : ri - 1);
-        rj = rj == 0 ? 0 : (rj == 1 ? kM - 1 : rj - 1);
-        __syncthreads();
-        st.lap(3);
-        if (vote[par] != 0) {
-          st.count(13);
-#pragma unroll
-          for (int it = 0; it < kItems; ++it) {
-            const int item = tid + it * kBlockThreads;
-            const int p = item / kH, q = item - p * kH;
-            const int ip = idx[it][0], jp = idx[it][1], iq = idx[it][2], jq = idx[it][3];
-            const double cp = rc[p], sp = rs[p], cq = rc[q], sq = rs[q];
-            const double x = scur[ip * kLdS + iq], y = scur[ip * kLdS + jq];
-            const double z = scur[jp * kLdS + iq], u = scur[jp * kLdS + jq];
-            double* u0 = umine + ip * kLdU;
-            double* u1 = umine + jp * kLdU;
-            const double a0 = u0[iq], b0 = u0[jq], a1 = u1[iq], b1 = u1[jq];
-            // the columns (iq, jq), then the rows (ip, jp): G_p^T S G_q
-            const double ti = cq * x - sq * y, tj = sq * x + cq * y;
-            const double ui = cq * z - sq * u, uj = sq * z + cq * u;
-            snxt[ip * kLdS + iq] = cp * ti - sp * ui;
-            snxt[jp * kLdS + iq] = sp * ti + cp * ui;
-            snxt[ip * kLdS + jq] = cp * tj - sp * uj;
-            snxt[jp * kLdS + jq] = sp * tj + cp * uj;
-            // U <- U G_q on rows ip and jp
-            u0[iq] = cq * a0 - sq * b0;
-            u0[jq] = sq * a0 + cq * b0;
-            u1[iq] = cq * a1 - sq * b1;
-            u1[jq] = sq * a1 + cq * b1;
-          }
-          st.lap(2);
-          __syncthreads();
-          st.lap(3);
-          double* tmp = scur;
-          scur = snxt;
-          snxt = tmp;
-        }
-#pragma unroll
-        for (int it = 0; it < kItems; ++it) {
-#pragma unroll
-          for (int z = 0; z < 4; ++z) {
-            const int x = idx[it][z];
-            idx[it][z] = x == 0 ? 0 : (x == 1 ? kM - 1 : x - 1);
-          }
-        }
-      }
-      rotated = __syncthreads_or(rotated);
-      bad = __syncthreads_or(bad);
-      st.count(12, kM - 1);
-      st.lap(3);
-    inner_done:
-      // unit columns of U (a rotation whose t^2 is below half an ulp of 1
-      // keeps c = 1 and lengthens its columns by t^2; the inner sweeps
-      // rotate an index twice as often as the element rule, and V <- V U
-      // would add the lengths up): kM / 8 lanes a column, then a division
-      if (rotated) {
-        constexpr int kPer = 8;  // rows a thread sums
-        double* norms = rcs;     // kM of them (the rotations are done with)
-        for (int col = tid / (kM / kPer); col < kM; col += nthreads / (kM / kPer)) {
-          const int r0 = (tid % (kM / kPer)) * kPer;
-          double ss = 0.0;
-#pragma unroll
-          for (int r = 0; r < kPer; ++r) ss = fma(umine[(r0 + r) * kLdU + col], umine[(r0 + r) * kLdU + col], ss);
-#pragma unroll
-          for (int off = 1; off < kM / kPer; off <<= 1) ss += __shfl_xor_sync(kFull, ss, off);
-          if (r0 == 0) norms[col] = __dsqrt_rn(ss);
-        }
-        __syncthreads();
-        for (int e = tid; e < kM * kM; e += nthreads) {
-          const int r = e / kM, col = e - r * kM;
-          umine[r * kLdU + col] = __ddiv_rn(umine[r * kLdU + col], norms[col]);
-        }
-        __syncthreads();
-      }
-      st.lap(2);
+      bool rotated, bad;
+      // the stamps of the inner sweep (J2_STAMP_PARTS[1])
+      inner_sweep<kB>(scur, snxt, umine, rcs, vote, tol, s0, st, InnerParts{1, 2, 3, 12, 13, 15},
+                      rotated, bad);
 
       // 2. U and the flags to every CTA (stores only)
       if (tid == 0) {
@@ -846,46 +601,6 @@ jacobi_eigh_block_kernel(const double* __restrict__ a, int n, double tol, double
   if (rank == 0 && tid == 0 && sweeps_out != nullptr) sweeps_out[blockIdx.y] = sweeps;
   st.lap(10);
   st.count(14, sweeps);
-}
-
-// Raises the kernel's dynamic shared memory limit (and, for a cluster
-// above 8 CTAs, allows it) once per device.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, unsigned& done, bool nonportable) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (done & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxDynamicSmem);
-  if (err != cudaSuccess) return err;
-  if (nonportable) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  done |= bit;
-  return cudaSuccess;
-}
-
-template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, int ctas, int nbatch, int threads, size_t smem,
-                           cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, nbatch);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 int launch(const double* a, int nbatch, int n, double tol, double floor_rel, double* w, double* v,

@@ -111,7 +111,8 @@ def load_library() -> ctypes.CDLL:
         **typed, **{name + "_f32": args for name, args in typed.items()},
         "ttipm_empty_launch": [p],
         "ttipm_panel_qr_stamps": [p, p, p, i, i, i, i, p, p, p],
-        "ttipm_jacobi_svd": [p, i, i, f, f, p, p, p, p, i, p],      # float64 only
+        "ttipm_jacobi_svd": [p, i, i, f, f, p, p, p, p, i, i, i, p],      # float64 only
+        "ttipm_jacobi_svd_stamps": [p, i, f, f, p, p, p, i, i, i, p, p],
         "ttipm_jacobi_eigh": [p, i, i, f, f, p, p, p, i, i, i, p],
         "ttipm_jacobi_eigh_stamps": [p, i, f, f, p, p, i, i, i, p, p],
         "ttipm_error_string": [i],

@@ -27,10 +27,13 @@ instance; short reductions taken an instance at a time on the card).
 The plain versions run the JAX package's schedule (``_round_robin``), its
 rotation rules (``_svd_rotations`` and the eigh rule of
 ``_jacobi_eigh_core``), its tolerance (``_tol_for``) and its stop test.
-J2 has two regimes by order (``kernels.j2_plan``), each with its plain
-version: the element rule (``eigh_core_plain``) and, from
-``kernels.J2_BLOCK_FROM`` on, a two-level (block) Jacobi whose inner sweeps
-apply the same rule to pairs of blocks of 16 indices (``eigh_block_plain``).
+J1 and J2 have two regimes each by order (``kernels.j1_plan``,
+``kernels.j2_plan``), each with its plain version: the element rule
+(``orthogonalise_plain``, ``eigh_core_plain``) and, from
+``kernels.J1_BLOCK_FROM`` / ``J2_BLOCK_FROM`` on, a two-level (block) Jacobi
+whose inner sweeps apply the same rule to pairs of blocks of 16 indices
+(``orthogonalise_block_plain`` on the slots' Gram matrices,
+``eigh_block_plain``).
 The deliberate deviations (ROADMAP "Deliberate deviations"):
 
 * a rotation whose tau is exactly 0 turns by 45 degrees (t = 1, Golub and
@@ -43,9 +46,11 @@ The deliberate deviations (ROADMAP "Deliberate deviations"):
   the matrix after each sweep: with the JAX rules a null space, columns
   of rounding noise or a pair at the threshold kept sweeps going to the
   cap in the maxcut d10 solve, which here means NaN;
-* J2's block regime rotates a pair within a block once an outer step,
-  and normalises the columns of each pair of blocks' U before the outer
-  products (``eigh_block_plain``); eigvalsh skips V;
+* the block regimes rotate a pair within a block once an outer step, and
+  normalise the columns of each pair of blocks' U before the outer
+  products (``orthogonalise_block_plain``, ``eigh_block_plain``); J1's
+  inner sweep rotates the Gram matrix of the slot's columns, formed afresh
+  each outer step; eigvalsh skips V;
 * the f32 pre-rotation of the tall pipeline (``:172-181``, ``:190``) and
   ``jacobi_svd_fast`` (``:234-256``) exist because the TPU emulates f64;
   the port rotates r2^T, r2 from a second QR of r^T, instead of r
@@ -71,7 +76,8 @@ import torch
 from ttipm_tpu_torch.ops import kernels
 
 __all__ = ["TINY", "MAX_SWEEPS", "tol_for", "round_robin", "svd_rotations", "eigh_rotations",
-           "orthogonalise_plain", "eigh_core_plain", "eigh_block_plain", "sort_eigenpairs",
+           "orthogonalise_plain", "orthogonalise_block_plain", "eigh_core_plain",
+           "eigh_block_plain", "sort_eigenpairs",
            "jacobi_svd", "jacobi_eigh", "force_jacobi", "forced", "use_jacobi"]
 
 # The JAX package's guard for its f64 emulation (``ttipm_tpu/ops/jacobi.py:46``),
@@ -130,8 +136,10 @@ def _angle(tau):
 def svd_rotations(a, b, c, tol, floor):
     """One-sided rotation (cs, sn) of the column pairs with Gram entries
     a = <wi,wi>, b = <wj,wj>, c = <wi,wj> (``_svd_rotations``, ``:102-118``),
-    taken where |c| > tol max(sqrt(a b), floor); and whether it is taken."""
-    rotate = torch.abs(c) > tol * torch.maximum(torch.sqrt(a * b), floor)
+    taken where |c| > tol max(sqrt(|a b|), floor); and whether it is taken
+    (|a b|: a Gram diagonal updated by rotations, as the block regime's
+    inner sweep has it, may round below 0)."""
+    rotate = torch.abs(c) > tol * torch.maximum(torch.sqrt(torch.abs(a * b)), floor)
     return (*_masked(rotate, (b - a) / (2.0 * torch.where(rotate, c, torch.ones_like(c)))),
             rotate)
 
@@ -239,6 +247,101 @@ def orthogonalise_plain(w, sweeps=False):
     return (*out, count) if sweeps else out
 
 
+def _inner_sweep(s, rule):
+    """One sweep of the element rule on each tile of s (B, slots, m, m),
+    the block regimes' inner problem (csrc/jacobi.cuh::inner_sweep): the
+    product U of its rotations, whether a pair rotated and whether one met a
+    non-finite number, per slot.  ``rule(a_ii, a_jj, b_ij)`` gives (cs, sn,
+    rotate) of a step's pairs, b_ij = (a_ij + a_ji) / 2.  A step's rotations
+    (the pairs cover the tile) as one orthogonal G: S <- G^T S G, U <- U G."""
+    m, dev = s.shape[-1], s.device
+    ii, jj = _schedule(m, dev)
+    u = torch.eye(m, dtype=s.dtype, device=dev).expand_as(s)
+    rotated = torch.zeros(s.shape[:2], dtype=torch.bool, device=dev)
+    bad = torch.zeros_like(rotated)
+    for k in range(m - 1):
+        i, j = ii[k], jj[k]
+        aii, ajj, bij = s[..., i, i], s[..., j, j], 0.5 * (s[..., i, j] + s[..., j, i])
+        cs, sn, rotate = rule(aii, ajj, bij)
+        rotated = rotated | rotate.any(-1)
+        bad = bad | ~torch.isfinite(aii + ajj + bij).all(-1)
+        g = torch.zeros_like(s)
+        g[..., i, i] = cs
+        g[..., j, j] = cs
+        g[..., i, j] = sn
+        g[..., j, i] = -sn
+        s = g.mT @ (s @ g)
+        u = u @ g
+    # a rotation whose t^2 is below half an ulp of 1 keeps c = 1 and so
+    # lengthens its columns by t^2: the inner sweeps rotate an index some
+    # 2n times a sweep, twice the element rule's, and V <- V U would add
+    # those lengths up; unit columns leave rounding alone
+    return u / torch.linalg.vector_norm(u, dim=-2, keepdim=True), rotated, bad
+
+
+def _block_perm(bi, bj, block):
+    """The indices of the slots of an outer step in order (slot s: block
+    bi[s], then block bj[s])."""
+    offsets = torch.arange(block, device=bi.device)
+    return ((torch.stack([bi, bj], 1) * block)[:, :, None] + offsets).reshape(-1)
+
+
+def orthogonalise_block_plain(w, sweeps=False):
+    """Plain version of J1's block regime (``csrc/jacobi_svd.cu``, the
+    orders ``kernels.j1_plan`` gives it): two-level one-sided Jacobi of each
+    instance of ``w`` (B, n, n), n even, with blocks of ``kernels.J1_BLOCK``
+    (16) columns.  Returns what ``orthogonalise_plain`` returns.
+
+    The n columns are cut into nb = ceil(n / block) blocks, the last one
+    ragged, and nb is rounded up to even with an empty block (here: W
+    padded with zero columns, which never rotate).  An outer sweep runs the
+    round robin of order nb over the blocks; its step pairs them into nb / 2
+    slots (P, Q).  Each slot's Gram matrix G = [W_P W_Q]^T [W_P W_Q] gets one
+    cyclic sweep of the element rule (the round robin of order 2 block,
+    ``svd_rotations`` on a = g_ii, b = g_jj, c = (g_ij + g_ji) / 2 with
+    tol_for(n) and the floor SVD_FLOOR times the input's largest squared
+    column norm: J1's rule on the Gram entries), whose rotations multiply
+    into an orthogonal U of the slot; then [W_P W_Q] <- [W_P W_Q] U and
+    [V_P V_Q] <- [V_P V_Q] U (the kernel's products on the tensor cores).
+    The outer sweeps stop after one in which no inner sweep rotated, at most
+    MAX_SWEEPS (see ``_sweeps``); an instance that still rotated in the
+    last, or met a non-finite number, comes out NaN.  After a sweep without
+    a rotation every pair of columns has met, in some slot, on W as it now
+    is, so the stop test is the element one on Gram entries formed afresh
+    each outer step."""
+    B, n, _ = w.shape
+    block = kernels.J1_BLOCK
+    nb = -(-n // block)
+    nb += nb % 2
+    m, npad, slots = 2 * block, nb * block, nb // 2
+    dev = w.device
+    tol = tol_for(n)
+    floor = SVD_FLOOR * (w * w).sum(1).amax(dim=1)[:, None, None]
+    w0 = torch.zeros((B, n, npad), dtype=w.dtype, device=dev)
+    w0[:, :, :n] = w
+    v0 = torch.eye(npad, dtype=w.dtype, device=dev).expand(B, npad, npad)
+
+    def rule(a, b, c):
+        return svd_rotations(a, b, c, tol, floor)
+
+    def one_step(state, bi, bj):
+        x, v = state
+        perm = _block_perm(bi, bj, block)
+        xp = x[:, :, perm].reshape(B, n, slots, m)
+        u, rotated, bad = _inner_sweep(torch.einsum("bnsi,bnsj->bsij", xp, xp), rule)
+        x = x.clone()
+        x[:, :, perm] = torch.einsum("bnsk,bskl->bnsl", xp, u).reshape(B, n, npad)
+        v = v.clone()
+        v[:, :, perm] = torch.einsum("bnsk,bskl->bnsl",
+                                     v[:, :, perm].reshape(B, npad, slots, m), u).reshape(B, npad, npad)
+        return (x, v), rotated.any(1), bad.any(1)
+
+    (x, v), failed, count = _sweeps((w0, v0), one_step, nb)
+    x, v = x[:, :, :n], v[:, :n, :n]
+    out = _nan_where(failed, x, v, (x * x).sum(1))
+    return (*out, count) if sweeps else out
+
+
 def eigh_core_plain(a, sweeps=False):
     """Plain version of J2 (``_jacobi_eigh_core``, ``:370-429``): cyclic
     two-sided Jacobi of each symmetric instance of ``a`` (B, n, n), n even.
@@ -312,43 +415,16 @@ def eigh_block_plain(a, sweeps=False):
     x0 = torch.zeros((B, npad, npad), dtype=a.dtype, device=dev)
     x0[:, :n, :n] = a
     v0 = torch.eye(npad, dtype=a.dtype, device=dev).expand(B, npad, npad)
-    eye_m = torch.eye(m, dtype=a.dtype, device=dev)
-    ii, jj = _schedule(m, dev)
-    offsets = torch.arange(block, device=dev)
 
-    def inner_sweep(s):
-        """One sweep of the element rule on each tile of s (B, slots, m, m):
-        the product U of its rotations, whether a pair rotated and whether
-        one met a non-finite number, per slot.  A step's rotations (the
-        pairs cover the tile) as one orthogonal G: S <- G^T S G, U <- U G."""
-        u = eye_m.expand_as(s)
-        rotated = torch.zeros(s.shape[:2], dtype=torch.bool, device=dev)
-        bad = torch.zeros_like(rotated)
-        for k in range(m - 1):
-            i, j = ii[k], jj[k]
-            aii, ajj, bij = s[..., i, i], s[..., j, j], 0.5 * (s[..., i, j] + s[..., j, i])
-            cs, sn, rotate = eigh_rotations(aii, ajj, bij, tol, floor)
-            rotated = rotated | rotate.any(-1)
-            bad = bad | ~torch.isfinite(aii + ajj + bij).all(-1)
-            g = torch.zeros_like(s)
-            g[..., i, i] = cs
-            g[..., j, j] = cs
-            g[..., i, j] = sn
-            g[..., j, i] = -sn
-            s = g.mT @ (s @ g)
-            u = u @ g
-        # a rotation whose t^2 is below half an ulp of 1 keeps c = 1 and so
-        # lengthens its columns by t^2: the inner sweeps rotate an index
-        # some 2n times a sweep, twice the element rule's, and V <- V U
-        # would add those lengths up; unit columns leave rounding alone
-        return u / torch.linalg.vector_norm(u, dim=-2, keepdim=True), rotated, bad
+    def rule(aii, ajj, bij):
+        return eigh_rotations(aii, ajj, bij, tol, floor)
 
     def one_step(state, bi, bj):
         x, v = state
-        # the indices of slot s in order: block bi[s], then block bj[s]
-        perm = ((torch.stack([bi, bj], 1) * block)[:, :, None] + offsets).reshape(-1)
+        perm = _block_perm(bi, bj, block)
         xp = x[:, perm][:, :, perm].reshape(B, slots, m, slots, m)
-        u, rotated, bad = inner_sweep(torch.diagonal(xp, dim1=1, dim2=3).permute(0, 3, 1, 2))
+        u, rotated, bad = _inner_sweep(torch.diagonal(xp, dim1=1, dim2=3).permute(0, 3, 1, 2),
+                                       rule)
         xp = torch.einsum("bsitk,btkl->bsitl", xp, u)  # the columns: A W
         xp = torch.einsum("bski,bsktl->bsitl", u, xp)  # the rows: W^T (A W)
         x = x.clone()

@@ -102,8 +102,9 @@ class KernelStats:
     one), how many of them came through the grouped entry point, how many
     through a batched one and the instances those carried, the launches and
     the instances of each type (``by_dtype``, ``instances_by_dtype``: "f64",
-    "f32"), plain calls, and the calls a shape rule sent to ``torch.linalg``
-    instead (``outside``: the Jacobi pipelines' envelope)."""
+    "f32"), plain calls, the calls a shape rule sent to ``torch.linalg``
+    instead (``outside``: the Jacobi pipelines' envelope), and the Jacobi
+    kernels' launches by regime (``by_regime``: "element", "block")."""
 
     def __init__(self, name: str):
         self.name = name
@@ -118,6 +119,7 @@ class KernelStats:
         self.outside = 0
         self.by_dtype = dict.fromkeys(DTYPES.values(), 0)
         self.instances_by_dtype = dict.fromkeys(DTYPES.values(), 0)
+        self.by_regime = {"element": 0, "block": 0}
 
     def count(self, tag: str, grouped: bool = False, batch: int = 0) -> None:
         """One device launch of the ``tag`` instance; ``batch`` > 0: a
@@ -782,12 +784,30 @@ def panel_cholesky_batch(a):
 # J1 / J2: the Jacobi cores of the SVD and of eigh (float64, batched)
 # ---------------------------------------------------------------------------
 
-# Largest even order of each kernel (kMaxN in csrc/jacobi_svd.cu and
-# csrc/jacobi_eigh.cu): J1 holds W and V of an instance in one CTA's shared
-# memory; J2 spreads A over a cluster of CTAs (element regime: A twice and
-# V over at most 8; block regime: a slot's block columns of A twice a CTA,
-# V in device memory).
-J1_MAX_N = 118
+# Largest even order of each kernel (kMaxBlockN in csrc/jacobi_svd.cu,
+# kMaxN in csrc/jacobi_eigh.cu): J1 to K3's column bound, which bounds the
+# tall pipeline's QRs (its element regime holds W and V of an instance in
+# one CTA's shared memory, to order 118); J2 spreads A over a cluster of
+# CTAs (element regime: A twice and V over at most 8; block regime: a
+# slot's block columns of A twice a CTA, V in device memory).
+J1_MAX_N = 128
+J1_ELEMENT_MAX_N = 118
+# J1's regimes, by order (csrc/jacobi_svd.cu): the element kernel up to
+# J1_BLOCK_FROM - 2, the two-level (block) one-sided Jacobi with blocks of
+# J1_BLOCK columns from J1_BLOCK_FROM on (and above J1_ELEMENT_MAX_N
+# whatever the crossover); a CTA a pair of blocks, J1_BLOCK^2 threads, at
+# most 4 CTAs a cluster.  Both measured on the card on the r2^T operands of
+# the maxcut d8, d10 and f32 d8 solves (PERF.md): blocks of 16 are
+# the faster from order 22 at every order the solves give, and than blocks
+# of 8 at 52-64 and 80-128 (8 won at some orders below; not kept).  The
+# crossover is 34, not 22: the f32 d8 seed 319 solve (chip_smoke.py phase
+# 9) turns on the SVDs' last bits and stops unconverged with the block
+# regime from 22-24 (and from 56), converges in 8 iterations from 26-30
+# and in 11 from 34-48 and 66; J1's outputs hold their invariants in
+# every case.
+J1_BLOCK = 16
+J1_BLOCK_FROM = 34
+_J1_BLOCK_MAX_CTAS = 4
 J2_MAX_N = 272
 _J2_CTAS = (1, 2, 4, 8)
 # J2's regimes, by order (csrc/jacobi_eigh.cu): the element kernel up to
@@ -809,6 +829,16 @@ def _j1_smem(n):
     """csrc/jacobi_svd.cu::smem_bytes: W and V column-major with an odd
     leading dimension, the column norms, 64 words of reduction scratch."""
     return 8 * (2 * n * (n | 1) + n + 64)
+
+
+def _j1_block_smem(n):
+    """csrc/jacobi_svd.cu::block_smem_bytes: the slot's 2 block columns of W
+    and of V twice (leading dimension n rounded up to 16, plus 4), the
+    inner sweep's two tiles, U, the inner step's rotations (two parities),
+    the cluster's maxima; the flags (two parities) and the votes."""
+    m = 2 * J1_BLOCK
+    return 8 * (4 * m * (-(-n // 16) * 16 + 4) + 2 * m * (m + 1) + m * (m + 4) + 4 * J1_BLOCK +
+                _J1_BLOCK_MAX_CTAS) + 4 * (2 * _J1_BLOCK_MAX_CTAS + 2)
 
 
 def _j2_smem(n, ctas):
@@ -847,12 +877,27 @@ def _jacobi_order(name, x, limit):
 
 
 @functools.lru_cache(maxsize=512)
-def j1_plan(n):
-    """(threads, smem_bytes) of J1 at even order n <= J1_MAX_N: a warp per
-    pair of a step, at most 32."""
+def j1_plan(n, element=False, block=False):
+    """(block, ctas, threads, smem_bytes) of J1 at even order n <= J1_MAX_N
+    in the regime of the order (J1_BLOCK_FROM), or in the element regime
+    with ``element``, or in the block regime with ``block``
+    (measurements).  Element regime (block 0, to J1_ELEMENT_MAX_N): one CTA
+    an instance, a warp per pair of a step, at most 32.  Block regime
+    (block J1_BLOCK): ceil(n / J1_BLOCK) blocks rounded up to even, a CTA a
+    slot (a pair of blocks), J1_BLOCK^2 threads."""
     if n % 2 or not 2 <= n <= J1_MAX_N:
         raise KernelError(f"jacobi_orthogonalise: even orders 2 to {J1_MAX_N}, got {n}")
-    return 32 * min(32, n // 2), _j1_smem(n)
+    if element and n > J1_ELEMENT_MAX_N:
+        raise KernelError(f"jacobi_orthogonalise: the element regime takes orders to "
+                          f"{J1_ELEMENT_MAX_N}, got {n}")
+    if not block and (element or n < J1_BLOCK_FROM) and n <= J1_ELEMENT_MAX_N:
+        return 0, 1, 32 * min(32, n // 2), _j1_smem(n)
+    blocks = -(-n // J1_BLOCK)
+    ctas = (blocks + blocks % 2) // 2
+    smem = _j1_block_smem(n)
+    if ctas > _J1_BLOCK_MAX_CTAS or smem > SMEM_LIMIT:
+        raise KernelError(f"jacobi_orthogonalise: order {n} does not fit blocks of {J1_BLOCK}")
+    return J1_BLOCK, ctas, J1_BLOCK * J1_BLOCK, smem
 
 
 @functools.lru_cache(maxsize=1024)
@@ -879,7 +924,13 @@ def j2_plan(n, element=False):
 
 
 def jacobi_orthogonalise_plain(w, sweeps=False):
+    """The plain version of the regime J1 takes at ``w``'s order: the
+    element rule (``jacobi.orthogonalise_plain``) or the block algorithm
+    (``jacobi.orthogonalise_block_plain``)."""
     from ttipm_tpu_torch.ops import jacobi
+
+    if j1_plan(w.shape[-1])[0]:
+        return jacobi.orthogonalise_block_plain(w, sweeps)
     return jacobi.orthogonalise_plain(w, sweeps)
 
 
@@ -894,22 +945,32 @@ def jacobi_eigh_core_plain(a, sweeps=False, vectors=True):
     return out if vectors else (out[0], None, *out[2:])
 
 
-def _j1_launch(w, count=None):
+def _j1_launch(w, count=None, plan=None, stamps=None):
     """J1 on ``w`` (B, n, n) f64 on the card: (w @ v, v, norms2); each
-    instance's sweeps into ``count`` (B,) int32 when given."""
+    instance's sweeps into ``count`` (B,) int32 when given.  ``plan``: a
+    ``j1_plan`` other than the order's (measurements); ``stamps``: J1_STAMPS
+    int64 zeros on the card that receive the clock stamps of a batch of
+    one."""
     from ttipm_tpu_torch.ops import jacobi
 
     B, n, _ = w.shape
-    threads, _ = j1_plan(n)
+    block, ctas, threads, _ = plan or j1_plan(n)
     w = w.contiguous()
     out = torch.empty((2 * B * n * n + B * n,), dtype=w.dtype, device=w.device)
     w_rot, v = out[:B * n * n].view(B, n, n), out[B * n * n:2 * B * n * n].view(B, n, n)
     norms2 = out[2 * B * n * n:].view(B, n)
     stream, guard = _launch_env(w)
     with guard:
-        err = _lib().ttipm_jacobi_svd(_ptr(w), B, n, jacobi.tol_for(n), jacobi.SVD_FLOOR,
-                                      _ptr(w_rot), _ptr(v), _ptr(norms2), _opt_ptr(count),
-                                      threads, stream)
+        if stamps is None:
+            err = _lib().ttipm_jacobi_svd(_ptr(w), B, n, jacobi.tol_for(n), jacobi.SVD_FLOOR,
+                                          _ptr(w_rot), _ptr(v), _ptr(norms2), _opt_ptr(count),
+                                          block, ctas, threads, stream)
+        elif B != 1:
+            raise KernelError("jacobi_orthogonalise: clock stamps of a batch of one")
+        else:
+            err = _lib().ttipm_jacobi_svd_stamps(_ptr(w), n, jacobi.tol_for(n), jacobi.SVD_FLOOR,
+                                                 _ptr(w_rot), _ptr(v), _ptr(norms2), block, ctas,
+                                                 threads, _ptr(stamps), stream)
     _check("jacobi_orthogonalise", err)
     return w_rot, v, norms2
 
@@ -960,6 +1021,29 @@ J2_STAMP_PARTS = {
 }
 
 
+# The clock stamps of ttipm_jacobi_svd_stamps (csrc/jacobi_svd.cu), as
+# J2's; the names by regime (0: element, 1: block).
+J1_STAMPS = 16
+J1_STAMP_PARTS = {
+    0: ("setup", "loads", "reductions", "rotation", "update", "barrier", "store", "steps",
+        "sweeps"),
+    1: ("setup", "gram", "inner_rotations", "inner_update", "inner_barriers", "products",
+        "shift", "barrier", "store", "outer_steps", "inner_steps", "inner_steps_rotating",
+        "sweeps", "quiet_inner_sweeps"),
+}
+
+
+def jacobi_svd_stamps(w, plan=None):
+    """J1's clock stamps on one instance ``w`` (1, n, n) on the card, as
+    {part: cycles} (``J1_STAMP_PARTS`` of the regime; the last entries are
+    counts), from a launch that moves no counter."""
+    plan = plan or j1_plan(w.shape[-1])
+    stamps = torch.zeros(J1_STAMPS, dtype=torch.int64, device=w.device)
+    _j1_launch(w, plan=plan, stamps=stamps)
+    names = J1_STAMP_PARTS[int(plan[0] > 0)]
+    return dict(zip(names, stamps[:len(names)].tolist()))
+
+
 def jacobi_eigh_stamps(a, plan=None):
     """J2's clock stamps on one instance ``a`` (1, n, n) on the card, as
     {part: cycles} (``J2_STAMP_PARTS`` of the regime; the last entries are
@@ -976,15 +1060,21 @@ def jacobi_orthogonalise(w):
     most J1_MAX_N, float64: ``(w @ v, v, norms2)`` with v exactly
     orthonormal, the columns of w @ v orthogonal to the round-robin stop
     test and norms2 their squared norms; an instance that is not finite or
-    does not converge in 26 sweeps comes out NaN.  One launch, a CTA an
-    instance (``_jacobi_orthogonalise``, ttipm_tpu/ops/jacobi.py:121)."""
+    does not converge in 26 sweeps comes out NaN.  One launch, a CTA or a
+    cluster of CTAs an instance (``_jacobi_orthogonalise``,
+    ttipm_tpu/ops/jacobi.py:121), in the regime of the order (``j1_plan``:
+    element rotations below J1_BLOCK_FROM, the two-level block algorithm
+    from there); ``STATS["jacobi_svd"].by_regime`` counts the launches of
+    each."""
     stats = STATS["jacobi_svd"]
     _jacobi_order("jacobi_orthogonalise", w, J1_MAX_N)
     if not _on_cuda(w):
         stats.plain_calls += 1
         return jacobi_orthogonalise_plain(w)
+    block = j1_plan(w.shape[1])[0]
     out = _j1_launch(w)
     stats.count("f64", batch=w.shape[0])
+    stats.by_regime["block" if block else "element"] += 1
     return out
 
 
@@ -1004,15 +1094,17 @@ def jacobi_eigh_core(a, vectors=True):
     if not _on_cuda(a):
         stats.plain_calls += 1
         return jacobi_eigh_core_plain(a, vectors=vectors)
+    block = j2_plan(a.shape[1])[0]
     out = _j2_launch(a, vectors=vectors)
     stats.count("f64", batch=a.shape[0])
+    stats.by_regime["block" if block else "element"] += 1
     return out
 
 
 def jacobi_sweeps(entry, x):
     """The sweeps each instance of ``x`` takes in ``entry``
-    ("jacobi_orthogonalise" or "jacobi_eigh_core"; J2's block regime
-    counts outer sweeps), as a (B,) int32 tensor, from a launch that moves
+    ("jacobi_orthogonalise" or "jacobi_eigh_core"; the block regimes
+    count outer sweeps), as a (B,) int32 tensor, from a launch that moves
     no counter (or the plain version on CPU tensors)."""
     _jacobi_order(entry, x, J1_MAX_N if entry == "jacobi_orthogonalise" else J2_MAX_N)
     if not _on_cuda(x):

@@ -1,6 +1,7 @@
-"""K1, K2, K3 and J2 of two checkouts of the port on one card, in turns.
+"""K1, K2, K3, J1 and J2 of two checkouts of the port on one card, in turns.
 
-    python ttipm_tpu_torch/tools/compare_kernels.py --parent DIR [--dim 8 --seed 24] [--j2-only]
+    python ttipm_tpu_torch/tools/compare_kernels.py --parent DIR [--dim 8 --seed 24]
+        [--j2-only [--j2-orders 64,128]] [--j1-only [--j1-orders 118,128]]
 
 ``DIR`` holds another checkout of the repository (for example an unpacked
 ``git archive`` of the parent commit); the script's own checkout is "the
@@ -44,6 +45,21 @@ calls), and ``kernels.panel_qr`` on one contiguous panel.
    ``jacobi_operand``: a pencil with a cluster of eigenvalues near 0, the
    solve's orders lie between) for the regimes' crossover.  ``--j2-only``
    runs step 3 alone (and the solve's wall).
+4. ``--j1-only``: J1 (``kernels.jacobi_orthogonalise``) the same way, alone:
+   the change records the first J1_RECORD calls of every order of its solve
+   (``--dim 10 --seed 41`` gives the census's orders 60-72; ``--profile
+   f32`` solves the f32 profile, tools/jacobi_census.py's, whose orders
+   reach past 118), the parent
+   factors them (bits of w @ v, v and the norms reported), and every time
+   worker times, at each order, the checkout's J1 on the first operand
+   beside ``torch.linalg.svd`` (cuSOLVER), with the invariants
+   (``checks.kernel_errors``) and the sweeps; where the checkout has
+   ``kernels.j1_plan``'s regimes, the element regime (to
+   ``J1_ELEMENT_MAX_N``) and the block regime the same way with their
+   clock stamps (``kernels.jacobi_svd_stamps``);
+   ``--j1-orders`` adds synthetic operands (chip_smoke.py's
+   ``jacobi_operand``: r2^T of a matrix with singular values from 1 to
+   1e-12).  No solve in the time workers.
 
 Prints one JSON line per step.  Needs one CUDA device.
 """
@@ -68,17 +84,25 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 # J2 operands recorded of each order (the batch row stacks ten of order 256).
 J2_RECORD = 10
 J2_BATCH = (10, 256)
+J1_RECORD = 10
 
 
 # ---------------------------------------------------------------------------
 # Workers (run with --root: import the package from there)
 # ---------------------------------------------------------------------------
 
-def _solve(dim, seed):
+def _solve(dim, seed, profile="f64"):
+    """MaxCut d<dim> seed <seed> on the card: chip_smoke.py's solve, or with
+    ``profile`` "f32" tools/jacobi_census.py's solve of the f32 profile."""
     sys.path.append(HERE)  # chip_smoke's config reader and solve routine
     import chip_smoke
     import torch
 
+    if profile == "f32":
+        from ttipm_tpu_torch.tools.jacobi_census import census
+
+        res = census(dim, seed, torch.device("cuda"), profile="f32")
+        return {"iters": res["iters"], "slack": res["slackness"], "wall_s": res["wall_s"]}
     settings = chip_smoke.ipm_settings(chip_smoke.load_config(dim))
     return chip_smoke.solve(dim, seed, torch.device("cuda"), settings)
 
@@ -101,6 +125,8 @@ def worker_record(args):
              "panel_qr", "jacobi_eigh_core")
     if args.j2_only:
         names = ("jacobi_eigh_core",)
+    if args.j1_only:
+        names = ("jacobi_orthogonalise",)
     seen, calls = {}, []
     originals = {n: getattr(K, n) for n in names}
 
@@ -109,14 +135,15 @@ def worker_record(args):
             out = originals[name](*a, **kw)
             key = (name, shape_key(a), str(kw))
             seen[key] = seen.get(key, 0) + 1
-            if seen[key] <= (J2_RECORD if name == "jacobi_eigh_core" else 1):
+            if seen[key] <= {"jacobi_eigh_core": J2_RECORD,
+                             "jacobi_orthogonalise": J1_RECORD}.get(name, 1):
                 calls.append((name, cpu(a), kw, cpu(out)))
             return out
         return wrapped
 
     for n in names:
         setattr(K, n, recorder(n))
-    res = _solve(args.dim, args.seed)
+    res = _solve(args.dim, args.seed, args.profile)
     torch.save(calls, args.file)
     print(json.dumps({"recorded": len(calls), "iters": res["iters"], "slack": res["slack"]}))
 
@@ -136,6 +163,14 @@ def worker_replay(args):
         if name == "jacobi_eigh_core":  # the eigenvalues (the parent's entry takes no flag)
             got = K.jacobi_eigh_core(cu(a[0]))[0]
             want = want[0]
+        elif name == "jacobi_orthogonalise":
+            try:
+                got = torch.cat([t.reshape(-1) for t in K.jacobi_orthogonalise(cu(a[0]))])
+            except K.KernelError:  # an order outside this checkout's envelope
+                r = report.setdefault(name, {"shapes": 0, "bit_equal": 0, "max_abs_diff": 0.0})
+                r["refused"] = r.get("refused", 0) + 1
+                continue
+            want = torch.cat([t.reshape(-1) for t in want])
         elif name == "panel_qr":  # the parent's entry takes the panel alone
             q, r = K.panel_qr(cu(a[0]))
             got = torch.cat([q.T.reshape(-1) if kw.get("transposed") else q.reshape(-1),
@@ -158,7 +193,9 @@ def worker_replay(args):
         r = report.setdefault(name, {"shapes": 0, "bit_equal": 0, "max_abs_diff": 0.0})
         r["shapes"] += 1
         r["bit_equal"] += int(torch.equal(got.cpu(), want))
-        r["max_abs_diff"] = max(r["max_abs_diff"], float((got.cpu() - want).abs().max()))
+        diff = (got.cpu() - want).abs()
+        r["max_abs_diff"] = max(r["max_abs_diff"], float(diff[torch.isfinite(diff)].max())
+                                if bool(torch.isfinite(diff).any()) else 0.0)
     print(json.dumps({"bits": report}))
 
 
@@ -274,6 +311,61 @@ def j2_rows(K, calls, single_ms, orders=()):
     return rows
 
 
+def j1_rows(K, calls, single_ms, orders=()):
+    """Step 4's rows of one checkout: per recorded order, J1 as the
+    checkout runs it and, where it has them, each regime, beside cuSOLVER;
+    then the same on a synthetic operand of each of ``orders``."""
+    import torch
+
+    from ttipm_tpu_torch.checks import kernel_errors
+
+    sys.path.append(HERE)
+    from chip_smoke import jacobi_operand
+
+    dev = torch.device("cuda")
+    by_order = {}
+    for name, a, kw, _ in calls:
+        if name == "jacobi_orthogonalise":
+            by_order.setdefault(a[0].shape[-1], []).append(a[0].to(dev))
+    todo = [(n, ops[0], "single", len(ops)) for n, ops in sorted(by_order.items())]
+    todo += [(n, jacobi_operand("jacobi_orthogonalise", 1, n, np.random.RandomState(n), dev),
+              "synthetic", 1) for n in orders]
+    regimes = hasattr(K, "jacobi_svd_stamps")
+    rows = []
+    for n, x, kind, recorded in todo:
+        row = {"order": n, "case": kind, "recorded": recorded,
+               "library_ms": single_ms(lambda: torch.linalg.svd(x), runs=10)}
+        try:
+            row["ms"] = single_ms(lambda: K.jacobi_orthogonalise(x), runs=10)
+            out = K.jacobi_orthogonalise(x)
+            row["sweeps"] = K.jacobi_sweeps("jacobi_orthogonalise", x).tolist()
+        except K.KernelError as e:  # outside the checkout's envelope
+            row["refused"] = str(e)[:120]
+            out = None
+        if out is not None:
+            errs = kernel_errors("jacobi_orthogonalise", (x,), out)
+            row.update({k: errs[k] for k in ("values", "fact", "orth", "cosine") if k in errs})
+        if regimes:
+            row["default_plan"] = list(K.j1_plan(n))
+            plans = {"element": (K.j1_plan(n, element=True) if n <= K.J1_ELEMENT_MAX_N
+                                 else None),
+                     "block": K.j1_plan(n, block=True)}
+            row["regimes"] = {}
+            for label, plan in plans.items():
+                if plan is None:
+                    continue
+                r = {"ms": single_ms(lambda: K._j1_launch(x, plan=plan), runs=10)}
+                errs = kernel_errors("jacobi_orthogonalise", (x,), K._j1_launch(x, plan=plan))
+                r.update({k: errs[k] for k in ("values", "fact", "orth", "cosine") if k in errs})
+                count = torch.empty((1,), dtype=torch.int32, device=dev)
+                K._j1_launch(x, count, plan=plan)
+                r["sweeps"] = count.tolist()
+                r["stamps"] = K.jacobi_svd_stamps(x, plan)
+                row["regimes"][label] = r
+        rows.append(row)
+    return rows
+
+
 def worker_time(args):
     import torch
 
@@ -317,6 +409,11 @@ def worker_time(args):
         return 1e3 * (time.perf_counter() - t0) / n
 
     rows = []
+    if args.j1_only:
+        calls = torch.load(args.file, weights_only=False)
+        orders = [int(n) for n in args.j1_orders.split(",")] if args.j1_orders else []
+        print(json.dumps({"j1": j1_rows(K, calls, single_ms, orders)}))
+        return
     if args.file:
         calls = torch.load(args.file, weights_only=False)
         orders = [int(n) for n in args.j2_orders.split(",")] if args.j2_orders else []
@@ -385,6 +482,10 @@ def run_worker(root, mode, args, file=None):
         cmd += ["--j2-only"]
     if args.j2_orders:
         cmd += ["--j2-orders", args.j2_orders]
+    if args.j1_only:
+        cmd += ["--j1-only", "--profile", args.profile]
+    if args.j1_orders:
+        cmd += ["--j1-orders", args.j1_orders]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"worker {mode} in {root} failed:\n{proc.stderr[-4000:]}")
@@ -402,6 +503,11 @@ def main(argv=None) -> int:
     ap.add_argument("--j2-only", action="store_true", help="J2 alone (step 3)")
     ap.add_argument("--j2-orders", default="",
                     help="comma-separated orders of synthetic J2 operands (step 3)")
+    ap.add_argument("--j1-only", action="store_true", help="J1 alone (step 4)")
+    ap.add_argument("--profile", default="f64", choices=("f64", "f32"),
+                    help="the recorded solve's profile (step 4)")
+    ap.add_argument("--j1-orders", default="",
+                    help="comma-separated orders of synthetic J1 operands (step 4)")
     args = ap.parse_args(argv)
     if args.worker:
         sys.path.insert(0, os.path.abspath(args.root))

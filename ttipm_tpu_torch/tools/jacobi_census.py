@@ -16,7 +16,14 @@ run: ``--j2-from`` overrides ``kernels.J2_BLOCK_FROM`` (the order from
 which J2 takes its block regime; above ``J2_MAX_N``: the element regime
 throughout), ``--j2-to`` gives the element regime again from that order
 on, and ``--j2-calls values`` (``vectors``) keeps the block regime to the
-calls without (with) eigenvectors.  ``--check`` holds every J2 call's
+calls without (with) eigenvectors; ``--j1-from`` overrides
+``kernels.J1_BLOCK_FROM`` (J1's; above ``J1_MAX_N``: the element regime
+to ``J1_ELEMENT_MAX_N``).  ``--checkpoints DIR`` writes the iterates of
+every iteration to ``DIR/iter_<k>.npz`` (``utils/checkpoint.py``'s
+layout) and the Newton solvers' outcomes (``tools/replay_step.py``'s
+record: the fused ladder's, each tagged with the last checkpoint written
+before it) to ``DIR/ladder.json``; the solve's line gives the iterations
+whose ladder exhausted and the ragged AMEn's outcomes.  ``--check`` holds every J2 call's
 finite instances to ``torch.linalg.eigvalsh``'s eigenvalues (relative to
 the largest) and, with V, to ||V diag(w) V^T - A|| / ||A|| and
 ||V^T V - I||_max, the worst of each by order (``by_order[n]["check"]``).
@@ -132,8 +139,11 @@ class _Recorder:
 
 def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, svd_floor=None,
            out_dir="results/jacobi_census", j2_from=None, j2_to=None, j2_calls="all",
-           check=False):
-    from ttipm_tpu_torch import config
+           check=False, j1_from=None, checkpoints=None):
+    from contextlib import nullcontext
+
+    import ttipm_tpu_torch.utils.checkpoint as ck
+    from ttipm_tpu_torch import config, ipm
     from ttipm_tpu_torch.ipm import tt_ipm
     from ttipm_tpu_torch.models.maxcut import create_problem
     from ttipm_tpu_torch.ops import jacobi
@@ -144,7 +154,7 @@ def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, sv
     cfg = _load_config(dim)
     saved = {"entries": (K.jacobi_orthogonalise, K.jacobi_eigh_core),
              "floors": (jacobi.EIGH_FLOOR, jacobi.SVD_FLOOR), "bucket": config.rank_bucket(),
-             "j2_from": K.J2_BLOCK_FROM}
+             "j2_from": K.J2_BLOCK_FROM, "j1_from": K.J1_BLOCK_FROM, "save": ck.save_ipm_checkpoint}
     first = saved["j2_from"] if j2_from is None else j2_from
     block_from = None
     if j2_to is not None or j2_calls != "all":
@@ -159,6 +169,23 @@ def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, sv
     jacobi.SVD_FLOOR = saved["floors"][1] if svd_floor is None else svd_floor
     K.J2_BLOCK_FROM = first
     K.j2_plan.cache_clear()
+    K.J1_BLOCK_FROM = saved["j1_from"] if j1_from is None else j1_from
+    K.j1_plan.cache_clear()
+    solvers, kw = nullcontext({}), {}
+    if checkpoints is not None:
+        from ttipm_tpu_torch.tools.replay_step import record_solver
+
+        os.makedirs(checkpoints, exist_ok=True)
+        events = {"ladder": [], "ragged": [], "step": None, "iteration": 0}
+
+        def per_iteration(path, *a, iteration=0, **kws):
+            saved["save"](os.path.join(checkpoints, f"iter_{iteration:02d}.npz"), *a,
+                          iteration=iteration, **kws)
+            events["iteration"] = iteration
+
+        ck.save_ipm_checkpoint = per_iteration
+        solvers = record_solver(ipm, rec=events, stop_after_step=False)
+        kw = {"checkpoint_path": os.path.join(checkpoints, "last.npz"), "checkpoint_every": 1}
     if profile == "f32":
         config.set_dtype(torch.float32)
         config.set_eigen_dtype("native")
@@ -169,8 +196,9 @@ def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, sv
         lag, obj, L, b, _ = seeded_problem(create_problem, dim, 1, seed, device)
         t0 = time.perf_counter()
         with jacobi.forced(False if route == "cusolver" else True if device.type == "cpu"
-                           else None):
-            X, _, _, Z, info = tt_ipm(lag, obj, L, b, **{**ipm_kwargs(cfg), "verbose": False})
+                           else None), solvers as events:
+            X, _, _, Z, info = tt_ipm(lag, obj, L, b, **{**ipm_kwargs(cfg), "verbose": False},
+                                      **kw)
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -179,14 +207,25 @@ def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, sv
         jacobi.EIGH_FLOOR, jacobi.SVD_FLOOR = saved["floors"]
         K.J2_BLOCK_FROM = saved["j2_from"]
         K.j2_plan.cache_clear()
+        K.J1_BLOCK_FROM = saved["j1_from"]
+        K.j1_plan.cache_clear()
+        ck.save_ipm_checkpoint = saved["save"]
         config.set_dtype(torch.float64)
         config.set_eigen_dtype("f64")
         config.set_mixed_local("f64")
         config.set_rank_bucket(saved["bucket"])
+    solver_log = {}
+    if checkpoints is not None:
+        with open(os.path.join(checkpoints, "ladder.json"), "w") as fh:
+            json.dump(events["ladder"], fh)
+        solver_log = {"ladder_exhausted_after": [e["iteration"] for e in events["ladder"]
+                                                 if e.get("exhausted")],
+                      "ragged": events["ragged"]}
     return {"dim": dim, "seed": seed, "route": route, "profile": profile,
             "eigh_floor": jacobi.EIGH_FLOOR if eigh_floor is None else eigh_floor,
             "svd_floor": jacobi.SVD_FLOOR if svd_floor is None else svd_floor,
             "j2_from": first, "j2_to": j2_to, "j2_calls": j2_calls,
+            "j1_from": saved["j1_from"] if j1_from is None else j1_from, **solver_log,
             "wall_s": wall, "iters": int(info["num_iters"]),
             "slackness": abs(float(tt_inner_prod(X, Z))), **rec.report()}
 
@@ -202,6 +241,8 @@ def main(argv=None) -> int:
     ap.add_argument("--j2-from", type=int, default=None)
     ap.add_argument("--j2-to", type=int, default=None)
     ap.add_argument("--j2-calls", default="all", choices=("all", "values", "vectors"))
+    ap.add_argument("--j1-from", type=int, default=None)
+    ap.add_argument("--checkpoints", default=None, help="directory of per-iteration checkpoints")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--out", default="results/jacobi_census")
     args = ap.parse_args(argv)
@@ -213,7 +254,10 @@ def main(argv=None) -> int:
         dim, seed = (int(x) for x in cell.split(":"))
         print(json.dumps(census(dim, seed, device, args.route, args.profile, args.eigh_floor,
                                 args.svd_floor, args.out, args.j2_from, args.j2_to,
-                                args.j2_calls, args.check)), flush=True)
+                                args.j2_calls, args.check, args.j1_from,
+                                None if args.checkpoints is None else
+                                os.path.join(args.checkpoints, f"d{dim}_seed{seed}"))),
+              flush=True)
     return 0
 
 
