@@ -46,7 +46,9 @@ and prints no result line):
    solve's call counts are printed (slice_k12_times, slice_k3_times,
    slice_k4_times, slice_jacobi_times); the factorizations that the
    Jacobi pipelines' shape rules sent to torch.linalg are counted and
-   printed (``outside``), in every phase that drives a solve.
+   printed (``outside``), in every phase that drives a solve.  The
+   Newton and step-size solves' walls and host syncs (the checks left
+   out) are printed too (``layers``), phase 14's switch-off run.
 6. fallback: MaxCut d10 (seed 41, configs/maxcut_10.yaml settings, quiet)
    on the GPU through the runner's run_and_record: the fused ladder, the
    ragged AMEn where the ladder exhausts its restarts, the fused
@@ -161,6 +163,27 @@ and prints no result line):
    output; ``scaling_bench`` at d10, B = 1 and 2 (every kernel launched,
    the B = 1 step within STEP_BOUND of the same step made in this
    process).  Printed: each driver's lines and walls.
+14. whole: the whole-solve path (``config.set_fused_whole_solve(True)``):
+   maxcut d8 seed 24 (phase 5's cell, settings and driver) with the switch
+   on (the programs' steps as CUDA graphs, ``solvers/graphs.py``), beside
+   phase 5's solve of the cell with the switch off (its kernel checks left
+   out of the walls and syncs; solved here if phase 5 ran another cell or
+   did not run).  Checked: the
+   switch-on solve converged, every sweep solve of four or more sweeps
+   through ``solve_program``, every step-size solve through the
+   generalised program, captures > 0 and replays > captures, no plain
+   version on a CUDA tensor; the first Newton system (nswp = 12, all four
+   pairs) and the first pencil give the same bits run eagerly
+   (``graphs.eager()``), captured and replayed (the three runs timed);
+   then corr_clust d6 seed 764 (phase 7's cell) with the switch on
+   converged through ``min_eig_program``.  Printed side by side:
+   iterations, wall, Newton and step-size solves with their wall and host
+   syncs a solve, peak memory, captures, replays and the signatures sent
+   to eager runs by step, and the launches by kernel (replayed launches
+   included).
+
+The seconds of each phase are printed on a line of their own
+(``phase_s``) before the kernels line.
 
 The line before the last is a JSON object with the per-kernel record
 (launches on the d8, d10, corr_clust d6 and graphm paths; the f32
@@ -178,6 +201,7 @@ moves J1's regime crossover (kernels.J1_BLOCK_FROM) for the run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -641,9 +665,11 @@ def phase_slice(dim, seed):
     (called directly, so the counters do not move; K1/K2 errors relative to
     the scale of their terms, since the solver's operands cancel, see
     ttipm_tpu_torch.checks); the seconds these checks take are reported
-    apart from the solve's wall.  Returns (per kernel (launches, plain
-    calls, launches through the grouped entry), the iterations, the final
-    X)."""
+    apart from the solve's wall.  The solve runs inside a ``LayerProbe``
+    (the checks excluded), whose record phase 14 takes as the switch-off
+    run of its cell.  Returns (per kernel (launches, plain calls, launches
+    through the grouped entry), the iterations, the final X, the probe's
+    record)."""
     import torch
 
     from ttipm_tpu_torch.checks import KERNEL_OF, kernel_errors, shape_key
@@ -665,11 +691,13 @@ def phase_slice(dim, seed):
             shapes[name][key] += 1
             out = fn(*args, **kw)
             if key not in checked[name]:
-                t0 = time.perf_counter()
-                held = (out[0].T, out[1]) if kw.get("transposed") else out
-                checked[name][key] = kernel_errors(name, args, held, cancelling=True)
-                first[name][key] = ((args[0].clone(),) if name == "panel_cholesky" else args, kw)
-                check_s[0] += time.perf_counter() - t0
+                with probe.excluded():
+                    t0 = time.perf_counter()
+                    held = (out[0].T, out[1]) if kw.get("transposed") else out
+                    checked[name][key] = kernel_errors(name, args, held, cancelling=True)
+                    first[name][key] = ((args[0].clone(),) if name == "panel_cholesky" else args,
+                                        kw)
+                    check_s[0] += time.perf_counter() - t0
             return out
         return wrapped
 
@@ -678,11 +706,15 @@ def phase_slice(dim, seed):
     torch.cuda.reset_peak_memory_stats()
     K.reset_counts()
     kept = {}
+    probe = LayerProbe()
     try:
-        res = solve(dim, seed, torch.device("cuda"), settings, keep=kept)
+        with probe:
+            res = solve(dim, seed, torch.device("cuda"), settings, keep=kept)
     finally:
         for name, fn in originals.items():
             setattr(K, name, fn)
+    layers = {"problem": "maxcut", "dim": dim, "seed": seed, "whole": False,
+              **probe.record(res, res["wall_s"])}
     counts = {name: (s.launches, s.plain_calls, s.grouped) for name, s in K.STATS.items()}
     res["outside"] = {name: s.outside for name, s in K.STATS.items()}
     SLICE_REGIME_LAUNCHES.update({name: dict(K.STATS[name].by_regime) for name in MAIN_ENTRY})
@@ -693,6 +725,7 @@ def phase_slice(dim, seed):
                      for n, c in counts.items()}
     res["entry_calls"] = {n: sum(c.values()) for n, c in shapes.items()}
     print(json.dumps({"slice": res}), flush=True)
+    print(json.dumps({"slice_layers": layers}), flush=True)
     print(json.dumps({"shape_histogram": {n: c.most_common(6) for n, c in shapes.items()}}),
           flush=True)
     report_checks("slice_checks", checked, "the slice's shapes")
@@ -713,7 +746,7 @@ def phase_slice(dim, seed):
             raise AssertionError(f"{name}: plain version ran {plain} times on CUDA tensors")
         if name in ("schur_assemble", "kkt_block_matvec") and grouped <= 0:
             raise AssertionError(f"{name}: its grouped entry was not launched on the main path")
-    return counts, res["iters"], kept["X"]
+    return counts, res["iters"], kept["X"], layers
 
 
 def phase_slice_times(label, shapes, first, names):
@@ -2529,8 +2562,273 @@ def phase_tools(slice_iters, slice_X, batch_ref):
     return walls
 
 
+# Phase 14: the whole-solve path (config.set_fused_whole_solve) on phase 5's cell,
+# and phase 7's inequality cell through the smallest-eigenvector program.
+WHOLE_CELL = ("maxcut", 8, 24)
+
+
+def _sync_files(caught, start=0):
+    """The host syncs the port's files made among the warnings caught from
+    index ``start`` on, by file."""
+    return Counter(f for f in (os.path.relpath(w.filename, REPO) for w in caught[start:]
+                               if "synchroniz" in str(w.message))
+                   if f.startswith("ttipm_tpu_torch"))
+
+
+def _sync_count(caught, start):
+    return sum(_sync_files(caught, start).values())
+
+
+class LayerProbe:
+    """Within the block: the Newton solves (the fused ladder) and the
+    step-size solves (both fused eigensolvers) of a solve on the card,
+    timed (synchronised) with their host syncs
+    (``torch.cuda.set_sync_debug_mode``), the sweep solves of four or more
+    sweeps and the whole-solve programs that ran counted, and the peak
+    device memory.  What runs inside ``excluded()`` (phase 5's kernel
+    checks) is left out of the walls and the syncs.  ``first`` receives
+    the first Newton system and the first pencil.  Phase 5 drives its
+    switch-off solve inside one, phase 14 its switch-on solves."""
+
+    def __init__(self, first=None):
+        self.first = first
+        self.layers = {k: {"calls": 0, "s": 0.0, "syncs": 0} for k in ("newton", "step")}
+        self.programs = Counter()
+        self.caught = []
+        self.excluded_s = 0.0
+        self.peak_bytes = 0
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        import ttipm_tpu_torch.ipm as ipm
+        from ttipm_tpu_torch.solvers import fused as TF
+        from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
+
+        targets = {(ipm, "tt_restarted_block_amen_fused"): "newton",
+                   (ipm, "tt_max_generalised_eigen_fused"): "step",
+                   (ipm, "tt_min_eig_fused"): "step",
+                   (TF, "tt_block_amen_fused"): "sweep_solves",
+                   (TF, "solve_program"): "solve_program",
+                   (feb, "gen_eigen_single"): "gen_eigen_single",
+                   (feb, "min_eig_program"): "min_eig_program"}
+        self._saved = {key: getattr(*key) for key in targets}
+        for key, kind in targets.items():
+            setattr(*key, self._wrap(self._saved[key], kind))
+        self._warnings = warnings.catch_warnings(record=True)
+        self.caught = self._warnings.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self.peak_bytes = torch.cuda.max_memory_allocated()
+        self._warnings.__exit__(*exc)
+        for key, fn in self._saved.items():
+            setattr(*key, fn)
+        return False
+
+    def _wrap(self, fn, kind):
+        import torch
+
+        def layer(*a, **kw):
+            if self.first is not None and kind not in self.first:
+                self.first[kind] = (a[0], a[1])
+            torch.cuda.synchronize()
+            t0, n0, x0 = time.perf_counter(), len(self.caught), self.excluded_s
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.layers[kind]["calls"] += 1
+                self.layers[kind]["s"] += time.perf_counter() - t0 - (self.excluded_s - x0)
+                self.layers[kind]["syncs"] += _sync_count(self.caught, n0)
+
+        def counted(*a, **kw):
+            if kind != "sweep_solves" or kw.get("nswp", 22) >= 4:
+                self.programs[kind] += 1
+            return fn(*a, **kw)
+        return layer if kind in self.layers else counted
+
+    @contextlib.contextmanager
+    def excluded(self):
+        """A span left out of the walls and the syncs (its device work
+        included: synchronised on both sides)."""
+        import torch
+
+        n0 = len(self.caught)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.excluded_s += time.perf_counter() - t0
+            del self.caught[n0:]
+
+    def record(self, solve_res, wall_s):
+        """The solve's record: ``solve_res``'s iterations and residuals, its
+        wall ``wall_s`` less the excluded spans, and what the probe saw."""
+        from ttipm_tpu_torch.ops import kernels as K
+        from ttipm_tpu_torch.solvers import graphs
+
+        return {
+            **{k: solve_res[k] for k in ("iters", "slack", "primal_feas", "dual_feas")},
+            "wall_s": wall_s - self.excluded_s, "excluded_s": self.excluded_s,
+            "peak_mb": self.peak_bytes / 1e6,
+            "host_syncs": _sync_count(self.caught, 0),
+            "host_syncs_by_file": dict(_sync_files(self.caught).most_common(8)),
+            **{f"{k}_solves": v["calls"] for k, v in self.layers.items()},
+            **{f"{k}_s_per_solve": v["s"] / max(v["calls"], 1) for k, v in self.layers.items()},
+            **{f"{k}_syncs_per_solve": v["syncs"] / max(v["calls"], 1)
+               for k, v in self.layers.items()},
+            "programs": dict(self.programs), "graph_steps": graphs.STATS.as_dict(),
+            "launches": {n: s.launches for n, s in K.STATS.items()},
+            "plain_calls": sum(s.plain_calls for s in K.STATS.values()),
+            "outside": {n: s.outside for n, s in K.STATS.items() if s.outside},
+        }
+
+
+def whole_drive(problem, dim, seed, whole, first=None):
+    """<problem> d<dim> seed <seed> on the card at configs/<problem>_<dim>.yaml's
+    settings with the whole-solve switch ``whole``, inside a ``LayerProbe``
+    (``first``: see there): maxcut through phase 5's ``solve``, the other
+    problems through the runner's ``run_and_record`` (quiet).  Returns the
+    probe's record; raises if the solve did not converge or a plain version
+    ran on a CUDA tensor."""
+    import torch
+
+    from ttipm_tpu_torch import config as tconfig
+    from ttipm_tpu_torch.ops import kernels as K
+    from ttipm_tpu_torch.solvers import graphs
+    from ttipm_tpu_torch.utils import runner
+
+    cfg = load_config(dim, problem)
+    tconfig.set_fused_whole_solve(whole)
+    graphs.reset()
+    K.reset_counts()
+    try:
+        with LayerProbe(first) as probe:
+            if problem == "maxcut":
+                out = solve(dim, seed, torch.device("cuda"), ipm_settings(cfg))
+                wall = out["wall_s"]
+            else:
+                cfg.update(verbose=False)
+                args = argparse.Namespace(device="cuda", track_mem=False, rank=1,
+                                          config=config_path(dim, problem))
+                rec = runner.new_record(1, runner.bond_count(problem, dim))
+                runner.run_and_record(seed, 0, 1, cfg, args, runner.load_problem(problem), rec)
+                out = {"iters": int(rec["num_iters"][0]),
+                       "slack": float(rec["complementary_slackness"][0]),
+                       "primal_feas": float(rec["feasibility_errors"][0]),
+                       "dual_feas": float(rec["dual_feasibility_errors"][0])}
+                wall = float(rec["runtimes"][0])
+    finally:
+        tconfig.set_fused_whole_solve(None)
+    res = {"problem": problem, "dim": dim, "seed": seed, "whole": whole,
+           **probe.record(out, wall)}
+    abs_tol = float(cfg["abs_tol"])
+    if not (res["slack"] < abs_tol and res["primal_feas"] < abs_tol
+            and res["dual_feas"] < abs_tol):
+        raise AssertionError(f"whole-solve {problem} d{dim} seed {seed} did not converge: {res}")
+    if res["plain_calls"]:
+        raise AssertionError(f"a plain version ran on CUDA tensors: {res}")
+    return res
+
+
+def whole_bits(first):
+    """The first Newton system (all four pairs of nswp = 12: term_tol and
+    eps 0) and the first pencil of a whole-solve run, through the programs
+    with their steps run eagerly, then captured (the warmups' results) and
+    replayed, then replayed only: the same bits.  Returns {"newton": ...,
+    "step": ...}: the three runs' walls (synchronised) and the graph
+    counts."""
+    import torch
+
+    from ttipm_tpu_torch import config as tconfig
+    from ttipm_tpu_torch.solvers import fused as TF
+    from ttipm_tpu_torch.solvers import fused_eigen as TE
+    from ttipm_tpu_torch.solvers import graphs
+
+    def run(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_once(kind)
+        torch.cuda.synchronize()
+        walls.setdefault(kind, []).append(time.perf_counter() - t0)
+        return out
+
+    def solve_once(kind):
+        if kind == "newton":
+            x, res = TF.tt_block_amen_fused(*first["newton"], 0.0, R=8, eps=0.0, nswp=12,
+                                            rng=np.random.RandomState(0))
+            return list(x) + [torch.tensor(res)]
+        step, v = TE.tt_max_generalised_eigen_fused(*first["step"], tol=1e-8,
+                                                    rng=np.random.RandomState(0))
+        return list(v) + [torch.tensor(step)]
+
+    tconfig.set_fused_whole_solve(True)
+    out, walls = {}, {}
+    try:
+        for kind in ("newton", "step"):
+            graphs.reset()
+            with graphs.eager():
+                ref = run(kind)
+            got = run(kind)   # captures (the warmups' results) and replays
+            again = run(kind)  # replays only
+            same = all(torch.equal(a, b) for a, b in zip(ref, got)) and all(
+                torch.equal(a, b) for a, b in zip(ref, again))
+            out[kind] = {"bit_equal": same, "eager_s": walls[kind][0],
+                         "capture_s": walls[kind][1], "replay_s": walls[kind][2],
+                         **graphs.STATS.as_dict()}
+            if not same:
+                raise AssertionError(f"whole-solve {kind}: graphed and eager runs differ: {out}")
+    finally:
+        tconfig.set_fused_whole_solve(None)
+        graphs.reset()
+    return out
+
+
+def phase_whole(slice_iters=None, eager_loop=None):
+    """Phase 14: the whole-solve path.  maxcut d8 seed 24 with the switch on,
+    beside the switch-off run ``eager_loop`` (phase 5's solve of the cell,
+    its kernel checks left out; solved here when phase 5 ran another
+    cell or did not run); the switch-on solve converged, every sweep solve
+    of four or more sweeps through ``solve_program`` and every step-size
+    solve through the generalised program, captures > 0 and replays >
+    captures; the first Newton system and the first pencil bit-equal
+    graphed and eager (and timed both ways); then corr_clust d6 seed 764
+    with the switch on converged through ``min_eig_program``.  Prints the
+    runs side by side."""
+    first = {}
+    runs = {"eager_loop": eager_loop or whole_drive(*WHOLE_CELL, False),
+            "whole": whole_drive(*WHOLE_CELL, True, first=first)}
+    print(json.dumps({"whole": runs, "slice_iters": slice_iters}), flush=True)
+    on = runs["whole"]
+    steps = on["graph_steps"]
+    if on["programs"].get("solve_program", 0) != on["programs"].get("sweep_solves", 0):
+        raise AssertionError(f"a sweep solve of four or more sweeps missed solve_program: {on}")
+    if on["programs"].get("gen_eigen_single", 0) != on["step_solves"]:
+        raise AssertionError(f"a step-size solve missed the generalised program: {on}")
+    if not 0 < steps["captures"] < steps["replays"]:
+        raise AssertionError(f"whole-solve graphs: captures {steps['captures']}, replays "
+                             f"{steps['replays']}")
+    bits = whole_bits(first)
+    print(json.dumps({"whole_bits": bits}), flush=True)
+    ineq = whole_drive(*INEQ_CELL, True)
+    print(json.dumps({"whole_ineq": ineq}), flush=True)
+    if not ineq["programs"].get("min_eig_program"):
+        raise AssertionError(f"corr_clust d6: min_eig_program did not run: {ineq}")
+
+
 PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32", "batch", "mesh",
-          "baselines", "tools")
+          "baselines", "tools", "whole")
 
 
 def main(argv=None) -> int:
@@ -2554,34 +2852,51 @@ def main(argv=None) -> int:
         K.J1_BLOCK_FROM = args.j1_from
         K.j1_plan.cache_clear()
 
-    name = phase_device()
-    phase_build()
-    summary = phase_kernels() if "kernels" in phases else None
+    phase_s = {}
+
+    def timed(label, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[label] = time.perf_counter() - t0
+
+    name = timed("device", phase_device)
+    timed("build", phase_build)
+    summary = timed("kernels", phase_kernels) if "kernels" in phases else None
     if "parity" in phases:
-        phase_parity()
+        timed("parity", phase_parity)
     ipm_X = {}
-    counts, slice_iters = None, None
+    counts, slice_iters, slice_layers = None, None, None
     if "slice" in phases:
-        counts, slice_iters, ipm_X[(args.dim, args.seed)] = phase_slice(args.dim, args.seed)
+        counts, slice_iters, ipm_X[(args.dim, args.seed)], slice_layers = timed(
+            "slice", phase_slice, args.dim, args.seed)
     counts_fb = None
     if "fallback" in phases:
-        counts_fb, ipm_X[FALLBACK_CELL[1:]] = phase_fallback(*FALLBACK_CELL)
-    counts_ineq = phase_ineq(*INEQ_CELL) if "ineq" in phases else None
-    counts_gm = phase_graphm(*GRAPHM_CELL) if "graphm" in phases else None
-    summary_f32 = phase_f32(*F32_CELL) if "f32" in phases else None
-    summary_batch, batch_ref = phase_batch(slice_iters) if "batch" in phases else (None, None)
+        counts_fb, ipm_X[FALLBACK_CELL[1:]] = timed("fallback", phase_fallback, *FALLBACK_CELL)
+    counts_ineq = timed("ineq", phase_ineq, *INEQ_CELL) if "ineq" in phases else None
+    counts_gm = timed("graphm", phase_graphm, *GRAPHM_CELL) if "graphm" in phases else None
+    summary_f32 = timed("f32", phase_f32, *F32_CELL) if "f32" in phases else None
+    summary_batch, batch_ref = (timed("batch", phase_batch, slice_iters) if "batch" in phases
+                                else (None, None))
     launches_mesh = None
     if "mesh" in phases:
-        launches_mesh = phase_mesh(batch_ref if batch_ref is not None else batch_reference())
+        launches_mesh = timed("mesh", phase_mesh,
+                              batch_ref if batch_ref is not None else batch_reference())
     # phase 13 needs the first system only
     tools_ref = {"systems": batch_ref["systems"][:1]} if batch_ref is not None else None
     del batch_ref
     if "baselines" in phases:
         cells = [(dim, seed) for _, dim, seed, _ in BASELINE_CELLS]
-        phase_baselines({**ipm_reference([c for c in cells if c not in ipm_X]), **ipm_X})
+        timed("baselines", lambda: phase_baselines(
+            {**ipm_reference([c for c in cells if c not in ipm_X]), **ipm_X}))
     if "tools" in phases:
-        phase_tools(slice_iters, ipm_X.get((8, 24)) if (args.dim, args.seed) == (8, 24) else None,
-                    tools_ref)
+        timed("tools", phase_tools, slice_iters,
+              ipm_X.get((8, 24)) if (args.dim, args.seed) == (8, 24) else None, tools_ref)
+    if "whole" in phases:
+        timed("whole", phase_whole, slice_iters,
+              slice_layers if (args.dim, args.seed) == WHOLE_CELL[1:] else None)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     if set(phases) != set(PHASES) or args.j1_from is not None:
         return 0
 

@@ -29,6 +29,10 @@ branch against its CPU run, and corr_clust d3 against its CPU run.  graphm:
 the first Newton system of n=2 seed 256 (configs/graphm_2.yaml) solved by
 the ragged AMEn with the inequality local solver on the card and on the
 CPU, every kernel call of the card's solve held against its plain version.
+The whole-solve path: its programs replayed from CUDA graphs bit-equal to
+the same programs run eagerly on a d5 system and a d5 pencil, a host read
+inside a step refused at capture, and the launch counts after three
+replays.
 """
 
 import functools
@@ -1636,3 +1640,123 @@ def test_cuda_jacobi_eigh_pipeline(cuda, n):
     assert float((v.T @ v - eye).abs().max()) < 1e-13 * grow
     w_ref = np.linalg.eigvalsh(a)
     assert np.max(np.abs(w.cpu().numpy() - w_ref)) <= 1e-12 * np.abs(w_ref).max()
+
+
+# ---------------------------------------------------------------------------
+# The whole-solve path: the programs' steps as CUDA graphs (solvers/graphs.py)
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def _whole_solve():
+    from ttipm_tpu_torch import config
+    from ttipm_tpu_torch.solvers import graphs
+
+    config.set_fused_whole_solve(True)
+    graphs.reset()
+    try:
+        yield graphs
+    finally:
+        config.set_fused_whole_solve(None)
+        graphs.reset()
+
+
+def _d5_system(dev):
+    from ttipm_tpu_torch.checks import first_newton_system
+    from ttipm_tpu_torch.utils.runner import load_yaml
+
+    cfg = load_yaml(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                 "configs", "maxcut_5.yaml"))
+    return first_newton_system("maxcut", cfg, cfg["seeds"][0], dev)
+
+
+def _d5_pencil(X, dev):
+    from ttipm_tpu_torch.ops import tt as T
+    from ttipm_tpu_torch.ops.random import tt_random_gaussian
+
+    Dl = tt_random_gaussian([2] * 4, (2, 2), device=dev, rng=np.random.RandomState(5))
+    D = T.tt_add(T.tt_add(T.tt_scale(0.5, Dl), T.tt_scale(0.5, T.tt_transpose(Dl))),
+                 T.tt_scale(-0.3, T.tt_identity(5, device=dev)))
+    return T.tt_scale(1e-3, X), D  # indefinite along D within the unit step: the shrink rule
+
+
+@pytest.mark.cuda
+def test_cuda_whole_solve_graphs_match_eager_runs(cuda):
+    """The whole-solve programs replayed from CUDA graphs against the same
+    programs run eagerly on the card (graphs.eager()): bit for bit, on the
+    first Newton system of maxcut d5 (term_tol and eps 0: all four pairs of
+    nswp = 12) and on a d5 pencil that takes the shrink rule."""
+    from ttipm_tpu_torch.solvers import fused as TF
+    from ttipm_tpu_torch.solvers import fused_eigen as TE
+
+    with _whole_solve() as graphs:
+        lhs, rhs, X, _ = _d5_system(cuda)
+        A, D = _d5_pencil(X, cuda)
+        out = {}
+        for mode in ("graphs", "eager", "replays"):
+            with graphs.eager(mode == "eager"):
+                x, res = TF.tt_block_amen_fused(lhs, rhs, 0.0, R=8, eps=0.0, nswp=12,
+                                                rng=np.random.RandomState(0))
+                step, v = TE.tt_max_generalised_eigen_fused(A, D, tol=1e-8,
+                                                            rng=np.random.RandomState(0))
+            out[mode] = (x, res, v, step)
+        by_step = graphs.STATS.by_step
+        assert by_step["fused_pair"]["captures"] == 1
+        assert by_step["fused_pair"]["replays"] == 3 + 4  # the first run's three, the third's four
+        assert by_step["fused_pair"]["forced_steps"] == 4
+        assert by_step["gen_eigen_pair"]["replays"] >= 1
+        assert graphs.STATS.eager_signatures == 0
+        assert 0.0 < out["graphs"][3] < 1.0
+        for mode in ("graphs", "replays"):
+            x, res, v, step = out[mode]
+            assert res == out["eager"][1] and step == out["eager"][3]
+            assert all(torch.equal(a, b) for a, b in zip(x, out["eager"][0]))
+            assert all(torch.equal(a, b) for a, b in zip(v, out["eager"][2]))
+
+
+@pytest.mark.cuda
+def test_cuda_whole_solve_capture_refuses_host_reads(cuda):
+    """A step is captured under torch.cuda.set_sync_debug_mode("error"): a
+    host read inside it raises at capture, and nothing falls back."""
+    with _whole_solve() as graphs:
+        x = torch.ones(4, device=cuda)
+        with pytest.raises(RuntimeError):
+            graphs.run(("read",), lambda a: a * float(a.sum()), x)
+        assert graphs.STATS.captures == 0
+        assert torch.cuda.get_sync_debug_mode() == 0
+        out = graphs.run(("add",), lambda a: a + 1, x)   # a step without one is captured
+        assert graphs.STATS.captures == 1 and torch.equal(out, x + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_whole_solve_launch_counts_after_three_replays(cuda):
+    """kernels.STATS counts what the card ran: a step's eager run counts its
+    launches once, its capture nothing, each replay its launches again."""
+    from ttipm_tpu_torch.solvers import fused_batch as fb
+    from ttipm_tpu_torch.solvers import fused_eigen as TE
+    from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
+
+    with _whole_solve() as graphs:
+        _, _, X, _ = _d5_system(cuda)
+        A, D = _d5_pencil(X, cuda)
+        A_p, D_p = fb.batch_of_one(TE._prep_operator(A)), fb.batch_of_one(TE._prep_operator(D))
+        caps = TE._vec_caps(5, 8, 2)
+        xs = fb.batch_of_one(TE._prep_vec(None, 5, 2, caps, np.random.RandomState(0), A[0]))
+        carry = feb._gen_start(A_p, D_p, xs, torch.ones(1, dtype=torch.float64, device=cuda),
+                               1e-8, caps, selects=True)
+
+        def pair(args):
+            return feb._gen_pair(*args, 1e-8, caps, selects=True)
+
+        K.reset_counts()
+        with graphs.eager():
+            graphs.run(("pair",), pair, (A_p, D_p, carry))
+        once = {n: (s.launches, dict(s.by_regime)) for n, s in K.STATS.items()}
+        assert once["jacobi_eigh"][0] > 0 and once["schur_assemble"][0] > 0
+        K.reset_counts()
+        for _ in range(4):                            # a capture, then three replays
+            graphs.run(("pair",), pair, (A_p, D_p, carry))
+        torch.cuda.synchronize()
+        assert graphs.STATS.captures == 1 and graphs.STATS.replays == 3
+        for n, (launches, regimes) in once.items():
+            assert K.STATS[n].launches == 4 * launches
+            assert K.STATS[n].by_regime == {k: 4 * v for k, v in regimes.items()}

@@ -37,6 +37,7 @@ MODULES = [
     "ttipm_tpu_torch.solvers.fused_batch",
     "ttipm_tpu_torch.solvers.fused_eigen",
     "ttipm_tpu_torch.solvers.fused_eigen_batch",
+    "ttipm_tpu_torch.solvers.graphs",
     "ttipm_tpu_torch.solvers.lgmres",
     "ttipm_tpu_torch.solvers.local_kkt",
     "ttipm_tpu_torch.tools.aggregate_grid",

@@ -17,7 +17,10 @@ The float32 profile is the JAX package's ``bench.py`` offload-f32 numerics
 
 The problem trains are then made in float32
 (``create_problem(..., dtype=torch.float32)``) and ``tt_ipm`` follows them.
-What exists only for the TPU (offload, the whole-solve device loop, the
+The whole-solve switch (``set_fused_whole_solve``) runs the fused AMEn
+solve and the two fused eigensolves as whole programs: eager on CPU
+tensors, CUDA graphs of their fixed-shape steps on the card
+(``solvers/graphs.py``).  What exists only for the TPU (offload, the
 persistent compile cache, the map guard) has no counterpart here.
 """
 
@@ -203,6 +206,28 @@ def set_fused_kkt(flag: bool) -> None:
 
 def fused_kkt() -> bool:
     return _FUSED_KKT
+
+
+# Whole-solve programs (``solvers/fused.py::solve_program``,
+# ``solvers/fused_eigen_batch.py::gen_eigen_single`` / ``min_eig_program``):
+# the fused AMEn solve runs as a warmup sweep, two peeled solving sweeps,
+# sweep pairs while the termination test holds and a finishing sweep, and
+# the step-size eigensolves as half-sweep pairs, the test read once a pair
+# (``ttipm_tpu/config.py:246-262``).  None = auto, True / False force it.
+
+_FUSED_WHOLE_SOLVE = None
+
+
+def set_fused_whole_solve(flag) -> None:
+    global _FUSED_WHOLE_SOLVE
+    _FUSED_WHOLE_SOLVE = None if flag is None else bool(flag)
+
+
+def fused_whole_solve() -> bool:
+    """True when the whole-solve programs run.  Auto (None) means off: the
+    JAX package turns them on exactly when it offloads to an accelerator,
+    and the port has no offload."""
+    return bool(_FUSED_WHOLE_SOLVE)
 
 
 def set_newton_refine(flag: bool) -> None:

@@ -78,7 +78,7 @@ from ttipm_tpu_torch.ops import kernels
 __all__ = ["TINY", "MAX_SWEEPS", "tol_for", "round_robin", "svd_rotations", "eigh_rotations",
            "orthogonalise_plain", "orthogonalise_block_plain", "eigh_core_plain",
            "eigh_block_plain", "sort_eigenpairs",
-           "jacobi_svd", "jacobi_eigh", "force_jacobi", "forced", "use_jacobi"]
+           "jacobi_svd", "jacobi_eigh", "force_jacobi", "forced", "use_jacobi", "settings"]
 
 # The JAX package's guard for its f64 emulation (``ttipm_tpu/ops/jacobi.py:46``),
 # kept: it sets the zero-column and zero-diagonal limits of the stop tests.
@@ -612,3 +612,10 @@ def use_jacobi(a: torch.Tensor) -> bool:
     if _FORCE_JACOBI is not None:
         return bool(_FORCE_JACOBI)
     return a.is_cuda
+
+
+def settings() -> tuple:
+    """What changes the pipelines' results at equal operands: the route
+    override (``force_jacobi``) and the kernels' regime crossovers
+    (``kernels.J1_BLOCK_FROM``, ``kernels.J2_BLOCK_FROM``)."""
+    return (_FORCE_JACOBI, kernels.J1_BLOCK_FROM, kernels.J2_BLOCK_FROM)

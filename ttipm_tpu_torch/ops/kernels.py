@@ -74,6 +74,7 @@ from ttipm_tpu_torch.ops._build import KernelError
 
 __all__ = [
     "KernelError", "KernelStats", "STATS", "DTYPES", "ELEMENT_BYTES", "reset_counts",
+    "counts_snapshot", "counts_delta", "add_counts",
     "schur_assemble", "schur_assemble_plain",
     "schur_assemble_group", "schur_assemble_group_plain",
     "kkt_block_matvec", "kkt_block_matvec_plain",
@@ -131,6 +132,23 @@ class KernelStats:
         self.by_dtype[tag] += 1
         self.instances_by_dtype[tag] += batch
 
+    def snapshot(self) -> dict:
+        """Every counter set by ``reset``, as plain numbers (its tables
+        copied)."""
+        return {f: dict(v) if isinstance(v, dict) else v
+                for f, v in vars(self).items() if f != "name"}
+
+    def add(self, delta: dict, times: int = 1) -> None:
+        """Add ``times`` times ``delta`` (a difference of two snapshots)
+        to the counters."""
+        for f, d in delta.items():
+            if isinstance(d, dict):
+                table = getattr(self, f)
+                for k, v in d.items():
+                    table[k] += times * v
+            else:
+                setattr(self, f, getattr(self, f) + times * d)
+
 
 STATS = {
     name: KernelStats(name)
@@ -142,6 +160,28 @@ STATS = {
 def reset_counts() -> None:
     for s in STATS.values():
         s.reset()
+
+
+def counts_snapshot() -> dict:
+    """Every kernel's counters (``KernelStats.snapshot``), by name."""
+    return {name: s.snapshot() for name, s in STATS.items()}
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    """What every kernel's counters moved from one ``counts_snapshot`` to
+    a later one."""
+    def diff(a, b):
+        return {k: v - b[k] for k, v in a.items()} if isinstance(a, dict) else a - b
+
+    return {name: {f: diff(v, before[name][f]) for f, v in a.items()}
+            for name, a in after.items()}
+
+
+def add_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times`` times a ``counts_delta`` to ``STATS`` (a CUDA graph's
+    replay: the launches its capture counted, made again on the card)."""
+    for name, d in delta.items():
+        STATS[name].add(d, times)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:

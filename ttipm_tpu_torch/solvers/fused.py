@@ -15,6 +15,14 @@ never-regress and magnitude-sanity guards.  The port has one engine; its
 device is the device of the tensors.  The guards are evaluated on the
 device, and the host reads the residuals once per sweep.
 
+With ``config.set_fused_whole_solve(True)`` a solve of four or more sweeps
+runs as ``solve_program``, the JAX package's whole-solve program
+(``ttipm_tpu/solvers/fused.py:392-449``): the operators padded to bucketed
+ranks as its device engine pads them, a warmup sweep, two peeled solving
+sweeps, sweep pairs while the termination test holds (read once a pair)
+and a finishing sweep, each sweep and pair a CUDA graph on the card
+(``solvers/graphs.py``).
+
 The sweep, the local solves and the split steps are those of
 ``solvers/fused_batch.py``, run on a batch of one.  Local KKT block
 elimination: dZ is eliminated elementwise through the projected identity
@@ -51,7 +59,7 @@ from ttipm_tpu_torch.solvers.amen import (
     ladder_rank_cap,
 )
 
-__all__ = ["tt_block_amen_fused", "tt_restarted_block_amen_fused",
+__all__ = ["tt_block_amen_fused", "tt_restarted_block_amen_fused", "solve_program",
            "fused_residual_norm", "prep_operator", "prep_rhs"]
 
 TINY = 1e-300
@@ -248,6 +256,65 @@ def _prep_z0(d, bs, kick, block_pos, rng, ref):
 
 
 # ---------------------------------------------------------------------------
+# Whole-solve program (``ttipm_tpu/solvers/fused.py:392-449``)
+# ---------------------------------------------------------------------------
+
+def _sweep_step(args, caps, kick: int, solve: bool, direction: int, ineq: bool):
+    """One sweep of the state; returns the new state and the sweep's
+    residual and update maxima, on the device."""
+    A, b, st = args
+    x, z, XAX, Xb, ZAX, Zb = (list(t) for t in st)
+    res, dx = fb.sweep_dev(A, b, x, z, XAX, Xb, ZAX, Zb, caps, kick, solve, direction, ineq)
+    return (x, z, XAX, Xb, ZAX, Zb), res, dx
+
+
+def solve_program(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, term_tol: float, eps: float,
+                  ineq: bool, caps_bck, caps_fwd, kick: int, dir0: int, max_pairs: int):
+    """The whole fused AMEn solve of a batch of one, as the JAX package's
+    ``_solve_program``: a warmup sweep at ``dir0`` (no solve), a solving
+    sweep at -dir0 (which widens the bonds to caps + kick), one at dir0
+    (which fixes the state's shapes), then sweep pairs (-dir0, dir0) while
+    fewer than ``max_pairs`` ran and the pair's residual (the smaller of
+    its two sweeps' maxima) is at or above ``term_tol`` and its update at or
+    above ``eps``, then a finishing sweep at -dir0 (no solve).  Each sweep
+    and each pair is a ``graphs.run`` step (a CUDA graph on the card); the
+    host reads the loop's test once a pair.  Returns (x cores, res, dx,
+    pairs run), res the loop's residual."""
+    from ttipm_tpu_torch.solvers import graphs
+
+    def caps(direction):
+        return caps_bck if direction > 0 else caps_fwd
+
+    key = (len(x_cores), tuple(caps_bck), tuple(caps_fwd), kick, ineq, dir0)
+
+    def sweep(st, direction, solve):
+        return graphs.run(
+            ("fused_sweep",) + key + (direction, solve),
+            lambda args: _sweep_step(args, caps(direction), kick, solve, direction, ineq),
+            (A, b, st))
+
+    def pair(args):
+        st, r1, d1 = _sweep_step(args, caps(-dir0), kick, True, -dir0, ineq)
+        st, r2, d2 = _sweep_step((args[0], args[1], st), caps(dir0), kick, True, dir0, ineq)
+        return st, torch.minimum(r1, r2), torch.minimum(d1, d2)
+
+    st = tuple(list(t) for t in (x_cores, z_cores, XAX, Xb, ZAX, Zb))
+    st, _, _ = sweep(st, dir0, False)    # warmup
+    st, _, _ = sweep(st, -dir0, True)    # peel: widens the bonds to caps + kick
+    st, res, dx = sweep(st, dir0, True)  # peel: the state's shapes are fixed from here
+    # the termination test in the working dtype, as the device loop's
+    tol_w, eps_w = (float(torch.tensor(v, dtype=config.dtype())) for v in (term_tol, eps))
+    pairs = 0
+    res_h, dx_h = torch.stack([res[0], dx[0]]).double().tolist()
+    while pairs < max_pairs and res_h >= tol_w and dx_h >= eps_w:
+        st, res, dx = graphs.run(("fused_pair",) + key, pair, (A, b, st))
+        res_h, dx_h = torch.stack([res[0], dx[0]]).double().tolist()
+        pairs += 1
+    st, _, _ = sweep(st, -dir0, False)   # finisher: back to the caps
+    return st[0], res_h, dx_h, pairs
+
+
+# ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
 
@@ -266,8 +333,11 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
     if prepped is not None:
         A, b = prepped
     else:
-        A = prep_operator(block_A, ineq)
-        b = prep_rhs(block_b, d, ref, ineq)
+        # padded to bucketed ranks on the whole-solve path, as the JAX
+        # package's device engine pads (``fused.py:790-795``)
+        pad = config.fused_whole_solve()
+        A = prep_operator(block_A, ineq, pad=pad)
+        b = prep_rhs(block_b, d, ref, ineq, pad=pad)
     caps_bck = _bond_caps(d, R, bs, +1)
     caps_fwd = _bond_caps(d, R, bs, -1)
     direction = _x0_direction(x0, d, bs) or 1
@@ -284,6 +354,14 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
     Xb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
     ZAX: List = [pz0] + [None] * (d - 1) + [dict(pz0)]
     Zb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
+
+    if config.fused_whole_solve() and nswp >= 4:
+        x_cores, res, dx, pairs = solve_program(
+            A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, term_tol, eps, ineq, caps_bck,
+            caps_fwd, kick_rank, direction, max(0, (nswp - 4) // 2))
+        if verbose:
+            print(f"\t[fused R={R} whole] res {res:.3e} dx {dx:.3e} pairs {pairs}", flush=True)
+        return [c[0] for c in x_cores], res
 
     last = False
     final_res = np.inf
@@ -325,8 +403,9 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
     d = len(first_row)
     ref = first_row[0]
     bs = fa.nrows(ineq)
-    A = prep_operator(block_A, ineq)
-    b = prep_rhs(block_b, d, ref, ineq)
+    pad = config.fused_whole_solve()
+    A = prep_operator(block_A, ineq, pad=pad)
+    b = prep_rhs(block_b, d, ref, ineq, pad=pad)
 
     rhs_norm0 = block_b.norm
     if rhs_norm0 < 0.5 * op_tol:
@@ -370,7 +449,7 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
                 e_cores, _ = tt_block_amen_fused(
                     block_A, r_work, termination_tol, R, eps=eps, nswp=inner_m,
                     kick_rank=2, verbose=False, rng=rng,
-                    prepped=(A, prep_rhs(r_work, d, ref, ineq)), ineq=ineq,
+                    prepped=(A, prep_rhs(r_work, d, ref, ineq, pad=pad)), ineq=ineq,
                 )
                 x_new = tt_block_train_add(x_hi, config.cast_tree(e_cores, torch.float64), bs, eps)
             except (torch.linalg.LinAlgError, FloatingPointError):

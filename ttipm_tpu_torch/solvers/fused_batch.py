@@ -38,7 +38,7 @@ from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import chol_solve, fast_split_svd, lu_factor, lu_solve
 from ttipm_tpu_torch.solvers.fused_algebra import keys, nrows
 
-__all__ = ["sweep", "boundary_phis", "batch_of_one"]
+__all__ = ["sweep", "sweep_dev", "boundary_phis", "batch_of_one"]
 
 TINY = 1e-300
 
@@ -535,6 +535,17 @@ def sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int, solve: bool
     returns the per-instance maxima of (res_old, dx) over the cores as two
     numpy arrays, read from the device in one transfer.  ``mesh``: the
     local factorizations' K1 blocks split over its kkt row."""
+    res, dx = sweep_dev(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick, solve,
+                        direction, ineq, mesh)
+    both = torch.stack([res, dx]).double().cpu().numpy()
+    return both[0], both[1]
+
+
+def sweep_dev(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int, solve: bool,
+              direction: int, ineq: bool = False, mesh=None):
+    """``sweep`` with the per-instance maxima of (res_old, dx) left on the
+    device: two (B,) tensors, no host read (the whole-solve program's
+    sweeps, which a CUDA graph captures)."""
     d = len(x_cores)
     solve_local_b = functools.partial(solve_local, ineq=ineq, mesh=mesh)
     res_vals, dx_vals = [], []
@@ -559,6 +570,4 @@ def sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int, solve: bool
                 solve_local_b, *args, x_cores[k], z_cores[k], solve, ineq)
         res_vals.append(r_old)
         dx_vals.append(dx)
-    both = torch.stack([torch.stack(res_vals).amax(dim=0),
-                        torch.stack(dx_vals).amax(dim=0)]).double().cpu().numpy()
-    return both[0], both[1]
+    return torch.stack(res_vals).amax(dim=0), torch.stack(dx_vals).amax(dim=0)

@@ -10,8 +10,14 @@ is the same sweep for the smallest eigenvector of one symmetric operator
 
 Counterpart of ``ttipm_tpu/solvers/fused_eigen.py`` (``:623`` and ``:826``)
 with the semantics of its numpy host engine (``fused_eigen_host.py``), as
-eager host loops (the JAX package's whole-eigen ``lax.while_loop``
-programs are not ported).  The window and single-core assemblies go
+eager host loops.  With ``config.set_fused_whole_solve(True)`` and d >= 2
+both solvers run the JAX package's whole-eigen programs instead
+(``_gen_eigen_program`` ``:371-437``, ``_min_eig_program`` ``:494-530``,
+dispatched at ``:639-676`` and ``:843-856``): ``fused_eigen_batch``'s
+``gen_eigen_single`` and ``min_eig_program`` on a batch of one, alpha kept
+on the device, the lead-in, each half-sweep pair and the finishing sweep
+replayed as CUDA graphs on the card (``solvers/graphs.py``), the loop's
+test read once a pair, and the JAX dispatch's post-processing here.  The window and single-core assemblies go
 through K1 (``schur_assemble_group``, the pencil's two matrices from one
 launch; a 2-core window is one operator core of physical size 16 after
 merging the pair), and the Cholesky of the whitened shrink pencil through
@@ -294,6 +300,19 @@ def tt_max_generalised_eigen_fused(A: TT, Delta: TT, x0: Optional[TT] = None,
     caps = _vec_caps(d, R, n)
     x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
 
+    if config.fused_whole_solve() and d >= 2:
+        from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
+        from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
+
+        alpha0 = torch.ones(1, dtype=config.eigen_dtype(), device=A_p[0].device)
+        xs, alpha, res, scl = feb.gen_eigen_single(
+            batch_of_one(A_p), batch_of_one(D_p), batch_of_one(x_cores), alpha0, tol, caps,
+            max(nswp - 1, 1))
+        step_size, max_res, max_scale = torch.stack([alpha[0], res[0], scl[0]]).double().tolist()
+        if not np.isfinite(step_size) or step_size < 0:
+            step_size = 0.0
+        return _penalised(step_size, max_res, max_scale, tol), tt_normalise([c[0] for c in xs])
+
     ones3 = A_p[0].new_ones((1, 1, 1))
     XAX = [ones3] + [None] * (d - 1) + [ones3]
     XDX = [ones3] + [None] * (d - 1) + [ones3]
@@ -380,14 +399,17 @@ def tt_max_generalised_eigen_fused(A: TT, Delta: TT, x0: Optional[TT] = None,
     if not np.isfinite(step_size) or step_size < 0:
         step_size = 0.0
     max_res = float(np.max(local_res))
-    x_cores = tt_normalise(list(x_cores))
-    # Unconverged-eigensolve penalty: shrink the step by tol/res, with tol
-    # floored at the dtypes' achievable residual.
+    return _penalised(step_size, max_res, max_scale, tol), tt_normalise(list(x_cores))
+
+
+def _penalised(step_size: float, max_res: float, max_scale: float, tol: float) -> float:
+    """The unconverged-eigensolve penalty: the step shrunk by tol / res,
+    with tol floored at the dtypes' achievable residual (``:650-677``)."""
     eps_dt = _eps_floor()
     tol = max(tol, 30.0 * eps_dt, 4.0 * eps_dt * max_scale)
     if max_res > tol and np.isfinite(max_res) and max_res > 0:
         step_size *= tol / max_res
-    return step_size, x_cores
+    return step_size
 
 
 def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float = 1e-8,
@@ -404,6 +426,14 @@ def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float 
     A_p = _prep_operator(A)
     caps = _vec_caps(d, R, n)
     x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
+    if config.fused_whole_solve() and d >= 2:
+        from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
+        from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
+
+        xs, _ = feb.min_eig_program(batch_of_one(A_p), batch_of_one(x_cores), tol, caps,
+                                    max(nswp - 1, 1))
+        return _with_eig_val(A, [c[0] for c in xs], return_eig_val)
+
     ones3 = A_p[0].new_ones((1, 1, 1))
     XAX = [ones3] + [None] * (d - 1) + [ones3]
     prev_sweep_res = np.inf
@@ -456,7 +486,12 @@ def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float 
             break
         prev_sweep_res = max_res
 
-    x_cores = tt_normalise(list(x_cores))
+    return _with_eig_val(A, list(x_cores), return_eig_val)
+
+
+def _with_eig_val(A, x_cores, return_eig_val: bool):
+    """(the normalised train, its Rayleigh quotient <x, A x> or None)."""
+    x_cores = tt_normalise(x_cores)
     min_eig_value = None
     if return_eig_val:
         # in the wider of the two dtypes, as jnp promotes

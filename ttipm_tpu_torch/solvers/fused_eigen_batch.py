@@ -14,9 +14,15 @@ kept only where alpha is finite and positive.  Each instance keeps its own
 alpha, residual, stall flag and pair count, as the vmapped ``while_loop``
 gives them; an instance that has stopped rides along frozen by (B,) masks,
 so the shapes stay uniform.  The host reads the instances' loop conditions
-once per pair.  The single solve keeps its own loop: it follows the host
-engine (``fused_eigen_host.py``: the orthogonalisation, then backward and
-forward half sweeps per sweep, a finishing sweep in the direction that
+once per pair.  On a batch of one the same program is the single solve's
+whole-solve path (``gen_eigen_single``, with ``min_eig_program`` for the
+smallest eigenvector, ``_min_eig_program`` ``:494-530``): the host
+decisions inside a pair become selects, and the lead-in, each pair and the
+finishing sweep are CUDA graphs on the card (``solvers/graphs.py``).
+Without the whole-solve switch the single solve keeps its own loop: it
+follows the host engine (``fused_eigen_host.py``: the orthogonalisation,
+then backward and forward half sweeps per sweep, a finishing sweep in the
+direction that
 converged, and its own stall test), a different order of windows from
 this program's, so a batch of one here is not the single solve; the two
 agree to the JAX package's bound for its batch against its single solve
@@ -38,7 +44,7 @@ from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import safe_eigh, safe_eigvalsh
 from ttipm_tpu_torch.solvers.fused_batch import TINY, _col, phi_bck_A, phi_fwd_A, svd
 
-__all__ = ["gen_eigen_program"]
+__all__ = ["gen_eigen_program", "gen_eigen_single", "min_eig_program"]
 
 
 # A seeds mesh runs this program on its shard of the batch (5 of 10 pencils
@@ -123,15 +129,18 @@ def _pencils(blocks, mesh):
     return assemble(blocks) if mesh is None else mesh.partial_schur(blocks, assemble)
 
 
-def _pencil_solve(MA, MD, prev_vec, alpha, tol, mesh=None):
+def _pencil_solve(MA, MD, prev_vec, alpha, tol, mesh=None, selects=False):
     """Smallest eigenpair of MA/alpha + MD, the shrink rule and the previous
     iterate's residual in the updated pencil, per instance; returns (x,
-    alpha_new, old_res, scale) with scale = ||M||_F."""
+    alpha_new, old_res, scale) with scale = ||M||_F.  The shrink rule runs
+    where any instance's shifted pencil is indefinite, or always with
+    ``selects`` (no host decision: a CUDA graph's body), and is taken
+    where the instance's is."""
     M = MA / _col(alpha, MA) + MD
     lam, x = _smallest_eigpair(M)
     neg = lam < 0
     alpha_new = alpha
-    if _any(neg, mesh):
+    if selects or _any(neg, mesh):
         alpha_new = torch.where(neg, _shrink_alpha(MA, MD, alpha, tol), alpha)
     denom = torch.where(alpha_new > 0, alpha_new, torch.ones_like(alpha_new))
     Mp = _matvec(MA, prev_vec) / denom[:, None] + _matvec(MD, prev_vec)
@@ -151,12 +160,12 @@ def _split(mat, r_out: int):
 
 
 def _window_step(pAl, A_k, A_k1, pAr, pDl, D_k, D_k1, pDr, sol1, sol2, alpha, tol,
-                 r_out: int, bwd: bool, mesh=None):
+                 r_out: int, bwd: bool, mesh=None, selects=False):
     prev = torch.einsum("zrny,zytR->zrntR", sol1, sol2)
     B, rl, n1, n2, rr = prev.shape
     MA, MD = _pencils([(pAl, _merged(A_k, A_k1), pAr), (pDl, _merged(D_k, D_k1), pDr)], mesh)
     x, alpha_new, old_res, scale = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol,
-                                                 mesh)
+                                                 mesh, selects)
     x = _unit(x)
     if bwd:
         u, sv, r = _split(x.reshape(B, rl * n1, n2 * rr).mT, r_out)
@@ -174,11 +183,11 @@ def _window_step(pAl, A_k, A_k1, pAr, pDl, D_k, D_k1, pDr, sol1, sol2, alpha, to
 
 
 def _last_step_bwd(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol, r_out: int,
-                   split: bool, mesh=None):
+                   split: bool, mesh=None, selects=False):
     """Single-core refinement of the backward finishing sweep."""
     B, rl, n, rr = prev.shape
     MA, MD = _pencils([(pAl, A_k, pAr), (pDl, D_k, pDr)], mesh)
-    x, alpha_new, _, _ = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol, mesh)
+    x, alpha_new, _, _ = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol, mesh, selects)
     x = _unit(x)
     if not split:
         return x.reshape(B, rl, n, rr), neighbor, alpha_new, pAl, pDl
@@ -189,18 +198,21 @@ def _last_step_bwd(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol, r_o
             phi_bck_A(pDr, core, D_k, core))
 
 
-def _orth_sweep(A_p, D_p, xs, XAX, XDX, caps):
+def _orth_sweep(ops, xs, phis, caps):
+    """The sweep-0 orthogonalisation: the trains ``xs`` re-split at the
+    fixed ranks from the right, the interfaces ``phis`` of each operator
+    of ``ops`` updated (lists, in place)."""
     d = len(xs)
     for k in range(d - 1, 0, -1):
         B, rl, n, rr = xs[k].shape
         u, sv, r = _split(xs[k].reshape(B, rl, n * rr).mT, caps[k - 1])
         xs[k] = u.mT.reshape(B, r, n, rr)
         xs[k - 1] = torch.einsum("zrdc,zcR->zrdR", xs[k - 1], sv.mT)
-        XAX[k] = phi_bck_A(XAX[k + 1], xs[k], A_p[k], xs[k])
-        XDX[k] = phi_bck_A(XDX[k + 1], xs[k], D_p[k], xs[k])
+        for op, phi in zip(ops, phis):
+            phi[k] = phi_bck_A(phi[k + 1], xs[k], op[k], xs[k])
 
 
-def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool, mesh=None):
+def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool, mesh=None, selects=False):
     """One half sweep of every instance on a copy of the state ``st`` =
     (xs, XAX, XDX); returns (state, alpha, max window residual, max
     window scale), the last three (B,)."""
@@ -211,7 +223,7 @@ def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool, mesh=None):
         i = k - 1 if bwd else k
         xs[i], xs[i + 1], alpha, res, scl, pA, pD = _window_step(
             XAX[i], A_p[i], A_p[i + 1], XAX[i + 2], XDX[i], D_p[i], D_p[i + 1], XDX[i + 2],
-            xs[i], xs[i + 1], alpha, tol, r_out=caps[i], bwd=bwd, mesh=mesh)
+            xs[i], xs[i + 1], alpha, tol, r_out=caps[i], bwd=bwd, mesh=mesh, selects=selects)
         XAX[i + 1] = pA
         XDX[i + 1] = pD
         res_vals.append(res)
@@ -220,7 +232,7 @@ def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool, mesh=None):
             torch.stack(scale_vals).amax(dim=0))
 
 
-def _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh=None):
+def _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh=None, selects=False):
     xs, XAX, XDX = (list(t) for t in st)
     d = len(xs)
     for k in range(d - 1, -1, -1):
@@ -228,7 +240,7 @@ def _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh=None):
         core, nb_new, alpha, pA, pD = _last_step_bwd(
             XAX[k], A_p[k], XAX[k + 1], XDX[k], D_p[k], XDX[k + 1],
             xs[k - 1] if split else xs[k], xs[k], alpha, tol,
-            r_out=caps[k - 1] if split else 1, split=split, mesh=mesh)
+            r_out=caps[k - 1] if split else 1, split=split, mesh=mesh, selects=selects)
         xs[k] = core
         if split:
             xs[k - 1] = nb_new
@@ -257,6 +269,69 @@ def _stalled(prev_step, step, prev_res, res, tol):
     return (torch.abs(step - prev_step) <= max(10 * tol, 1e-12) * scale) & res_stall
 
 
+def _gen_active(carry, tol):
+    """The loop's test of each instance, but for its pair count."""
+    _, alpha, _, sweep_res, _, _, stalled, _, _ = carry
+    return _ok(alpha) & (sweep_res >= tol) & ~stalled
+
+
+def _gen_pair(A_p, D_p, carry, tol, caps, mesh=None, selects=False):
+    """One (backward, forward) half-sweep pair of the generalised program
+    (the JAX ``while_loop``'s body) on the carry (state, alpha, the last
+    forward residual, the sweep residual, the previous step and residual,
+    the stall flag, the largest scale, the pair count), each instance's
+    carry kept where it is not active.  The forward half runs where any
+    active instance still needs it, or always with ``selects``, and is
+    taken where the instance needs it (the JAX program's ``lax.cond``)."""
+    st, alpha, res_f, sweep_res, prev_step, prev_res, stalled, scl, p = carry
+    active = _gen_active(carry, tol)
+    st1, alpha1, res_b, scl_b = _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd=True,
+                                            mesh=mesh, selects=selects)
+    run_fwd = _ok(alpha1) & (torch.maximum(res_b, res_f) >= tol)
+    st2, alpha2, res_f2, scl_f = st1, alpha1, res_b, scl_b
+    if selects or _any(run_fwd & active, mesh):
+        st_f, alpha_f, res_ff, scl_ff = _half_sweep(A_p, D_p, st1, alpha1, tol, caps,
+                                                    bwd=False, mesh=mesh, selects=selects)
+        st2 = _select(run_fwd, st_f, st1)
+        alpha2, res_f2, scl_f = (torch.where(run_fwd, a, b) for a, b in
+                                 ((alpha_f, alpha1), (res_ff, res_b), (scl_ff, scl_b)))
+    new_res = torch.maximum(res_b, res_f2)
+    new_stalled = (p >= 1) & _stalled(prev_step, alpha2, prev_res, new_res, tol)
+    st = _select(active, st2, st)
+    return (st,) + tuple(torch.where(active, a, b) for a, b in (
+        (alpha2, alpha), (res_f2, res_f), (new_res, sweep_res), (alpha2, prev_step),
+        (new_res, prev_res), (new_stalled, stalled),
+        (torch.maximum(scl, torch.maximum(scl_b, scl_f)), scl), (p + 1, p)))
+
+
+def _gen_start(A_p, D_p, xs, alpha0, tol, caps, mesh=None, selects=False):
+    """The program's lead-in: the sweep-0 orthogonalisation and the first
+    forward half sweep; returns the loop's first carry."""
+    d = len(xs)
+    B = alpha0.shape[0]
+    ones3 = A_p[0].new_ones((B, 1, 1, 1))
+    xs = list(xs)
+    XAX = [ones3] * (d + 1)
+    XDX = [ones3] * (d + 1)
+    _orth_sweep((A_p, D_p), xs, (XAX, XDX), caps)
+    st, alpha, res_f, scl = _half_sweep(A_p, D_p, (xs, XAX, XDX), alpha0, tol, caps, bwd=False,
+                                        mesh=mesh, selects=selects)
+    inf = torch.full_like(alpha, float("inf"))
+    stalled = torch.zeros(B, dtype=torch.bool, device=alpha.device)
+    pairs = torch.zeros(B, dtype=torch.int64, device=alpha.device)
+    return (st, alpha, res_f, inf, alpha, inf, stalled, scl, pairs)
+
+
+def _gen_end(A_p, D_p, carry, tol, caps, mesh=None, selects=False):
+    """The backward finishing sweep, kept where alpha is finite and
+    positive; returns (cores, alpha, the sweep residual, the scale)."""
+    st, alpha, _, sweep_res, _, _, _, scl, _ = carry
+    st_fin, alpha_fin = _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh, selects)
+    ok = _ok(alpha)
+    xs = _select(ok, st_fin[0], st[0])
+    return xs, torch.where(ok, alpha_fin, alpha), sweep_res, scl
+
+
 def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int, mesh=None):
     """The whole generalised eigensolve of B pencils: ``A_p``, ``D_p`` and
     ``xs`` are lists of (B, ...) cores (operators padded to one rank, the
@@ -271,43 +346,175 @@ def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int, me
     program the batch would run on one device; with kkt > 1 every window's
     pencil pair is K1 over this rank's slice of the operator bond, summed
     over its kkt row."""
+    carry = _gen_start(A_p, D_p, xs, alpha0, tol, caps, mesh)
+    pairs = 0
+    while pairs < max_pairs:
+        if not _any(_gen_active(carry, tol), mesh):
+            break
+        carry = _gen_pair(A_p, D_p, carry, tol, caps, mesh)
+        pairs += 1
+    return _gen_end(A_p, D_p, carry, tol, caps, mesh)
+
+
+def gen_eigen_single(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
+    """``gen_eigen_program`` of a batch of one as a whole-solve program
+    (``ttipm_tpu/solvers/fused_eigen.py:371-437``): the host decisions of
+    the shrink rule and the forward half sweep are selects, so that the
+    lead-in, each pair and the finishing sweep are ``graphs.run`` steps
+    (CUDA graphs on the card), and the host reads the loop's test once a
+    pair.  A selected branch keeps its bits: on the CPU this is
+    ``gen_eigen_program``'s instance bit for bit."""
+    from ttipm_tpu_torch.solvers import graphs
+
+    key = (len(xs), tuple(caps), float(tol))
+
+    def start(args):
+        carry = _gen_start(*args, tol, caps, selects=True)
+        return carry, _gen_active(carry, tol)
+
+    def pair(args):
+        A, D, c = args
+        c = _gen_pair(A, D, c, tol, caps, selects=True)
+        return c, _gen_active(c, tol)
+
+    carry, active = graphs.run(("gen_eigen_start",) + key, start, (A_p, D_p, xs, alpha0))
+    for _ in range(max_pairs):
+        if not bool(active[0]):
+            break
+        carry, active = graphs.run(("gen_eigen_pair",) + key, pair, (A_p, D_p, carry))
+    return graphs.run(("gen_eigen_end",) + key,
+                      lambda args: _gen_end(*args, tol, caps, selects=True), (A_p, D_p, carry))
+
+
+# ---------------------------------------------------------------------------
+# The smallest-eigenvector program (``ttipm_tpu/solvers/fused_eigen.py:439-530``)
+# ---------------------------------------------------------------------------
+
+def _min_window_step(pl, A_k, A_k1, pr, sol1, sol2, r_out: int, bwd: bool):
+    """Smallest eigenvector of each instance's 2-core window, re-split at
+    the fixed rank; returns (sol1, sol2, the previous iterate's residual,
+    the updated interface)."""
+    prev = torch.einsum("zrny,zytR->zrntR", sol1, sol2)
+    B, rl, n1, n2, rr = prev.shape
+    M = kernels.schur_assemble_batch([(pl, _merged(A_k, A_k1), pr)])[0]
+    _, x = _smallest_eigpair(M)
+    prev_vec = prev.reshape(B, -1)
+    Mp = _matvec(M, prev_vec)
+    old_res = _norm((prev_vec * Mp).sum(dim=1)[:, None] * prev_vec - Mp)
+    x = _unit(x)
+    if bwd:
+        u, sv, r = _split(x.reshape(B, rl * n1, n2 * rr).mT, r_out)
+        sol2_new = u.mT.reshape(B, r, n2, rr)
+        sol1_new = sv.mT.reshape(B, rl, n1, r)
+        return sol1_new, sol2_new, old_res, phi_bck_A(pr, sol2_new, A_k1, sol2_new)
+    u, sv, r = _split(x.reshape(B, rl * n1, n2 * rr), r_out)
+    sol1_new = u.reshape(B, rl, n1, r)
+    sol2_new = sv.reshape(B, r, n2, rr)
+    return sol1_new, sol2_new, old_res, phi_fwd_A(pl, sol1_new, A_k, sol1_new)
+
+
+def _min_half_sweep(A_p, st, caps, bwd: bool):
+    xs, XAX = (list(t) for t in st)
     d = len(xs)
-    B = alpha0.shape[0]
+    res_vals = []
+    for k in (range(d - 1, 0, -1) if bwd else range(d - 1)):
+        i = k - 1 if bwd else k
+        xs[i], xs[i + 1], res, p_upd = _min_window_step(
+            XAX[i], A_p[i], A_p[i + 1], XAX[i + 2], xs[i], xs[i + 1], r_out=caps[i], bwd=bwd)
+        XAX[i + 1] = p_upd
+        res_vals.append(res)
+    return (xs, XAX), torch.stack(res_vals).amax(dim=0)
+
+
+def _min_finish_sweep(A_p, st, caps):
+    """The backward single-core finishing sweep."""
+    xs, XAX = (list(t) for t in st)
+    d = len(xs)
+    for k in range(d - 1, -1, -1):
+        B, rl, n, rr = xs[k].shape
+        _, x = _smallest_eigpair(kernels.schur_assemble_batch([(XAX[k], A_p[k], XAX[k + 1])])[0])
+        x = _unit(x)
+        if k == 0:
+            xs[k] = x.reshape(B, rl, n, rr)
+            continue
+        u, sv, r = _split(x.reshape(B, rl, n * rr).mT, caps[k - 1])
+        xs[k] = u.mT.reshape(B, r, n, rr)
+        xs[k - 1] = torch.einsum("zrdc,zcR->zrdR", xs[k - 1], sv.mT)
+        XAX[k] = phi_bck_A(XAX[k + 1], xs[k], A_p[k], xs[k])
+    return xs
+
+
+def _res_stalled(prev_res, res, tol):
+    """Device form of the single solver's residual stall test."""
+    return (torch.isfinite(prev_res) & torch.isfinite(res) & (res <= 50 * tol)
+            & (res >= 0.8 * prev_res))
+
+
+def _min_active(carry, tol):
+    _, _, sweep_res, _, stalled, _ = carry
+    return (sweep_res >= tol) & ~stalled
+
+
+def _min_pair(A_p, carry, tol, caps):
+    """One (backward, forward) half-sweep pair of the smallest-eigenvector
+    program; the forward half always runs and is taken where it is still
+    needed after the backward one (the JAX program's ``lax.cond``)."""
+    st, res_f, sweep_res, prev_res, stalled, p = carry
+    active = _min_active(carry, tol)
+    st1, res_b = _min_half_sweep(A_p, st, caps, bwd=True)
+    run_fwd = torch.maximum(res_b, res_f) >= tol
+    st_f, res_ff = _min_half_sweep(A_p, st1, caps, bwd=False)
+    st2 = _select(run_fwd, st_f, st1)
+    res_f2 = torch.where(run_fwd, res_ff, res_b)
+    new_res = torch.maximum(res_b, res_f2)
+    new_stalled = (p >= 1) & _res_stalled(prev_res, new_res, tol)
+    return (_select(active, st2, st),) + tuple(torch.where(active, a, b) for a, b in (
+        (res_f2, res_f), (new_res, sweep_res), (new_res, prev_res), (new_stalled, stalled),
+        (p + 1, p)))
+
+
+def _min_start(A_p, xs, tol, caps):
+    """The lead-in of the smallest-eigenvector program: the sweep-0
+    orthogonalisation and a forward half sweep; returns the loop's first
+    carry and its test."""
+    d = len(xs)
+    B = xs[0].shape[0]
     ones3 = A_p[0].new_ones((B, 1, 1, 1))
     xs = list(xs)
     XAX = [ones3] * (d + 1)
-    XDX = [ones3] * (d + 1)
-    _orth_sweep(A_p, D_p, xs, XAX, XDX, caps)
-    st, alpha, res_f, scl = _half_sweep(A_p, D_p, (xs, XAX, XDX), alpha0, tol, caps, bwd=False,
-                                        mesh=mesh)
-    inf = torch.full_like(alpha, float("inf"))
-    sweep_res, prev_step, prev_res = inf, alpha, inf
-    stalled = torch.zeros(B, dtype=torch.bool, device=alpha.device)
-    pairs = 0
-    while pairs < max_pairs:
-        active = _ok(alpha) & (sweep_res >= tol) & ~stalled
-        if not _any(active, mesh):
+    _orth_sweep((A_p,), xs, (XAX,), caps)
+    st, res_f = _min_half_sweep(A_p, (xs, XAX), caps, bwd=False)
+    inf = torch.full_like(res_f, float("inf"))
+    carry = (st, res_f, inf, inf, torch.zeros(B, dtype=torch.bool, device=res_f.device),
+             torch.zeros(B, dtype=torch.int64, device=res_f.device))
+    return carry, _min_active(carry, tol)
+
+
+def min_eig_program(A_p, xs, tol: float, caps, max_pairs: int):
+    """The whole smallest-eigenvector solve of B operators of one structure
+    (``_min_eig_program``): the sweep-0 orthogonalisation, a forward half
+    sweep, (backward, forward) half-sweep pairs while fewer than
+    ``max_pairs`` ran, the sweep residual is at or above ``tol`` and the
+    residual has not stalled (``_res_stalled_dev``), then a backward
+    single-core finishing sweep.  The lead-in, each pair and the finishing
+    sweep are ``graphs.run`` steps (CUDA graphs on the card); the host
+    reads the loop's test once a pair.  Returns (the eigenvector cores,
+    the sweep residual (B,))."""
+    from ttipm_tpu_torch.solvers import graphs
+
+    key = (len(xs), tuple(caps), float(tol))
+
+    def pair(args):
+        A, c = args
+        c = _min_pair(A, c, tol, caps)
+        return c, _min_active(c, tol)
+
+    carry, active = graphs.run(("min_eig_start",) + key,
+                               lambda args: _min_start(*args, tol, caps), (A_p, xs))
+    for _ in range(max_pairs):
+        if not bool(active.any()):
             break
-        st1, alpha1, res_b, scl_b = _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd=True,
-                                                mesh=mesh)
-        run_fwd = _ok(alpha1) & (torch.maximum(res_b, res_f) >= tol)
-        st2, alpha2, res_f2, scl_f = st1, alpha1, res_b, scl_b
-        if _any(run_fwd & active, mesh):
-            st_f, alpha_f, res_ff, scl_ff = _half_sweep(A_p, D_p, st1, alpha1, tol, caps,
-                                                        bwd=False, mesh=mesh)
-            st2 = _select(run_fwd, st_f, st1)
-            alpha2, res_f2, scl_f = (torch.where(run_fwd, a, b) for a, b in
-                                     ((alpha_f, alpha1), (res_ff, res_b), (scl_ff, scl_b)))
-        new_res = torch.maximum(res_b, res_f2)
-        new_stalled = (pairs >= 1) & _stalled(prev_step, alpha2, prev_res, new_res, tol)
-        st = _select(active, st2, st)
-        alpha, res_f, sweep_res, prev_step, prev_res, stalled, scl = (
-            torch.where(active, a, b) for a, b in
-            ((alpha2, alpha), (res_f2, res_f), (new_res, sweep_res), (alpha2, prev_step),
-             (new_res, prev_res), (new_stalled, stalled),
-             (torch.maximum(scl, torch.maximum(scl_b, scl_f)), scl)))
-        pairs += 1
-    st_fin, alpha_fin = _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh)
-    ok = _ok(alpha)
-    xs = _select(ok, st_fin[0], st[0])
-    return xs, torch.where(ok, alpha_fin, alpha), sweep_res, scl
+        carry, active = graphs.run(("min_eig_pair",) + key, pair, (A_p, carry))
+    xs = graphs.run(("min_eig_end",) + key,
+                    lambda args: _min_finish_sweep(args[0], args[1], caps), (A_p, carry[0]))
+    return xs, carry[2]
