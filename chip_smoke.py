@@ -2,6 +2,27 @@
 
 Run from the repository root:  python3 chip_smoke.py [--dim D --seed S]
 
+Layout.  The parent process runs, alone on the card, every phase whose
+times PERF.md's tables take: device, build, kernels (3), slice (5), batch
+(10, but for ``run_batch``) and whole (14, the d8 cell).  Then the
+phases that only solve and check run as worker processes on the same
+card (``Workers``: ``python3 chip_smoke.py --worker JOB``, at most
+os.cpu_count() - 1 at a time, longest first): fallback (6), ineq (7),
+graphm (8) and f32 (9) without their timings, ``run_batch`` (10), tools
+(13) and phase 14's corr_clust solve; meanwhile the parent runs parity (4)
+and the mesh (11).  Each worker loads the library phase 2 built (it never
+builds), gets phase 5's iterations and final X, prints into a file that
+the parent prints after they have all joined, in job order, and returns
+its counts and call records (pickled).  Once they have joined, the parent
+times phases 6-9's heaviest shapes (on random operands of the recorded
+shapes) and runs the baselines (12), alone again.  So the walls, layer
+seconds and host syncs that phases 4, 6-9, 11 and 13 print were taken
+while other phases ran; the ``concurrent`` line names the jobs and the
+parent's overlapped phases, and ``phase_s`` gives each job's wall
+(``worker_*``), the block's and each alone phase's.  A worker that fails
+or runs past WORKER_TIMEOUT_S fails the run; every worker still running
+is killed when the parent leaves.
+
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
@@ -59,7 +80,8 @@ and prints no result line):
    Printed: wall and iterations beside the JAX package's CPU run, the
    solve counts and seconds of the three solver layers, the host syncs by
    file, the peak device memory, the launches, the largest K1 block and K4
-   order, and the kernels timed at the solve's heaviest shapes.
+   order, and (by the parent, once the workers have joined) the kernels
+   timed at the solve's heaviest shapes.
 7. ineq: corr_clust d6 (seed 764, the first of configs/corr_clust_6.yaml,
    its settings, quiet) on the GPU through run_and_record: the inequality
    path (the IneqStatus machine, the fused ladder's nine-term four-row
@@ -92,7 +114,8 @@ and prints no result line):
 9. f32: the float32 profile (``config.set_dtype(float32)``,
    ``set_eigen_dtype("native")``, mixed-precision local solves "f64") on
    maxcut d8 seed 319 at rank bucket 4 through run_and_record, with
-   scripts/f32_repro.py's settings (F32_SETTINGS), full width: the sweeps'
+   scripts/f32_repro.py's settings (``tools/replay_step.py``'s
+   ``F32_SETTINGS`` and ``profile_config``), full width: the sweeps'
    block products and split QRs in f32 (the f32 instances of K2 and K3),
    the step-size pencils in f32 (K1 and K4 f32), the local Schur chains in
    f64 on upcast operands (K1, K2 and K4 f64).  Checked as phase 6, every
@@ -126,9 +149,9 @@ and prints no result line):
    batch and of five batches of one, of the predictor solve batched and
    five single solves, the host syncs, the device busy share of the
    batched step (torch.profiler), the peak memory, launches and instances.
-   Last, ``run_batch`` on the five seeds of configs/maxcut_8.yaml with five
-   worker processes on the card: every seed converged, seed 24 in phase 5's
-   iterations.
+   Last (a job of the workers), ``run_batch`` on the five seeds of
+   configs/maxcut_8.yaml with five worker processes on the card: every
+   seed converged, seed 24 in phase 5's iterations.
 
 11. mesh: the (seeds x kkt) mesh over ``torch.distributed``
    (``ttipm_tpu_torch.parallel.mesh``): two ranks sharing cuda:0 over gloo
@@ -175,12 +198,17 @@ and prints no result line):
    version on a CUDA tensor; the first Newton system (nswp = 12, all four
    pairs) and the first pencil give the same bits run eagerly
    (``graphs.eager()``), captured and replayed (the three runs timed);
-   then corr_clust d6 seed 764 (phase 7's cell) with the switch on
-   converged through ``min_eig_program``.  Printed side by side:
-   iterations, wall, Newton and step-size solves with their wall and host
-   syncs a solve, peak memory, captures, replays and the signatures sent
-   to eager runs by step, and the launches by kernel (replayed launches
-   included).
+   then (a job of the workers) corr_clust d6 seed 764 (phase 7's cell)
+   with the switch on converged through ``min_eig_program``.  Printed side
+   by side: iterations, wall, Newton and step-size solves with their wall
+   and host syncs a solve, peak memory, captures, replays and the
+   signatures sent to eager runs by step, and the launches by kernel
+   (replayed launches included); for both switch-on solves the eigen
+   programs' finishing sweeps by direction (``whole_finish``: backward
+   after a forward half sweep, forward after a pair that skipped its
+   forward half, none after a stall above tol or a zero step) beside the
+   iterations, d8's beside phase 5's.  Convergence is required, not an
+   iteration count.
 
 The seconds of each phase are printed on a line of their own
 (``phase_s``) before the kernels line.
@@ -194,8 +222,9 @@ row of the kernel's heaviest batched shape, ``launches_mesh`` phase 11's
 launches on each rank); J1 and J2 have no float32 instance (f32 factorizations are upcast);
 the last line
 is {"ok": true, "device": {...}}.  ``--phases`` runs a subset (device and
-build always) and then prints neither; nor does ``--j1-from N``, which
-moves J1's regime crossover (kernels.J1_BLOCK_FROM) for the run.
+build always, a chosen worker phase as a worker) and then prints neither;
+nor does ``--j1-from N``, which moves J1's regime crossover
+(kernels.J1_BLOCK_FROM) for the run, the workers' included.
 """
 
 from __future__ import annotations
@@ -1107,25 +1136,34 @@ def drive(problem, dim, seed, label, jax_cpu=None, exhaust=False, must_launch=tu
     return res, counts, (calls, bounds, largest)
 
 
+def portable_record(record):
+    """``drive``'s call record without its kept operands (``solve_times``
+    times random operands of the recorded shapes), for a worker's result."""
+    calls, bounds, largest = record
+    return calls, bounds, {n: (size, spec, None, kw) for n, (size, spec, _, kw) in largest.items()}
+
+
 def phase_fallback(problem, dim, seed):
-    """Phase 6: the fused ladder, the ragged AMEn where the ladder exhausts
-    its restarts (at least one solve), the fused eigensolver; timed at the
-    solve's heaviest shapes.  Returns (the counts, the final X)."""
+    """Phase 6 (a worker): the fused ladder, the ragged AMEn where the
+    ladder exhausts its restarts (at least one solve), the fused
+    eigensolver.  Returns the counts, the final X (on the CPU) and the call
+    record, which the parent times at the solve's heaviest shapes
+    (``fallback_time``) once the workers have joined."""
     kept = {}
     res, counts, record = drive(problem, dim, seed, "fallback", JAX_CPU_D10, keep=kept)
-    solve_times("fallback_time", *record)
     if res["solves"]["ragged"] < 1:
         raise AssertionError(f"d{dim} seed {seed}: no Newton solve went through the ragged AMEn")
-    return counts, kept["iterates"][0]
+    return {"counts": counts, "X": [c.cpu() for c in kept["iterates"][0]],
+            "record": portable_record(record), "times": ("fallback_time", (), "heaviest_ineq")}
 
 
 def phase_ineq(problem, dim, seed):
-    """Phase 7: the inequality path.  Converged, the inequalities in use at
-    some point (ineq_status left NOT_IN_USE), at least one nine-term K2
-    product and one six-block K1 group; timed at the solve's heaviest shapes
-    and at its heaviest nine-term product, six-block group and ragged L_Z.
-    If no ragged inequality local solve ran, a forced-exhaustion solve of
-    EXHAUST_CELL runs them on the card."""
+    """Phase 7 (a worker): the inequality path.  Converged, the
+    inequalities in use at some point (ineq_status left NOT_IN_USE), at
+    least one nine-term K2 product and one six-block K1 group; the parent
+    times the solve's heaviest shapes and its heaviest nine-term product,
+    six-block group and ragged L_Z.  If no ragged inequality local solve
+    ran, a forced-exhaustion solve of EXHAUST_CELL runs them on the card."""
     res, counts, record = drive(problem, dim, seed, "ineq", JAX_CPU_CC6)
     if res["ineq_status"] == "NOT_IN_USE":
         raise AssertionError(f"{problem} d{dim} seed {seed}: the inequalities were never used")
@@ -1136,14 +1174,14 @@ def phase_ineq(problem, dim, seed):
     extra = (heaviest(record, "kkt_block_product", lambda lay, sp: len(sp[0]) == 9)
              + heaviest(record, "schur_assemble_group", lambda lay, sp: len(sp[0]) == 6)
              + heaviest(record, "panel_cholesky", lambda lay, sp: lay == "ragged"))
-    solve_times("ineq_time", *record, extra=extra)
     if not any(k.startswith("ipm_local_solver_ineq") for k in res["local_solves"]):
         # no fused ladder there, so no K3 (its split steps)
         ex, _, _ = drive(*EXHAUST_CELL, "ineq_exhausted", exhaust=True,
                          must_launch=("schur_assemble", "kkt_block_matvec", "panel_cholesky"))
         if not any(k.startswith("ipm_local_solver_ineq") for k in ex["local_solves"]):
             raise AssertionError("the ragged inequality local solver did not run")
-    return counts
+    return {"counts": counts, "record": portable_record(record),
+            "times": ("ineq_time", extra, "heaviest_ineq")}
 
 
 def heaviest(record, name, pred):
@@ -1169,9 +1207,10 @@ GRAPHM_SETTINGS = {"lambdaStar": 2.0, "max_refinement": 10}
 
 
 def phase_graphm(problem, dim, seed):
-    """Phase 8: graphm through the ragged inequality path, with a checkpoint
-    written every iteration and read back onto the card against the final
-    iterates; timed at the solve's heaviest shapes."""
+    """Phase 8 (a worker): graphm through the ragged inequality path, with
+    a checkpoint written every iteration and read back onto the card
+    against the final iterates; the parent times the solve's heaviest
+    shapes."""
     import torch
 
     from ttipm_tpu_torch.utils.checkpoint import load_ipm_checkpoint
@@ -1200,8 +1239,15 @@ def phase_graphm(problem, dim, seed):
              + heaviest(record, "schur_assemble_group", lambda lay, sp: len(sp[0]) == 6)
              + heaviest(record, "panel_cholesky", lambda lay, sp: lay == "fused")
              + heaviest(record, "panel_cholesky", lambda lay, sp: lay == "ragged"))
-    solve_times("graphm_time", *record, extra=extra, tag="heaviest")
-    return counts
+    return {"counts": counts, "record": portable_record(record),
+            "times": ("graphm_time", extra, "heaviest")}
+
+
+def timed_heaviest(out):
+    """The parent's part of phases 6-8: ``solve_times`` on a worker's
+    record, alone on the card."""
+    label, extra, tag = out["times"]
+    return solve_times(label, *out["record"], extra=extra, tag=tag)
 
 
 def solve_times(label, calls, bounds, largest, extra=(), tag="heaviest_ineq"):
@@ -1258,17 +1304,17 @@ def time_spec(name, spec, rng, dev):
             "spec": spec}
 
 
-# The f32 cell: maxcut d8 seed 319 at rank bucket 4 in the float32 profile,
-# with scripts/f32_repro.py's settings (configs/maxcut_8.yaml's but
-# max_iter 22), and the JAX package's record of its f32 run on the CPU.
+# The f32 cell: maxcut d8 seed 319 in the float32 profile at rank bucket 4
+# (``tools/replay_step.py``'s ``profile_config("f32")``), with
+# scripts/f32_repro.py's settings (configs/maxcut_8.yaml's but max_iter 22:
+# ``replay_step.F32_SETTINGS``), and the JAX package's record of its f32
+# run on the CPU.
 # The JAX package builds the f32 instance in f32, where its graph
 # sampler's rank decisions fall on f32 SVD noise (it takes its 56th sample
 # at this seed, its f64 instance the 5th); the port builds it in f64 and
 # rounds it (models/maxcut.py), so the record is of another graph of the
 # same seed.
 F32_CELL = ("maxcut", 8, 319)
-F32_SETTINGS = {"max_iter": 22, "gap_tol": 3e-4, "op_tol": 1e-4, "abs_tol": 1e-3,
-                "warm_up": 3, "mals_restarts": 2, "max_refinement": 5, "lambdaStar": 1.0}
 JAX_CPU_F32_D8 = {"iters": 11, "slack": 1.131e-4, "wall_s": 660.2, "rank_bucket": 4,
                   "source": "results/f32_d78.out:3914 (CPU run, its own f32 instance)"}
 
@@ -1290,23 +1336,20 @@ def capture_first(kind_attr, box):
 
 
 def phase_f32(problem, dim, seed):
-    """Phase 9: the float32 profile on the card.  Returns per kernel the
-    f32 instance's launches in the solve and, apart, in the capture run,
-    its worst error and its times at the solve's heaviest f32 shape."""
+    """Phase 9 (a worker): the float32 profile on the card.  Returns the
+    solve's call record, the f32 instances' launches in the solve and in
+    the capture run, and each kernel's worst f32 error; ``f32_times`` (the
+    parent) times the heaviest f32 shapes."""
     import torch
 
     import ttipm_tpu_torch.ipm as ipm
     from ttipm_tpu_torch import config as tconfig
-    from ttipm_tpu_torch.checks import KERNEL_OF
     from ttipm_tpu_torch.ops import kernels as K
     from ttipm_tpu_torch.solvers import fused as TF
+    from ttipm_tpu_torch.tools.replay_step import F32_SETTINGS, profile_config
 
-    tconfig.set_dtype(torch.float32)
-    tconfig.set_eigen_dtype("native")
-    tconfig.set_mixed_local("f64")
-    tconfig.set_rank_bucket(4)
     box = {}
-    try:
+    with profile_config("f32"):
         original = capture_first("tt_restarted_block_amen_fused", box)
         try:
             res, counts, record = drive(problem, dim, seed, "f32", JAX_CPU_F32_D8,
@@ -1344,11 +1387,6 @@ def phase_f32(problem, dim, seed):
                 raise AssertionError(f"f32 capture ({mode}): non-finite residual")
         tconfig.set_mixed_local("f64")
         print(json.dumps({"f32_capture_modes": modes}), flush=True)
-        rows = solve_times("f32_time", *record)
-    finally:
-        tconfig.set_dtype(torch.float64)
-        tconfig.set_eigen_dtype("f64")
-        tconfig.set_mixed_local("f64")
     launches = {n: counts[n][3]["f32"] for n in F32_KERNELS}  # the solve's, counted from 0
     launches_capture = {n: capture[n]["f32"] for n in F32_KERNELS}
     print(json.dumps({"f32_launches": {"solve": {n: counts[n][3] for n in KERNELS},
@@ -1356,6 +1394,20 @@ def phase_f32(problem, dim, seed):
     missing = [n for n in F32_KERNELS if launches[n] + launches_capture[n] <= 0]
     if missing:
         raise AssertionError(f"f32: the f32 instances of {missing} never launched")
+    return {"record": portable_record(record), "launches": launches,
+            "launches_capture": launches_capture, "max_abs_err_f32": res["max_abs_err_f32"]}
+
+
+def f32_times(out):
+    """The parent's part of phase 9, alone on the card: the solve's
+    heaviest shapes timed (``f32_time``); returns per kernel the f32
+    instance's launches in the solve and, apart, in the capture run, its
+    worst error and its times at the solve's heaviest f32 shape."""
+    import torch
+
+    from ttipm_tpu_torch.checks import KERNEL_OF
+
+    rows = solve_times("f32_time", *out["record"])
     summary = {}
     rng = np.random.RandomState(8)
     for n in F32_KERNELS:
@@ -1368,8 +1420,9 @@ def phase_f32(problem, dim, seed):
             print(json.dumps({"f32_time": {k: v for k, v in f32[0].items() if k != "spec"}}),
                   flush=True)
         best = max(f32, key=lambda r: r["calls"] * r["bound_ms"])
-        summary[n] = {"launches": launches[n], "launches_capture": launches_capture[n],
-                      "max_abs_err": res["max_abs_err_f32"].get(n, 0.0),
+        summary[n] = {"launches": out["launches"][n],
+                      "launches_capture": out["launches_capture"][n],
+                      "max_abs_err": out["max_abs_err_f32"].get(n, 0.0),
                       **{k: best[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by")},
                       "timed_entry": best["kernel"], "timed_shape": best["shape"]}
@@ -1604,7 +1657,7 @@ def _busy_share(fn):
     return None
 
 
-def phase_batch(slice_iters=None):
+def phase_batch():
     """Phase 10: the batched seeds on the card.  (1) the batched kernels
     (``phase_batch_kernels``); (2) the first Newton systems of the five
     seeds of configs/maxcut_10.yaml through ``tt_newton_step_batch`` in one
@@ -1618,8 +1671,8 @@ def phase_batch(slice_iters=None):
     one, and the predictor solve batched against five single solves, the
     host syncs and the device busy share (torch.profiler) of the batched
     step, the peak device memory; (4) ``run_batch`` on the five seeds of
-    configs/maxcut_8.yaml, five workers on the card: every seed ok and
-    converged, seed 24 in phase 5's iterations.  Returns (per kernel the
+    configs/maxcut_8.yaml, five workers on the card, is a worker of its own
+    (``phase_run_batch``).  Returns (per kernel the
     launches and instances of each type ("f64", "f32") in the counted
     batched step and the rows of ``phase_batch_kernels``; phase 11's
     reference: the systems, the counted step's steps and directions (numpy's
@@ -1632,7 +1685,6 @@ def phase_batch(slice_iters=None):
     from ttipm_tpu_torch.checks import (batch_errors, first_newton_system, kernel_errors,
                                         kkt_residual_norm, shape_key)
     from ttipm_tpu_torch.ops import kernels as K
-    from ttipm_tpu_torch.parallel.batch import run_batch
     from ttipm_tpu_torch.parallel.fused_mesh import (tt_block_amen_fused_batch,
                                                      tt_newton_step_batch)
     from ttipm_tpu_torch.solvers import fused as F
@@ -1787,6 +1839,19 @@ def phase_batch(slice_iters=None):
         "parts_s": parts,
     }
     print(json.dumps({"batch": res}), flush=True)
+    print(json.dumps({"batch_phase_s": time.perf_counter() - t_phase}), flush=True)
+    ref = {"systems": inst, "steps": (xs, zs, dirs), "wall_s": wall,
+           "predictor_rel_res": res_batch}
+    return {n: {tag: {"launches_batch": c[0], "instances_batch": c[1]}
+                for tag, c in by_dtype[n].items()} | {"batch": rows.get(n)}
+            for n in counts}, ref
+
+
+def phase_run_batch(slice_iters=None):
+    """Phase 10's last part (a worker): ``run_batch`` on the five seeds of
+    configs/maxcut_8.yaml, five worker processes on the card: every seed ok
+    and converged, seed 24 in phase 5's iterations."""
+    from ttipm_tpu_torch.parallel.batch import run_batch
 
     problem8, dim8 = RUN_BATCH_CELL
     cfg8 = load_config(dim8, problem8)
@@ -1816,12 +1881,6 @@ def phase_batch(slice_iters=None):
     got = {r["seed"]: int(r["num_iters"]) for r in results}
     if got.get(24) != want:
         raise AssertionError(f"run_batch: seed 24 took {got.get(24)} iterations, phase 5 {want}")
-    print(json.dumps({"batch_phase_s": time.perf_counter() - t_phase}), flush=True)
-    ref = {"systems": inst, "steps": (xs, zs, dirs), "wall_s": wall,
-           "predictor_rel_res": res_batch}
-    return {n: {tag: {"launches_batch": c[0], "instances_batch": c[1]}
-                for tag, c in by_dtype[n].items()} | {"batch": rows.get(n)}
-            for n in counts}, ref
 
 
 # ---------------------------------------------------------------------------
@@ -2587,13 +2646,16 @@ class LayerProbe:
     sweeps and the whole-solve programs that ran counted, and the peak
     device memory.  What runs inside ``excluded()`` (phase 5's kernel
     checks) is left out of the walls and the syncs.  ``first`` receives
-    the first Newton system and the first pencil.  Phase 5 drives its
-    switch-off solve inside one, phase 14 its switch-on solves."""
+    the first Newton system and the first pencil.  The whole-solve eigen
+    programs' finishing directions are kept on the device and counted in
+    ``record``, after the solve.  Phase 5 drives its switch-off solve
+    inside one, phase 14 its switch-on solves."""
 
     def __init__(self, first=None):
         self.first = first
         self.layers = {k: {"calls": 0, "s": 0.0, "syncs": 0} for k in ("newton", "step")}
         self.programs = Counter()
+        self.finishes = {}  # program -> its finishing directions (device tensors)
         self.caught = []
         self.excluded_s = 0.0
         self.peak_bytes = 0
@@ -2653,7 +2715,10 @@ class LayerProbe:
         def counted(*a, **kw):
             if kind != "sweep_solves" or kw.get("nswp", 22) >= 4:
                 self.programs[kind] += 1
-            return fn(*a, **kw)
+            out = fn(*a, **kw)
+            if kind in ("gen_eigen_single", "min_eig_program"):
+                self.finishes.setdefault(kind, []).append(out[-1])
+            return out
         return layer if kind in self.layers else counted
 
     @contextlib.contextmanager
@@ -2672,6 +2737,17 @@ class LayerProbe:
             self.excluded_s += time.perf_counter() - t0
             del self.caught[n0:]
 
+    def finishing_sweeps(self):
+        """Each whole-solve eigen program's finishing sweeps by direction."""
+        import torch
+
+        out = {}
+        for kind, dirs in self.finishes.items():
+            got = torch.cat(dirs).tolist()
+            out[kind] = {name: got.count(code) for name, code in
+                         (("backward", -1), ("forward", 1), ("none", 0))}
+        return out
+
     def record(self, solve_res, wall_s):
         """The solve's record: ``solve_res``'s iterations and residuals, its
         wall ``wall_s`` less the excluded spans, and what the probe saw."""
@@ -2689,6 +2765,7 @@ class LayerProbe:
             **{f"{k}_syncs_per_solve": v["syncs"] / max(v["calls"], 1)
                for k, v in self.layers.items()},
             "programs": dict(self.programs), "graph_steps": graphs.STATS.as_dict(),
+            "finishing_sweeps": self.finishing_sweeps(),
             "launches": {n: s.launches for n, s in K.STATS.items()},
             "plain_calls": sum(s.plain_calls for s in K.STATS.values()),
             "outside": {n: s.outside for n, s in K.STATS.items() if s.outside},
@@ -2803,14 +2880,19 @@ def phase_whole(slice_iters=None, eager_loop=None):
     of four or more sweeps through ``solve_program`` and every step-size
     solve through the generalised program, captures > 0 and replays >
     captures; the first Newton system and the first pencil bit-equal
-    graphed and eager (and timed both ways); then corr_clust d6 seed 764
-    with the switch on converged through ``min_eig_program``.  Prints the
-    runs side by side."""
+    graphed and eager (and timed both ways).  Prints the runs side by
+    side, and the switch-on solve's finishing sweeps by direction beside
+    its iterations and phase 5's.  Corr_clust d6 is ``phase_whole_ineq``,
+    a worker."""
     first = {}
     runs = {"eager_loop": eager_loop or whole_drive(*WHOLE_CELL, False),
             "whole": whole_drive(*WHOLE_CELL, True, first=first)}
     print(json.dumps({"whole": runs, "slice_iters": slice_iters}), flush=True)
     on = runs["whole"]
+    print(json.dumps({"whole_finish": {
+        "cell": "maxcut d8 seed 24", "finishing_sweeps": on["finishing_sweeps"],
+        "iters": on["iters"], "eager_loop_iters": runs["eager_loop"]["iters"],
+        "phase5_iters": slice_iters}}), flush=True)
     steps = on["graph_steps"]
     if on["programs"].get("solve_program", 0) != on["programs"].get("sweep_solves", 0):
         raise AssertionError(f"a sweep solve of four or more sweeps missed solve_program: {on}")
@@ -2821,14 +2903,161 @@ def phase_whole(slice_iters=None, eager_loop=None):
                              f"{steps['replays']}")
     bits = whole_bits(first)
     print(json.dumps({"whole_bits": bits}), flush=True)
+
+
+def phase_whole_ineq():
+    """Phase 14's second part (a worker): corr_clust d6 seed 764 (phase 7's
+    cell) with the switch on, converged through ``min_eig_program``; its
+    finishing sweeps by direction beside its iterations."""
     ineq = whole_drive(*INEQ_CELL, True)
     print(json.dumps({"whole_ineq": ineq}), flush=True)
+    print(json.dumps({"whole_finish": {
+        "cell": "corr_clust d6 seed 764", "finishing_sweeps": ineq["finishing_sweeps"],
+        "iters": ineq["iters"]}}), flush=True)
     if not ineq["programs"].get("min_eig_program"):
         raise AssertionError(f"corr_clust d6: min_eig_program did not run: {ineq}")
 
 
 PHASES = ("kernels", "parity", "slice", "fallback", "ineq", "graphm", "f32", "batch", "mesh",
           "baselines", "tools", "whole")
+
+# The worker jobs, longest first: each runs in a process of its own on the
+# card while the parent runs parity and the mesh; none times anything that
+# PERF.md's tables take (the parent times phases 6-9's heaviest shapes
+# after they have joined).  A job gets phase 5's iterations and final X.
+JOBS = {
+    "f32": lambda inp: phase_f32(*F32_CELL),
+    "tools": lambda inp: phase_tools(inp["slice_iters"], inp["slice_X"], None),
+    "fallback": lambda inp: phase_fallback(*FALLBACK_CELL),
+    "graphm": lambda inp: phase_graphm(*GRAPHM_CELL),
+    "run_batch": lambda inp: phase_run_batch(inp["slice_iters"]),
+    "ineq": lambda inp: phase_ineq(*INEQ_CELL),
+    "whole_ineq": lambda inp: phase_whole_ineq(),
+}
+# The phase each job belongs to (its name where it is the phase's).
+JOB_PHASE = {"run_batch": "batch", "whole_ineq": "whole"}
+WORKER_TIMEOUT_S = 900
+
+
+def worker_command(argv=()):
+    """The command of a job: ``python3 chip_smoke.py --worker JOB
+    --worker-dir DIR`` and ``argv``."""
+    def command(job, worker_dir):
+        return [sys.executable, os.path.abspath(__file__), "--worker", job, "--worker-dir",
+                worker_dir, *argv]
+    return command
+
+
+class Workers:
+    """The jobs named ``jobs``, each the process ``command(job, dir)``
+    (``worker_command``: ``worker_main``, which runs ``JOBS[job]`` on the
+    card, loading the library phase 2 built; it never builds), at most
+    ``limit`` at a time (a thread pool of ``limit`` threads, each waiting
+    on its process), ``inputs`` pickled to ``dir/inputs.pkl``, a temporary
+    directory where a job writes its result (``dir/JOB.pkl``: {"result":
+    ..., "wall_s": ...}); its output and errors go to files there.
+    ``join`` waits for all, prints each job's output and errors in
+    ``jobs``' order, and raises if any exited non-zero or ran past
+    ``timeout_s`` (then killed); leaving the block kills every job still
+    running, starts no other and removes the directory."""
+
+    def __init__(self, jobs, inputs, limit, command, timeout_s=WORKER_TIMEOUT_S):
+        import pickle
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.jobs, self.command, self.timeout_s = list(jobs), command, timeout_s
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_workers_")
+        with open(os.path.join(self.dir, "inputs.pkl"), "wb") as fh:
+            pickle.dump(inputs, fh)
+        self.procs, self.walls = {}, {}
+        self._lock, self._closing = threading.Lock(), False
+        self._pool = ThreadPoolExecutor(max_workers=max(1, limit))
+
+    def __enter__(self):
+        self._failures = {job: self._pool.submit(self._run, job) for job in self.jobs}
+        return self
+
+    def _path(self, job, ext):
+        return os.path.join(self.dir, f"{job}.{ext}")
+
+    def _run(self, job):
+        """Runs ``job`` to its end; returns why it failed, or None."""
+        t0 = time.perf_counter()
+        with self._lock:
+            if self._closing:
+                return "not started"
+            with open(self._path(job, "out"), "w") as out, \
+                    open(self._path(job, "err"), "w") as err:
+                proc = self.procs[job] = subprocess.Popen(self.command(job, self.dir), cwd=REPO,
+                                                          stdout=out, stderr=err)
+        try:
+            code = proc.wait(timeout=self.timeout_s)
+            failure = f"exit {code}" if code else None
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failure = f"killed after {self.timeout_s} s"
+        self.walls[job] = time.perf_counter() - t0
+        return failure
+
+    def join(self):
+        """{job: its result}; prints each job's output and errors."""
+        import pickle
+
+        results, failed = {}, {}
+        for job in self.jobs:
+            failure = self._failures[job].result()
+            with open(self._path(job, "out")) as fh:
+                sys.stdout.write(fh.read())
+            with open(self._path(job, "err")) as fh:
+                err = fh.read()
+            sys.stderr.write(err)
+            sys.stdout.flush()
+            if failure:
+                failed[job] = f"{failure}: {err[-3000:]}"
+                continue
+            with open(self._path(job, "pkl"), "rb") as fh:
+                results[job] = pickle.load(fh)
+        if failed:
+            raise AssertionError(f"worker jobs failed: {failed}")
+        return results
+
+    def __exit__(self, *exc):
+        import shutil
+
+        with self._lock:
+            self._closing = True
+            for proc in self.procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return False
+
+
+def worker_main(job, worker_dir):
+    """A job of ``Workers`` (``--worker``): its result pickled to
+    ``worker_dir``, with its wall."""
+    import pickle
+
+    import torch
+
+    from ttipm_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke worker: no CUDA device")
+    if not os.path.exists(_build.library_path()):
+        raise SystemExit(f"chip_smoke worker {job}: no kernel library at "
+                         f"{_build.library_path()} (phase 2 builds it)")
+    _build.load_library()
+    with open(os.path.join(worker_dir, "inputs.pkl"), "rb") as fh:
+        inputs = pickle.load(fh)
+    t0 = time.perf_counter()
+    result = JOBS[job](inputs)
+    with open(os.path.join(worker_dir, f"{job}.pkl"), "wb") as fh:
+        pickle.dump({"result": result, "wall_s": time.perf_counter() - t0}, fh)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -2841,6 +3070,8 @@ def main(argv=None) -> int:
     ap.add_argument("--j1-from", type=int, default=None,
                     help="J1's regime crossover for the run (kernels.J1_BLOCK_FROM); the "
                          "result lines are printed only without it")
+    ap.add_argument("--worker", choices=tuple(JOBS), default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
@@ -2851,6 +3082,8 @@ def main(argv=None) -> int:
 
         K.J1_BLOCK_FROM = args.j1_from
         K.j1_plan.cache_clear()
+    if args.worker is not None:
+        return worker_main(args.worker, args.worker_dir)
 
     phase_s = {}
 
@@ -2861,41 +3094,64 @@ def main(argv=None) -> int:
         finally:
             phase_s[label] = time.perf_counter() - t0
 
+    # alone on the card: every time that PERF.md's tables take
     name = timed("device", phase_device)
     timed("build", phase_build)
     summary = timed("kernels", phase_kernels) if "kernels" in phases else None
-    if "parity" in phases:
-        timed("parity", phase_parity)
     ipm_X = {}
     counts, slice_iters, slice_layers = None, None, None
     if "slice" in phases:
         counts, slice_iters, ipm_X[(args.dim, args.seed)], slice_layers = timed(
             "slice", phase_slice, args.dim, args.seed)
-    counts_fb = None
-    if "fallback" in phases:
-        counts_fb, ipm_X[FALLBACK_CELL[1:]] = timed("fallback", phase_fallback, *FALLBACK_CELL)
-    counts_ineq = timed("ineq", phase_ineq, *INEQ_CELL) if "ineq" in phases else None
-    counts_gm = timed("graphm", phase_graphm, *GRAPHM_CELL) if "graphm" in phases else None
-    summary_f32 = timed("f32", phase_f32, *F32_CELL) if "f32" in phases else None
-    summary_batch, batch_ref = (timed("batch", phase_batch, slice_iters) if "batch" in phases
+    summary_batch, batch_ref = (timed("batch", phase_batch) if "batch" in phases
                                 else (None, None))
+    if "whole" in phases:
+        timed("whole", phase_whole, slice_iters,
+              slice_layers if (args.dim, args.seed) == WHOLE_CELL[1:] else None)
+
+    # the solves that only solve and check: worker processes, while the
+    # parent runs parity and the mesh
+    jobs = [job for job in JOBS if JOB_PHASE.get(job, job) in phases]
+    slice_X = ipm_X.get((8, 24)) if (args.dim, args.seed) == (8, 24) else None
+    inputs = {"slice_iters": slice_iters,
+              "slice_X": None if slice_X is None else [c.cpu() for c in slice_X]}
+    cpus = os.cpu_count() or 1
+    limit = max(1, min(len(jobs), cpus - 1))
+    print(json.dumps({"concurrent": {"cpu_count": cpus, "workers": limit, "jobs": jobs,
+                                     "in_parent": [p for p in ("parity", "mesh")
+                                                   if p in phases]}}), flush=True)
+    t_block = time.perf_counter()
     launches_mesh = None
-    if "mesh" in phases:
-        launches_mesh = timed("mesh", phase_mesh,
-                              batch_ref if batch_ref is not None else batch_reference())
-    # phase 13 needs the first system only
-    tools_ref = {"systems": batch_ref["systems"][:1]} if batch_ref is not None else None
-    del batch_ref
+    argv_j1 = [] if args.j1_from is None else ["--j1-from", str(args.j1_from)]
+    with Workers(jobs, inputs, limit, worker_command(argv_j1)) as workers:
+        if "parity" in phases:
+            timed("parity", phase_parity)
+        if "mesh" in phases:
+            launches_mesh = timed("mesh", phase_mesh,
+                                  batch_ref if batch_ref is not None else batch_reference())
+        del batch_ref
+        results = workers.join()
+        walls = dict(workers.walls)
+    phase_s["concurrent_block"] = time.perf_counter() - t_block
+    phase_s.update({f"worker_{job}": walls[job] for job in jobs})
+
+    # alone again: the heaviest shapes of phases 6-9, the baselines
+    out = {job: r["result"] for job, r in results.items()}
+    counts_fb = counts_ineq = counts_gm = summary_f32 = None
+    for job in ("fallback", "ineq", "graphm"):
+        if job in out:
+            timed(f"{job}_times", timed_heaviest, out[job])
+    if "fallback" in out:
+        counts_fb = out["fallback"]["counts"]
+        ipm_X[FALLBACK_CELL[1:]] = [c.cuda() for c in out["fallback"]["X"]]
+    counts_ineq = out["ineq"]["counts"] if "ineq" in out else None
+    counts_gm = out["graphm"]["counts"] if "graphm" in out else None
+    if "f32" in out:
+        summary_f32 = timed("f32_times", f32_times, out["f32"])
     if "baselines" in phases:
         cells = [(dim, seed) for _, dim, seed, _ in BASELINE_CELLS]
         timed("baselines", lambda: phase_baselines(
             {**ipm_reference([c for c in cells if c not in ipm_X]), **ipm_X}))
-    if "tools" in phases:
-        timed("tools", phase_tools, slice_iters,
-              ipm_X.get((8, 24)) if (args.dim, args.seed) == (8, 24) else None, tools_ref)
-    if "whole" in phases:
-        timed("whole", phase_whole, slice_iters,
-              slice_layers if (args.dim, args.seed) == WHOLE_CELL[1:] else None)
     print(json.dumps({"phase_s": phase_s}), flush=True)
     if set(phases) != set(PHASES) or args.j1_from is not None:
         return 0

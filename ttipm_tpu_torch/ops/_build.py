@@ -21,8 +21,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["KernelError", "load_library", "build_library", "error_string", "BUILD_DIR",
-           "SOURCES"]
+__all__ = ["KernelError", "load_library", "build_library", "library_path", "error_string",
+           "BUILD_DIR", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -57,11 +57,16 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> str:
+    """Where the library of the current sources is (or will be) built."""
+    return os.path.join(BUILD_DIR, f"libttipm_kernels_{_digest()}.so")
+
+
 def build_library() -> str:
     """Compile the kernels if no library for the current sources exists;
     return its path.  The library is written under a temporary name and
     renamed, so concurrent builders never load a half-written file."""
-    path = os.path.join(BUILD_DIR, f"libttipm_kernels_{_digest()}.so")
+    path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -229,7 +229,7 @@ def tt_step_sizes_batch(
     D_b = _stack([_fe._prep_operator(pencils[i][1], ra=ra_D) for i in local])
     x_b = _stack([starts[i] for i in local])
     alpha0 = torch.ones(len(local), dtype=config.eigen_dtype(), device=ref.device)
-    xs_out, alphas, res, scales = gen_eigen_program(A_b, D_b, x_b, alpha0, tol, caps,
+    xs_out, alphas, res, scales, _ = gen_eigen_program(A_b, D_b, x_b, alpha0, tol, caps,
                                                     max(nswp - 1, 1), mesh=mesh)
     if mesh is not None:
         *xs_out, alphas, res, scales = mesh.gather_rows(list(xs_out) + [alphas, res, scales])

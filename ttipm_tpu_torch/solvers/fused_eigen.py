@@ -305,7 +305,7 @@ def tt_max_generalised_eigen_fused(A: TT, Delta: TT, x0: Optional[TT] = None,
         from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
 
         alpha0 = torch.ones(1, dtype=config.eigen_dtype(), device=A_p[0].device)
-        xs, alpha, res, scl = feb.gen_eigen_single(
+        xs, alpha, res, scl, _ = feb.gen_eigen_single(
             batch_of_one(A_p), batch_of_one(D_p), batch_of_one(x_cores), alpha0, tol, caps,
             max(nswp - 1, 1))
         step_size, max_res, max_scale = torch.stack([alpha[0], res[0], scl[0]]).double().tolist()
@@ -430,7 +430,7 @@ def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float 
         from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
         from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
 
-        xs, _ = feb.min_eig_program(batch_of_one(A_p), batch_of_one(x_cores), tol, caps,
+        xs, _, _ = feb.min_eig_program(batch_of_one(A_p), batch_of_one(x_cores), tol, caps,
                                     max(nswp - 1, 1))
         return _with_eig_val(A, [c[0] for c in xs], return_eig_val)
 

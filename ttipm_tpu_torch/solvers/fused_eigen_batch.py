@@ -9,16 +9,29 @@ that ``ttipm_tpu/parallel/fused_mesh.py`` maps over a batch with
 sweep, then (backward, forward) half-sweep pairs while an instance's alpha
 is finite and positive, its sweep residual is at or above ``tol``, it has
 not stalled and it has pairs left (the forward half only where it is still
-needed after the backward one), and a backward single-core finishing sweep
-kept only where alpha is finite and positive.  Each instance keeps its own
-alpha, residual, stall flag and pair count, as the vmapped ``while_loop``
-gives them; an instance that has stopped rides along frozen by (B,) masks,
+needed after the backward one), then a single-core finishing sweep.  The
+finishing sweep follows the JAX package's host loop
+(``_tt_max_generalised_eigen_fused_impl``, ``finish`` at
+``ttipm_tpu/solvers/fused_eigen.py:710-732``), not its program, which
+always finishes backward: it runs backward after a forward half sweep and
+forward after a backward one (a pair that skipped its forward half:
+``finish(+1)``, ``:770``), and not at all where alpha is not finite and
+positive (``:788``) or the loop stopped on a stall above ``tol``
+(``:796``).  Both directions run and each instance keeps its own, so the
+end reads nothing on the host.  A backward finisher started from the
+left-orthogonal train a backward half sweep leaves reads right interfaces
+as left ones (one pencil of maxcut d8 seed 24: a step of 0.3832 where the
+exact one is 1).  Each
+instance keeps its own alpha, residual, stall flag, pair count and the
+direction of its last half sweep, as the vmapped ``while_loop`` gives
+them; an instance that has stopped rides along frozen by (B,) masks,
 so the shapes stay uniform.  The host reads the instances' loop conditions
 once per pair.  On a batch of one the same program is the single solve's
 whole-solve path (``gen_eigen_single``, with ``min_eig_program`` for the
-smallest eigenvector, ``_min_eig_program`` ``:494-530``): the host
-decisions inside a pair become selects, and the lead-in, each pair and the
-finishing sweep are CUDA graphs on the card (``solvers/graphs.py``).
+smallest eigenvector, ``_min_eig_program`` ``:494-530``, finishing as
+``tt_min_eig_fused``'s host loop does): the host decisions inside a pair
+become selects, and the lead-in, each pair and the finishing sweep are
+CUDA graphs on the card (``solvers/graphs.py``).
 Without the whole-solve switch the single solve keeps its own loop: it
 follows the host engine (``fused_eigen_host.py``: the orthogonalisation,
 then backward and forward half sweeps per sweep, a finishing sweep in the
@@ -182,20 +195,28 @@ def _window_step(pAl, A_k, A_k1, pAr, pDl, D_k, D_k1, pDr, sol1, sol2, alpha, to
     return sol1_new, sol2_new, alpha_new, old_res, scale, pA_upd, pD_upd
 
 
-def _last_step_bwd(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol, r_out: int,
-                   split: bool, mesh=None, selects=False):
-    """Single-core refinement of the backward finishing sweep."""
+def _last_step(pAl, A_k, pAr, pDl, D_k, pDr, neighbor, prev, alpha, tol, r_out: int,
+               split: bool, bwd: bool, mesh=None):
+    """Single-core refinement step of a finishing sweep (``bwd``: backward,
+    the interface updated at ``k``; forward: at ``k + 1``), the shrink rule
+    a select."""
     B, rl, n, rr = prev.shape
     MA, MD = _pencils([(pAl, A_k, pAr), (pDl, D_k, pDr)], mesh)
-    x, alpha_new, _, _ = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol, mesh, selects)
+    x, alpha_new, _, _ = _pencil_solve(MA, MD, prev.reshape(B, -1), alpha, tol, mesh, True)
     x = _unit(x)
     if not split:
         return x.reshape(B, rl, n, rr), neighbor, alpha_new, pAl, pDl
-    u, sv, r = _split(x.reshape(B, rl, n * rr).mT, r_out)
-    core = u.mT.reshape(B, r, n, rr)
-    nb_new = torch.einsum("zrdc,zcR->zrdR", neighbor, sv.mT)
-    return (core, nb_new, alpha_new, phi_bck_A(pAr, core, A_k, core),
-            phi_bck_A(pDr, core, D_k, core))
+    if bwd:
+        u, sv, r = _split(x.reshape(B, rl, n * rr).mT, r_out)
+        core = u.mT.reshape(B, r, n, rr)
+        nb_new = torch.einsum("zrdc,zcR->zrdR", neighbor, sv.mT)
+        return (core, nb_new, alpha_new, phi_bck_A(pAr, core, A_k, core),
+                phi_bck_A(pDr, core, D_k, core))
+    u, sv, r = _split(x.reshape(B, rl * n, rr), r_out)
+    core = u.reshape(B, rl, n, r)
+    nb_new = torch.einsum("zij,zjkl->zikl", sv, neighbor)
+    return (core, nb_new, alpha_new, phi_fwd_A(pAl, core, A_k, core),
+            phi_fwd_A(pDl, core, D_k, core))
 
 
 def _orth_sweep(ops, xs, phis, caps):
@@ -232,20 +253,26 @@ def _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool, mesh=None, selects=Fa
             torch.stack(scale_vals).amax(dim=0))
 
 
-def _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh=None, selects=False):
+def _finish_order(d: int, bwd: bool):
+    """(k, split, neighbour, interface index) of each step of a finishing
+    sweep, in the host loop's order (``finish(-1)`` / ``finish(+1)``)."""
+    if bwd:
+        return [(k, k > 0, k - 1, k) for k in range(d - 1, -1, -1)]
+    return [(k, k < d - 1, k + 1, k + 1) for k in range(d)]
+
+
+def _finish_sweep(A_p, D_p, st, alpha, tol, caps, bwd: bool, mesh=None):
     xs, XAX, XDX = (list(t) for t in st)
-    d = len(xs)
-    for k in range(d - 1, -1, -1):
-        split = k > 0
-        core, nb_new, alpha, pA, pD = _last_step_bwd(
+    for k, split, nb, j in _finish_order(len(xs), bwd):
+        core, nb_new, alpha, pA, pD = _last_step(
             XAX[k], A_p[k], XAX[k + 1], XDX[k], D_p[k], XDX[k + 1],
-            xs[k - 1] if split else xs[k], xs[k], alpha, tol,
-            r_out=caps[k - 1] if split else 1, split=split, mesh=mesh, selects=selects)
+            xs[nb] if split else xs[k], xs[k], alpha, tol,
+            r_out=caps[min(k, nb)] if split else 1, split=split, bwd=bwd, mesh=mesh)
         xs[k] = core
         if split:
-            xs[k - 1] = nb_new
-            XAX[k] = pA
-            XDX[k] = pD
+            xs[nb] = nb_new
+            XAX[j] = pA
+            XDX[j] = pD
     return (xs, XAX, XDX), alpha
 
 
@@ -271,7 +298,7 @@ def _stalled(prev_step, step, prev_res, res, tol):
 
 def _gen_active(carry, tol):
     """The loop's test of each instance, but for its pair count."""
-    _, alpha, _, sweep_res, _, _, stalled, _, _ = carry
+    alpha, sweep_res, stalled = carry[1], carry[3], carry[6]
     return _ok(alpha) & (sweep_res >= tol) & ~stalled
 
 
@@ -279,11 +306,12 @@ def _gen_pair(A_p, D_p, carry, tol, caps, mesh=None, selects=False):
     """One (backward, forward) half-sweep pair of the generalised program
     (the JAX ``while_loop``'s body) on the carry (state, alpha, the last
     forward residual, the sweep residual, the previous step and residual,
-    the stall flag, the largest scale, the pair count), each instance's
-    carry kept where it is not active.  The forward half runs where any
+    the stall flag, the largest scale, the pair count, whether the last
+    half sweep was forward), each instance's carry kept where it is not
+    active.  The forward half runs where any
     active instance still needs it, or always with ``selects``, and is
     taken where the instance needs it (the JAX program's ``lax.cond``)."""
-    st, alpha, res_f, sweep_res, prev_step, prev_res, stalled, scl, p = carry
+    st, alpha, res_f, sweep_res, prev_step, prev_res, stalled, scl, p, fwd = carry
     active = _gen_active(carry, tol)
     st1, alpha1, res_b, scl_b = _half_sweep(A_p, D_p, st, alpha, tol, caps, bwd=True,
                                             mesh=mesh, selects=selects)
@@ -301,12 +329,13 @@ def _gen_pair(A_p, D_p, carry, tol, caps, mesh=None, selects=False):
     return (st,) + tuple(torch.where(active, a, b) for a, b in (
         (alpha2, alpha), (res_f2, res_f), (new_res, sweep_res), (alpha2, prev_step),
         (new_res, prev_res), (new_stalled, stalled),
-        (torch.maximum(scl, torch.maximum(scl_b, scl_f)), scl), (p + 1, p)))
+        (torch.maximum(scl, torch.maximum(scl_b, scl_f)), scl), (p + 1, p), (run_fwd, fwd)))
 
 
 def _gen_start(A_p, D_p, xs, alpha0, tol, caps, mesh=None, selects=False):
     """The program's lead-in: the sweep-0 orthogonalisation and the first
-    forward half sweep; returns the loop's first carry."""
+    forward half sweep; returns the loop's first carry (the last half
+    sweep forward)."""
     d = len(xs)
     B = alpha0.shape[0]
     ones3 = A_p[0].new_ones((B, 1, 1, 1))
@@ -319,17 +348,37 @@ def _gen_start(A_p, D_p, xs, alpha0, tol, caps, mesh=None, selects=False):
     inf = torch.full_like(alpha, float("inf"))
     stalled = torch.zeros(B, dtype=torch.bool, device=alpha.device)
     pairs = torch.zeros(B, dtype=torch.int64, device=alpha.device)
-    return (st, alpha, res_f, inf, alpha, inf, stalled, scl, pairs)
+    fwd = torch.ones(B, dtype=torch.bool, device=alpha.device)
+    return (st, alpha, res_f, inf, alpha, inf, stalled, scl, pairs, fwd)
 
 
-def _gen_end(A_p, D_p, carry, tol, caps, mesh=None, selects=False):
-    """The backward finishing sweep, kept where alpha is finite and
-    positive; returns (cores, alpha, the sweep residual, the scale)."""
-    st, alpha, _, sweep_res, _, _, _, scl, _ = carry
-    st_fin, alpha_fin = _finish_sweep(A_p, D_p, st, alpha, tol, caps, mesh, selects)
-    ok = _ok(alpha)
-    xs = _select(ok, st_fin[0], st[0])
-    return xs, torch.where(ok, alpha_fin, alpha), sweep_res, scl
+def _finish_masks(carry_fwd, sweep_res, stalled, tol, ok=None):
+    """Per instance, where the finishing sweep runs backward and where
+    forward, and its direction (-1, +1, 0 for none): after the last half
+    sweep taken, in the other direction, and none where the loop stopped
+    on a stall above ``tol`` or ``ok`` (alpha finite and positive) fails,
+    as the host loops end."""
+    finish = ~(stalled & (sweep_res >= tol))
+    if ok is not None:
+        finish = finish & ok
+    bwd, fwd = finish & carry_fwd, finish & ~carry_fwd
+    return bwd, fwd, fwd.long() - bwd.long()
+
+
+def _gen_end(A_p, D_p, carry, tol, caps, mesh=None):
+    """The finishing sweep of each instance (``_finish_masks``): both
+    directions run, with the shrink rule as a select, and each is kept
+    where the instance takes it, so the end reads nothing on the host.
+    Returns (cores, alpha, the sweep residual, the scale, the direction
+    (B,))."""
+    st, alpha, _, sweep_res, _, _, stalled, scl, _, fwd = carry
+    bwd_fin, fwd_fin, direction = _finish_masks(fwd, sweep_res, stalled, tol, _ok(alpha))
+    xs, alpha_out = st[0], alpha
+    for bwd, mask in ((True, bwd_fin), (False, fwd_fin)):
+        st_fin, alpha_fin = _finish_sweep(A_p, D_p, st, alpha, tol, caps, bwd, mesh)
+        xs = _select(mask, st_fin[0], xs)
+        alpha_out = torch.where(mask, alpha_fin, alpha_out)
+    return xs, alpha_out, sweep_res, scl, direction
 
 
 def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int, mesh=None):
@@ -337,7 +386,8 @@ def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int, me
     ``xs`` are lists of (B, ...) cores (operators padded to one rank, the
     eigenvector trains at the cap ranks), ``alpha0`` (B,).  Returns (the
     eigenvector cores, alpha, the last sweep residual, the largest window
-    scale), the last three (B,) on the device.
+    scale, the finishing sweep's direction: -1 backward, +1 forward, 0
+    none), the last four (B,) on the device.
 
     ``mesh``: this rank's B pencils are its seeds row's shard of a larger
     batch.  The batch's decisions (the loop's end, whether a forward half
@@ -359,7 +409,8 @@ def gen_eigen_program(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int, me
 def gen_eigen_single(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
     """``gen_eigen_program`` of a batch of one as a whole-solve program
     (``ttipm_tpu/solvers/fused_eigen.py:371-437``): the host decisions of
-    the shrink rule and the forward half sweep are selects, so that the
+    the shrink rule, the forward half sweep and the finishing direction
+    are selects (both finishing sweeps run, one is kept), so that the
     lead-in, each pair and the finishing sweep are ``graphs.run`` steps
     (CUDA graphs on the card), and the host reads the loop's test once a
     pair.  A selected branch keeps its bits: on the CPU this is
@@ -383,7 +434,7 @@ def gen_eigen_single(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
             break
         carry, active = graphs.run(("gen_eigen_pair",) + key, pair, (A_p, D_p, carry))
     return graphs.run(("gen_eigen_end",) + key,
-                      lambda args: _gen_end(*args, tol, caps, selects=True), (A_p, D_p, carry))
+                      lambda args: _gen_end(*args, tol, caps), (A_p, D_p, carry))
 
 
 # ---------------------------------------------------------------------------
@@ -426,21 +477,26 @@ def _min_half_sweep(A_p, st, caps, bwd: bool):
     return (xs, XAX), torch.stack(res_vals).amax(dim=0)
 
 
-def _min_finish_sweep(A_p, st, caps):
-    """The backward single-core finishing sweep."""
+def _min_finish_sweep(A_p, st, caps, bwd: bool):
+    """The single-core finishing sweep (``bwd``: backward)."""
     xs, XAX = (list(t) for t in st)
-    d = len(xs)
-    for k in range(d - 1, -1, -1):
+    for k, split, nb, j in _finish_order(len(xs), bwd):
         B, rl, n, rr = xs[k].shape
         _, x = _smallest_eigpair(kernels.schur_assemble_batch([(XAX[k], A_p[k], XAX[k + 1])])[0])
         x = _unit(x)
-        if k == 0:
+        if not split:
             xs[k] = x.reshape(B, rl, n, rr)
-            continue
-        u, sv, r = _split(x.reshape(B, rl, n * rr).mT, caps[k - 1])
-        xs[k] = u.mT.reshape(B, r, n, rr)
-        xs[k - 1] = torch.einsum("zrdc,zcR->zrdR", xs[k - 1], sv.mT)
-        XAX[k] = phi_bck_A(XAX[k + 1], xs[k], A_p[k], xs[k])
+        elif bwd:
+            u, sv, r = _split(x.reshape(B, rl, n * rr).mT, caps[nb])
+            xs[k] = u.mT.reshape(B, r, n, rr)
+            xs[nb] = torch.einsum("zrdc,zcR->zrdR", xs[nb], sv.mT)
+        else:
+            u, sv, r = _split(x.reshape(B, rl * n, rr), caps[k])
+            xs[k] = u.reshape(B, rl, n, r)
+            xs[nb] = torch.einsum("zij,zjkl->zikl", sv, xs[nb])
+        if split:
+            XAX[j] = (phi_bck_A(XAX[k + 1], xs[k], A_p[k], xs[k]) if bwd
+                      else phi_fwd_A(XAX[k], xs[k], A_p[k], xs[k]))
     return xs
 
 
@@ -451,7 +507,7 @@ def _res_stalled(prev_res, res, tol):
 
 
 def _min_active(carry, tol):
-    _, _, sweep_res, _, stalled, _ = carry
+    sweep_res, stalled = carry[2], carry[4]
     return (sweep_res >= tol) & ~stalled
 
 
@@ -459,7 +515,7 @@ def _min_pair(A_p, carry, tol, caps):
     """One (backward, forward) half-sweep pair of the smallest-eigenvector
     program; the forward half always runs and is taken where it is still
     needed after the backward one (the JAX program's ``lax.cond``)."""
-    st, res_f, sweep_res, prev_res, stalled, p = carry
+    st, res_f, sweep_res, prev_res, stalled, p, fwd = carry
     active = _min_active(carry, tol)
     st1, res_b = _min_half_sweep(A_p, st, caps, bwd=True)
     run_fwd = torch.maximum(res_b, res_f) >= tol
@@ -470,7 +526,7 @@ def _min_pair(A_p, carry, tol, caps):
     new_stalled = (p >= 1) & _res_stalled(prev_res, new_res, tol)
     return (_select(active, st2, st),) + tuple(torch.where(active, a, b) for a, b in (
         (res_f2, res_f), (new_res, sweep_res), (new_res, prev_res), (new_stalled, stalled),
-        (p + 1, p)))
+        (p + 1, p), (run_fwd, fwd)))
 
 
 def _min_start(A_p, xs, tol, caps):
@@ -486,8 +542,20 @@ def _min_start(A_p, xs, tol, caps):
     st, res_f = _min_half_sweep(A_p, (xs, XAX), caps, bwd=False)
     inf = torch.full_like(res_f, float("inf"))
     carry = (st, res_f, inf, inf, torch.zeros(B, dtype=torch.bool, device=res_f.device),
-             torch.zeros(B, dtype=torch.int64, device=res_f.device))
+             torch.zeros(B, dtype=torch.int64, device=res_f.device),
+             torch.ones(B, dtype=torch.bool, device=res_f.device))
     return carry, _min_active(carry, tol)
+
+
+def _min_end(A_p, carry, tol, caps):
+    """The finishing sweep of each instance (``_finish_masks``; both
+    directions run, each kept where the instance takes it); returns (the
+    cores, the direction (B,))."""
+    st, _, sweep_res, _, stalled, _, fwd = carry
+    bwd_fin, fwd_fin, direction = _finish_masks(fwd, sweep_res, stalled, tol)
+    xs = _select(bwd_fin, _min_finish_sweep(A_p, st, caps, bwd=True), st[0])
+    xs = _select(fwd_fin, _min_finish_sweep(A_p, st, caps, bwd=False), xs)
+    return xs, direction
 
 
 def min_eig_program(A_p, xs, tol: float, caps, max_pairs: int):
@@ -495,11 +563,12 @@ def min_eig_program(A_p, xs, tol: float, caps, max_pairs: int):
     (``_min_eig_program``): the sweep-0 orthogonalisation, a forward half
     sweep, (backward, forward) half-sweep pairs while fewer than
     ``max_pairs`` ran, the sweep residual is at or above ``tol`` and the
-    residual has not stalled (``_res_stalled_dev``), then a backward
-    single-core finishing sweep.  The lead-in, each pair and the finishing
-    sweep are ``graphs.run`` steps (CUDA graphs on the card); the host
-    reads the loop's test once a pair.  Returns (the eigenvector cores,
-    the sweep residual (B,))."""
+    residual has not stalled (``_res_stalled_dev``), then the single-core
+    finishing sweep of ``_finish_masks``, as ``tt_min_eig_fused``'s host
+    loop ends.  The lead-in, each pair and the finishing sweep are
+    ``graphs.run`` steps (CUDA graphs on the card); the host reads the
+    loop's test once a pair.  Returns (the eigenvector cores, the sweep
+    residual (B,), the finishing direction (B,): -1, +1 or 0)."""
     from ttipm_tpu_torch.solvers import graphs
 
     key = (len(xs), tuple(caps), float(tol))
@@ -515,6 +584,6 @@ def min_eig_program(A_p, xs, tol: float, caps, max_pairs: int):
         if not bool(active.any()):
             break
         carry, active = graphs.run(("min_eig_pair",) + key, pair, (A_p, carry))
-    xs = graphs.run(("min_eig_end",) + key,
-                    lambda args: _min_finish_sweep(args[0], args[1], caps), (A_p, carry[0]))
-    return xs, carry[2]
+    xs, direction = graphs.run(("min_eig_end",) + key,
+                               lambda args: _min_end(*args, tol, caps), (A_p, carry))
+    return xs, carry[2], direction

@@ -49,10 +49,8 @@ from collections import Counter
 
 import torch
 
-from ttipm_tpu_torch.tools.bench import _load_config, device_line
-
-F32_SETTINGS = {"max_iter": 22, "gap_tol": 3e-4, "op_tol": 1e-4, "abs_tol": 1e-3,
-                "warm_up": 3, "mals_restarts": 2, "max_refinement": 5, "lambdaStar": 1.0}
+from ttipm_tpu_torch.tools.bench import device_line
+from ttipm_tpu_torch.tools.replay_step import profile_config, profile_settings
 
 
 def _j2_check(x, out):
@@ -143,18 +141,17 @@ def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, sv
     from contextlib import nullcontext
 
     import ttipm_tpu_torch.utils.checkpoint as ck
-    from ttipm_tpu_torch import config, ipm
+    from ttipm_tpu_torch import ipm
     from ttipm_tpu_torch.ipm import tt_ipm
     from ttipm_tpu_torch.models.maxcut import create_problem
     from ttipm_tpu_torch.ops import jacobi
     from ttipm_tpu_torch.ops import kernels as K
     from ttipm_tpu_torch.ops.tt import tt_inner_prod
-    from ttipm_tpu_torch.utils.runner import ipm_kwargs, seeded_problem
+    from ttipm_tpu_torch.utils.runner import seeded_problem
 
-    cfg = _load_config(dim)
+    settings = profile_settings(dim, profile)
     saved = {"entries": (K.jacobi_orthogonalise, K.jacobi_eigh_core),
-             "floors": (jacobi.EIGH_FLOOR, jacobi.SVD_FLOOR), "bucket": config.rank_bucket(),
-             "j2_from": K.J2_BLOCK_FROM, "j1_from": K.J1_BLOCK_FROM, "save": ck.save_ipm_checkpoint}
+             "floors": (jacobi.EIGH_FLOOR, jacobi.SVD_FLOOR), "j2_from": K.J2_BLOCK_FROM, "j1_from": K.J1_BLOCK_FROM, "save": ck.save_ipm_checkpoint}
     first = saved["j2_from"] if j2_from is None else j2_from
     block_from = None
     if j2_to is not None or j2_calls != "all":
@@ -186,22 +183,16 @@ def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, sv
         ck.save_ipm_checkpoint = per_iteration
         solvers = record_solver(ipm, rec=events, stop_after_step=False)
         kw = {"checkpoint_path": os.path.join(checkpoints, "last.npz"), "checkpoint_every": 1}
-    if profile == "f32":
-        config.set_dtype(torch.float32)
-        config.set_eigen_dtype("native")
-        config.set_mixed_local("f64")
-        config.set_rank_bucket(4)
-        cfg.update(F32_SETTINGS)
     try:
-        lag, obj, L, b, _ = seeded_problem(create_problem, dim, 1, seed, device)
-        t0 = time.perf_counter()
-        with jacobi.forced(False if route == "cusolver" else True if device.type == "cpu"
-                           else None), solvers as events:
-            X, _, _, Z, info = tt_ipm(lag, obj, L, b, **{**ipm_kwargs(cfg), "verbose": False},
-                                      **kw)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with profile_config(profile):
+            lag, obj, L, b, _ = seeded_problem(create_problem, dim, 1, seed, device)
+            t0 = time.perf_counter()
+            with jacobi.forced(False if route == "cusolver" else True if device.type == "cpu"
+                               else None), solvers as events:
+                X, _, _, Z, info = tt_ipm(lag, obj, L, b, **settings, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         K.jacobi_orthogonalise, K.jacobi_eigh_core = saved["entries"]
         jacobi.EIGH_FLOOR, jacobi.SVD_FLOOR = saved["floors"]
@@ -210,10 +201,6 @@ def census(dim, seed, device, route="jacobi", profile="f64", eigh_floor=None, sv
         K.J1_BLOCK_FROM = saved["j1_from"]
         K.j1_plan.cache_clear()
         ck.save_ipm_checkpoint = saved["save"]
-        config.set_dtype(torch.float64)
-        config.set_eigen_dtype("f64")
-        config.set_mixed_local("f64")
-        config.set_rank_bucket(saved["bucket"])
     solver_log = {}
     if checkpoints is not None:
         with open(os.path.join(checkpoints, "ladder.json"), "w") as fh:
