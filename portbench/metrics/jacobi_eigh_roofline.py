@@ -1,0 +1,8 @@
+"""jacobi_eigh_roofline: the roofline bounds of the window's launches of
+jacobi_eigh (``roofline.py``) over its device time in the trace, in percent."""
+
+from portbench.readings import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "jacobi_eigh")

@@ -1,0 +1,8 @@
+"""schur_assemble_roofline: the roofline bounds of the window's launches of
+schur_assemble (``roofline.py``) over its device time in the trace, in percent."""
+
+from portbench.readings import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "schur_assemble")
