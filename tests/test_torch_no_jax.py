@@ -51,6 +51,7 @@ MODULES = [
     "ttipm_tpu_torch.tools.scaling_bench",
     "ttipm_tpu_torch.tools.svd_repeat",
     "ttipm_tpu_torch.tools.sync_count",
+    "ttipm_tpu_torch.trace",
     "ttipm_tpu_torch.utils.baseline_runner",
     "ttipm_tpu_torch.utils.checkpoint",
     "ttipm_tpu_torch.utils.memtrack",

@@ -31,7 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ttipm_tpu_torch import config
+from ttipm_tpu_torch import config, trace
 from ttipm_tpu_torch.ops.kernels import KernelError
 from ttipm_tpu_torch.ops.products import (
     tt_fast_hadamard,
@@ -207,50 +207,51 @@ def tt_compute_centrality(X_tt, Z_tt, status, rng):
 def tt_infeasible_newton_system(lhs, obj_tt, X_tt, Y_tt, Z_tt, T_tt, lin_op_tt,
                                 lin_op_tt_adj, bias_tt, ineq_mask, status, rng):
     """Assemble the per-iteration KKT blocks and right-hand side."""
-    rhs = TTBlockVector()
+    with trace.span("ipm.newton_system"):
+        rhs = TTBlockVector()
 
-    primal_feas = tt_compute_primal_feasibility(lin_op_tt, bias_tt, X_tt, status, rng)
-    status.primal_error = tt_norm(primal_feas) / status.primal_error_normalisation
-    status.is_primal_feasible = status.primal_error < status.feasibility_tol
+        primal_feas = tt_compute_primal_feasibility(lin_op_tt, bias_tt, X_tt, status, rng)
+        status.primal_error = tt_norm(primal_feas) / status.primal_error_normalisation
+        status.is_primal_feasible = status.primal_error < status.feasibility_tol
 
-    dual_feas = tt_compute_dual_feasibility(obj_tt, lin_op_tt_adj, Z_tt, Y_tt, T_tt, status)
-    status.dual_error = tt_norm(dual_feas) / status.dual_error_normalisation
-    status.is_dual_feasible = status.dual_error < (1 + _active(status)) * status.feasibility_tol
+        dual_feas = tt_compute_dual_feasibility(obj_tt, lin_op_tt_adj, Z_tt, Y_tt, T_tt, status)
+        status.dual_error = tt_norm(dual_feas) / status.dual_error_normalisation
+        status.is_dual_feasible = status.dual_error < (1 + _active(status)) * status.feasibility_tol
 
-    status.is_last_iter = status.is_last_iter or (
-        status.is_primal_feasible and status.is_dual_feasible and status.is_central)
+        status.is_last_iter = status.is_last_iter or (
+            status.is_primal_feasible and status.is_dual_feasible and status.is_central)
 
-    dual_budget = 0.1 * status.eta * status.dual_error_normalisation
-    primal_budget = 0.1 * status.eta * status.primal_error_normalisation
-    if status.aho_direction:
-        lhs[2, 1] = tt_psd_rank_reduce(
-            tt_scale(0.5, tt_add(tt_IkronM(Z_tt), tt_MkronI(Z_tt))), eps=dual_budget)
-        lhs[2, 2] = tt_psd_rank_reduce(
-            tt_scale(0.5, tt_add(tt_MkronI(X_tt), tt_IkronM(X_tt))), eps=primal_budget)
-    else:
-        lhs[2, 1] = tt_psd_rank_reduce(tt_MkronI(Z_tt), eps=dual_budget)
-        lhs[2, 2] = tt_psd_rank_reduce(tt_IkronM(X_tt), eps=primal_budget)
+        dual_budget = 0.1 * status.eta * status.dual_error_normalisation
+        primal_budget = 0.1 * status.eta * status.primal_error_normalisation
+        if status.aho_direction:
+            lhs[2, 1] = tt_psd_rank_reduce(
+                tt_scale(0.5, tt_add(tt_IkronM(Z_tt), tt_MkronI(Z_tt))), eps=dual_budget)
+            lhs[2, 2] = tt_psd_rank_reduce(
+                tt_scale(0.5, tt_add(tt_MkronI(X_tt), tt_IkronM(X_tt))), eps=primal_budget)
+        else:
+            lhs[2, 1] = tt_psd_rank_reduce(tt_MkronI(Z_tt), eps=dual_budget)
+            lhs[2, 2] = tt_psd_rank_reduce(tt_IkronM(X_tt), eps=primal_budget)
 
-    if not status.is_primal_feasible or status.is_last_iter:
-        rhs[0] = primal_feas
-    if not status.is_dual_feasible or status.is_last_iter:
-        rhs[1] = dual_feas
-    if not status.is_central or status.is_last_iter:
-        rhs[2] = tt_compute_centrality(X_tt, Z_tt, status, rng)
-
-    if _active(status):
-        lhs[3, 1] = tt_diag_op(T_tt, dual_budget)
-        masked_X_tt = tt_rank_reduce(
-            tt_add(tt_scale(status.ineq_boundary_val, ineq_mask),
-                   tt_fast_hadamard(ineq_mask, X_tt, status.eps)),
-            eps=status.eps)
-        lhs[3, 3] = tt_rank_reduce(
-            tt_add(status.lag_map_t, tt_diag_op(masked_X_tt, status.eps)), eps=dual_budget)
+        if not status.is_primal_feasible or status.is_last_iter:
+            rhs[0] = primal_feas
+        if not status.is_dual_feasible or status.is_last_iter:
+            rhs[1] = dual_feas
         if not status.is_central or status.is_last_iter:
-            rhs[3] = tt_rank_reduce(
-                tt_reshape(tt_scale(-1, tt_fast_hadamard(masked_X_tt, T_tt, status.eps)), (4,)),
-                eps=0.01 * status.eta * status.centrl_error_normalisation)
-    return lhs, rhs, status
+            rhs[2] = tt_compute_centrality(X_tt, Z_tt, status, rng)
+
+        if _active(status):
+            lhs[3, 1] = tt_diag_op(T_tt, dual_budget)
+            masked_X_tt = tt_rank_reduce(
+                tt_add(tt_scale(status.ineq_boundary_val, ineq_mask),
+                       tt_fast_hadamard(ineq_mask, X_tt, status.eps)),
+                eps=status.eps)
+            lhs[3, 3] = tt_rank_reduce(
+                tt_add(status.lag_map_t, tt_diag_op(masked_X_tt, status.eps)), eps=dual_budget)
+            if not status.is_central or status.is_last_iter:
+                rhs[3] = tt_rank_reduce(
+                    tt_reshape(tt_scale(-1, tt_fast_hadamard(masked_X_tt, T_tt, status.eps)), (4,)),
+                    eps=0.01 * status.eta * status.centrl_error_normalisation)
+        return lhs, rhs, status
 
 
 # ---------------------------------------------------------------------------
@@ -326,21 +327,23 @@ def _apply_equilibration(lhs, rhs, scales):
 # Newton step (predictor + Mehrotra centering-corrector)
 # ---------------------------------------------------------------------------
 
-def _solve_kkt(solver, lhs, rhs, status):
-    Delta_tt, _ = solver(
-        lhs, rhs, status.mals_delta0,
-        status.kkt_iterations + status.is_last_iter,
-        status.mals_rank_restriction, status.eta,
-        refine_target=status.refine_target,
-    )
-    # Round the warm start to its effective ranks before storing, or the
-    # ladder ratchets to the largest solve rank ever reached.
-    try:
-        eps_ws = 0.1 * status.eta * tt_norm(Delta_tt)
-        status.mals_delta0 = tt_rank_reduce(Delta_tt, eps=eps_ws)
-    except (torch.linalg.LinAlgError, FloatingPointError):
-        status.mals_delta0 = Delta_tt
-    return Delta_tt
+def _solve_kkt(solver, lhs, rhs, status, role="predictor"):
+    with trace.span("ipm.kkt_solve", role=role):
+        Delta_tt, _ = solver(
+            lhs, rhs, status.mals_delta0,
+            status.kkt_iterations + status.is_last_iter,
+            status.mals_rank_restriction, status.eta,
+            refine_target=status.refine_target,
+        )
+        # Round the warm start to its effective ranks before storing, or the
+        # ladder ratchets to the largest solve rank ever reached.
+        with trace.span("kkt.warm_round"):
+            try:
+                eps_ws = 0.1 * status.eta * tt_norm(Delta_tt)
+                status.mals_delta0 = tt_rank_reduce(Delta_tt, eps=eps_ws)
+            except (torch.linalg.LinAlgError, FloatingPointError):
+                status.mals_delta0 = Delta_tt
+        return Delta_tt
 
 
 def _extract_directions(Delta_tt, ineq_mask, status):
@@ -387,20 +390,21 @@ def _rhs_augment(rhs_vec_tt, row, terms, budget):
 def _corrector_rhs(rhs_vec_tt, dX, dZ, DXZ, ineq_mask, status, dim, rng):
     """Fold sigma*mu*I centering and the -dX dZ second-order term into the
     centrality row; mirror the centering onto the inequality row."""
-    budget = 0.1 * status.eta * status.centrl_error_normalisation
-    centering = status.sigma > 1e-4
-    terms = []
-    if centering:
-        ref = dX[0]
-        eye = tt_identity(dim, device=ref.device, dtype=ref.dtype)
-        terms.append(tt_scale(status.sigma * status.mu, tt_reshape(eye, (4,))))
-    if DXZ > 0.1 * status.centrality_tol:
-        terms.append(tt_compute_centrality(dX, dZ, status, rng))
-    if terms:
-        _rhs_augment(rhs_vec_tt, 2, terms, budget)
-    if centering and _active(status):
-        _rhs_augment(rhs_vec_tt, 3,
-                     [tt_scale(status.sigma * status.mu, tt_reshape(ineq_mask, (4,)))], budget)
+    with trace.span("ipm.corrector_rhs"):
+        budget = 0.1 * status.eta * status.centrl_error_normalisation
+        centering = status.sigma > 1e-4
+        terms = []
+        if centering:
+            ref = dX[0]
+            eye = tt_identity(dim, device=ref.device, dtype=ref.dtype)
+            terms.append(tt_scale(status.sigma * status.mu, tt_reshape(eye, (4,))))
+        if DXZ > 0.1 * status.centrality_tol:
+            terms.append(tt_compute_centrality(dX, dZ, status, rng))
+        if terms:
+            _rhs_augment(rhs_vec_tt, 2, terms, budget)
+        if centering and _active(status):
+            _rhs_augment(rhs_vec_tt, 3, [tt_scale(status.sigma * status.mu,
+                                                  tt_reshape(ineq_mask, (4,)))], budget)
 
 
 def _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt, ZX, TX,
@@ -448,7 +452,7 @@ def _newton_step_inner(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt, Z
     _corrector_rhs(rhs_vec_tt, dX, dZ, DXZ, ineq_mask, status, len(X_tt), rng)
 
     lhs_c, rhs_c = _apply_equilibration(lhs_matrix_tt, rhs_vec_tt, row_scales)
-    delta_c = _solve_kkt(solver, lhs_c, rhs_c, status)
+    delta_c = _solve_kkt(solver, lhs_c, rhs_c, status, role="corrector")
     corr = _extract_directions(delta_c, ineq_mask, status)
     dY, dX, dZ, dT = _accumulate_directions((dY, dX, dZ, dT), corr, status)
 
@@ -468,29 +472,31 @@ def _regularised(A_tt, shift, dim):
 
 def _tt_get_step_sizes(X_tt, Z_tt, T_tt, Delta_X_tt, Delta_Z_tt, Delta_T_tt, ineq_mask,
                        status, rng):
-    dim = len(X_tt)
-    if status.is_last_iter:
-        # the refinement phase line-searches against a pushed-out boundary
-        X_tt = _regularised(X_tt, status.boundary_val, dim)
-        Z_tt = _regularised(Z_tt, status.boundary_val, dim)
-    eigen = tt_max_generalised_eigen_fused if config.fused_kkt() else tt_max_generalised_eigen
-    x_step, status.eigen_x0 = eigen(
-        X_tt, Delta_X_tt, x0=status.eigen_x0, tol=1e-8, verbose=status.verbose, rng=rng)
-    z_step, status.eigen_z0 = eigen(
-        Z_tt, Delta_Z_tt, x0=status.eigen_z0, tol=1e-8, verbose=status.verbose, rng=rng)
-
-    if status.ineq_status is not IneqStatus.NOT_IN_USE:
+    with trace.span("ipm.step_size"):
+        dim = len(X_tt)
         if status.is_last_iter:
-            shift = status.ineq_boundary_val + status.boundary_val
-            X_tt = tt_add(X_tt, tt_scale(shift, ineq_mask))
-            T_tt = tt_add(T_tt, tt_scale(shift, ineq_mask))
-        x_step, z_step = _tt_get_ineq_step_sizes(
-            x_step, z_step, X_tt, T_tt, Delta_X_tt, Delta_T_tt, ineq_mask, status, rng)
+            # the refinement phase line-searches against a pushed-out boundary
+            X_tt = _regularised(X_tt, status.boundary_val, dim)
+            Z_tt = _regularised(Z_tt, status.boundary_val, dim)
+        eigen = (tt_max_generalised_eigen_fused if config.fused_kkt()
+                 else tt_max_generalised_eigen)
+        x_step, status.eigen_x0 = eigen(
+            X_tt, Delta_X_tt, x0=status.eigen_x0, tol=1e-8, verbose=status.verbose, rng=rng)
+        z_step, status.eigen_z0 = eigen(
+            Z_tt, Delta_Z_tt, x0=status.eigen_z0, tol=1e-8, verbose=status.verbose, rng=rng)
 
-    tau = 0.9 + 0.05 * min(x_step, z_step)
-    if status.verbose:
-        print(f"Step sizes: a_p:{x_step:.2e}, a_d:{z_step:.2e}", flush=True)
-    return tau * x_step, tau * z_step
+        if status.ineq_status is not IneqStatus.NOT_IN_USE:
+            if status.is_last_iter:
+                shift = status.ineq_boundary_val + status.boundary_val
+                X_tt = tt_add(X_tt, tt_scale(shift, ineq_mask))
+                T_tt = tt_add(T_tt, tt_scale(shift, ineq_mask))
+            x_step, z_step = _tt_get_ineq_step_sizes(
+                x_step, z_step, X_tt, T_tt, Delta_X_tt, Delta_T_tt, ineq_mask, status, rng)
+
+        tau = 0.9 + 0.05 * min(x_step, z_step)
+        if status.verbose:
+            print(f"Step sizes: a_p:{x_step:.2e}, a_d:{z_step:.2e}", flush=True)
+        return tau * x_step, tau * z_step
 
 
 def _ineq_step_size(A_tt, Delta_tt, e_tt, status, rng):
@@ -607,6 +613,10 @@ def _make_solver(dim, op_tol, mals_restarts, verbose, rng, local, ineq):
     if not config.fused_kkt():
         return ragged
 
+    def fallback(*args):
+        with trace.span("kkt.fallback"):
+            return ragged(*args)
+
     state = {"fused_ok": True, "fails": 0}
 
     def warm_fits_ladder(x0, restriction):
@@ -622,7 +632,7 @@ def _make_solver(dim, op_tol, mals_restarts, verbose, rng, local, ineq):
                 if verbose:
                     print("\t[fused] warm start fits ladder cap -> retrying fused (un-stick)")
             else:
-                return ragged(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target)
+                return fallback(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target)
         try:
             out = tt_restarted_block_amen_fused(
                 lhs, rhs, rank_restriction=restriction, op_tol=op_tol,
@@ -636,7 +646,7 @@ def _make_solver(dim, op_tol, mals_restarts, verbose, rng, local, ineq):
             state["fails"] += 1
             if verbose:
                 print(f"\t[fused] restarts exhausted -> ragged AMEn (sticky, fail {state['fails']})")
-            return ragged(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target)
+            return fallback(lhs, rhs, x0, nwsp, restriction, termination_tol, refine_target)
     return solver
 
 
@@ -682,202 +692,208 @@ def tt_ipm(
     iteration and eta (with mu and the errors) every N iterations;
     ``resume_from`` restarts from a checkpoint written by either package:
     its iterates, iteration count and eta replace the initial point."""
-    rng = np.random if rng is None else rng
-    ref = obj_tt[0]
-    dim = len(obj_tt)
-    centrality_tol = gap_tol / np.sqrt(dim)
-    feasibility_tol = 2 * gap_tol
-    status = IPMStatus(
-        dim, feasibility_tol, centrality_tol, op_tol, eps,
-        aho_direction, False, np.inf, False, np.inf, False, np.inf, np.inf,
-        False, IneqStatus.NOT_IN_USE if ineq_mask is None else IneqStatus.ACTIVE,
-        verbose, 1, 1, r_max,
-    )
-    lag_maps = {k: tt_rank_reduce(v, eps=eps) for k, v in lag_maps.items()}
-    obj_tt = tt_rank_reduce(obj_tt, eps=eps)
-    lin_op_tt = tt_rank_reduce(lin_op_tt, eps=eps)
-    bias_tt = tt_rank_reduce(bias_tt, eps=eps)
+    with trace.solve():
+        rng = np.random if rng is None else rng
+        ref = obj_tt[0]
+        dim = len(obj_tt)
+        centrality_tol = gap_tol / np.sqrt(dim)
+        feasibility_tol = 2 * gap_tol
+        status = IPMStatus(
+            dim, feasibility_tol, centrality_tol, op_tol, eps,
+            aho_direction, False, np.inf, False, np.inf, False, np.inf, np.inf,
+            False, IneqStatus.NOT_IN_USE if ineq_mask is None else IneqStatus.ACTIVE,
+            verbose, 1, 1, r_max,
+        )
+        lag_maps = {k: tt_rank_reduce(v, eps=eps) for k, v in lag_maps.items()}
+        obj_tt = tt_rank_reduce(obj_tt, eps=eps)
+        lin_op_tt = tt_rank_reduce(lin_op_tt, eps=eps)
+        bias_tt = tt_rank_reduce(bias_tt, eps=eps)
 
-    status.primal_error_normalisation = 1 + tt_norm(bias_tt)
-    status.dual_error_normalisation = 1 + tt_norm(obj_tt)
+        status.primal_error_normalisation = 1 + tt_norm(bias_tt)
+        status.dual_error_normalisation = 1 + tt_norm(obj_tt)
 
-    def identity(d):
-        return tt_identity(d, device=ref.device, dtype=ref.dtype)
+        def identity(d):
+            return tt_identity(d, device=ref.device, dtype=ref.dtype)
 
-    lhs_skeleton = TTBlockMatrix()
-    lhs_skeleton[1, 2] = tt_reshape(identity(2 * dim), (4, 4))
-    solver_eq = _make_solver(dim, op_tol, mals_restarts, verbose, rng, ipm_local_solver, False)
-    solver_ineq = _make_solver(dim, op_tol, mals_restarts, verbose, rng,
-                               ipm_local_solver_ineq, True)
-    if _active(status):
-        solver = solver_ineq
-        status.num_ineq_constraints = tt_inner_prod(ineq_mask, ineq_mask)
-        status.compl_ineq_mask = tt_rank_reduce(
-            tt_sub(tt_one_matrix(dim, device=ref.device, dtype=ref.dtype), ineq_mask), eps=eps)
-        status.lag_map_t = lag_maps["t"]
-        lhs_skeleton.add_alias((1, 2), (1, 3))
-    else:
-        solver = solver_eq
-
-    lin_op_tt_adj = tt_transpose(lin_op_tt)
-    lhs_skeleton[0, 1] = tt_scale(-1, lin_op_tt)
-    lhs_skeleton.add_alias((0, 1), (1, 0), is_transpose=True)
-    lhs_skeleton[0, 0] = lag_maps["y"]
-    status.lag_map_y = lag_maps["y"]
-
-    # X = Z = lambda* I, Y = 0; with inequalities T = lambda*_ineq mask and X
-    # shifted along the mask as far as X stays PSD
-    X_tt = tt_scale(lambdaStar, identity(dim))
-    Z_tt = tt_scale(lambdaStar, identity(dim))
-    Y_tt = tt_reshape(tt_zero_matrix(dim, device=ref.device, dtype=ref.dtype), (4,))
-    T_tt = None
-    if _active(status):
-        T_tt = tt_scale(lambdaStarIneq, ineq_mask)
-        eigen = tt_max_generalised_eigen_fused if config.fused_kkt() else tt_max_generalised_eigen
-        x_step, _ = eigen(X_tt, ineq_mask, tol=1e-7, verbose=verbose, rng=rng)
-        X_tt = tt_rank_reduce(tt_add(X_tt, tt_scale(0.1 * x_step, ineq_mask)),
-                              0.1 * status.eta * status.primal_error_normalisation)
-
-    iteration = 0
-    if resume_from is not None:
-        from ttipm_tpu_torch.utils.checkpoint import load_ipm_checkpoint
-
-        ckpt = load_ipm_checkpoint(resume_from, device=ref.device, dtype=ref.dtype)
-        X_tt = ckpt["X"] or X_tt
-        Y_tt = ckpt["Y"] or Y_tt
-        Z_tt = ckpt["Z"] or Z_tt
-        T_tt = ckpt["T"] if ckpt["T"] is not None else T_tt
-        iteration = int(ckpt["iteration"])
-        status.eta = float(ckpt["scalars"].get("eta", status.eta))
-        if verbose:
-            print(f"resumed from {resume_from} at iteration {iteration}")
-
-    finishing_steps = max_refinement
-    prev_errors = {"primal": np.inf, "dual": np.inf, "centrality": np.inf}
-    lhs = lhs_skeleton
-
-    while finishing_steps > 0:
-        iteration += 1
-        status.aho_direction = iteration > warm_up
-        if max_iter - max_refinement == iteration - 1 and not status.is_last_iter:
-            if verbose:
-                print("=== maximum iterations reached: entering finishing phase ===")
-            status.is_last_iter = True
-        ZX = tt_inner_prod(Z_tt, X_tt)
-        TX = (tt_inner_prod(X_tt, T_tt) + status.ineq_boundary_val * tt_entrywise_sum(T_tt)
-              if _active(status) else 0)
-        status.mu = (abs(ZX) + abs(TX)) / (2**dim + _active(status) * status.num_ineq_constraints)
-        status.centrl_error_normalisation = 1 + abs(
-            tt_inner_prod(obj_tt, tt_reshape(X_tt, (4,))))
-        status.centrality_error = status.mu / status.centrl_error_normalisation
-        status.is_central = status.centrality_error < centrality_tol
-        status.eta = max(min(status.eta, 2 * status.mu), status.op_tol)
-        # Newton-residual refinement target: keep the slack injected by the
-        # PSD compensation shifts (~ rn * trace) an order below abs_tol,
-        # relaxed while the current slack is still far above it.
-        if config.newton_refine():
-            tr_scale = max(1.0, abs(float(tt_trace(X_tt))), abs(float(tt_trace(Z_tt))))
-            status.refine_target = max(0.1 * abs_tol, 1e-3 * (abs(ZX) + abs(TX))) / tr_scale
+        lhs_skeleton = TTBlockMatrix()
+        lhs_skeleton[1, 2] = tt_reshape(identity(2 * dim), (4, 4))
+        solver_eq = _make_solver(dim, op_tol, mals_restarts, verbose, rng, ipm_local_solver, False)
+        solver_ineq = _make_solver(dim, op_tol, mals_restarts, verbose, rng,
+                                   ipm_local_solver_ineq, True)
+        if _active(status):
+            solver = solver_ineq
+            status.num_ineq_constraints = tt_inner_prod(ineq_mask, ineq_mask)
+            status.compl_ineq_mask = tt_rank_reduce(
+                tt_sub(tt_one_matrix(dim, device=ref.device, dtype=ref.dtype), ineq_mask), eps=eps)
+            status.lag_map_t = lag_maps["t"]
+            lhs_skeleton.add_alias((1, 2), (1, 3))
         else:
-            status.refine_target = None
+            solver = solver_eq
 
-        lhs_matrix_tt, rhs_vec_tt, status = tt_infeasible_newton_system(
-            lhs, obj_tt, X_tt, Y_tt, Z_tt, T_tt, lin_op_tt, lin_op_tt_adj, bias_tt,
-            ineq_mask, status, rng)
+        lin_op_tt_adj = tt_transpose(lin_op_tt)
+        lhs_skeleton[0, 1] = tt_scale(-1, lin_op_tt)
+        lhs_skeleton.add_alias((0, 1), (1, 0), is_transpose=True)
+        lhs_skeleton[0, 0] = lag_maps["y"]
+        status.lag_map_y = lag_maps["y"]
+
+        # X = Z = lambda* I, Y = 0; with inequalities T = lambda*_ineq mask and X
+        # shifted along the mask as far as X stays PSD
+        X_tt = tt_scale(lambdaStar, identity(dim))
+        Z_tt = tt_scale(lambdaStar, identity(dim))
+        Y_tt = tt_reshape(tt_zero_matrix(dim, device=ref.device, dtype=ref.dtype), (4,))
+        T_tt = None
+        if _active(status):
+            T_tt = tt_scale(lambdaStarIneq, ineq_mask)
+            eigen = (tt_max_generalised_eigen_fused if config.fused_kkt()
+                     else tt_max_generalised_eigen)
+            x_step, _ = eigen(X_tt, ineq_mask, tol=1e-7, verbose=verbose, rng=rng)
+            X_tt = tt_rank_reduce(tt_add(X_tt, tt_scale(0.1 * x_step, ineq_mask)),
+                                  0.1 * status.eta * status.primal_error_normalisation)
+
+        iteration = 0
+        if resume_from is not None:
+            from ttipm_tpu_torch.utils.checkpoint import load_ipm_checkpoint
+
+            ckpt = load_ipm_checkpoint(resume_from, device=ref.device, dtype=ref.dtype)
+            X_tt = ckpt["X"] or X_tt
+            Y_tt = ckpt["Y"] or Y_tt
+            Z_tt = ckpt["Z"] or Z_tt
+            T_tt = ckpt["T"] if ckpt["T"] is not None else T_tt
+            iteration = int(ckpt["iteration"])
+            status.eta = float(ckpt["scalars"].get("eta", status.eta))
+            if verbose:
+                print(f"resumed from {resume_from} at iteration {iteration}")
+
+        finishing_steps = max_refinement
+        prev_errors = {"primal": np.inf, "dual": np.inf, "centrality": np.inf}
+        lhs = lhs_skeleton
+
+        while finishing_steps > 0:
+            iteration += 1
+            with trace.span("ipm.iteration", iteration=iteration):
+                status.aho_direction = iteration > warm_up
+                if max_iter - max_refinement == iteration - 1 and not status.is_last_iter:
+                    if verbose:
+                        print("=== maximum iterations reached: entering finishing phase ===")
+                    status.is_last_iter = True
+                ZX = tt_inner_prod(Z_tt, X_tt)
+                TX = (tt_inner_prod(X_tt, T_tt) + status.ineq_boundary_val * tt_entrywise_sum(T_tt)
+                      if _active(status) else 0)
+                status.mu = (abs(ZX) + abs(TX)) / (
+                    2**dim + _active(status) * status.num_ineq_constraints)
+                status.centrl_error_normalisation = 1 + abs(
+                    tt_inner_prod(obj_tt, tt_reshape(X_tt, (4,))))
+                status.centrality_error = status.mu / status.centrl_error_normalisation
+                status.is_central = status.centrality_error < centrality_tol
+                status.eta = max(min(status.eta, 2 * status.mu), status.op_tol)
+                # Newton-residual refinement target: keep the slack injected by the
+                # PSD compensation shifts (~ rn * trace) an order below abs_tol,
+                # relaxed while the current slack is still far above it.
+                if config.newton_refine():
+                    tr_scale = max(1.0, abs(float(tt_trace(X_tt))), abs(float(tt_trace(Z_tt))))
+                    status.refine_target = max(0.1 * abs_tol, 1e-3 * (abs(ZX) + abs(TX))) / tr_scale
+                else:
+                    status.refine_target = None
+
+                lhs_matrix_tt, rhs_vec_tt, status = tt_infeasible_newton_system(
+                    lhs, obj_tt, X_tt, Y_tt, Z_tt, T_tt, lin_op_tt, lin_op_tt_adj, bias_tt,
+                    ineq_mask, status, rng)
+
+                if verbose:
+                    _ipm_log_iteration(iteration, status, X_tt, Y_tt, Z_tt, T_tt)
+
+                status, finishing_steps = _ipm_check_convergence(
+                    status, finishing_steps, ZX, TX, abs_tol, max_refinement,
+                    prev_slack=prev_errors.get("slack", np.inf),
+                    can_extend=iteration < max_iter)
+                prev_errors["slack"] = abs(ZX) + abs(TX)
+                if finishing_steps == 0:
+                    iteration -= 1
+                    break
+
+                x_step, z_step, Delta_X_tt, Delta_Y_tt, Delta_Z_tt, Delta_T_tt, status = (
+                    _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt,
+                                        ZX, TX, status, solver, rng))
+
+                if (Delta_X_tt is None and Delta_Z_tt is None) or (x_step < 1e-5 and z_step < 1e-5):
+                    if status.is_last_iter:
+                        break
+                    if verbose:
+                        print("=== hit PSD boundary: entering finishing phase ===")
+                    status.is_last_iter = True
+                else:
+                    with trace.span("ipm.update"):
+                        primal_budget = 0.1 * status.eta * status.primal_error_normalisation
+                        dual_budget = 0.1 * status.eta * status.dual_error_normalisation
+                        if finishing_steps <= 1:
+                            X_tt = _tt_symmetrise(tt_add(X_tt, tt_scale(x_step, Delta_X_tt)),
+                                                  primal_budget)
+                            Z_tt = _tt_symmetrise(tt_add(Z_tt, tt_scale(z_step, Delta_Z_tt)),
+                                                  dual_budget)
+                        else:
+                            X_tt, shift_x = _tt_psd_symmetrise(
+                                tt_add(X_tt, tt_scale(x_step, Delta_X_tt)), primal_budget,
+                                return_shift=True)
+                            Z_tt, shift_z = _tt_psd_symmetrise(
+                                tt_add(Z_tt, tt_scale(z_step, Delta_Z_tt)), dual_budget,
+                                return_shift=True)
+                            if verbose and (shift_x > 0 or shift_z > 0):
+                                inj = shift_x * tt_trace(Z_tt) + shift_z * tt_trace(X_tt)
+                                print(f"\tPSD-shift: X {shift_x:.2e}, Z {shift_z:.2e}, "
+                                      f"slack injection ~{inj:.2e}")
+
+                        Y_tt = tt_rank_reduce(tt_add(Y_tt, tt_scale(z_step, Delta_Y_tt)),
+                                              status.eps)
+                        Y_tt = tt_reshape(
+                            _tt_symmetrise(
+                                tt_reshape(
+                                    tt_sub(Y_tt, tt_fast_matrix_vec_mul(status.lag_map_y, Y_tt,
+                                                                        status.eps)),
+                                    (2, 2)),
+                                dual_budget),
+                            (4,))
+
+                        if _active(status):
+                            T_new = tt_add(T_tt, tt_scale(z_step, Delta_T_tt))
+                            T_tt = (_tt_symmetrise(T_new, dual_budget) if finishing_steps <= 1
+                                    else _tt_mask_symmetrise(T_new, ineq_mask, dual_budget))
+                        elif status.ineq_status is IneqStatus.SETTING_INACTIVE:
+                            solver = solver_eq
+                            lhs = lhs_skeleton.get_submatrix(2, 2)
+                            status.mals_delta0 = None
+                            status.ineq_status = IneqStatus.INACTIVE
+                        elif status.ineq_status is IneqStatus.SETTING_ACTIVE:
+                            solver = solver_ineq
+                            lhs = lhs_skeleton
+                            status.mals_delta0 = None
+                            status.ineq_status = IneqStatus.ACTIVE
+
+                if _ipm_check_for_stalled_progress(prev_errors, status, gap_tol):
+                    if verbose:
+                        print("=== progress stalled: entering finishing phase ===")
+                    status.is_last_iter = True
+
+                prev_errors["primal"] = status.primal_error
+                prev_errors["dual"] = status.dual_error
+                prev_errors["centrality"] = status.centrality_error
+
+                if checkpoint_path is not None and iteration % max(checkpoint_every, 1) == 0:
+                    from ttipm_tpu_torch.utils.checkpoint import save_ipm_checkpoint
+
+                    save_ipm_checkpoint(
+                        checkpoint_path, X_tt, Y_tt, Z_tt, T_tt, iteration=iteration,
+                        scalars={"eta": status.eta, "mu": status.mu,
+                                 "primal_error": status.primal_error,
+                                 "dual_error": status.dual_error})
 
         if verbose:
-            _ipm_log_iteration(iteration, status, X_tt, Y_tt, Z_tt, T_tt)
-
-        status, finishing_steps = _ipm_check_convergence(
-            status, finishing_steps, ZX, TX, abs_tol, max_refinement,
-            prev_slack=prev_errors.get("slack", np.inf),
-            can_extend=iteration < max_iter)
-        prev_errors["slack"] = abs(ZX) + abs(TX)
-        if finishing_steps == 0:
-            iteration -= 1
-            break
-
-        x_step, z_step, Delta_X_tt, Delta_Y_tt, Delta_Z_tt, Delta_T_tt, status = (
-            _tt_ipm_newton_step(lhs_matrix_tt, rhs_vec_tt, ineq_mask, X_tt, Z_tt, T_tt, ZX, TX,
-                                status, solver, rng))
-
-        if (Delta_X_tt is None and Delta_Z_tt is None) or (x_step < 1e-5 and z_step < 1e-5):
-            if status.is_last_iter:
-                break
-            if verbose:
-                print("=== hit PSD boundary: entering finishing phase ===")
-            status.is_last_iter = True
-        else:
-            primal_budget = 0.1 * status.eta * status.primal_error_normalisation
-            dual_budget = 0.1 * status.eta * status.dual_error_normalisation
-            if finishing_steps <= 1:
-                X_tt = _tt_symmetrise(tt_add(X_tt, tt_scale(x_step, Delta_X_tt)),
-                                      primal_budget)
-                Z_tt = _tt_symmetrise(tt_add(Z_tt, tt_scale(z_step, Delta_Z_tt)),
-                                      dual_budget)
-            else:
-                X_tt, shift_x = _tt_psd_symmetrise(
-                    tt_add(X_tt, tt_scale(x_step, Delta_X_tt)), primal_budget,
-                    return_shift=True)
-                Z_tt, shift_z = _tt_psd_symmetrise(
-                    tt_add(Z_tt, tt_scale(z_step, Delta_Z_tt)), dual_budget,
-                    return_shift=True)
-                if verbose and (shift_x > 0 or shift_z > 0):
-                    inj = shift_x * tt_trace(Z_tt) + shift_z * tt_trace(X_tt)
-                    print(f"\tPSD-shift: X {shift_x:.2e}, Z {shift_z:.2e}, "
-                          f"slack injection ~{inj:.2e}")
-
-            Y_tt = tt_rank_reduce(tt_add(Y_tt, tt_scale(z_step, Delta_Y_tt)), status.eps)
-            Y_tt = tt_reshape(
-                _tt_symmetrise(
-                    tt_reshape(
-                        tt_sub(Y_tt, tt_fast_matrix_vec_mul(status.lag_map_y, Y_tt,
-                                                            status.eps)),
-                        (2, 2)),
-                    dual_budget),
-                (4,))
-
-            if _active(status):
-                T_new = tt_add(T_tt, tt_scale(z_step, Delta_T_tt))
-                T_tt = (_tt_symmetrise(T_new, dual_budget) if finishing_steps <= 1
-                        else _tt_mask_symmetrise(T_new, ineq_mask, dual_budget))
-            elif status.ineq_status is IneqStatus.SETTING_INACTIVE:
-                solver = solver_eq
-                lhs = lhs_skeleton.get_submatrix(2, 2)
-                status.mals_delta0 = None
-                status.ineq_status = IneqStatus.INACTIVE
-            elif status.ineq_status is IneqStatus.SETTING_ACTIVE:
-                solver = solver_ineq
-                lhs = lhs_skeleton
-                status.mals_delta0 = None
-                status.ineq_status = IneqStatus.ACTIVE
-
-        if _ipm_check_for_stalled_progress(prev_errors, status, gap_tol):
-            if verbose:
-                print("=== progress stalled: entering finishing phase ===")
-            status.is_last_iter = True
-
-        prev_errors["primal"] = status.primal_error
-        prev_errors["dual"] = status.dual_error
-        prev_errors["centrality"] = status.centrality_error
-
-        if checkpoint_path is not None and iteration % max(checkpoint_every, 1) == 0:
-            from ttipm_tpu_torch.utils.checkpoint import save_ipm_checkpoint
-
-            save_ipm_checkpoint(
-                checkpoint_path, X_tt, Y_tt, Z_tt, T_tt, iteration=iteration,
-                scalars={"eta": status.eta, "mu": status.mu,
-                         "primal_error": status.primal_error,
-                         "dual_error": status.dual_error})
-
-    if verbose:
-        print(f"--- terminated after {iteration} iterations ---")
-    results = {
-        "num_iters": iteration,
-        "ranksX": tt_ranks(X_tt),
-        "ranksY": tt_ranks(Y_tt),
-        "ranksZ": tt_ranks(Z_tt),
-        "ranksT": tt_ranks(T_tt) if T_tt else [0] * (dim - 1),
-        "status": status,
-    }
-    return X_tt, Y_tt, T_tt, Z_tt, results
+            print(f"--- terminated after {iteration} iterations ---")
+        results = {
+            "num_iters": iteration,
+            "ranksX": tt_ranks(X_tt),
+            "ranksY": tt_ranks(Y_tt),
+            "ranksZ": tt_ranks(Z_tt),
+            "ranksT": tt_ranks(T_tt) if T_tt else [0] * (dim - 1),
+            "status": status,
+        }
+        return X_tt, Y_tt, T_tt, Z_tt, results

@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import tempfile
 
+from ttipm_tpu_torch import trace
+
 __all__ = ["KernelError", "load_library", "build_library", "library_path", "error_string",
            "BUILD_DIR", "SOURCES"]
 
@@ -98,7 +100,13 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    path = build_library()
+    with trace.span("setup.kernel_load"):
+        _LIB = _load(build_library())
+    return _LIB
+
+
+def _load(path: str) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare its entry points."""
     try:
         lib = ctypes.CDLL(path)
     except OSError as e:
@@ -128,7 +136,6 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = restypes.get(name, ctypes.c_int)
-    _LIB = lib
     return lib
 
 

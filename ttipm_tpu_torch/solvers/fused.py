@@ -49,7 +49,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ttipm_tpu_torch import config
+from ttipm_tpu_torch import config, trace
 from ttipm_tpu_torch.ops.linalg import qr_econ, svd_econ
 from ttipm_tpu_torch.solvers import fused_algebra as fa
 from ttipm_tpu_torch.solvers import fused_batch as fb
@@ -85,25 +85,26 @@ def _train_dot(tr1, tr2):
 
 
 def fused_residual_norm(A, b, x_cores, ineq: bool = False) -> float:
-    block_pos = int(np.argmax([c.ndim for c in x_cores]))
-    x_shared = [c for i, c in enumerate(x_cores) if i != block_pos]
-    x_cols = []
-    for j in range(fa.nrows(ineq)):
-        cores = list(x_shared)
-        cores.insert(block_pos, x_cores[block_pos][:, j])
-        x_cols.append(cores)
-    res_sq = x_cores[0].new_zeros((), dtype=torch.float64)
-    for i, terms in enumerate(fa.row_terms(ineq)):
-        acc = _train_dot(b[i], b[i])
-        vts = [fa.virtual_term_cores(A, x_cols, key, col, tr) for (key, col, tr) in terms]
-        for t in vts:
-            acc = acc - 2.0 * _train_dot(b[i], t)
-        for p, t1 in enumerate(vts):
-            acc = acc + _train_dot(t1, t1)
-            for t2 in vts[p + 1:]:
-                acc = acc + 2.0 * _train_dot(t1, t2)
-        res_sq = res_sq + acc
-    return float(np.sqrt(max(float(res_sq), 0.0)))
+    with trace.span("kkt.residual"):
+        block_pos = int(np.argmax([c.ndim for c in x_cores]))
+        x_shared = [c for i, c in enumerate(x_cores) if i != block_pos]
+        x_cols = []
+        for j in range(fa.nrows(ineq)):
+            cores = list(x_shared)
+            cores.insert(block_pos, x_cores[block_pos][:, j])
+            x_cols.append(cores)
+        res_sq = x_cores[0].new_zeros((), dtype=torch.float64)
+        for i, terms in enumerate(fa.row_terms(ineq)):
+            acc = _train_dot(b[i], b[i])
+            vts = [fa.virtual_term_cores(A, x_cols, key, col, tr) for (key, col, tr) in terms]
+            for t in vts:
+                acc = acc - 2.0 * _train_dot(b[i], t)
+            for p, t1 in enumerate(vts):
+                acc = acc + _train_dot(t1, t1)
+                for t2 in vts[p + 1:]:
+                    acc = acc + 2.0 * _train_dot(t1, t2)
+            res_sq = res_sq + acc
+        return float(np.sqrt(max(float(res_sq), 0.0)))
 
 
 # ---------------------------------------------------------------------------
@@ -288,10 +289,12 @@ def solve_program(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, term_tol: float, eps
     key = (len(x_cores), tuple(caps_bck), tuple(caps_fwd), kick, ineq, dir0)
 
     def sweep(st, direction, solve):
-        return graphs.run(
-            ("fused_sweep",) + key + (direction, solve),
-            lambda args: _sweep_step(args, caps(direction), kick, solve, direction, ineq),
-            (A, b, st))
+        trace.count("kkt.sweeps")
+        with trace.span("kkt.sweep"):
+            return graphs.run(
+                ("fused_sweep",) + key + (direction, solve),
+                lambda args: _sweep_step(args, caps(direction), kick, solve, direction, ineq),
+                (A, b, st))
 
     def pair(args):
         st, r1, d1 = _sweep_step(args, caps(-dir0), kick, True, -dir0, ineq)
@@ -307,8 +310,10 @@ def solve_program(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, term_tol: float, eps
     pairs = 0
     res_h, dx_h = torch.stack([res[0], dx[0]]).double().tolist()
     while pairs < max_pairs and res_h >= tol_w and dx_h >= eps_w:
-        st, res, dx = graphs.run(("fused_pair",) + key, pair, (A, b, st))
-        res_h, dx_h = torch.stack([res[0], dx[0]]).double().tolist()
+        trace.count("kkt.sweeps", 2)
+        with trace.span("kkt.sweep"):
+            st, res, dx = graphs.run(("fused_pair",) + key, pair, (A, b, st))
+            res_h, dx_h = torch.stack([res[0], dx[0]]).double().tolist()
         pairs += 1
     st, _, _ = sweep(st, -dir0, False)   # finisher: back to the caps
     return st[0], res_h, dx_h, pairs
@@ -325,62 +330,63 @@ def tt_block_amen_fused(block_A, block_b, term_tol: float, R: int,
     """Fixed-rank fused block-AMEn solve of the IPM KKT system (with the dT
     row where ``ineq``); returns (x_cores, final_local_res).  ``rng``: numpy
     RandomState for the random starts (default numpy's global one)."""
-    rng = np.random if rng is None else rng
-    bs = fa.nrows(ineq)
-    first_row = next(iter(block_b.values()))
-    d = len(first_row)
-    ref = first_row[0]
-    if prepped is not None:
-        A, b = prepped
-    else:
-        # padded to bucketed ranks on the whole-solve path, as the JAX
-        # package's device engine pads (``fused.py:790-795``)
-        pad = config.fused_whole_solve()
-        A = prep_operator(block_A, ineq, pad=pad)
-        b = prep_rhs(block_b, d, ref, ineq, pad=pad)
-    caps_bck = _bond_caps(d, R, bs, +1)
-    caps_fwd = _bond_caps(d, R, bs, -1)
-    direction = _x0_direction(x0, d, bs) or 1
-    # the warm start is laid out as if the opposite sweep just finished
-    x_cores = _prep_x0(x0, d, bs, caps_fwd if direction > 0 else caps_bck,
-                       direction, rng, ref)
-    block_pos = 0 if direction < 0 else d - 1
-    z_cores = _prep_z0(d, bs, kick_rank, block_pos, rng, ref)
+    with trace.span("kkt.rung", R=R):
+        rng = np.random if rng is None else rng
+        bs = fa.nrows(ineq)
+        first_row = next(iter(block_b.values()))
+        d = len(first_row)
+        ref = first_row[0]
+        if prepped is not None:
+            A, b = prepped
+        else:
+            # padded to bucketed ranks on the whole-solve path, as the JAX
+            # package's device engine pads (``fused.py:790-795``)
+            pad = config.fused_whole_solve()
+            A = prep_operator(block_A, ineq, pad=pad)
+            b = prep_rhs(block_b, d, ref, ineq, pad=pad)
+        caps_bck = _bond_caps(d, R, bs, +1)
+        caps_fwd = _bond_caps(d, R, bs, -1)
+        direction = _x0_direction(x0, d, bs) or 1
+        # the warm start is laid out as if the opposite sweep just finished
+        x_cores = _prep_x0(x0, d, bs, caps_fwd if direction > 0 else caps_bck,
+                           direction, rng, ref)
+        block_pos = 0 if direction < 0 else d - 1
+        z_cores = _prep_z0(d, bs, kick_rank, block_pos, rng, ref)
 
-    # the sweep runs on a batch of one
-    A, b, x_cores, z_cores = fb.batch_of_one((A, b, x_cores, z_cores))
-    pA0, pz0, pb0 = fb.boundary_phis(ref, 1, ineq)
-    XAX: List = [pA0] + [None] * (d - 1) + [dict(pA0)]
-    Xb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
-    ZAX: List = [pz0] + [None] * (d - 1) + [dict(pz0)]
-    Zb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
+        # the sweep runs on a batch of one
+        A, b, x_cores, z_cores = fb.batch_of_one((A, b, x_cores, z_cores))
+        pA0, pz0, pb0 = fb.boundary_phis(ref, 1, ineq)
+        XAX: List = [pA0] + [None] * (d - 1) + [dict(pA0)]
+        Xb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
+        ZAX: List = [pz0] + [None] * (d - 1) + [dict(pz0)]
+        Zb: List = [pb0] + [None] * (d - 1) + [list(pb0)]
 
-    if config.fused_whole_solve() and nswp >= 4:
-        x_cores, res, dx, pairs = solve_program(
-            A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, term_tol, eps, ineq, caps_bck,
-            caps_fwd, kick_rank, direction, max(0, (nswp - 4) // 2))
-        if verbose:
-            print(f"\t[fused R={R} whole] res {res:.3e} dx {dx:.3e} pairs {pairs}", flush=True)
-        return [c[0] for c in x_cores], res
+        if config.fused_whole_solve() and nswp >= 4:
+            x_cores, res, dx, pairs = solve_program(
+                A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, term_tol, eps, ineq, caps_bck,
+                caps_fwd, kick_rank, direction, max(0, (nswp - 4) // 2))
+            if verbose:
+                print(f"\t[fused R={R} whole] res {res:.3e} dx {dx:.3e} pairs {pairs}", flush=True)
+            return [c[0] for c in x_cores], res
 
-    last = False
-    final_res = np.inf
-    for swp in range(nswp + 1):
-        solve = (swp > 0) and not last
-        caps = caps_bck if direction > 0 else caps_fwd
-        res_d, dx_d = (float(v[0]) for v in fb.sweep(
-            A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick_rank, solve, direction, ineq))
-        if last:
-            break
-        local_res, local_dx = (res_d, dx_d) if solve else (np.inf, np.inf)
-        if local_res < term_tol or local_dx < eps or swp == nswp - 2:
-            last = True
-            final_res = local_res
-        if verbose:
-            print(f"\t[fused R={R}] sweep {swp}: res {local_res:.3e} "
-                  f"dx {local_dx:.3e}", flush=True)
-        direction *= -1
-    return [c[0] for c in x_cores], final_res
+        last = False
+        final_res = np.inf
+        for swp in range(nswp + 1):
+            solve = (swp > 0) and not last
+            caps = caps_bck if direction > 0 else caps_fwd
+            res_d, dx_d = (float(v[0]) for v in fb.sweep(
+                A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick_rank, solve, direction, ineq))
+            if last:
+                break
+            local_res, local_dx = (res_d, dx_d) if solve else (np.inf, np.inf)
+            if local_res < term_tol or local_dx < eps or swp == nswp - 2:
+                last = True
+                final_res = local_res
+            if verbose:
+                print(f"\t[fused R={R}] sweep {swp}: res {local_res:.3e} "
+                      f"dx {local_dx:.3e}", flush=True)
+            direction *= -1
+        return [c[0] for c in x_cores], final_res
 
 
 def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
@@ -404,8 +410,9 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
     ref = first_row[0]
     bs = fa.nrows(ineq)
     pad = config.fused_whole_solve()
-    A = prep_operator(block_A, ineq, pad=pad)
-    b = prep_rhs(block_b, d, ref, ineq, pad=pad)
+    with trace.span("kkt.prep"):
+        A = prep_operator(block_A, ineq, pad=pad)
+        b = prep_rhs(block_b, d, ref, ineq, pad=pad)
 
     rhs_norm0 = block_b.norm
     if rhs_norm0 < 0.5 * op_tol:
@@ -429,40 +436,42 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
         from ttipm_tpu_torch.solvers.blocks import (
             cast_block_matrix, cast_block_vector, tt_block_train_add)
 
-        rn = fused_residual_norm(A, b, x_cores, ineq)
-        if not np.isfinite(rn) or rn <= refine_target:
-            return x_cores, min(res, rn / max(rhs_norm0, 1e-300))
-        prod_cache: dict = {}  # ALS warm starts across refine rounds
-        prod_tol = max(0.01 * refine_target, config.clamp_eps(eps))
-        work_dt = x_cores[0].dtype
-        use_hi = work_dt != torch.float64
-        A_hi = cast_block_matrix(block_A, torch.float64) if use_hi else block_A
-        b_hi = cast_block_vector(block_b, torch.float64) if use_hi else block_b
-        x_hi = config.cast_tree(x_cores, torch.float64)
-        r_blk = b_hi - A_hi.block_product(x_hi, prod_tol, cache=prod_cache, rng=rng)
-        rn = r_blk.norm
-        for _ in range(2):
+        with trace.span("kkt.refine"):
+            rn = fused_residual_norm(A, b, x_cores, ineq)
             if not np.isfinite(rn) or rn <= refine_target:
-                break
-            r_work = cast_block_vector(r_blk, work_dt) if use_hi else r_blk
-            try:
-                e_cores, _ = tt_block_amen_fused(
-                    block_A, r_work, termination_tol, R, eps=eps, nswp=inner_m,
-                    kick_rank=2, verbose=False, rng=rng,
-                    prepped=(A, prep_rhs(r_work, d, ref, ineq, pad=pad)), ineq=ineq,
-                )
-                x_new = tt_block_train_add(x_hi, config.cast_tree(e_cores, torch.float64), bs, eps)
-            except (torch.linalg.LinAlgError, FloatingPointError):
-                break
-            r_new = b_hi - A_hi.block_product(x_new, prod_tol, cache=prod_cache, rng=rng)
-            rn_new = r_new.norm
-            # keep only clear improvements
-            if not np.isfinite(rn_new) or rn_new >= 0.5 * rn:
-                break
-            if verbose:
-                print(f"\t[fused refine] res {rn:.3e} -> {rn_new:.3e}", flush=True)
-            x_hi, rn, r_blk = x_new, rn_new, r_new
-        return [c.to(work_dt) for c in x_hi], min(res, rn / max(rhs_norm0, 1e-300))
+                return x_cores, min(res, rn / max(rhs_norm0, 1e-300))
+            prod_cache: dict = {}  # ALS warm starts across refine rounds
+            prod_tol = max(0.01 * refine_target, config.clamp_eps(eps))
+            work_dt = x_cores[0].dtype
+            use_hi = work_dt != torch.float64
+            A_hi = cast_block_matrix(block_A, torch.float64) if use_hi else block_A
+            b_hi = cast_block_vector(block_b, torch.float64) if use_hi else block_b
+            x_hi = config.cast_tree(x_cores, torch.float64)
+            r_blk = b_hi - A_hi.block_product(x_hi, prod_tol, cache=prod_cache, rng=rng)
+            rn = r_blk.norm
+            for _ in range(2):
+                if not np.isfinite(rn) or rn <= refine_target:
+                    break
+                r_work = cast_block_vector(r_blk, work_dt) if use_hi else r_blk
+                try:
+                    e_cores, _ = tt_block_amen_fused(
+                        block_A, r_work, termination_tol, R, eps=eps, nswp=inner_m,
+                        kick_rank=2, verbose=False, rng=rng,
+                        prepped=(A, prep_rhs(r_work, d, ref, ineq, pad=pad)), ineq=ineq,
+                    )
+                    x_new = tt_block_train_add(
+                        x_hi, config.cast_tree(e_cores, torch.float64), bs, eps)
+                except (torch.linalg.LinAlgError, FloatingPointError):
+                    break
+                r_new = b_hi - A_hi.block_product(x_new, prod_tol, cache=prod_cache, rng=rng)
+                rn_new = r_new.norm
+                # keep only clear improvements
+                if not np.isfinite(rn_new) or rn_new >= 0.5 * rn:
+                    break
+                if verbose:
+                    print(f"\t[fused refine] res {rn:.3e} -> {rn_new:.3e}", flush=True)
+                x_hi, rn, r_blk = x_new, rn_new, r_new
+            return [c.to(work_dt) for c in x_hi], min(res, rn / max(rhs_norm0, 1e-300))
 
     x_cores, res = tt_block_amen_fused(
         block_A, block_b, termination_tol, R, eps=eps, nswp=inner_m, x0=x0,
@@ -498,6 +507,7 @@ def tt_restarted_block_amen_fused(block_A, block_b, rank_restriction: int,
 
     if best is not None:
         return refined(best[1], best[2])
+    trace.count("kkt.ladder_exhausted")
     raise AmenRestartsExhausted(
         f"restart budget exhausted, relative error {rn / rhs_norm0:.3e}; "
         "consider raising the rank ceiling")

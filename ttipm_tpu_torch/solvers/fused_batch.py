@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from ttipm_tpu_torch import config
+from ttipm_tpu_torch import config, trace
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import chol_solve, fast_split_svd, lu_factor, lu_solve
 from ttipm_tpu_torch.solvers.fused_algebra import keys, nrows
@@ -258,42 +258,43 @@ def bck_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
         sol = x_k
         res_old = dx = x_k.new_zeros(B)
 
-    scales = column_scales(sol)
-    mat = (scales * sol).reshape(B, rl * bs, n * rr).mT
-    u, s, vt = svd(mat)
-    v = s[:, :, None] * vt
+    with trace.span("kkt.split"):
+        scales = column_scales(sol)
+        mat = (scales * sol).reshape(B, rl * bs, n * rr).mT
+        u, s, vt = svd(mat)
+        v = s[:, :, None] * vt
 
-    width = min(r_out + kick, n * rr, rl * bs) if solve else r_out
-    if solve and width > r_out:
-        sol_trunc = (u[:, :, :r_out] @ v[:, :r_out]).mT.reshape(B, rl, bs, n, rr)
-        Axz = mixed_product(zl, pr, A, sol_trunc, transpose_right_phi=False, ineq=ineq)
-        rhsxz = project_rhs(zbl, b, br, ineq)
-        resxz = (rhsxz - Axz).reshape(B, rz * bs, n * rr).mT
-        uz, _ = trunc_svd(resxz, width - r_out)
-        u_aug = torch.cat([u[:, :, :r_out], uz], dim=2)
-        qt, Rf = _k3(u_aug, transposed=True)
-        u_core = qt.reshape(B, width, n, rr)
-        v_new = (Rf[:, :, :r_out] @ v[:, :r_out]).mT.reshape(B, rl, bs, width)
-    else:
-        u_core = u[:, :, :width].mT.reshape(B, width, n, rr)
-        v_new = v[:, :width].mT.reshape(B, rl, bs, width)
+        width = min(r_out + kick, n * rr, rl * bs) if solve else r_out
+        if solve and width > r_out:
+            sol_trunc = (u[:, :, :r_out] @ v[:, :r_out]).mT.reshape(B, rl, bs, n, rr)
+            Axz = mixed_product(zl, pr, A, sol_trunc, transpose_right_phi=False, ineq=ineq)
+            rhsxz = project_rhs(zbl, b, br, ineq)
+            resxz = (rhsxz - Axz).reshape(B, rz * bs, n * rr).mT
+            uz, _ = trunc_svd(resxz, width - r_out)
+            u_aug = torch.cat([u[:, :, :r_out], uz], dim=2)
+            qt, Rf = _k3(u_aug, transposed=True)
+            u_core = qt.reshape(B, width, n, rr)
+            v_new = (Rf[:, :, :r_out] @ v[:, :r_out]).mT.reshape(B, rl, bs, width)
+        else:
+            u_core = u[:, :, :width].mT.reshape(B, width, n, rr)
+            v_new = v[:, :width].mT.reshape(B, rl, bs, width)
 
-    x_km1_new = torch.einsum("zrdc,zcbR->zrbdR", x_km1, v_new) / scales
+        x_km1_new = torch.einsum("zrdc,zcbR->zrbdR", x_km1, v_new) / scales
 
-    if solve:
-        Az = z_product(zl, A, zr, sol, ineq)
-        rhsz = project_rhs(zbl, b, zbr, ineq)
-        resz = (rhsz - Az).reshape(B, rz * bs, n * rz1).mT
-    else:
-        resz = z_k.reshape(B, rz * bs, n * rz1).mT
-    uzz, vzz = trunc_svd(resz, kick)
-    z_core = uzz.mT.reshape(B, uzz.shape[2], n, rz1)
-    vz_new = vzz.mT.reshape(B, rz, bs, vzz.shape[1])
-    z_km1_new = unit_fro(torch.einsum("zrdc,zcbR->zrbdR", z_km1, vz_new) / scales)
+        if solve:
+            Az = z_product(zl, A, zr, sol, ineq)
+            rhsz = project_rhs(zbl, b, zbr, ineq)
+            resz = (rhsz - Az).reshape(B, rz * bs, n * rz1).mT
+        else:
+            resz = z_k.reshape(B, rz * bs, n * rz1).mT
+        uzz, vzz = trunc_svd(resz, kick)
+        z_core = uzz.mT.reshape(B, uzz.shape[2], n, rz1)
+        vz_new = vzz.mT.reshape(B, rz, bs, vzz.shape[1])
+        z_km1_new = unit_fro(torch.einsum("zrdc,zcbR->zrbdR", z_km1, vz_new) / scales)
 
-    pl_new, bl_new, zl_new, zbl_new = phis_bck(A, b, u_core, z_core, pr, br, zr, zbr, ineq)
-    return (u_core, x_km1_new, z_core, z_km1_new, pl_new, bl_new,
-            zl_new, zbl_new, res_old, dx)
+        pl_new, bl_new, zl_new, zbl_new = phis_bck(A, b, u_core, z_core, pr, br, zr, zbr, ineq)
+        return (u_core, x_km1_new, z_core, z_km1_new, pl_new, bl_new,
+                zl_new, zbl_new, res_old, dx)
 
 
 def write_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr, x_k, z_k,
@@ -320,45 +321,46 @@ def fwd_split_step(solve_local, pl, A, pr, bl, b, br, zl, zr, zbl, zbr,
         sol = x_k
         res_old = dx = x_k.new_zeros(B)
 
-    scales = column_scales(sol)
-    mat = (scales * sol).permute(0, 1, 3, 2, 4).reshape(B, rl * n, bs * rr)
-    u, s, vt = svd(mat)
-    v = s[:, :, None] * vt
-    u3 = u.reshape(B, rl, n, -1)
+    with trace.span("kkt.split"):
+        scales = column_scales(sol)
+        mat = (scales * sol).permute(0, 1, 3, 2, 4).reshape(B, rl * n, bs * rr)
+        u, s, vt = svd(mat)
+        v = s[:, :, None] * vt
+        u3 = u.reshape(B, rl, n, -1)
 
-    width = min(r_out + kick, rl * n, bs * rr) if solve else r_out
-    if solve and width > r_out:
-        sol_trunc = torch.einsum("zrbR,zRdK->zrdbK", u3[..., :r_out],
+        width = min(r_out + kick, rl * n, bs * rr) if solve else r_out
+        if solve and width > r_out:
+            sol_trunc = torch.einsum("zrbR,zRdK->zrdbK", u3[..., :r_out],
+                                     v[:, :r_out].reshape(B, r_out, bs, rr))
+            Axz = mixed_product(pl, zr, A, sol_trunc, transpose_right_phi=True, ineq=ineq)
+            rhsxz = project_rhs(bl, b, zbr, ineq)
+            resxz = (rhsxz - Axz).permute(0, 1, 3, 2, 4).reshape(B, rl * n, bs * rz1)
+            uz, _ = trunc_svd(resxz, width - r_out)
+            u_aug = torch.cat([u3.reshape(B, rl * n, -1)[:, :, :r_out], uz], dim=2)
+            q, Rf = _k3(u_aug)
+            u_core = q.reshape(B, rl, n, width)
+            v_new = torch.einsum("zrR,zRdK->zrdK", Rf[:, :, :r_out],
                                  v[:, :r_out].reshape(B, r_out, bs, rr))
-        Axz = mixed_product(pl, zr, A, sol_trunc, transpose_right_phi=True, ineq=ineq)
-        rhsxz = project_rhs(bl, b, zbr, ineq)
-        resxz = (rhsxz - Axz).permute(0, 1, 3, 2, 4).reshape(B, rl * n, bs * rz1)
-        uz, _ = trunc_svd(resxz, width - r_out)
-        u_aug = torch.cat([u3.reshape(B, rl * n, -1)[:, :, :r_out], uz], dim=2)
-        q, Rf = _k3(u_aug)
-        u_core = q.reshape(B, rl, n, width)
-        v_new = torch.einsum("zrR,zRdK->zrdK", Rf[:, :, :r_out],
-                             v[:, :r_out].reshape(B, r_out, bs, rr))
-    else:
-        u_core = u3[..., :width]
-        v_new = v[:, :width].reshape(B, width, bs, rr)
+        else:
+            u_core = u3[..., :width]
+            v_new = v[:, :width].reshape(B, width, bs, rr)
 
-    x_kp1_new = torch.einsum("zrbR,zRdK->zrbdK", v_new, x_kp1) / scales
+        x_kp1_new = torch.einsum("zrbR,zRdK->zrbdK", v_new, x_kp1) / scales
 
-    if solve:
-        Az = z_product(zl, A, zr, sol, ineq)
-        rhsz = project_rhs(zbl, b, zbr, ineq)
-        resz = (rhsz - Az).permute(0, 1, 3, 2, 4).reshape(B, rz * n, bs * rz1)
-    else:
-        resz = z_k.permute(0, 1, 3, 2, 4).reshape(B, rz * n, bs * rz1)
-    uzz, vzz = trunc_svd(resz, kick)
-    z_core = uzz.reshape(B, rz, n, uzz.shape[2])
-    vz_new = vzz.reshape(B, vzz.shape[1], bs, rz1)
-    z_kp1_new = unit_fro(torch.einsum("zrbR,zRdK->zrbdK", vz_new, z_kp1) / scales)
+        if solve:
+            Az = z_product(zl, A, zr, sol, ineq)
+            rhsz = project_rhs(zbl, b, zbr, ineq)
+            resz = (rhsz - Az).permute(0, 1, 3, 2, 4).reshape(B, rz * n, bs * rz1)
+        else:
+            resz = z_k.permute(0, 1, 3, 2, 4).reshape(B, rz * n, bs * rz1)
+        uzz, vzz = trunc_svd(resz, kick)
+        z_core = uzz.reshape(B, rz, n, uzz.shape[2])
+        vz_new = vzz.reshape(B, vzz.shape[1], bs, rz1)
+        z_kp1_new = unit_fro(torch.einsum("zrbR,zRdK->zrbdK", vz_new, z_kp1) / scales)
 
-    pr_new, br_new, zr_new, zbr_new = phis_fwd(A, b, u_core, z_core, pl, bl, zl, zbl, ineq)
-    return (u_core, x_kp1_new, z_core, z_kp1_new, pr_new, br_new,
-            zr_new, zbr_new, res_old, dx)
+        pr_new, br_new, zr_new, zbr_new = phis_fwd(A, b, u_core, z_core, pl, bl, zl, zbl, ineq)
+        return (u_core, x_kp1_new, z_core, z_kp1_new, pr_new, br_new,
+                zr_new, zbr_new, res_old, dx)
 
 
 # ---------------------------------------------------------------------------
@@ -481,38 +483,40 @@ def solve_local(pl, A, pr, bl, b, br, prev, ineq=False, mesh=None):
     the guard in f64, the factorization in f64 ("f64") or in f32
     ("refine", then two corrections from f64 residuals; "off").  ``mesh``:
     the K1 blocks of the factorization split over its kkt row."""
-    mode = config.mixed_local() if prev.dtype == torch.float32 else "off"
-    if mode != "off":
-        pl_h, A_h, pr_h, prev_h, bl_h, b_h, br_h = config.cast_tree(
-            (pl, A, pr, prev, bl, b, br), torch.float64)
-        rhs_h = project_rhs(bl_h, b_h, br_h, ineq)
-        inv_I_h = _inv_identity(pl_h, A_h, pr_h)
-        inv_I, rhs = inv_I_h.to(prev.dtype), rhs_h.to(prev.dtype)
-    else:
-        pl_h, A_h, pr_h, prev_h = pl, A, pr, prev
-        rhs_h = rhs = project_rhs(bl, b, br, ineq)
-        inv_I_h = inv_I = _inv_identity(pl, A, pr)
-    norm_rhs = torch.clamp_min(_norm(rhs_h), 1e-10)
-    res_old = _norm(local_product(pl_h, A_h, pr_h, prev_h, ineq) - rhs_h) / norm_rhs
-    if mode == "f64":
-        fac = _dense_factor(pl_h, A_h, pr_h, inv_I_h, ineq, mesh)
-        cand = _dense_apply(fac, pl_h, A_h, pr_h, inv_I_h, rhs_h, ineq).to(prev.dtype)
-    else:
-        fac = _dense_factor(pl, A, pr, inv_I, ineq, mesh)
-        cand = _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq)
-    if mode == "refine":
-        for _ in range(2):
-            r_h = rhs_h - local_product(pl_h, A_h, pr_h, cand.double(), ineq)
-            cand = cand + _dense_apply(fac, pl, A, pr, inv_I, r_h.to(prev.dtype), ineq)
-    finite = torch.isfinite(cand).reshape(cand.shape[0], -1).all(dim=1)
-    cand = torch.where(_col(finite, cand), cand, prev)
-    res_new = _norm(local_product(pl_h, A_h, pr_h, cand.to(rhs_h.dtype), ineq) - rhs_h) / norm_rhs
-    sane = _norm(cand) < 1e8 * (1.0 + _norm(prev))
-    good = finite & torch.isfinite(res_new) & (res_new <= res_old) & sane
-    sol = torch.where(_col(good, cand), cand, prev)
-    res_min = torch.where(good, res_new, res_old)
-    dx = _norm(sol - prev) / torch.clamp_min(_norm(sol), TINY)
-    return sol, res_old, res_min, dx
+    with trace.span("kkt.local_solve"):
+        mode = config.mixed_local() if prev.dtype == torch.float32 else "off"
+        if mode != "off":
+            pl_h, A_h, pr_h, prev_h, bl_h, b_h, br_h = config.cast_tree(
+                (pl, A, pr, prev, bl, b, br), torch.float64)
+            rhs_h = project_rhs(bl_h, b_h, br_h, ineq)
+            inv_I_h = _inv_identity(pl_h, A_h, pr_h)
+            inv_I, rhs = inv_I_h.to(prev.dtype), rhs_h.to(prev.dtype)
+        else:
+            pl_h, A_h, pr_h, prev_h = pl, A, pr, prev
+            rhs_h = rhs = project_rhs(bl, b, br, ineq)
+            inv_I_h = inv_I = _inv_identity(pl, A, pr)
+        norm_rhs = torch.clamp_min(_norm(rhs_h), 1e-10)
+        res_old = _norm(local_product(pl_h, A_h, pr_h, prev_h, ineq) - rhs_h) / norm_rhs
+        if mode == "f64":
+            fac = _dense_factor(pl_h, A_h, pr_h, inv_I_h, ineq, mesh)
+            cand = _dense_apply(fac, pl_h, A_h, pr_h, inv_I_h, rhs_h, ineq).to(prev.dtype)
+        else:
+            fac = _dense_factor(pl, A, pr, inv_I, ineq, mesh)
+            cand = _dense_apply(fac, pl, A, pr, inv_I, rhs, ineq)
+        if mode == "refine":
+            for _ in range(2):
+                r_h = rhs_h - local_product(pl_h, A_h, pr_h, cand.double(), ineq)
+                cand = cand + _dense_apply(fac, pl, A, pr, inv_I, r_h.to(prev.dtype), ineq)
+        finite = torch.isfinite(cand).reshape(cand.shape[0], -1).all(dim=1)
+        cand = torch.where(_col(finite, cand), cand, prev)
+        res_new = _norm(local_product(pl_h, A_h, pr_h, cand.to(rhs_h.dtype), ineq)
+                        - rhs_h) / norm_rhs
+        sane = _norm(cand) < 1e8 * (1.0 + _norm(prev))
+        good = finite & torch.isfinite(res_new) & (res_new <= res_old) & sane
+        sol = torch.where(_col(good, cand), cand, prev)
+        res_min = torch.where(good, res_new, res_old)
+        dx = _norm(sol - prev) / torch.clamp_min(_norm(sol), TINY)
+        return sol, res_old, res_min, dx
 
 
 # ---------------------------------------------------------------------------
@@ -535,9 +539,11 @@ def sweep(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick: int, solve: bool
     returns the per-instance maxima of (res_old, dx) over the cores as two
     numpy arrays, read from the device in one transfer.  ``mesh``: the
     local factorizations' K1 blocks split over its kkt row."""
-    res, dx = sweep_dev(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick, solve,
-                        direction, ineq, mesh)
-    both = torch.stack([res, dx]).double().cpu().numpy()
+    trace.count("kkt.sweeps")
+    with trace.span("kkt.sweep"):
+        res, dx = sweep_dev(A, b, x_cores, z_cores, XAX, Xb, ZAX, Zb, caps, kick, solve,
+                            direction, ineq, mesh)
+        both = torch.stack([res, dx]).double().cpu().numpy()
     return both[0], both[1]
 
 

@@ -43,7 +43,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ttipm_tpu_torch import config
+from ttipm_tpu_torch import config, trace
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import fast_split_svd, safe_eigh, safe_eigvalsh
 from ttipm_tpu_torch.ops.products import tt_fast_matrix_vec_mul
@@ -292,114 +292,119 @@ def tt_max_generalised_eigen_fused(A: TT, Delta: TT, x0: Optional[TT] = None,
     """Largest ``alpha`` with ``A + alpha*Delta`` PSD and the eigenvector
     train (the next call's warm start).  ``rng``: numpy RandomState of the
     fresh start (default numpy's global one)."""
-    rng = np.random if rng is None else rng
-    d = len(A)
-    n = A[0].shape[1]
-    A_p = _prep_operator(A)
-    D_p = _prep_operator(Delta)
-    caps = _vec_caps(d, R, n)
-    x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
+    with trace.span("eigen.solve", kind="gen"):
+        rng = np.random if rng is None else rng
+        d = len(A)
+        n = A[0].shape[1]
+        A_p = _prep_operator(A)
+        D_p = _prep_operator(Delta)
+        caps = _vec_caps(d, R, n)
+        x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
 
-    if config.fused_whole_solve() and d >= 2:
-        from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
-        from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
+        if config.fused_whole_solve() and d >= 2:
+            from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
+            from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
 
-        alpha0 = torch.ones(1, dtype=config.eigen_dtype(), device=A_p[0].device)
-        xs, alpha, res, scl, _ = feb.gen_eigen_single(
-            batch_of_one(A_p), batch_of_one(D_p), batch_of_one(x_cores), alpha0, tol, caps,
-            max(nswp - 1, 1))
-        step_size, max_res, max_scale = torch.stack([alpha[0], res[0], scl[0]]).double().tolist()
-        if not np.isfinite(step_size) or step_size < 0:
-            step_size = 0.0
-        return _penalised(step_size, max_res, max_scale, tol), tt_normalise([c[0] for c in xs])
+            alpha0 = torch.ones(1, dtype=config.eigen_dtype(), device=A_p[0].device)
+            xs, alpha, res, scl, _ = feb.gen_eigen_single(
+                batch_of_one(A_p), batch_of_one(D_p), batch_of_one(x_cores), alpha0, tol, caps,
+                max(nswp - 1, 1))
+            step_size, max_res, max_scale = torch.stack(
+                [alpha[0], res[0], scl[0]]).double().tolist()
+            if not np.isfinite(step_size) or step_size < 0:
+                step_size = 0.0
+            return _penalised(step_size, max_res, max_scale, tol), tt_normalise([c[0] for c in xs])
 
-    ones3 = A_p[0].new_ones((1, 1, 1))
-    XAX = [ones3] + [None] * (d - 1) + [ones3]
-    XDX = [ones3] + [None] * (d - 1) + [ones3]
-    alpha = 1.0
-    local_res = np.inf * np.ones((2, max(d - 1, 1)))
-    max_scale = 0.0
-    prev_sweep_step = None
-    prev_sweep_res = np.inf
+        ones3 = A_p[0].new_ones((1, 1, 1))
+        XAX = [ones3] + [None] * (d - 1) + [ones3]
+        XDX = [ones3] + [None] * (d - 1) + [ones3]
+        alpha = 1.0
+        local_res = np.inf * np.ones((2, max(d - 1, 1)))
+        max_scale = 0.0
+        prev_sweep_step = None
+        prev_sweep_res = np.inf
 
-    def finish(direction: int):
-        nonlocal alpha
-        ks = range(d) if direction > 0 else range(d - 1, -1, -1)
-        for k in ks:
-            split = (k < d - 1) if direction > 0 else (k > 0)
-            nb_idx = k + 1 if direction > 0 else k - 1
-            neighbor = x_cores[nb_idx] if split else x_cores[k]
-            r_out = (caps[k] if direction > 0 else caps[k - 1]) if split else 1
-            core, nb_new, alpha, _, pA_upd, pD_upd = _gen_last_step(
-                XAX[k], A_p[k], XAX[k + 1], XDX[k], D_p[k], XDX[k + 1],
-                neighbor, x_cores[k], alpha, tol,
-                r_out=r_out, bwd=direction < 0, split=split)
-            x_cores[k] = core
-            if split:
-                x_cores[nb_idx] = nb_new
-                j = k + 1 if direction > 0 else k
-                XAX[j] = pA_upd
-                XDX[j] = pD_upd
+        def finish(direction: int):
+            nonlocal alpha
+            with trace.span("eigen.sweep"):
+                ks = range(d) if direction > 0 else range(d - 1, -1, -1)
+                for k in ks:
+                    split = (k < d - 1) if direction > 0 else (k > 0)
+                    nb_idx = k + 1 if direction > 0 else k - 1
+                    neighbor = x_cores[nb_idx] if split else x_cores[k]
+                    r_out = (caps[k] if direction > 0 else caps[k - 1]) if split else 1
+                    core, nb_new, alpha, _, pA_upd, pD_upd = _gen_last_step(
+                        XAX[k], A_p[k], XAX[k + 1], XDX[k], D_p[k], XDX[k + 1],
+                        neighbor, x_cores[k], alpha, tol,
+                        r_out=r_out, bwd=direction < 0, split=split)
+                    x_cores[k] = core
+                    if split:
+                        x_cores[nb_idx] = nb_new
+                        j = k + 1 if direction > 0 else k
+                        XAX[j] = pA_upd
+                        XDX[j] = pD_upd
 
-    def half_sweep(bwd: bool):
-        nonlocal alpha, max_scale
-        res_list, scl_list = [], []
-        ks = range(d - 1, 0, -1) if bwd else range(d - 1)
-        for k in ks:
-            i = k - 1 if bwd else k
-            (x_cores[i], x_cores[i + 1], alpha, res, scl, pA_upd, pD_upd) = \
-                _gen_window_step(
-                    XAX[i], A_p[i], A_p[i + 1], XAX[i + 2],
-                    XDX[i], D_p[i], D_p[i + 1], XDX[i + 2],
-                    x_cores[i], x_cores[i + 1], alpha, tol,
-                    r_out=caps[i], bwd=bwd)
-            XAX[i + 1] = pA_upd
-            XDX[i + 1] = pD_upd
-            res_list.append(res)
-            scl_list.append(scl)
-        vals = torch.stack(res_list + scl_list[-1:]).tolist()
-        max_scale = max(max_scale, vals[-1])
-        res_host = vals[:-1]
-        return res_host[::-1] if bwd else res_host
+        def half_sweep(bwd: bool):
+            nonlocal alpha, max_scale
+            trace.count("eigen.sweeps")
+            with trace.span("eigen.sweep"):
+                res_list, scl_list = [], []
+                ks = range(d - 1, 0, -1) if bwd else range(d - 1)
+                for k in ks:
+                    i = k - 1 if bwd else k
+                    (x_cores[i], x_cores[i + 1], alpha, res, scl, pA_upd, pD_upd) = \
+                        _gen_window_step(
+                            XAX[i], A_p[i], A_p[i + 1], XAX[i + 2],
+                            XDX[i], D_p[i], D_p[i + 1], XDX[i + 2],
+                            x_cores[i], x_cores[i + 1], alpha, tol,
+                            r_out=caps[i], bwd=bwd)
+                    XAX[i + 1] = pA_upd
+                    XDX[i + 1] = pD_upd
+                    res_list.append(res)
+                    scl_list.append(scl)
+                vals = torch.stack(res_list + scl_list[-1:]).tolist()
+                max_scale = max(max_scale, vals[-1])
+                res_host = vals[:-1]
+                return res_host[::-1] if bwd else res_host
 
-    for swp in range(nswp):
-        if swp > 0:
-            local_res[0, :] = half_sweep(bwd=True)
+        for swp in range(nswp):
+            if swp > 0:
+                local_res[0, :] = half_sweep(bwd=True)
+                if not np.isfinite(alpha) or alpha <= 0:
+                    break
+            else:
+                for k in range(d - 1, 0, -1):
+                    core, x_prev, (pA_upd, pD_upd) = _orth_bck_step(
+                        x_cores[k - 1], x_cores[k], (A_p[k], D_p[k]),
+                        (XAX[k + 1], XDX[k + 1]), r_out=caps[k - 1])
+                    x_cores[k] = core
+                    x_cores[k - 1] = x_prev
+                    XAX[k] = pA_upd
+                    XDX[k] = pD_upd
+
+            if np.max(local_res) < tol or swp == nswp - 1:
+                finish(+1)
+                break
+
+            local_res[1, :] = half_sweep(bwd=False)
             if not np.isfinite(alpha) or alpha <= 0:
                 break
-        else:
-            for k in range(d - 1, 0, -1):
-                core, x_prev, (pA_upd, pD_upd) = _orth_bck_step(
-                    x_cores[k - 1], x_cores[k], (A_p[k], D_p[k]),
-                    (XAX[k + 1], XDX[k + 1]), r_out=caps[k - 1])
-                x_cores[k] = core
-                x_cores[k - 1] = x_prev
-                XAX[k] = pA_upd
-                XDX[k] = pD_upd
+            if np.max(local_res) < tol:
+                finish(-1)
+                break
 
-        if np.max(local_res) < tol or swp == nswp - 1:
-            finish(+1)
-            break
+            sweep_res = float(np.max(local_res))
+            if swp >= 2 and _eigen_step_stalled(prev_sweep_step, alpha,
+                                                prev_sweep_res, sweep_res, tol):
+                break
+            prev_sweep_step = alpha
+            prev_sweep_res = sweep_res
 
-        local_res[1, :] = half_sweep(bwd=False)
-        if not np.isfinite(alpha) or alpha <= 0:
-            break
-        if np.max(local_res) < tol:
-            finish(-1)
-            break
-
-        sweep_res = float(np.max(local_res))
-        if swp >= 2 and _eigen_step_stalled(prev_sweep_step, alpha,
-                                            prev_sweep_res, sweep_res, tol):
-            break
-        prev_sweep_step = alpha
-        prev_sweep_res = sweep_res
-
-    step_size = float(alpha)
-    if not np.isfinite(step_size) or step_size < 0:
-        step_size = 0.0
-    max_res = float(np.max(local_res))
-    return _penalised(step_size, max_res, max_scale, tol), tt_normalise(list(x_cores))
+        step_size = float(alpha)
+        if not np.isfinite(step_size) or step_size < 0:
+            step_size = 0.0
+        max_res = float(np.max(local_res))
+        return _penalised(step_size, max_res, max_scale, tol), tt_normalise(list(x_cores))
 
 
 def _penalised(step_size: float, max_res: float, max_scale: float, tol: float) -> float:
@@ -420,73 +425,77 @@ def tt_min_eig_fused(A: TT, x0: Optional[TT] = None, nswp: int = 10, tol: float 
     Rayleigh quotient or None).  ``rng``: numpy RandomState of the fresh
     start (default numpy's global one).  The host reads each half sweep's
     window residuals once."""
-    rng = np.random if rng is None else rng
-    d = len(A)
-    n = A[0].shape[1]
-    A_p = _prep_operator(A)
-    caps = _vec_caps(d, R, n)
-    x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
-    if config.fused_whole_solve() and d >= 2:
-        from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
-        from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
+    with trace.span("eigen.solve", kind="min"):
+        rng = np.random if rng is None else rng
+        d = len(A)
+        n = A[0].shape[1]
+        A_p = _prep_operator(A)
+        caps = _vec_caps(d, R, n)
+        x_cores = _prep_vec(x0, d, n, caps, rng, A[0])
+        if config.fused_whole_solve() and d >= 2:
+            from ttipm_tpu_torch.solvers import fused_eigen_batch as feb
+            from ttipm_tpu_torch.solvers.fused_batch import batch_of_one
 
-        xs, _, _ = feb.min_eig_program(batch_of_one(A_p), batch_of_one(x_cores), tol, caps,
-                                    max(nswp - 1, 1))
-        return _with_eig_val(A, [c[0] for c in xs], return_eig_val)
+            xs, _, _ = feb.min_eig_program(batch_of_one(A_p), batch_of_one(x_cores), tol,
+                                           caps, max(nswp - 1, 1))
+            return _with_eig_val(A, [c[0] for c in xs], return_eig_val)
 
-    ones3 = A_p[0].new_ones((1, 1, 1))
-    XAX = [ones3] + [None] * (d - 1) + [ones3]
-    prev_sweep_res = np.inf
+        ones3 = A_p[0].new_ones((1, 1, 1))
+        XAX = [ones3] + [None] * (d - 1) + [ones3]
+        prev_sweep_res = np.inf
 
-    def finish(direction: int):
-        ks = range(d) if direction > 0 else range(d - 1, -1, -1)
-        for k in ks:
-            split = (k < d - 1) if direction > 0 else (k > 0)
-            nb_idx = k + 1 if direction > 0 else k - 1
-            neighbor = x_cores[nb_idx] if split else x_cores[k]
-            r_out = (caps[k] if direction > 0 else caps[k - 1]) if split else 1
-            core, nb_new, p_upd = _min_last_step(
-                XAX[k], A_p[k], XAX[k + 1], neighbor, x_cores[k],
-                r_out=r_out, bwd=direction < 0, split=split)
-            x_cores[k] = core
-            if split:
-                x_cores[nb_idx] = nb_new
-                XAX[k + 1 if direction > 0 else k] = p_upd
+        def finish(direction: int):
+            with trace.span("eigen.sweep"):
+                ks = range(d) if direction > 0 else range(d - 1, -1, -1)
+                for k in ks:
+                    split = (k < d - 1) if direction > 0 else (k > 0)
+                    nb_idx = k + 1 if direction > 0 else k - 1
+                    neighbor = x_cores[nb_idx] if split else x_cores[k]
+                    r_out = (caps[k] if direction > 0 else caps[k - 1]) if split else 1
+                    core, nb_new, p_upd = _min_last_step(
+                        XAX[k], A_p[k], XAX[k + 1], neighbor, x_cores[k],
+                        r_out=r_out, bwd=direction < 0, split=split)
+                    x_cores[k] = core
+                    if split:
+                        x_cores[nb_idx] = nb_new
+                        XAX[k + 1 if direction > 0 else k] = p_upd
 
-    def half_sweep(bwd: bool) -> float:
-        res_list = []
-        for k in (range(d - 1, 0, -1) if bwd else range(d - 1)):
-            i = k - 1 if bwd else k
-            x_cores[i], x_cores[i + 1], res, p_upd = _min_window_step(
-                XAX[i], A_p[i], A_p[i + 1], XAX[i + 2], x_cores[i], x_cores[i + 1],
-                r_out=caps[i], bwd=bwd)
-            XAX[i + 1] = p_upd
-            res_list.append(res)
-        return float(torch.stack(res_list).max())
+        def half_sweep(bwd: bool) -> float:
+            trace.count("eigen.sweeps")
+            with trace.span("eigen.sweep"):
+                res_list = []
+                for k in (range(d - 1, 0, -1) if bwd else range(d - 1)):
+                    i = k - 1 if bwd else k
+                    x_cores[i], x_cores[i + 1], res, p_upd = _min_window_step(
+                        XAX[i], A_p[i], A_p[i + 1], XAX[i + 2], x_cores[i], x_cores[i + 1],
+                        r_out=caps[i], bwd=bwd)
+                    XAX[i + 1] = p_upd
+                    res_list.append(res)
+                return float(torch.stack(res_list).max())
 
-    for swp in range(nswp):
-        if swp > 0:
-            max_res = half_sweep(bwd=True)
-        else:
-            max_res = np.inf
-            for k in range(d - 1, 0, -1):
-                core, x_prev, (p_upd,) = _orth_bck_step(
-                    x_cores[k - 1], x_cores[k], (A_p[k],), (XAX[k + 1],), r_out=caps[k - 1])
-                x_cores[k] = core
-                x_cores[k - 1] = x_prev
-                XAX[k] = p_upd
-        if max_res < tol or swp == nswp - 1:
-            finish(+1)
-            break
-        max_res = half_sweep(bwd=False)
-        if max_res < tol:
-            finish(-1)
-            break
-        if swp >= 2 and _eigen_residual_stalled(prev_sweep_res, max_res, tol):
-            break
-        prev_sweep_res = max_res
+        for swp in range(nswp):
+            if swp > 0:
+                max_res = half_sweep(bwd=True)
+            else:
+                max_res = np.inf
+                for k in range(d - 1, 0, -1):
+                    core, x_prev, (p_upd,) = _orth_bck_step(
+                        x_cores[k - 1], x_cores[k], (A_p[k],), (XAX[k + 1],), r_out=caps[k - 1])
+                    x_cores[k] = core
+                    x_cores[k - 1] = x_prev
+                    XAX[k] = p_upd
+            if max_res < tol or swp == nswp - 1:
+                finish(+1)
+                break
+            max_res = half_sweep(bwd=False)
+            if max_res < tol:
+                finish(-1)
+                break
+            if swp >= 2 and _eigen_residual_stalled(prev_sweep_res, max_res, tol):
+                break
+            prev_sweep_res = max_res
 
-    return _with_eig_val(A, list(x_cores), return_eig_val)
+        return _with_eig_val(A, list(x_cores), return_eig_val)
 
 
 def _with_eig_val(A, x_cores, return_eig_val: bool):

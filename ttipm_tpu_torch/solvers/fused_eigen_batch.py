@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import torch
 
+from ttipm_tpu_torch import trace
 from ttipm_tpu_torch.ops import kernels
 from ttipm_tpu_torch.ops.linalg import safe_eigh, safe_eigvalsh
 from ttipm_tpu_torch.solvers.fused_batch import TINY, _col, phi_bck_A, phi_fwd_A, svd
@@ -428,13 +429,18 @@ def gen_eigen_single(A_p, D_p, xs, alpha0, tol: float, caps, max_pairs: int):
         c = _gen_pair(A, D, c, tol, caps, selects=True)
         return c, _gen_active(c, tol)
 
-    carry, active = graphs.run(("gen_eigen_start",) + key, start, (A_p, D_p, xs, alpha0))
+    trace.count("eigen.sweeps")
+    with trace.span("eigen.sweep"):
+        carry, active = graphs.run(("gen_eigen_start",) + key, start, (A_p, D_p, xs, alpha0))
     for _ in range(max_pairs):
         if not bool(active[0]):
             break
-        carry, active = graphs.run(("gen_eigen_pair",) + key, pair, (A_p, D_p, carry))
-    return graphs.run(("gen_eigen_end",) + key,
-                      lambda args: _gen_end(*args, tol, caps), (A_p, D_p, carry))
+        trace.count("eigen.sweeps", 2)
+        with trace.span("eigen.sweep"):
+            carry, active = graphs.run(("gen_eigen_pair",) + key, pair, (A_p, D_p, carry))
+    with trace.span("eigen.sweep"):
+        return graphs.run(("gen_eigen_end",) + key,
+                          lambda args: _gen_end(*args, tol, caps), (A_p, D_p, carry))
 
 
 # ---------------------------------------------------------------------------
@@ -578,12 +584,17 @@ def min_eig_program(A_p, xs, tol: float, caps, max_pairs: int):
         c = _min_pair(A, c, tol, caps)
         return c, _min_active(c, tol)
 
-    carry, active = graphs.run(("min_eig_start",) + key,
-                               lambda args: _min_start(*args, tol, caps), (A_p, xs))
+    trace.count("eigen.sweeps")
+    with trace.span("eigen.sweep"):
+        carry, active = graphs.run(("min_eig_start",) + key,
+                                   lambda args: _min_start(*args, tol, caps), (A_p, xs))
     for _ in range(max_pairs):
         if not bool(active.any()):
             break
-        carry, active = graphs.run(("min_eig_pair",) + key, pair, (A_p, carry))
-    xs, direction = graphs.run(("min_eig_end",) + key,
-                               lambda args: _min_end(*args, tol, caps), (A_p, carry))
+        trace.count("eigen.sweeps", 2)
+        with trace.span("eigen.sweep"):
+            carry, active = graphs.run(("min_eig_pair",) + key, pair, (A_p, carry))
+    with trace.span("eigen.sweep"):
+        xs, direction = graphs.run(("min_eig_end",) + key,
+                                   lambda args: _min_end(*args, tol, caps), (A_p, carry))
     return xs, carry[2], direction

@@ -48,7 +48,7 @@ import contextlib
 
 import torch
 
-from ttipm_tpu_torch import config
+from ttipm_tpu_torch import config, trace
 from ttipm_tpu_torch.ops import jacobi, kernels
 
 __all__ = ["GraphStats", "STATS", "run", "signature", "flatten", "unflatten", "fingerprint",
@@ -260,9 +260,11 @@ def run(key, fn, args):
         out_leaves, out_spec = flatten(out)
         return unflatten(out_spec, _contiguous_copies(out_leaves))
     if entry is None:
-        return _first(sig, fn, spec, leaves)
-    torch._foreach_copy_(entry.static_in, leaves)
-    entry.graph.replay()
-    kernels.add_counts(entry.launches)
-    STATS.add(key[0], "replays")
-    return unflatten(entry.out_spec, _contiguous_copies(entry.static_out))
+        with trace.span("graph.capture", step=key[0]):
+            return _first(sig, fn, spec, leaves)
+    with trace.span("graph.replay", step=key[0]):
+        torch._foreach_copy_(entry.static_in, leaves)
+        entry.graph.replay()
+        kernels.add_counts(entry.launches)
+        STATS.add(key[0], "replays")
+        return unflatten(entry.out_spec, _contiguous_copies(entry.static_out))

@@ -5,10 +5,11 @@ Solves maxcut at each (dim, seed) of ``--cells`` on the card twice: with
 the port's route (every SVD and eigh through J1 / J2, ``ops/jacobi.py``)
 and with ``jacobi.forced(False)`` (every SVD and eigh through
 ``torch.linalg``: cuSOLVER, the route before the Jacobi kernels), in turns
-(jacobi, cusolver, cusolver, jacobi).  Each solve runs under
-``torch.cuda.set_sync_debug_mode("warn")`` (the problem is built before,
-on the default route), and the host synchronisations
-the port's files make are counted by file and line.  One JSON line a
+(jacobi, cusolver, cusolver, jacobi).  Each solve runs with the port's
+trace counting host syncs (``trace.enable(syncs=True)``: under
+``torch.cuda.set_sync_debug_mode("warn")``; the problem is built before,
+on the default route), and the host synchronisations the port's files
+make are read from it by file and line.  One JSON line a
 solve: mode, wall (synchronised; the warnings cost some of it), iterations,
 slackness, syncs in all and the ten busiest lines, the factorizations
 (J1 and J2 instances, and those a shape rule sent to ``torch.linalg``) and
@@ -21,14 +22,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 import warnings
 from collections import Counter
 
 import torch
 
-from ttipm_tpu_torch.tools.bench import REPO, _load_config, device_line
+from ttipm_tpu_torch import trace
+from ttipm_tpu_torch.tools.bench import _load_config, device_line
 
 
 def solve_counted(dim: int, seed: int, cusolver: bool) -> dict:
@@ -44,21 +45,19 @@ def solve_counted(dim: int, seed: int, cusolver: bool) -> dict:
     lag_maps, obj, L, bias, _ = seeded_problem(create_problem, dim, 1, seed, device)
     K.reset_counts()
     torch.cuda.synchronize()
-    with jacobi.forced(False if cusolver else None), \
-            warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
+    # the trace counts the syncs; the warnings it passes on are kept quiet here
+    with jacobi.forced(False if cusolver else None), warnings.catch_warnings(record=True):
+        trace.enable(syncs=True)
         try:
             t0 = time.perf_counter()
             X, _, _, Z, info = tt_ipm(lag_maps, obj, L, bias,
                                       **{**ipm_kwargs(cfg), "verbose": False})
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            by_line = trace.take()["syncs_by_line"]
         finally:
-            torch.cuda.set_sync_debug_mode("default")
-    lines = Counter(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
-                    if "synchroniz" in str(w.message))
-    lines = Counter({k: v for k, v in lines.items() if k.startswith("ttipm_tpu_torch")})
+            trace.disable()
+    lines = Counter({k: v for k, v in by_line.items() if k.startswith("ttipm_tpu_torch")})
     return {"dim": dim, "seed": seed, "mode": "cusolver" if cusolver else "jacobi",
             "wall_s": wall, "iters": int(info["num_iters"]),
             "slackness": abs(float(tt_inner_prod(X, Z))), "host_syncs": sum(lines.values()),

@@ -2,7 +2,8 @@
 reference's metric schema, pathological-seed resampling and results JSON.
 
     python -m ttipm_tpu_torch.utils.runner --problem maxcut \\
-        --config configs/maxcut_10.yaml [--rank 1] [--track_mem] [--device cuda]
+        --config configs/maxcut_10.yaml [--rank 1] [--track_mem] [--device cuda] \\
+        [--trace-out trace.json]
 
 Counterpart of ``ttipm_tpu/utils/runner.py``: the same flags, printed
 summary and results JSON (written to ``results/`` under the working
@@ -13,7 +14,10 @@ place of ``--platform``; without a CUDA device the runner raises unless
 hands off to the dense baseline runner (``utils/baseline_runner.py``)
 with the problem, config, rank, ``--track_mem`` and ``--device``.  The
 configs are read by ``load_yaml``, a reader of the YAML subset they use,
-since PyYAML is not everywhere the port runs.
+since PyYAML is not everywhere the port runs.  ``--trace-out PATH`` turns
+the port's trace on (``ttipm_tpu_torch/trace.py``, host syncs not
+counted) and writes its spans, every seed's solve, to PATH as Chrome
+trace-event JSON (``write_chrome_trace``), which Perfetto opens.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ PROBLEMS = ("maxcut", "corr_clust", "max_stable_set", "graphm")
 SOLVERS = ("ttipm", "scs", "sdpa", "splitting", "cgal", "scgal", "manopt")
 
 __all__ = ["load_yaml", "load_problem", "run_and_record", "run_experiment",
-           "print_results_summary", "save_results_summary"]
+           "print_results_summary", "save_results_summary", "write_chrome_trace"]
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +249,9 @@ def _parser(problem_name=None):
     parser.add_argument("--solver", type=str, default="ttipm", choices=SOLVERS,
                         help="ttipm (default) runs the TT-IPM; any other value dispatches "
                              "to the dense baseline runner (utils/baseline_runner.py)")
+    parser.add_argument("--trace-out", type=str, default=None, metavar="PATH",
+                        help="record the solves' spans (ttipm_tpu_torch/trace.py) and write "
+                             "them to PATH as Chrome trace-event JSON")
     return parser
 
 
@@ -291,27 +298,52 @@ def run_experiment(create_problem_fn=None, argv=None, problem_name=None):
     config = load_yaml(args.config)
     rec = new_record(len(config["seeds"]), bond_count(args.problem, config["dim"]))
 
-    used_seeds = set(config["seeds"])
-    for s_i, seed in enumerate(config["seeds"]):
-        print(f"Running seed {seed}", flush=True)
-        feas, slack = run_and_record(seed, s_i, args.rank, config, args, create_problem_fn,
-                                     rec)
-        new_seed = seed
-        while (not args.no_resample) and ((feas > 1e-3) or (slack > 1e-3)):
-            # pathological-seed resampling; the YAML on disk is not rewritten
-            print(f"Seed {new_seed} is pathological (feas {feas:.2e}, "
-                  f"slack {slack:.2e}); drawing a new seed.", flush=True)
-            new_seed = int(np.random.randint(0, 2**10))
-            while new_seed in used_seeds:
-                new_seed = int(np.random.randint(0, 2**10))
-            used_seeds.add(new_seed)
-            config["seeds"][s_i] = new_seed
-            feas, slack = run_and_record(new_seed, s_i, args.rank, config, args,
+    if args.trace_out:
+        from ttipm_tpu_torch import trace
+
+        trace.enable()
+    try:
+        used_seeds = set(config["seeds"])
+        for s_i, seed in enumerate(config["seeds"]):
+            print(f"Running seed {seed}", flush=True)
+            feas, slack = run_and_record(seed, s_i, args.rank, config, args,
                                          create_problem_fn, rec)
+            new_seed = seed
+            while (not args.no_resample) and ((feas > 1e-3) or (slack > 1e-3)):
+                # pathological-seed resampling; the YAML on disk is not rewritten
+                print(f"Seed {new_seed} is pathological (feas {feas:.2e}, "
+                      f"slack {slack:.2e}); drawing a new seed.", flush=True)
+                new_seed = int(np.random.randint(0, 2**10))
+                while new_seed in used_seeds:
+                    new_seed = int(np.random.randint(0, 2**10))
+                used_seeds.add(new_seed)
+                config["seeds"][s_i] = new_seed
+                feas, slack = run_and_record(new_seed, s_i, args.rank, config, args,
+                                             create_problem_fn, rec)
+    finally:
+        if args.trace_out:
+            write_chrome_trace(args.trace_out, trace.take())
+            trace.disable()
 
     print_results_summary(config, args, rec)
     save_results_summary(config, args, rec)
     return rec
+
+
+def write_chrome_trace(path: str, record: dict) -> None:
+    """The spans of ``trace.take()`` as Chrome trace-event JSON: one
+    complete event a span, on the row (``tid``) of its solve (0 outside a
+    solve), its attributes and syncs as ``args``; the counters under
+    ``otherData``."""
+    spans = record["spans"]
+    t0 = min((s["start_ns"] for s in spans), default=0)
+    events = [{"name": s["name"], "ph": "X", "pid": 0, "tid": s["solve"],
+               "ts": (s["start_ns"] - t0) / 1e3, "dur": (s["end_ns"] - s["start_ns"]) / 1e3,
+               "args": {**s["attrs"], "syncs": s["syncs"]}}
+              for s in spans if s["end_ns"] is not None]
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                   "otherData": {"counters": record["counters"]}}, fh)
 
 
 def _fmt_ranks(mean, std, precision=1):
